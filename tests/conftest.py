@@ -252,6 +252,11 @@ _MK_SERVE_TWINNED_TESTS = (
 )
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without one")
+
+
 def pytest_collection_modifyitems(config, items):
     if not _SEM_GATE_ACTIVE:
         return

@@ -1,0 +1,15 @@
+"""triton_distributed_tpu_torch — the PyTorch + CUDA port of
+`triton_distributed_tpu`, for NVIDIA Hopper (H100).
+
+The layout mirrors the JAX package (`ops/`, `layers/`, `models/`,
+`runtime.py`) so each module's counterpart is easy to find. Plain tensor
+code is PyTorch; every Pallas kernel on a ported path is a CUDA C++
+kernel under `csrc/`, built with `nvcc` at first use and loaded with
+ctypes (`ops/_build.py`). One rank only so far: dense Qwen3 / Llama
+generation through `models.Engine`.
+"""
+
+__version__ = "0.1.0"
+
+from . import runtime  # noqa: F401
+from .runtime import default_device  # noqa: F401

@@ -1,0 +1,129 @@
+"""Tensor-parallel attention at one rank: fused qkv projection, optional
+Qwen3 qk-norm, RoPE, flash attention (prefill) or one-query decode
+against the KV cache, o projection (counterpart of
+triton_distributed_tpu/layers/tp_attn.py).
+
+The cache buffers passed in are (B, Smax, Hkv, D) and are written in
+place: JAX returns updated copies, PyTorch need not hold two caches.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.attention import (apply_rope, flash_attention, flash_decode,
+                             rope_cos_sin)
+from .common import check_mode, check_one_rank, row_parallel_out
+from .norm import rms_norm
+from .tp_mlp import fuse_column_parallel
+
+
+class TPAttn(nn.Module):
+    """params: {"w_qkv": (hidden, (H+2*Hkv)*D) fused column-parallel,
+    "w_o": (H*D, hidden) row-parallel, optional "q_norm"/"k_norm": (D,)}."""
+
+    def __init__(self, hidden: int, num_heads: int, num_kv_heads: int,
+                 head_dim: int, *, mode: str = "fused",
+                 rope_theta: float = 1e6, qk_norm: bool = False,
+                 num_ranks: int = 1):
+        super().__init__()
+        self.hidden = hidden
+        self.num_heads = num_heads
+        self.num_kv_heads = num_kv_heads
+        self.head_dim = head_dim
+        self.mode = check_mode(mode)
+        self.rope_theta = rope_theta
+        self.qk_norm = qk_norm
+        self.n = check_one_rank(num_ranks)
+        self.h_loc = num_heads // self.n
+        self.hkv_loc = num_kv_heads // self.n
+
+    # -- parameters --------------------------------------------------------
+    def shard_params(self, wq, wk, wv, wo, q_norm=None, k_norm=None):
+        """The fused param dict from plain (in, out) projection matrices."""
+        params = {"w_qkv": fuse_column_parallel([wq, wk, wv], self.n),
+                  "w_o": wo}
+        if self.qk_norm:
+            ones = torch.ones(self.head_dim, dtype=wq.dtype, device=wq.device)
+            params["q_norm"] = ones if q_norm is None else q_norm
+            params["k_norm"] = ones.clone() if k_norm is None else k_norm
+        return params
+
+    def new_kv_cache(self, batch: int, max_len: int, *, dtype, device):
+        shape = (batch, max_len, self.num_kv_heads, self.head_dim)
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
+    def _split_qkv(self, qkv, lead_shape):
+        D = self.head_dim
+        nq, nkv = self.h_loc * D, self.hkv_loc * D
+        q = qkv[..., :nq].reshape(*lead_shape, self.h_loc, D)
+        k = qkv[..., nq:nq + nkv].reshape(*lead_shape, self.hkv_loc, D)
+        v = qkv[..., nq + nkv:].reshape(*lead_shape, self.hkv_loc, D)
+        return q, k, v
+
+    def _maybe_qk_norm(self, params, q, k):
+        # rms_norm's own eps (1e-6), not the model's, as in the JAX layer
+        if self.qk_norm:
+            q = rms_norm(q, params["q_norm"])
+            k = rms_norm(k, params["k_norm"])
+        return q, k
+
+    # -- prefill -----------------------------------------------------------
+    def prefill(self, params, x, kv_cache=None, *, max_len: int | None = None):
+        """x: (B, S, hidden). Returns (y (B, S, hidden), (k_cache,
+        v_cache)) with positions [0, S) filled; the cache is created at
+        `max_len` (default S) when not supplied."""
+        B, S, _ = x.shape
+        if kv_cache is None:
+            kv_cache = self.new_kv_cache(B, max_len or S, dtype=x.dtype,
+                                         device=x.device)
+        if kv_cache[0].shape[1] < S:
+            raise ValueError(f"KV cache length {kv_cache[0].shape[1]} < "
+                             f"prefill length {S}")
+        y, ck, cv = self._prefill_shard(params, x, params["w_qkv"],
+                                        params["w_o"], *kv_cache, seq_len=S)
+        return y, (ck, cv)
+
+    def _prefill_shard(self, params, x, w_qkv, w_o, ck, cv, *, seq_len):
+        B, S = x.shape[0], seq_len
+        qkv = x @ w_qkv                                   # (B, S, C)
+        q, k, v = self._split_qkv(qkv, (B, S))
+        q, k = self._maybe_qk_norm(params, q, k)
+        cos, sin = rope_cos_sin(torch.arange(S, device=x.device),
+                                self.head_dim, theta=self.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        v = v.contiguous()
+        out = flash_attention(q, k, v, causal=True)      # (B, S, Hl, D)
+        ck[:, :S] = k
+        cv[:, :S] = v
+        y = row_parallel_out(out.reshape(B * S, -1), w_o, mode=self.mode,
+                             num_ranks=self.n)
+        return y.reshape(B, S, self.hidden), ck, cv
+
+    # -- decode ------------------------------------------------------------
+    def decode(self, params, x, kv_cache, kv_len: int):
+        """One decode step. x: (B, hidden); kv_cache: pair of
+        (B, Smax, Hkv, D) buffers; kv_len: tokens already in the cache.
+        Returns (y (B, hidden), cache with row kv_len written)."""
+        y, ck, cv = self._decode_shard(params, x, params["w_qkv"],
+                                       params["w_o"], *kv_cache, kv_len)
+        return y, (ck, cv)
+
+    def _decode_shard(self, params, x, w_qkv, w_o, ck, cv, kv_len: int):
+        B = x.shape[0]
+        qkv = x @ w_qkv                                   # (B, (Hl+2Hkvl)D)
+        q, k, v = self._split_qkv(qkv, (B,))
+        q, k = self._maybe_qk_norm(params, q, k)
+        pos = torch.full((1,), kv_len, device=x.device)   # position = kv_len
+        cos, sin = rope_cos_sin(pos, self.head_dim, theta=self.rope_theta)
+        q = apply_rope(q[:, None], cos, sin)[:, 0]        # (B, Hl, D)
+        k = apply_rope(k[:, None], cos, sin)[:, 0]
+        ck[:, kv_len] = k
+        cv[:, kv_len] = v
+        out = flash_decode(q, ck, cv, kv_len + 1)         # (B, Hl, D)
+        y = row_parallel_out(out.reshape(B, -1), w_o, mode=self.mode,
+                             num_ranks=self.n)
+        return y, ck, cv

@@ -1,0 +1,30 @@
+"""Model zoo + AutoLLM registry (counterpart of
+triton_distributed_tpu/models/__init__.py), dense models only so far."""
+
+from __future__ import annotations
+
+from .config import MODEL_CONFIGS, ModelConfig, get_config
+from .convert import params_from_jax
+from .dense import DenseLLM
+from .engine import Engine
+from .kv_cache import KVCache
+
+__all__ = ["AutoLLM", "DenseLLM", "Engine", "KVCache", "ModelConfig",
+           "MODEL_CONFIGS", "get_config", "params_from_jax"]
+
+
+class AutoLLM:
+
+    @staticmethod
+    def model_class(config: ModelConfig):
+        if config.is_moe:
+            raise NotImplementedError(
+                f"{config.name} is a MoE model; the PyTorch port runs dense "
+                f"models only (MoE is ROADMAP.md Queue A, slice 4)")
+        return DenseLLM
+
+    @staticmethod
+    def from_config(name_or_config, **kw):
+        cfg = (name_or_config if isinstance(name_or_config, ModelConfig)
+               else get_config(name_or_config))
+        return AutoLLM.model_class(cfg)(cfg, **kw)

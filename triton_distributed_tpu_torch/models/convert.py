@@ -1,0 +1,41 @@
+"""Carry weights across from the JAX package.
+
+`params_from_jax` takes the JAX DenseLLM params pytree after
+`jax.device_get` / `np.asarray` (nested dicts of numpy arrays) and
+returns the port's params dict with the same names and layout. A bf16
+JAX array arrives as an `ml_dtypes.bfloat16` numpy array, which
+`torch.from_numpy` rejects: every leaf goes through float32, which is
+exact for bf16 and f16, and is cast back to its own width.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import runtime
+
+_TORCH_FLOATS = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                 "float32": torch.float32}
+
+
+def _leaf(a, device):
+    a = np.asarray(a)
+    if a.dtype.name not in _TORCH_FLOATS:
+        raise TypeError(f"params_from_jax: unexpected leaf dtype {a.dtype}")
+    t = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+    return t.to(device=device, dtype=_TORCH_FLOATS[a.dtype.name])
+
+
+def params_from_jax(tree, *, device=None):
+    """JAX params pytree of numpy arrays -> the port's params dict
+    ({"embed", "layers": {ln1, ln2, w_qkv, w_o, w_gate_up, w_down,
+    q_norm, k_norm}, "norm", "lm_head"}) on `device`."""
+    device = runtime.resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _leaf(node, device)
+
+    return conv(tree)

@@ -1,0 +1,245 @@
+"""Dense transformer LLM (Qwen3 / Llama / Seed-OSS family) at one rank
+(counterpart of triton_distributed_tpu/models/dense.py).
+
+Parameters are a plain dict with the JAX package's layout and names:
+{"embed": (V, H), "layers": {name: (L, ...)}, "norm": (H,),
+"lm_head": (H, V)}, projection matrices stored (in, out) and stacked over
+layers. The forward is an eager Python loop over the layers in place of
+the JAX `lax.scan`; the KV cache is written in place.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import runtime
+from ..layers.common import check_mode, check_one_rank
+from ..layers.norm import rms_norm
+from ..layers.tp_attn import TPAttn
+from ..layers.tp_mlp import TPMLP, fuse_column_parallel
+from .config import ModelConfig
+from .kv_cache import KVCache
+
+
+def _logits(x, lm_head):
+    """x (B, hidden) @ lm_head (hidden, V), accumulated and returned in
+    f32 without a rounding to x's dtype (JAX: preferred_element_type)."""
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        return torch.mm(x, lm_head, out_dtype=torch.float32)
+    return x.float() @ lm_head.float()
+
+
+def greedy_token(x, lm_head):
+    """Greedy next token. x: (B, hidden). Returns (B,) int32; on ties the
+    first maximum, as jnp.argmax."""
+    return torch.argmax(_logits(x, lm_head), dim=-1).to(torch.int32)
+
+
+def sample_token(x, lm_head, generator: torch.Generator, *,
+                 temperature: float, top_k: int):
+    """Top-k temperature sampling by the Gumbel-max trick over the top-k
+    logits (the JAX function's method; the noise comes from `generator`,
+    so the draws differ from jax.random's). Returns (B,) int32."""
+    logits = _logits(x, lm_head) / temperature
+    vals, idx = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1)
+    u = torch.rand(vals.shape, generator=generator, device=vals.device)
+    gumbel = -torch.log(-torch.log(
+        u.clamp_min(torch.finfo(torch.float32).tiny)))
+    choice = torch.argmax(vals + gumbel, dim=-1, keepdim=True)
+    return idx.gather(-1, choice)[:, 0].to(torch.int32)
+
+
+class DenseLLM(nn.Module):
+    """One-rank dense LLM. `mode` takes the JAX package's names
+    ("xla" | "fused" | "ar" | "gemm_ar"); at one rank they are the same
+    math. Runs on `device` (default: the GPU, see runtime.default_device)
+    in `dtype` ("bfloat16" | "float32" or a torch dtype)."""
+
+    def __init__(self, config: ModelConfig, *, mode: str = "fused",
+                 dtype=torch.bfloat16, device=None, num_ranks: int = 1):
+        super().__init__()
+        self.config = config
+        self.mode = check_mode(mode)
+        self.n = check_one_rank(num_ranks)
+        self.dtype = runtime.resolve_dtype(dtype)
+        self.device = runtime.resolve_device(device)
+        c = config
+        self.attn = TPAttn(c.hidden_size, c.num_heads, c.num_kv_heads,
+                           c.head_dim, mode=mode, rope_theta=c.rope_theta,
+                           qk_norm=c.qk_norm, num_ranks=num_ranks)
+        self.mlp = TPMLP(c.hidden_size, c.intermediate_size, mode=mode,
+                         num_ranks=num_ranks)
+
+    # ------------------------------------------------------------------
+    # Parameters
+    # ------------------------------------------------------------------
+    def init_params(self, generator: torch.Generator):
+        """Random parameters with the JAX package's scales (tied
+        lm_head = embed.T, a view). `generator` lives on the model's
+        device."""
+        c, dt, dev = self.config, self.dtype, self.device
+        L, H, D = c.num_layers, c.hidden_size, c.head_dim
+        qkv_n = (c.num_heads + 2 * c.num_kv_heads) * D
+        s = H ** -0.5
+
+        def normal(shape, scale):
+            return torch.randn(shape, generator=generator, dtype=dt,
+                               device=dev).mul_(scale)
+
+        layers = {
+            "ln1": torch.ones((L, H), dtype=dt, device=dev),
+            "ln2": torch.ones((L, H), dtype=dt, device=dev),
+            "w_qkv": normal((L, H, qkv_n), s),
+            "w_o": normal((L, c.num_heads * D, H), s),
+            "w_gate_up": normal((L, H, 2 * c.intermediate_size), s),
+            "w_down": normal((L, c.intermediate_size, H),
+                             c.intermediate_size ** -0.5),
+        }
+        if c.qk_norm:
+            layers["q_norm"] = torch.ones((L, D), dtype=dt, device=dev)
+            layers["k_norm"] = torch.ones((L, D), dtype=dt, device=dev)
+        embed = normal((c.vocab_size, H), s)
+        lm = embed.t() if c.tie_word_embeddings else normal((H, c.vocab_size),
+                                                            s)
+        return {"embed": embed, "layers": layers,
+                "norm": torch.ones((H,), dtype=dt, device=dev),
+                "lm_head": lm}
+
+    def load_state_dict(self, sd):
+        """Parameters from an HF-style name -> array mapping (torch
+        tensors or numpy arrays). HF stores projections (out, in); the
+        port keeps (in, out). Unlike nn.Module.load_state_dict this
+        returns the params dict: the model itself holds no weights."""
+        c, dt, dev = self.config, self.dtype, self.device
+
+        def get(name):
+            t = sd[name]
+            if not isinstance(t, torch.Tensor):
+                t = torch.from_numpy(np.asarray(t, dtype=np.float32))
+            return t.detach().to(device=dev, dtype=dt)
+
+        def lin(name):
+            return get(name).t()
+
+        names = ["ln1", "ln2", "w_qkv", "w_o", "w_gate_up", "w_down"]
+        if c.qk_norm:
+            names += ["q_norm", "k_norm"]
+        layers = {k: [] for k in names}
+        for i in range(c.num_layers):
+            pre = f"model.layers.{i}."
+            layers["ln1"].append(get(pre + "input_layernorm.weight"))
+            layers["ln2"].append(get(pre + "post_attention_layernorm.weight"))
+            layers["w_qkv"].append(fuse_column_parallel(
+                [lin(pre + "self_attn.q_proj.weight"),
+                 lin(pre + "self_attn.k_proj.weight"),
+                 lin(pre + "self_attn.v_proj.weight")], self.n))
+            layers["w_o"].append(lin(pre + "self_attn.o_proj.weight"))
+            layers["w_gate_up"].append(fuse_column_parallel(
+                [lin(pre + "mlp.gate_proj.weight"),
+                 lin(pre + "mlp.up_proj.weight")], self.n))
+            layers["w_down"].append(lin(pre + "mlp.down_proj.weight"))
+            if c.qk_norm:
+                layers["q_norm"].append(get(pre + "self_attn.q_norm.weight"))
+                layers["k_norm"].append(get(pre + "self_attn.k_norm.weight"))
+        embed = get("model.embed_tokens.weight")
+        lm = embed.t() if c.tie_word_embeddings else lin("lm_head.weight")
+        return {"embed": embed,
+                "layers": {k: torch.stack(v) for k, v in layers.items()},
+                "norm": get("model.norm.weight"), "lm_head": lm}
+
+    # ------------------------------------------------------------------
+    # Cache
+    # ------------------------------------------------------------------
+    def new_kv_cache(self, batch: int, max_len: int) -> KVCache:
+        c = self.config
+        return KVCache.create(c.num_layers, batch, max_len, c.num_kv_heads,
+                              c.head_dim, dtype=self.dtype,
+                              device=self.device)
+
+    # ------------------------------------------------------------------
+    # Forward
+    # ------------------------------------------------------------------
+    def _attn_layer_params(self, p):
+        if self.config.qk_norm:
+            return {"q_norm": p["q_norm"], "k_norm": p["k_norm"]}
+        return {}
+
+    def _layers(self, params):
+        lp = params["layers"]
+        for i in range(self.config.num_layers):
+            yield i, {k: t[i] for k, t in lp.items()}
+
+    def prefill(self, params, input_ids, cache: KVCache, true_len=None):
+        """input_ids: (B, S) int. `true_len` (<= S) marks the real prompt
+        length when the caller padded S up to a bucket: the next token
+        comes from row true_len - 1 and the cache offset becomes
+        true_len (pad rows fill cache positions >= true_len, which decode
+        masks and overwrites). Returns (next_token (B,) int32, cache)."""
+        last, cache = self._prefill_hidden(params, input_ids, cache,
+                                           true_len)
+        return greedy_token(last, params["lm_head"]), cache
+
+    def _prefill_hidden(self, params, input_ids, cache: KVCache,
+                        true_len=None):
+        """Prefill up to the final norm: (last real row (B, hidden),
+        cache)."""
+        ids = torch.as_tensor(input_ids, dtype=torch.int32,
+                              device=self.device)
+        B, S = ids.shape
+        if S > cache.max_len:
+            raise ValueError(f"prefill length {S} exceeds cache max_len "
+                             f"{cache.max_len}")
+        true_len = S if true_len is None else int(true_len)
+        eps = self.config.rms_norm_eps
+        x = F.embedding(ids, params["embed"])              # (B, S, H)
+        for i, p in self._layers(params):
+            h = rms_norm(x, p["ln1"], eps)
+            a, _, _ = self.attn._prefill_shard(
+                self._attn_layer_params(p), h, p["w_qkv"], p["w_o"],
+                cache.k[i], cache.v[i], seq_len=S)
+            x = x + a
+            h = rms_norm(x, p["ln2"], eps)
+            x = x + self.mlp._shard_fwd(h, p["w_gate_up"], p["w_down"])
+        last = rms_norm(x[:, true_len - 1], params["norm"], eps)
+        return last, KVCache(k=cache.k, v=cache.v, offset=true_len)
+
+    def decode_step(self, params, tok, cache: KVCache,
+                    generator: torch.Generator | None = None, *,
+                    sampling: bool | None = None, temperature: float = 0.0,
+                    top_k: int = 50):
+        """One decode step. tok: (B,) int. sampling=False (or temperature
+        0) = greedy; otherwise top-k temperature sampling drawing from
+        `generator`. Returns (next_token (B,) int32, cache advanced by
+        one)."""
+        if sampling is None:
+            sampling = temperature > 0.0
+        if sampling and generator is None:
+            raise ValueError("sampling requires a torch.Generator")
+        x, cache = self._decode_hidden(params, tok, cache)
+        if sampling:
+            nxt = sample_token(x, params["lm_head"], generator,
+                               temperature=temperature, top_k=top_k)
+        else:
+            nxt = greedy_token(x, params["lm_head"])
+        return nxt, cache
+
+    def _decode_hidden(self, params, tok, cache: KVCache):
+        """One decode step up to the final norm: (x (B, hidden), cache)."""
+        if cache.offset >= cache.max_len:
+            raise ValueError(f"KV cache full at {cache.max_len} positions")
+        tok = torch.as_tensor(tok, dtype=torch.int32, device=self.device)
+        eps = self.config.rms_norm_eps
+        x = F.embedding(tok, params["embed"])              # (B, H)
+        for i, p in self._layers(params):
+            h = rms_norm(x, p["ln1"], eps)
+            a, _, _ = self.attn._decode_shard(
+                self._attn_layer_params(p), h, p["w_qkv"], p["w_o"],
+                cache.k[i], cache.v[i], cache.offset)
+            x = x + a
+            h = rms_norm(x, p["ln2"], eps)
+            x = x + self.mlp._shard_fwd(h, p["w_gate_up"], p["w_down"])
+        x = rms_norm(x, params["norm"], eps)
+        return x, KVCache(k=cache.k, v=cache.v, offset=cache.offset + 1)

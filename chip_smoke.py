@@ -17,7 +17,20 @@ Phases, in order; any failure raises and exits non-zero:
      ops one decode step dispatches on the host are counted;
   6. with --profile, torch.profiler over a few decode steps: device-busy
      ms per step, the device's idle share, the top kernels;
-  7. one JSON line of per-kernel numbers, then the device JSON line.
+  7. the paged decode kernel, each arm (bf16, int8 and fp8 pools)
+     against its plain version at the serving shape (4 slots, 8 kv
+     heads, 4 q heads per kv head, head_dim 128, 128-token pages) on a
+     shuffled block table with a shared page and -1 holes, with times;
+  8. a small model's paged steps (a prefill chunk over a cached prefix
+     and a decode step) on the GPU against the CPU, bf16 and int8 pools;
+  9. the slice-2 main path: Qwen3-8B (the same weights) behind
+     ServeEngine(b_max=4, max_len=2048, block=128, prefill_chunk=256),
+     a 64-block pool, 8 requests with a shared 512-token prefix and a
+     repeated block-aligned prompt; the bf16 run is checked (lengths,
+     prefix hits, copy-on-write, exact launch counts, conservation,
+     a rerun with identical tokens), then the int8 and fp8 pools; with
+     --profile, the device's idle share over a short serve run;
+ 10. one JSON line of per-kernel numbers, then the device JSON line.
 Without a GPU it exits non-zero before printing anything.
 """
 
@@ -35,6 +48,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
+PEAK_8BIT_OPS = 1979e12    # H100 SXM dense int8 / fp8 tensor-core rate
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
 OUT_TOL = 2e-2             # bf16 outputs: p and out rounded at other points
 LSE_TOL = 1e-3             # f32 lse from f32 scores: summation order, exp2
@@ -75,8 +89,8 @@ def time_ms(fns, reps=20, rounds=5):
     return statistics.median(out)
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+def bound(nbytes, flops, peak=PEAK_BF16_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -206,6 +220,337 @@ def check_small_model(models, seed):
     assert torch.equal(got.argmax(-1)[sure], ref.argmax(-1)[sure])
 
 
+def _paged_table(rng, counts, nb, mb):
+    """(B, mb) int32 table: each slot's pages drawn from a shuffled
+    pool, -1 past its end, and slot 2's first page shared with slot 0."""
+    perm = rng.permutation(nb)
+    table = np.full((len(counts), mb), -1, np.int32)
+    at = 0
+    for b, n in enumerate(counts):
+        table[b, :n] = perm[at:at + n]
+        at += n
+    table[2, 0] = table[0, 0]
+    return table
+
+
+def distinct_rows(table, kv_len, blk):
+    """Rows of K (or V) the slots' kv_len reach through the table,
+    counting a page that slots share once: for each page id, the most
+    rows any slot reads there (a -1 inside kv_len reads page 0)."""
+    most = {}
+    for b, n in enumerate(kv_len):
+        for j in range(-(-n // blk)):
+            page = max(int(table[b, j]), 0)
+            most[page] = max(most.get(page, 0), min(blk, n - j * blk))
+    return sum(most.values())
+
+
+def check_flash_decode_paged(attn, dev, gen):
+    """The paged decode kernel, one entry per arm, at the serving shape:
+    kv_len [130, 700, 1500, 0] and a set that ends mid-page, on a
+    shuffled table with a shared page and -1 holes past each end.
+    Times use kv_len [130, 700, 1500, 0]; flash_decode's time on the
+    same rows laid out contiguously is printed beside it."""
+    from triton_distributed_tpu_torch.models.paged_kv_cache import quant_kv
+    B, H, Hkv, D, blk, nb, mb = 4, 32, 8, 128, 128, 64, 16
+    rng = np.random.RandomState(1)
+    tab = _paged_table(rng, [2, 7, 12, 1], nb, mb)
+    table = torch.from_numpy(tab).to(dev)
+    q_sets = [torch.randn((B, H, D), generator=gen, device=dev).bfloat16()
+              for _ in range(COLD_COPIES)]
+    raw = [tuple(torch.randn((nb, Hkv, blk, D), generator=gen, device=dev)
+                 for _ in range(2)) for _ in range(COLD_COPIES)]
+    rows_lens = [130, 700, 1500, 0]
+    entries = []
+    for arm, wire in (("bfloat16", None), ("int8", "int8"),
+                      ("float8_e4m3fn", "float8_e4m3fn")):
+        sets = []
+        for q, (k, v) in zip(q_sets, raw):
+            if wire is None:
+                sets.append((q, k.bfloat16(), v.bfloat16(), {}))
+            else:
+                (kq, ks), (vq, vs) = quant_kv(k, wire), quant_kv(v, wire)
+                sets.append((q, kq, vq, {"k_scales": ks, "v_scales": vs}))
+        q, k, v, kw = sets[0]
+        kernel = attn.FLASH_DECODE_PAGED[arm]
+        before = kernel.launches
+        err = 0.0
+        for lens in (rows_lens, [200, 777, 1333, 50]):
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            out, lse = attn.flash_decode_paged_partial(q, k, v, table,
+                                                       kv_len, **kw)
+            ref, ref_lse = attn._flash_decode_paged_plain(
+                q, k, v, table, kv_len, scale=D ** -0.5, **kw)
+            e = (out.float() - ref.float()).abs().max().item()
+            live = kv_len > 0
+            le = (lse[live] - ref_lse[live]).abs().max().item()
+            print(f"flash_decode_paged[{arm}] kv_len {lens}: max_abs_err "
+                  f"{e:.3e}, lse {le:.3e}")
+            assert e <= OUT_TOL and le <= LSE_TOL, (arm, e, le)
+            assert torch.all(out[~live] == 0)
+            err = max(err, e)
+        assert kernel.launches == before + 2, (arm, kernel.launches)
+        kv_len = torch.tensor(rows_lens, dtype=torch.int32, device=dev)
+        ms = time_ms([lambda s=s: attn.flash_decode_paged_partial(
+            s[0], s[1], s[2], table, kv_len, **s[3]) for s in sets])
+        plain_ms = time_ms([lambda s=s: attn._flash_decode_paged_plain(
+            s[0], s[1], s[2], table, kv_len, scale=D ** -0.5, **s[3])
+            for s in sets], reps=5)
+        per_row = Hkv * D * k.element_size() + (Hkv * 4 if wire else 0)
+        moved = (2 * distinct_rows(tab, rows_lens, blk) * per_row
+                 + nbytes(q, table, kv_len) + B * H * D * 2 + B * H * 4)
+        bms, by = bound(moved, 4 * sum(rows_lens) * H * D,
+                        PEAK_8BIT_OPS if wire else PEAK_BF16_FLOPS)
+        print(f"flash_decode_paged[{arm}]: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), no library "
+              f"call reads pages through a table")
+        entries.append({
+            "name": f"flash_decode_paged[{arm}]", "route": "cuda",
+            "source": "triton_distributed_tpu_torch/csrc/flash_decode_paged.cu",
+            "replaces": ("triton_distributed_tpu/ops/attention.py:685"
+                         if wire is None else
+                         "triton_distributed_tpu/ops/attention.py:715"),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None})
+    # the same rows, contiguous, through flash_decode (a comparison line)
+    smax = mb * blk
+    pages = table.clamp_min(0).long()
+    cont = [tuple(t.bfloat16()[pages].permute(0, 1, 3, 2, 4).reshape(
+        B, smax, Hkv, D).contiguous() for t in kv) for kv in raw]
+    ms_c = time_ms([lambda q=q, c=c: attn.flash_decode_partial(
+        q, c[0], c[1], kv_len) for q, c in zip(q_sets, cont)])
+    print(f"flash_decode on the same rows, contiguous (B, {smax}, {Hkv}, "
+          f"{D}): {ms_c:.4f} ms")
+    return entries
+
+
+def _spy_logits(model, params):
+    """Wrap `model._next_token` to keep the f32 logits of every call."""
+    seen = []
+    real = model._next_token
+
+    def spy(x, p, generator, **kw):
+        seen.append((x.float() @ p["lm_head"].float()).cpu())
+        return real(x, p, generator, **kw)
+
+    model._next_token = spy
+    return seen
+
+
+def _agree(name, ref, got):
+    """Logits within 5e-2 of the largest; greedy tokens equal wherever
+    the CPU's top-2 gap exceeds twice the error."""
+    assert torch.isfinite(got).all(), name
+    diff = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"{name} logits GPU vs CPU: max_abs_err {diff:.3e} (max |logit| "
+          f"{scale:.3e})")
+    assert diff <= 5e-2 * max(1.0, scale), (name, diff)
+    top2 = ref.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    assert torch.equal(got.argmax(-1)[sure], ref.argmax(-1)[sure]), name
+
+
+def check_small_model_paged(models, seed):
+    """The paged steps of a small Qwen3-shaped model on the GPU (kernels)
+    against the CPU (plain versions), bf16 and int8 pools: a second
+    prefill chunk (prefix partial + in-chunk partial, merged), then a
+    decode step from the same pool contents on both devices."""
+    cfg = models.get_config("Qwen/Qwen3-8B").tiny(
+        hidden_size=256, num_heads=8, num_kv_heads=2, head_dim=128,
+        intermediate_size=512, vocab_size=512, num_layers=2)
+    cpu = models.DenseLLM(cfg, dtype="bfloat16", device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(seed))
+    gpu = models.DenseLLM(cfg, dtype="bfloat16", device="cuda")
+    gparams = {"embed": params["embed"].cuda(), "norm": params["norm"].cuda(),
+               "lm_head": params["lm_head"].cuda(),
+               "layers": {k: t.cuda() for k, t in params["layers"].items()}}
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, 200),
+               rng.randint(0, cfg.vocab_size, 70)]
+    C = 128
+    for kv in (None, "int8"):
+        runs = []
+        for m, p in ((cpu, params), (gpu, gparams)):
+            seen = _spy_logits(m, p)
+            cache = m.new_paged_kv_cache(2, 512, block=128, kv_dtype=kv)
+            assert cache.assign_slot(0, 2) and cache.assign_slot(1, 1)
+            for slot, ids in enumerate(prompts):
+                for off in range(0, len(ids), C):
+                    chunk = np.zeros(C, np.int32)
+                    part = ids[off:off + C]
+                    chunk[:len(part)] = part
+                    tok, cache = m.prefill_chunk_paged(p, chunk, cache, slot,
+                                                       off, len(part))
+            runs.append((m, p, seen, cache))
+        (_, _, cseen, ccache), (gm, gp, gseen, gcache) = runs
+        _agree(f"small model prefill chunk over a prefix ({kv or 'bf16'} "
+               f"pool)", cseen[1], gseen[1])
+        # decode from the same pool contents on both devices
+        names = ["k_pool", "v_pool"] + (["k_scales", "v_scales"] if kv else [])
+        for n in names:
+            getattr(gcache, n).copy_(getattr(ccache, n))
+        toks = [int(cseen[1].argmax()), int(cseen[2].argmax())]
+        for m, p, cache in ((cpu, params, ccache), (gm, gp, gcache)):
+            m.decode_step_paged(p, toks, cache, [True, True])
+        _agree(f"small model paged decode step ({kv or 'bf16'} pool)",
+               cseen[3], gseen[3])
+        for m in (cpu, gpu):
+            del m._next_token
+
+
+def serve_stream(rng, vocab):
+    """8 requests, prompts 64-1500 tokens, gen 16-64: request 6 shares
+    request 0's 512-token prefix and request 7 repeats request 1's
+    block-aligned 256-token prompt; both are admitted after the request
+    they reuse has finished, while its blocks are cached (the stream
+    needs 42 of the pool's 64 blocks, so nothing is reclaimed)."""
+    def ids(n):
+        return rng.randint(0, vocab, n).astype(np.int32)
+
+    pre, b = ids(512), ids(256)
+    return [(np.concatenate([pre, ids(100)]), 16), (b, 16), (ids(1500), 64),
+            (ids(64), 32), (ids(900), 48), (ids(300), 24),
+            (np.concatenate([pre, ids(200)]), 40), (b.copy(), 20)]
+
+
+def run_serve(models, attn, engine, stream, L):
+    """One ServeEngine run of the stream with the launch counts set to 0
+    just before it; returns (tokens by rid, stats, launches, decode tick
+    ms list, aten ops one decode tick dispatched). The sixth decode tick
+    is counted, not timed."""
+    for rid_ids, gen_len in stream:
+        engine.submit(rid_ids, gen_len)
+    tick_ms, tick_ops = [], []
+    real = engine._decode_tick
+
+    def timed(stream_cb):
+        steps = engine.stats()["decode_steps"]
+        if len(tick_ms) == 5 and not tick_ops:
+            with OpCount() as ops:
+                real(stream_cb)
+            if engine.stats()["decode_steps"] > steps:
+                tick_ops.append(ops.n)
+            return
+        t0 = time.perf_counter()
+        real(stream_cb)
+        if engine.stats()["decode_steps"] > steps:
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+
+    engine._decode_tick = timed
+    kernels = {"flash_attention": attn.FLASH_ATTENTION,
+               "flash_decode": attn.FLASH_DECODE}
+    kernels.update({f"flash_decode_paged[{a}]": k
+                    for a, k in attn.FLASH_DECODE_PAGED.items()})
+    for k in kernels.values():
+        k.launches = 0
+    out = engine.run()
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    del engine._decode_tick
+    st = engine.stats()
+    arm = engine.kv_dtype or "bfloat16"
+    want = {n: 0 for n in kernels}
+    want["flash_attention"] = L * (st["prefill_chunks"] + st["prefix_chunks"])
+    want[f"flash_decode_paged[{arm}]"] = L * st["decode_steps"]
+    assert launches == want, (launches, want)
+    return out, st, launches, tick_ms, tick_ops[0]
+
+
+def profile_serve(models, model, params, vocab, seed):
+    """Device-busy time of a short ServeEngine run (4 requests) from a
+    torch.profiler trace, against the wall time of the same run made
+    without the profiler (as profile_decode does)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def engine():
+        rng = np.random.RandomState(seed + 1)
+        se = models.ServeEngine(model, params, b_max=4, max_len=2048,
+                                block=128, prefill_chunk=256, num_blocks=64)
+        for n, g in ((300, 8), (100, 8), (700, 8), (64, 8)):
+            se.submit(rng.randint(0, vocab, n).astype(np.int32), g)
+        return se
+
+    se = engine()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    se.run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    se = engine()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        se.run()
+        torch.cuda.synchronize()
+    rows = sorted(((getattr(e, "self_device_time_total", 0) / 1e3, e.key,
+                    e.count) for e in prof.key_averages()), reverse=True)
+    busy = sum(r[0] for r in rows if r[0] > 0)
+    st = se.stats()
+    print(f"profile serve: {st['ticks']} ticks, {st['decode_steps']} decode "
+          f"steps, {st['prefill_chunks']} chunks: device-busy {busy:.1f} ms "
+          f"of {wall:.1f} ms wall (unprofiled run): idle share "
+          f"{1 - busy / wall:.3f}")
+    for ms, name, count in rows[:8]:
+        print(f"profile serve:   {ms:9.3f} ms  {count:6d}  {name[:70]}")
+
+
+def check_serve(models, attn, model, params, cfg, seed, smi, profile):
+    """The slice-2 main path at full width: ServeEngine over Qwen3-8B,
+    bf16 pool checked in full, then int8 and fp8 pools."""
+    L = cfg.num_layers
+    rng = np.random.RandomState(seed)
+    stream = serve_stream(rng, cfg.vocab_size)
+    total = {}
+    results = {}
+    for kv in (None, None, "int8", "float8_e4m3fn"):
+        se = models.ServeEngine(model, params, b_max=4, max_len=2048,
+                                block=128, prefill_chunk=256, num_blocks=64,
+                                kv_dtype=kv)
+        out, st, launches, tick_ms, ops = run_serve(models, attn, se, stream,
+                                                    L)
+        pool_gib = se._cache.block_nbytes() * 64 / 2**30
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+        name = kv or "bf16"
+        print(f"serve[{name}]: {st['tokens']} tokens in {st['wall_s']:.3f} s "
+              f"({st['tokens_per_s']} tokens/s), {st['ticks']} ticks, "
+              f"{st['decode_steps']} decode steps at "
+              f"{statistics.median(tick_ms):.2f} ms median "
+              f"({min(tick_ms):.2f}-{max(tick_ms):.2f}; {ops} aten ops "
+              f"on the host, {ops / L:.1f} per layer), "
+              f"{st['prefill_chunks']} chunks ({st['prefix_chunks']} over a "
+              f"cached prefix), prefix hits {st['prefix_hit_blocks']} blocks, "
+              f"CoW {st['cow_copies']}, launches "
+              f"{ {n: c for n, c in launches.items() if c} }"
+              + f", pool {pool_gib:.3f} GiB | {smi}")
+        assert sorted(out) == list(range(len(stream)))
+        for rid, (_, gen_len) in enumerate(stream):
+            toks = out[rid]
+            assert len(toks) == gen_len, (rid, len(toks))
+            assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+        cache = se._cache
+        cache.check_conservation(cached=st["cached_free_blocks"])
+        assert st["free_blocks"] + st["cached_free_blocks"] == 64, st
+        if kv is None and None not in results:
+            assert st["prefix_hit_blocks"] > 0 and st["cow_copies"] > 0, st
+            results[None] = out
+        elif kv is None:
+            for rid in out:
+                assert np.array_equal(out[rid], results[None][rid]), rid
+            print("serve[bf16]: a second run gives identical tokens")
+        else:
+            results[kv] = out
+            rep = models.serve.banded_token_identity(results[None], out,
+                                                     band=1.0)
+            print(f"serve[{name}] vs bf16 (information only, random "
+                  f"weights): agreed {rep['agreed_steps']}/"
+                  f"{rep['total_steps']} steps ({rep['agreed_frac']}; "
+                  f"TOKEN_BAND floor {1 - models.serve.TOKEN_BAND[kv]})")
+    if profile:
+        profile_serve(models, model, params, cfg.vocab_size, seed)
+    return total
+
+
 def profile_decode(engine, tok, cache, step_ms, steps=3):
     """Device-busy time of a decode step from a profiler trace, against
     the step's wall time measured without the profiler (`step_ms`)."""
@@ -256,8 +601,10 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     kernels = [check_flash_attention(attn, dev, gen),
                check_flash_decode(attn, dev, gen)]
+    kernels += check_flash_decode_paged(attn, dev, gen)
     torch.cuda.empty_cache()
     check_small_model(models, args.seed)
+    check_small_model_paged(models, args.seed)
 
     cfg = models.get_config("Qwen/Qwen3-8B")
     model = models.DenseLLM(cfg, dtype="bfloat16", device=dev)
@@ -314,8 +661,12 @@ def main():
     if args.profile:
         profile_decode(engine, tok, cache, (t2 - t1) / (GEN - 1) * 1e3)
 
+    serve_launches = check_serve(models, attn, model, params, cfg, args.seed,
+                                 smi, args.profile)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches.get(k["name"], 0) \
+            + serve_launches.get(k["name"], 0)
+        assert k["launches"] > 0, k["name"]
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

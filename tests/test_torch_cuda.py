@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-GPU. Every test here needs an NVIDIA GPU with nvcc and skips without one.
+"""The port's CUDA kernels (prefill flash attention, decode, and the paged
+decode over bf16, int8 and fp8 pools) against their plain PyTorch
+versions, on the GPU. Every test here needs an NVIDIA GPU with nvcc and skips without one.
 The file imports neither jax nor the JAX package, so it runs on a GPU
 box without them:
 
@@ -101,6 +102,65 @@ def test_flash_decode_kernel_matches_plain(cuda, G, D):
                                rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL, rtol=1e-6)
     assert torch.all(out[0] == 0)
+
+
+def _paged_case(gen, device, G, D, kv_dtype, blk=64):
+    """A ragged paged batch: a shuffled table with a page shared by
+    slots 0 and 2, a -1 hole inside slot 1's range (it reads page 0),
+    -1 past each end, an empty slot 3, and lengths that end mid-page."""
+    from triton_distributed_tpu_torch.models.paged_kv_cache import quant_kv
+    B, Hkv, nb, mb = 4, 2, 12, 5
+    table = torch.tensor([[7, 2, -1, -1, -1], [9, -1, 11, 3, 4],
+                          [7, 0, 5, -1, -1], [-1] * 5], dtype=torch.int32,
+                         device=device)
+    kv_len = torch.tensor([blk + 5, 4 * blk + 1, 3 * blk, 0],
+                          dtype=torch.int32, device=device)
+    q = _rand((B, G * Hkv, D), gen, device)
+    k, v = (torch.randn((nb, Hkv, blk, D), generator=gen, device=device)
+            for _ in range(2))
+    if kv_dtype is None:
+        return q, k.bfloat16(), v.bfloat16(), table, kv_len, {}
+    (kq, ks), (vq, vs) = quant_kv(k, kv_dtype), quant_kv(v, kv_dtype)
+    return q, kq, vq, table, kv_len, {"k_scales": ks, "v_scales": vs}
+
+
+@pytest.mark.parametrize("arm", ["bfloat16", "int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("G,D,blk", [(1, 64, 32), (4, 128, 128),
+                                     (8, 128, 64), (4, 64, 256)])
+def test_flash_decode_paged_kernel_matches_plain(cuda, arm, G, D, blk):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, table, kv_len, kw = _paged_case(
+        gen, cuda, G, D, None if arm == "bfloat16" else arm, blk)
+    kernel = attn.FLASH_DECODE_PAGED[arm]
+    before = kernel.launches
+    out, lse = attn.flash_decode_paged_partial(q, k, v, table, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref, ref_lse = attn._flash_decode_paged_plain(q, k, v, table, kv_len,
+                                                  scale=D ** -0.5, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=OUT_TOL,
+                               rtol=0)
+    torch.testing.assert_close(lse[:3], ref_lse[:3], atol=LSE_TOL, rtol=1e-6)
+    assert torch.all(out[3] == 0) and torch.all(lse[3] < -1e29)
+
+
+def test_flash_decode_paged_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, table, kv_len, _ = _paged_case(gen, cuda, 4, 128, None)
+    for bad in (k[:, :, :48], k[..., :32]):      # block 48, head_dim 32
+        qq = q if bad.shape[-1] == 128 else q[..., :32].contiguous()
+        with pytest.raises(ValueError):
+            attn.flash_decode_paged_partial(qq, bad.contiguous(),
+                                            bad.contiguous(), table, kv_len)
+    with pytest.raises(ValueError):              # group 3
+        attn.flash_decode_paged_partial(q[:, :6].contiguous(), k, v, table,
+                                        kv_len)
+    with pytest.raises(TypeError):               # f32 queries
+        attn.flash_decode_paged_partial(q.float(), k, v, table, kv_len)
+    with pytest.raises(TypeError):               # an fp16 pool
+        attn.flash_decode_paged_partial(q, k.half(), v.half(), table, kv_len)
+    with pytest.raises(NotImplementedError, match="slice 2b"):
+        attn.flash_decode_paged(q, k, v, table, kv_len, method="xla")
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

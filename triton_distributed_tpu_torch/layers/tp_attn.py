@@ -3,8 +3,9 @@ Qwen3 qk-norm, RoPE, flash attention (prefill) or one-query decode
 against the KV cache, o projection (counterpart of
 triton_distributed_tpu/layers/tp_attn.py).
 
-The cache buffers passed in are (B, Smax, Hkv, D) and are written in
-place: JAX returns updated copies, PyTorch need not hold two caches.
+The cache buffers passed in — contiguous (B, Smax, Hkv, D) or one
+layer's paged pool (num_blocks, Hkv, block, D) — are written in place:
+JAX returns updated copies, PyTorch need not hold two caches.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.attention import (apply_rope, flash_attention, flash_decode,
-                             rope_cos_sin)
+from ..ops.attention import (apply_rope, flash_attention,
+                             flash_attention_partial, flash_decode,
+                             flash_decode_paged, merge_two_partials,
+                             paged_rows, rope_cos_sin)
 from .common import check_mode, check_one_rank, row_parallel_out
 from .norm import rms_norm
 from .tp_mlp import fuse_column_parallel
@@ -127,3 +130,67 @@ class TPAttn(nn.Module):
         y = row_parallel_out(out.reshape(B, -1), w_o, mode=self.mode,
                              num_ranks=self.n)
         return y, ck, cv
+
+    # -- paged decode and chunked prefill (models/paged_kv_cache.py) -------
+    def _decode_shard_paged(self, params, x, w_qkv, w_o, k_pool, v_pool,
+                            table, kv_len, rope, at, *, attn_method=None,
+                            k_scales=None, v_scales=None):
+        """One decode step over ONE layer's paged pool, in place. x:
+        (B, hidden); k_pool/v_pool: (nb, Hkv, block, D); table: (B,
+        max_blocks) int32 and kv_len = seq_lens + active (B,) int32 on
+        the pool's device; rope: the (cos, sin) of each slot's position
+        (its cached length); at: where the active slots' rows land
+        (PagedKVCache.append_at). Quantized pools take their scale
+        sidecars. Returns y (B, hidden)."""
+        from ..models.paged_kv_cache import scatter_rows
+
+        B = x.shape[0]
+        qkv = x @ w_qkv
+        q, k, v = self._split_qkv(qkv, (B,))
+        q, k = self._maybe_qk_norm(params, q, k)
+        q = apply_rope(q[:, None], *rope)[:, 0]               # (B, Hl, D)
+        k = apply_rope(k[:, None], *rope)[:, 0]
+        scatter_rows(k_pool, k, at, scales=k_scales)
+        scatter_rows(v_pool, v, at, scales=v_scales)
+        out = flash_decode_paged(q, k_pool, v_pool, table, kv_len,
+                                 method=attn_method, k_scales=k_scales,
+                                 v_scales=v_scales)
+        return row_parallel_out(out.reshape(B, -1), w_o, mode=self.mode,
+                                num_ranks=self.n)
+
+    def _prefill_chunk_shard(self, params, x, w_qkv, w_o, k_pool, v_pool,
+                             rope, at, prefix, off: int, valid_len: int, *,
+                             k_scales=None, v_scales=None):
+        """One prompt chunk of one slot against ONE layer's paged pool:
+        x (C, hidden) holds positions [off, off + valid_len) (rows past
+        valid_len are pad); its K/V rows land at `at`
+        (PagedKVCache.chunk_at). Attention merges two (out, lse)
+        partials by lse: the causal in-chunk partial over the chunk's
+        own (unquantized) K/V, and, when off > 0, a partial over the
+        `prefix` pages (device page ids holding positions [0, off)),
+        dequantized and cast to the compute dtype for a quantized pool.
+        Returns y (C, hidden)."""
+        from ..models.paged_kv_cache import scatter_rows
+
+        C = x.shape[0]
+        qkv = x @ w_qkv
+        q, k, v = self._split_qkv(qkv, (C,))
+        q, k = self._maybe_qk_norm(params, q, k)
+        qb = apply_rope(q[None], *rope)                       # (1, C, Hl, D)
+        kb = apply_rope(k[None], *rope)
+        scatter_rows(k_pool, kb[0], at, scales=k_scales)
+        scatter_rows(v_pool, v, at, scales=v_scales)
+        out, lse = flash_attention_partial(
+            qb, kb, v[None].contiguous(), q_offset=0, kv_offset=0,
+            kv_valid=valid_len, causal=True)
+        if off:
+            # kv_valid = off masks the tail of the last prefix page,
+            # which may hold this chunk's own just-written rows
+            kpre = paged_rows(k_pool, prefix, scales=k_scales)
+            vpre = paged_rows(v_pool, prefix, scales=v_scales)
+            o1, l1 = flash_attention_partial(
+                qb, kpre[None].to(qb.dtype), vpre[None].to(qb.dtype),
+                q_offset=off, kv_offset=0, kv_valid=off, causal=True)
+            out = merge_two_partials(o1, l1, out, lse)[0]
+        return row_parallel_out(out[0].reshape(C, -1).to(x.dtype), w_o,
+                                mode=self.mode, num_ranks=self.n)

@@ -1,5 +1,7 @@
 """Model zoo + AutoLLM registry (counterpart of
-triton_distributed_tpu/models/__init__.py), dense models only so far."""
+triton_distributed_tpu/models/__init__.py), dense models only so far,
+with the per-request `Engine` and the continuous-batching
+`ServeEngine`."""
 
 from __future__ import annotations
 
@@ -8,9 +10,14 @@ from .convert import params_from_jax
 from .dense import DenseLLM
 from .engine import Engine
 from .kv_cache import KVCache
+from .paged_kv_cache import PagedKVCache
+from .serve import ServeEngine
+from .serve_state import BlockAlloc, Request, SchedCfg, SchedulerState
 
-__all__ = ["AutoLLM", "DenseLLM", "Engine", "KVCache", "ModelConfig",
-           "MODEL_CONFIGS", "get_config", "params_from_jax"]
+__all__ = ["AutoLLM", "BlockAlloc", "DenseLLM", "Engine", "KVCache",
+           "ModelConfig", "MODEL_CONFIGS", "PagedKVCache", "Request",
+           "SchedCfg", "SchedulerState", "ServeEngine", "get_config",
+           "params_from_jax"]
 
 
 class AutoLLM:

@@ -5,7 +5,9 @@ Parameters are a plain dict with the JAX package's layout and names:
 {"embed": (V, H), "layers": {name: (L, ...)}, "norm": (H,),
 "lm_head": (H, V)}, projection matrices stored (in, out) and stacked over
 layers. The forward is an eager Python loop over the layers in place of
-the JAX `lax.scan`; the KV cache is written in place.
+the JAX `lax.scan`; the KV cache is written in place, the contiguous
+one (`prefill`, `decode_step`) and the paged pool of continuous
+batching (`prefill_chunk_paged`, `decode_step_paged`) alike.
 """
 
 from __future__ import annotations
@@ -16,12 +18,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import runtime
+from ..ops.attention import rope_cos_sin
 from ..layers.common import check_mode, check_one_rank
 from ..layers.norm import rms_norm
 from ..layers.tp_attn import TPAttn
 from ..layers.tp_mlp import TPMLP, fuse_column_parallel
 from .config import ModelConfig
 from .kv_cache import KVCache
+from .paged_kv_cache import PagedKVCache
 
 
 def _logits(x, lm_head):
@@ -159,6 +163,19 @@ class DenseLLM(nn.Module):
                               c.head_dim, dtype=self.dtype,
                               device=self.device)
 
+    def new_paged_kv_cache(self, batch: int, max_len: int, *,
+                           block: int = 128, num_blocks: int | None = None,
+                           kv_dtype: str | None = None) -> PagedKVCache:
+        """Ragged paged cache for continuous batching (models/serve.py):
+        `batch` slots of at most `max_len` tokens, blocks from a shared
+        free-list pool. kv_dtype="int8" | "float8_e4m3fn" stores the pool
+        at wire width with per-row f32 scale sidecars."""
+        c = self.config
+        return PagedKVCache.create(
+            c.num_layers, batch, max_len, c.num_kv_heads, c.head_dim,
+            block=block, num_blocks=num_blocks, dtype=self.dtype,
+            kv_dtype=kv_dtype, device=self.device)
+
     # ------------------------------------------------------------------
     # Forward
     # ------------------------------------------------------------------
@@ -243,3 +260,102 @@ class DenseLLM(nn.Module):
             x = x + self.mlp._shard_fwd(h, p["w_gate_up"], p["w_down"])
         x = rms_norm(x, params["norm"], eps)
         return x, KVCache(k=cache.k, v=cache.v, offset=cache.offset + 1)
+
+    # ------------------------------------------------------------------
+    # Paged forward (continuous batching, models/serve.py)
+    # ------------------------------------------------------------------
+    def _pool_layer(self, cache: PagedKVCache, i: int) -> dict:
+        if not cache.quantized:
+            return {}
+        return {"k_scales": cache.k_scales[i], "v_scales": cache.v_scales[i]}
+
+    def _next_token(self, x, params, generator, *, sampling, temperature,
+                    top_k):
+        if sampling:
+            if generator is None:
+                raise ValueError("sampling requires a torch.Generator")
+            return sample_token(x, params["lm_head"], generator,
+                                temperature=temperature, top_k=top_k)
+        return greedy_token(x, params["lm_head"])
+
+    def decode_step_paged(self, params, tok, cache: PagedKVCache, active,
+                          generator: torch.Generator | None = None, *,
+                          sampling: bool | None = None,
+                          temperature: float = 0.0, top_k: int = 50,
+                          attn_method: str | None = None):
+        """One decode step over the RAGGED paged cache: every slot
+        advances at its own length, inactive slots are masked (their
+        pages are not written, their length does not move and their
+        token carries through unchanged). Shapes stay at (B_max, ...)
+        as in the JAX step. tok: (B,) ints; active: (B,) bools (host).
+        The pool is updated in place. Returns (next_token (B,) int32,
+        cache advanced by `active`)."""
+        if sampling is None:
+            sampling = temperature > 0.0
+        tok = torch.as_tensor(tok, dtype=torch.int32, device=self.device)
+        act = np.asarray(active, bool).reshape(-1)
+        lens = cache.seq_lens.copy()
+        dev = self.device
+        kv_len = torch.from_numpy(lens + act.astype(np.int32)).to(dev)
+        rope = rope_cos_sin(torch.from_numpy(lens).to(dev)[:, None],
+                            self.config.head_dim,
+                            theta=self.config.rope_theta)     # (B, 1, D/2)
+        at = cache.append_at(act)
+        table = cache.device_table
+        eps = self.config.rms_norm_eps
+        x = F.embedding(tok, params["embed"])              # (B, H)
+        for i, p in self._layers(params):
+            h = rms_norm(x, p["ln1"], eps)
+            x = x + self.attn._decode_shard_paged(
+                self._attn_layer_params(p), h, p["w_qkv"], p["w_o"],
+                cache.k_pool[i], cache.v_pool[i], table, kv_len, rope, at,
+                attn_method=attn_method, **self._pool_layer(cache, i))
+            h = rms_norm(x, p["ln2"], eps)
+            x = x + self.mlp._shard_fwd(h, p["w_gate_up"], p["w_down"])
+        x = rms_norm(x, params["norm"], eps)
+        nxt = self._next_token(x, params, generator, sampling=sampling,
+                               temperature=temperature, top_k=top_k)
+        cache.advance(slice(None), act.astype(np.int32))
+        mask = torch.from_numpy(act).to(dev)
+        return torch.where(mask, nxt, tok), cache
+
+    def prefill_chunk_paged(self, params, chunk_ids, cache: PagedKVCache,
+                            slot: int, off: int, valid_len: int, *,
+                            generator: torch.Generator | None = None,
+                            sampling: bool = False, temperature: float = 0.0,
+                            top_k: int = 50):
+        """One prompt CHUNK of one slot: positions [off, off + valid_len)
+        of sequence `slot` enter the paged pool in place (chunk_ids: (C,)
+        ints, pad past valid_len arbitrary). Attention is the in-chunk
+        causal partial merged with a partial over the ceil(off / block)
+        pages holding the cached prefix. Returns (next_token () int32 —
+        meaningful when this is the prompt's final chunk, cache with
+        seq_lens[slot] advanced by valid_len)."""
+        slot, off, valid_len = int(slot), int(off), int(valid_len)
+        ids = torch.as_tensor(chunk_ids, dtype=torch.int32,
+                              device=self.device).reshape(-1)
+        C = ids.shape[0]
+        if not 0 < valid_len <= C:
+            raise ValueError(f"valid_len {valid_len} outside [1, {C}]")
+        rope = rope_cos_sin(off + torch.arange(C, device=self.device),
+                            self.config.head_dim,
+                            theta=self.config.rope_theta)     # (C, D/2)
+        at = cache.chunk_at(slot, off, valid_len)
+        prefix = cache.prefix_pages(slot, off) if off else None
+        eps = self.config.rms_norm_eps
+        x = F.embedding(ids, params["embed"])              # (C, H)
+        for i, p in self._layers(params):
+            h = rms_norm(x, p["ln1"], eps)
+            x = x + self.attn._prefill_chunk_shard(
+                self._attn_layer_params(p), h, p["w_qkv"], p["w_o"],
+                cache.k_pool[i], cache.v_pool[i], rope, at, prefix, off,
+                valid_len, **self._pool_layer(cache, i))
+            h = rms_norm(x, p["ln2"], eps)
+            x = x + self.mlp._shard_fwd(h, p["w_gate_up"], p["w_down"])
+        last = rms_norm(x[valid_len - 1], params["norm"], eps)
+        tok = self._next_token(last[None], params, generator,
+                               sampling=sampling,
+                               temperature=max(temperature, 1e-6),
+                               top_k=top_k)
+        cache.advance(slot, valid_len)
+        return tok[0], cache

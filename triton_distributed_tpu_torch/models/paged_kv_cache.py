@@ -1,0 +1,466 @@
+"""Ragged paged KV cache: block pool, free-list allocator with refcounts,
+per-slot block tables and lengths (counterpart of
+triton_distributed_tpu/models/paged_kv_cache.py, head-sharded form at
+one rank).
+
+The pool is (L, num_blocks, Hkv, block, D), block-row-major inside each
+page, the JAX layout, so the paged decode kernel reads one (block, D)
+tile per page straight from the table. A quantized pool ("int8" /
+"float8_e4m3fn") stores rows at wire width with one f32 scale per
+(layer, block, head, row) in the `k_scales` / `v_scales` sidecars; a
+block off the `in_use` list has all-zero scale rows.
+
+Unlike the JAX cache, which is immutable and relies on buffer donation,
+this one is updated IN PLACE: every allocator call and every append
+mutates the object and its pools (a functional copy would move the
+whole pool per token). The allocator state — `block_table`,
+`seq_lens`, `in_use`, `ref_counts` — lives on the host as numpy arrays,
+because admission is host-driven; the kernels read a device copy of the
+table (`device_table`), uploaded once after the host has changed it,
+and the step's lengths, which the model uploads with the step. Grants
+follow the JAX order exactly: the lowest free block ids first.
+
+Writes that the JAX helpers drop with `mode="drop"` (inactive slot,
+unassigned page, pad row past the valid length) are filtered on the
+host (`append_at`, `chunk_at`), so no index ever leaves the pool.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..ops import wire
+from ..ops.attention import paged_rows
+from ..ops.wire import byte_view
+
+
+def quant_kv(x, wire_dtype):
+    """KV rows at wire width: the per-block codec with block = head_dim,
+    one f32 scale per (…, head) row. (…, D) -> (q (…, D) wire dtype,
+    scales (…,) f32)."""
+    q, s = wire.quant_blockwise(x, wire_dtype, x.shape[-1])
+    return q, s[..., 0]
+
+
+def dequant_kv(q, scales, dtype=torch.float32):
+    """Inverse of `quant_kv`: q (…, D) + scales (…,) f32 -> (…, D)."""
+    return (q.float() * scales[..., None]).to(dtype)
+
+
+# -- where a step's new rows land -------------------------------------------
+
+@dataclasses.dataclass
+class RowsAt:
+    """Destinations of a step's new K/V rows, as index tensors on the
+    pool's device: row `src[i]` of the step's values goes to
+    (page `pages[i]`, row `rows[i]`). Only rows that land are listed."""
+    src: torch.Tensor
+    pages: torch.Tensor
+    rows: torch.Tensor
+
+    @staticmethod
+    def of(src, table_row_pages, pos, block: int, device) -> "RowsAt":
+        """Host arrays in: `table_row_pages[i]` is the block-table row
+        that position `pos[i]` (of source row `src[i]`) indexes."""
+        pos = np.asarray(pos, np.int64)
+        col = pos // block
+        rows_tbl = np.asarray(table_row_pages)
+        ok = col < rows_tbl.shape[-1]
+        pages = np.where(ok, np.take_along_axis(
+            rows_tbl, np.minimum(col, rows_tbl.shape[-1] - 1)[:, None],
+            axis=-1)[:, 0], -1)
+        ok &= pages >= 0
+        return RowsAt(*(torch.from_numpy(np.ascontiguousarray(a[ok],
+                                                              np.int64))
+                        .to(device)
+                        for a in (np.asarray(src), pages, pos % block)))
+
+
+def append_rows_at(block_table, seq_lens, active, block: int,
+                   device) -> RowsAt:
+    """Destinations of one decode step's rows: slot b appends at
+    seq_lens[b] when `active[b]` (None: every slot) and its page is
+    assigned. Host arrays in."""
+    lens = np.asarray(seq_lens)
+    keep = (np.ones(len(lens), bool) if active is None
+            else np.asarray(active, bool))
+    return RowsAt.of(np.flatnonzero(keep), np.asarray(block_table)[keep],
+                     lens[keep], block, device)
+
+
+def chunk_rows_at(block_table, slot: int, off: int, valid_len: int,
+                  block: int, device) -> RowsAt:
+    """Destinations of a prefill chunk's rows: positions [off, off +
+    valid_len) of sequence `slot`; rows past valid_len are pad."""
+    n = int(valid_len)
+    tbl = np.asarray(block_table)[int(slot)]
+    return RowsAt.of(np.arange(n), np.broadcast_to(tbl, (n, tbl.size)),
+                     int(off) + np.arange(n), block, device)
+
+
+def scatter_rows(pool, vals, at: RowsAt, *, scales=None):
+    """pool[at.pages, :, at.rows] = vals[at.src], in place. pool:
+    (nb, Hkv, block, D) one layer; vals: (n, Hkv, D). With `scales`
+    (the layer's (nb, Hkv, block) f32 sidecar) the rows are quantized at
+    the pool's wire dtype on the way in and their scales stored at the
+    same (page, row)."""
+    vals = vals[at.src]
+    if scales is None:
+        pool[at.pages, :, at.rows] = vals.to(pool.dtype)
+        return
+    q, s = quant_kv(vals, pool.dtype)
+    byte_view(pool)[at.pages, :, at.rows] = byte_view(q)
+    scales[at.pages, :, at.rows] = s
+
+
+# -- functional helpers on one layer's pool (the JAX shard helpers) ----------
+
+def append_step_shard(k_pool, v_pool, k_new, v_new, block_table, seq_lens,
+                      active=None, *, k_scales=None, v_scales=None):
+    """Write one decode step's K/V rows at each sequence's own (block,
+    row) position, in place. k_pool/v_pool: (nb, Hkv, block, D) ONE
+    layer's pool; k_new/v_new: (B, Hkv, D); block_table (B, max_blocks)
+    and seq_lens (B,) on the host. Inactive slots and unassigned pages
+    are not written. Returns (k_pool, v_pool), or with the scale
+    sidecars of a quantized pool the 4-tuple, as the JAX helper does."""
+    at = append_rows_at(block_table, seq_lens, active, k_pool.shape[2],
+                        k_pool.device)
+    scatter_rows(k_pool, k_new, at, scales=k_scales)
+    scatter_rows(v_pool, v_new, at, scales=v_scales)
+    if k_scales is not None:
+        return k_pool, v_pool, k_scales, v_scales
+    return k_pool, v_pool
+
+
+def write_rows_shard(pool, rows, block_table, slot, off, valid_len,
+                     *, scales=None):
+    """Scatter a prefill chunk's rows into ONE slot's pages, in place.
+    pool: (nb, Hkv, block, D) one layer; rows: (C, Hkv, D) for positions
+    [off, off + valid_len) of sequence `slot` (rows past valid_len are
+    pad and not written). Returns pool, or (pool, scales)."""
+    at = chunk_rows_at(block_table, slot, off, valid_len, pool.shape[2],
+                       pool.device)
+    scatter_rows(pool, rows, at, scales=scales)
+    return pool if scales is None else (pool, scales)
+
+
+def gather_rows_shard(pool, block_table, b, max_blocks: int, *,
+                      scales=None):
+    """Contiguous (max_blocks * block, Hkv, D) view of the first
+    `max_blocks` pages of sequence `b` from ONE layer's pool. Unassigned
+    pages clamp to page 0; callers mask positions >= seq_lens[b]. With
+    `scales` the view comes back dequantized float32."""
+    row = np.clip(np.asarray(block_table)[int(b), :max_blocks], 0, None)
+    pages = torch.from_numpy(row.astype(np.int64)).to(pool.device)
+    return paged_rows(pool, pages, scales=scales)
+
+
+class PagedKVCache:
+    """The pool, its scale sidecars and the allocator; see the module
+    docstring. Built by `create`."""
+
+    def __init__(self, k_pool, v_pool, block_table, seq_lens, in_use,
+                 ref_counts, k_scales=None, v_scales=None):
+        self.k_pool = k_pool            # (L, nb, Hkv, block, D)
+        self.v_pool = v_pool
+        self.block_table = block_table  # (B, max_blocks) int32, -1 free
+        self.seq_lens = seq_lens        # (B,) int32 tokens cached
+        self.in_use = in_use            # (nb,) bool: not grantable
+        self.ref_counts = ref_counts    # (nb,) int32 slot-row references
+        self.k_scales = k_scales        # (L, nb, Hkv, block) f32 or None
+        self.v_scales = v_scales
+        self._dev_table = None          # device copy of block_table
+
+    @staticmethod
+    def create(num_layers: int, batch: int, max_len: int,
+               num_kv_heads: int, head_dim: int, *, block: int = 128,
+               num_blocks: int | None = None, dtype=torch.bfloat16,
+               kv_dtype=None, device=None) -> "PagedKVCache":
+        """Empty pool + free allocator: `batch` slots of at most
+        `max_len` tokens, `num_blocks` pool blocks (default: every slot
+        can fill). `kv_dtype` ("int8" / "float8_e4m3fn") stores the
+        pool at wire width with f32 scale sidecars."""
+        kvd = wire.resolve_wire_dtype(kv_dtype)
+        max_blocks = -(-max_len // block)
+        nb = num_blocks if num_blocks is not None else batch * max_blocks
+        shape = (num_layers, nb, num_kv_heads, block, head_dim)
+        pool_dtype = wire.TORCH_WIRE_DTYPES[kvd] if kvd else dtype
+        scales = (None, None)
+        if kvd is not None:
+            scales = tuple(torch.zeros(shape[:4], dtype=torch.float32,
+                                       device=device) for _ in range(2))
+        return PagedKVCache(
+            k_pool=torch.zeros(shape, dtype=pool_dtype, device=device),
+            v_pool=torch.zeros(shape, dtype=pool_dtype, device=device),
+            block_table=np.full((batch, max_blocks), -1, np.int32),
+            seq_lens=np.zeros((batch,), np.int32),
+            in_use=np.zeros((nb,), bool),
+            ref_counts=np.zeros((nb,), np.int32),
+            k_scales=scales[0], v_scales=scales[1])
+
+    # -- shape and state views ------------------------------------------
+    @property
+    def block(self) -> int:
+        return self.k_pool.shape[3]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scales is not None
+
+    @property
+    def kv_dtype(self) -> str | None:
+        """Wire-dtype name of a quantized pool, else None."""
+        return wire.resolve_wire_dtype(self.k_pool.dtype) \
+            if self.quantized else None
+
+    @property
+    def batch(self) -> int:
+        return self.block_table.shape[0]
+
+    @property
+    def num_blocks(self) -> int:
+        return self.k_pool.shape[1]
+
+    @property
+    def max_blocks(self) -> int:
+        return self.block_table.shape[1]
+
+    @property
+    def max_len(self) -> int:
+        return self.max_blocks * self.block
+
+    @property
+    def num_free_blocks(self) -> int:
+        return self.num_blocks - int(self.in_use.sum())
+
+    def held_blocks(self) -> int:
+        """Blocks the slot table currently accounts for."""
+        return int((self.block_table >= 0).sum())
+
+    def block_nbytes(self) -> int:
+        """Bytes ONE pool block costs across all layers: K+V payload at
+        the pool dtype plus the f32 scale rows when quantized."""
+        L, _, hkv, blk, d = self.k_pool.shape
+        n = 2 * L * hkv * blk * d * self.k_pool.element_size()
+        if self.quantized:
+            n += 2 * L * hkv * blk * 4
+        return n
+
+    # -- the device copy of the table ----------------------------------------
+    def _touch(self):
+        self._dev_table = None
+
+    @property
+    def device_table(self) -> torch.Tensor:
+        """(B, max_blocks) int32 block table on the pool's device,
+        uploaded again only after the allocator changed the table."""
+        if self._dev_table is None:
+            self._dev_table = torch.from_numpy(self.block_table.copy()).to(
+                self.k_pool.device)
+        return self._dev_table
+
+    def advance(self, b, n):
+        """seq_lens[b] += n: a step cached n more rows of the slot(s)."""
+        self.seq_lens[b] += np.asarray(n, np.int32)
+
+    # -- where a step's rows land ------------------------------------------
+    def append_at(self, active=None) -> RowsAt:
+        """`append_rows_at` over this cache's table and lengths."""
+        return append_rows_at(self.block_table, self.seq_lens, active,
+                              self.block, self.k_pool.device)
+
+    def chunk_at(self, slot: int, off: int, valid_len: int) -> RowsAt:
+        """`chunk_rows_at` over this cache's table."""
+        return chunk_rows_at(self.block_table, slot, off, valid_len,
+                             self.block, self.k_pool.device)
+
+    def prefix_pages(self, slot: int, n_tokens: int) -> torch.Tensor:
+        """Device ids of the ceil(n_tokens / block) pages holding
+        positions [0, n_tokens) of `slot` (unassigned pages clamp to
+        page 0, as the JAX gather does)."""
+        n = -(-n_tokens // self.block)
+        row = np.clip(self.block_table[slot, :n], 0, None).astype(np.int64)
+        return torch.from_numpy(row).to(self.k_pool.device)
+
+    # -- free-list allocator -------------------------------------------------
+    def _require_empty(self, b, op):
+        row = self.block_table[b]
+        if (row >= 0).any():
+            raise ValueError(
+                f"{op}({b}): slot still holds {int((row >= 0).sum())} "
+                f"block(s) — assigning over it would leak them from the "
+                f"free list; call free_slot first")
+
+    def assign_slot(self, b: int, num_blocks: int) -> bool:
+        """Grant `num_blocks` free blocks, lowest ids first, to empty slot
+        `b`, all or nothing. Returns ok; False leaves the pool unchanged
+        (the admission queue keeps the request). The slot's length
+        becomes 0 either way."""
+        b = int(b)
+        self._require_empty(b, "assign_slot")
+        free = np.flatnonzero(~self.in_use)
+        ok = num_blocks <= free.size and num_blocks <= self.max_blocks
+        self.seq_lens[b] = 0
+        if ok:
+            got = free[:num_blocks]
+            self.block_table[b, :num_blocks] = got
+            self.in_use[got] = True
+            self.ref_counts[got] = 1
+        self._touch()
+        return bool(ok)
+
+    def assign_slot_prefixed(self, b: int, *, shared=(), n_new: int,
+                             cow_src=None, seq_len: int = 0):
+        """Radix-prefix grant: the `shared` blocks, already holding the
+        matched prefix's KV, map into the head of slot `b`'s table with
+        refcount bumps; `n_new` fresh blocks (lowest free ids) fill the
+        tail, all or nothing. `cow_src` names a shared block the slot
+        must privately rewrite (a full-prompt hit): the first fresh
+        block becomes its copy-on-write clone — pages and scale rows
+        copied on the device — in place of a refcount bump. `seq_len`
+        sets the slot's cached length at the match boundary.
+
+        Returns (ok, fresh_block_ids); ok False leaves the cache
+        untouched. Mapping a block that is not resident raises (the
+        radix tree referencing a reclaimed block)."""
+        b = int(b)
+        self._require_empty(b, "assign_slot_prefixed")
+        shared = tuple(int(x) for x in shared)
+        if cow_src is not None and n_new < 1:
+            raise ValueError("copy-on-write needs a fresh destination "
+                             "block (n_new >= 1)")
+        bad = [x for x in shared if not self.in_use[x]] \
+            + ([int(cow_src)] if cow_src is not None
+               and not self.in_use[int(cow_src)] else [])
+        if bad:
+            raise ValueError(
+                f"assign_slot_prefixed({b}): shared block(s) {bad} are "
+                f"not resident — the radix cache references a reclaimed "
+                f"block (cached-aliasing)")
+        free = np.flatnonzero(~self.in_use)
+        if n_new > free.size or len(shared) + n_new > self.max_blocks:
+            return False, ()
+        fresh = [int(x) for x in free[:n_new]]
+        rest = list(fresh)
+        row = list(shared)
+        if cow_src is not None:
+            dst = rest.pop(0)
+            row.append(dst)
+            pools = [self.k_pool, self.v_pool]
+            if self.quantized:
+                pools += [self.k_scales, self.v_scales]
+            for t in pools:
+                byte_view(t)[:, dst].copy_(byte_view(t)[:, int(cow_src)])
+        row += rest
+        self.block_table[b] = -1
+        self.block_table[b, :len(row)] = row
+        self.seq_lens[b] = seq_len
+        if shared:
+            np.add.at(self.ref_counts, list(shared), 1)
+        if fresh:
+            self.ref_counts[fresh] = 1
+            self.in_use[fresh] = True
+        self._touch()
+        return True, tuple(fresh)
+
+    def reclaim_blocks(self, ids):
+        """Return refcount-0 radix-cached blocks to the free list (the
+        LRU reclaim path), zeroing their scale rows. Reclaiming a
+        referenced or already-free block raises."""
+        ids = tuple(int(x) for x in ids)
+        if not ids:
+            return
+        live = [x for x in ids if self.ref_counts[x] > 0]
+        if live:
+            raise ValueError(
+                f"reclaim_blocks: block(s) {live} still referenced "
+                f"(refcounts {[int(self.ref_counts[x]) for x in live]})")
+        loose = [x for x in ids if not self.in_use[x]]
+        if loose:
+            raise ValueError(f"reclaim_blocks: block(s) {loose} already "
+                             f"free — double reclaim")
+        self.in_use[list(ids)] = False
+        self._zero_scales(ids)
+
+    def _zero_scales(self, ids):
+        """Zero the scale rows of now-free blocks (the lockstep that
+        `check_conservation` enforces). No-op on unquantized pools."""
+        if not self.quantized or not len(ids):
+            return
+        idx = torch.as_tensor(list(ids), dtype=torch.int64,
+                              device=self.k_scales.device)
+        self.k_scales[:, idx] = 0.0
+        self.v_scales[:, idx] = 0.0
+
+    def free_slot(self, b: int, cached=()):
+        """Release slot `b`'s references: refcounts decrement, and a
+        block leaves `in_use` only when its last reference drops AND the
+        radix cache is not retaining it (`cached`, the tree's membership
+        set). Live neighbours are untouched. Freeing a slot that holds
+        no blocks raises (double free)."""
+        b = int(b)
+        row = self.block_table[b]
+        mine = row[row >= 0]
+        if not mine.size:
+            raise ValueError(
+                f"free_slot({b}): slot holds no blocks — double-free or "
+                f"free of an unassigned slot would corrupt the free list")
+        self.ref_counts[mine] = np.maximum(self.ref_counts[mine] - 1, 0)
+        keep = {int(c) for c in cached}
+        gone = [int(x) for x in mine
+                if self.ref_counts[x] <= 0 and int(x) not in keep]
+        self.in_use[gone] = False
+        self._zero_scales(gone)
+        self.block_table[b] = -1
+        self.seq_lens[b] = 0
+        self._touch()
+
+    def check_conservation(self, *, external: int = 0, cached: int = 0):
+        """Refcount conservation: every block's refcount equals its
+        slot-table membership count, and the in-use population is
+        exactly the referenced blocks plus `cached` radix-retained blocks
+        plus `external` blocks held elsewhere. A quantized pool's free
+        blocks must carry all-zero scale rows. Raises ValueError."""
+        tbl, refs = self.block_table, self.ref_counts
+        member = np.bincount(tbl[tbl >= 0].reshape(-1),
+                             minlength=self.num_blocks)
+        if not np.array_equal(member, refs):
+            bad = np.flatnonzero(member != refs)[:8]
+            raise ValueError(
+                f"refcount conservation violated: block(s) "
+                f"{bad.tolist()} held by {member[bad].tolist()} slot "
+                f"row(s) but refcounted {refs[bad].tolist()} — "
+                f"{'aliased' if (member[bad] > refs[bad]).any() else 'leaked'}"
+                f" blocks")
+        in_use = int(self.in_use.sum())
+        held = int((refs > 0).sum())
+        if held + cached + external != in_use:
+            raise ValueError(
+                f"free-list conservation violated: {in_use} blocks in_use "
+                f"but {held} referenced (+{cached} radix-cached, "
+                f"+{external} externally held) of {self.num_blocks} — "
+                f"{'leaked' if held + cached + external < in_use else 'aliased'}"
+                f" blocks")
+        if self.quantized:
+            free = ~self.in_use
+            for name, sc in (("k", self.k_scales), ("v", self.v_scales)):
+                mag = sc.abs().amax(dim=(0, 2, 3)).cpu().numpy()
+                stale = np.flatnonzero(free & (mag > 0))
+                if stale.size:
+                    raise ValueError(
+                        f"scale-sidecar lockstep violated: free block(s) "
+                        f"{stale.tolist()[:8]} still carry nonzero "
+                        f"{name}-scale rows")
+
+    def gather_shard(self, pool, layer: int, b: int, *,
+                     max_blocks: int | None = None, scales=None):
+        """Contiguous (max_blocks * block, Hkv, D) view of sequence `b` at
+        `layer` (default: the full table width). Pass the matching
+        scale sidecar of a quantized pool for a dequantized f32 view."""
+        mb = self.max_blocks if max_blocks is None else max_blocks
+        return gather_rows_shard(
+            pool[layer], self.block_table, b, mb,
+            scales=None if scales is None else scales[layer])

@@ -1,0 +1,516 @@
+"""Continuous-batching serving engine over the ragged paged KV cache
+(counterpart of triton_distributed_tpu/models/serve.py, engine mode at
+one rank).
+
+A fixed array of `b_max` SLOTS, an admission queue, and one decode step
+shaped (b_max, ...) with occupancy as an active mask, so sequences
+enter and leave the batch independently. One `_tick`:
+  1. admit — the QoS pick (SLO class > priority > weighted tenant
+     fairness > FIFO by arrival id) takes a free slot, preempting a
+     strictly-lower-class resident when none is free, with its radix
+     prefix match mapped in (refcount bumps; a full-prompt hit clones
+     its last block copy-on-write; LRU reclaim of refcount-0 cached
+     blocks relieves pool pressure before the queue backpressures);
+  2. prefill — one chunk (`prefill_chunk` tokens) of one admitted
+     prompt (DenseLLM.prefill_chunk_paged); the final chunk emits the
+     request's first token;
+  3. decode — every in-flight sequence advances one token in one call
+     (DenseLLM.decode_step_paged), each at its own length; finished
+     sequences release their pages into the prefix cache or the free
+     list.
+
+Every scheduling decision is a transition of serve_state.py, the JAX
+package's control plane carried over unchanged; this class executes
+those decisions against the real allocator (`PagedKVCache`, through
+`_CachePool`) and the model's steps. The same submit stream therefore
+gives the same admissions, grants, block tables and (greedy) tokens as
+the JAX engine.
+
+Sampling (temperature > 0) draws from a torch.Generator re-seeded from
+(`seed`, step) at every prefill chunk and decode tick, as the JAX
+engine folds the step into its key: a request's sampled stream depends
+on the batch composition, and differs from the JAX engine's by
+construction (another RNG).
+
+Not in this slice (each raises NotImplementedError): speculative
+decoding, the watchdog (`slo_ticks`) and fault injection (`chaos`), the
+host spill tier (`host_blocks`), the megakernel decode mode, sequence
+parallel and multi-rank serving, MoE capacity budgets, and the plain
+("xla") attention rung on a CUDA device.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..ops import wire
+from . import serve_state
+from .engine import pow2_bucket
+from .paged_kv_cache import PagedKVCache
+from .serve_state import SLO_CLASSES, Request, SchedCfg, SchedulerState
+
+
+class _CachePool:
+    """The pool protocol the serve_state transitions drive (grant /
+    release / reclaim / refcnts / free_count / row), landing on the
+    engine's `PagedKVCache`. The allocator state lives on the host, so
+    none of these calls waits on the device."""
+
+    def __init__(self, eng):
+        self._e = eng
+
+    def grant(self, i, plan):
+        ok, new = self._e._cache.assign_slot_prefixed(
+            i, shared=plan.shared, n_new=plan.n_new, cow_src=plan.cow_src,
+            seq_len=plan.start)
+        return new if ok else None     # None: the request stays queued
+
+    def release(self, i, quarantining=False, cached=()):
+        # nothing quarantines without the watchdog (slice 2b), which
+        # brings back the JAX engine's conservation check on that path
+        self._e._cache.free_slot(i, cached=cached)
+
+    def reclaim(self, ids):
+        self._e._cache.reclaim_blocks(ids)
+
+    def refcnts(self):
+        return self._e._cache.ref_counts.copy()
+
+    def free_count(self):
+        return self._e._cache.num_free_blocks
+
+    def row(self, i):
+        return tuple(int(b) for b in self._e._cache.block_table[i] if b >= 0)
+
+    def _cached_only(self):
+        """Radix-retained blocks currently at refcount 0."""
+        pfx = self._e.sched.prefix
+        if pfx is None or not pfx.blocks:
+            return 0
+        refs = self._e._cache.ref_counts
+        return sum(1 for b in pfx.blocks if refs[b] == 0)
+
+
+def prefix_bucket(off: int, block: int, cap: int) -> int:
+    """The JAX engine's static gather size for an `off`-token cached
+    prefix (pow-2 bucket, block floor, block multiple, clamped to the
+    slot ceiling). The port compiles nothing per shape and gathers
+    exactly ceil(off / block) pages; the rule is kept so tests can
+    drive both packages' chunked prefill alike."""
+    if off <= 0:
+        return 0
+    b = pow2_bucket(off, block, cap)
+    return min(-(-b // block) * block, cap)
+
+
+# -- tolerance-banded token identity -----------------------------------------
+# A quantized KV pool cannot claim bit-identical greedy streams: where the
+# top-2 logit margin sits below the quantization noise the argmax flips,
+# and past a flip two runs decode different contexts. The claimable form:
+# streams agree exactly up to each request's first divergence, and the
+# agreed fraction of steps clears a per-dtype floor.
+TOKEN_BAND = {"int8": 0.25, "float8_e4m3fn": 0.5}
+
+
+def banded_token_identity(ref: dict, got: dict,
+                          kv_dtype: str | None = None,
+                          band: float | None = None) -> dict:
+    """Assert greedy-token identity between two run() result dicts
+    under the tolerance-band policy; returns the agreement report.
+    kv_dtype=None (or band=0) demands exact identity."""
+    if set(ref) != set(got):
+        raise ValueError(
+            f"banded_token_identity: request sets differ — "
+            f"ref {sorted(ref)} vs got {sorted(got)}")
+    if band is None:
+        band = TOKEN_BAND[kv_dtype] if kv_dtype is not None else 0.0
+    agreed = total = 0
+    diverged = {}
+    for rid in sorted(ref):
+        a, b = np.asarray(ref[rid]), np.asarray(got[rid])
+        if a.shape != b.shape:
+            raise ValueError(
+                f"banded_token_identity: request {rid} stream length "
+                f"{b.shape} != reference {a.shape} — divergence never "
+                f"changes how many tokens a request owes")
+        ne = np.flatnonzero(a != b)
+        d = int(ne[0]) if ne.size else len(a)
+        agreed += d
+        total += len(a)
+        if d < len(a):
+            diverged[rid] = d
+    frac = agreed / total if total else 1.0
+    if frac < 1.0 - band:
+        raise ValueError(
+            f"banded_token_identity: agreed {agreed}/{total} steps "
+            f"({frac:.3f}) below the {kv_dtype or 'exact'} band floor "
+            f"{1.0 - band:.3f}; first divergences {diverged}")
+    return {"agreed_steps": agreed, "total_steps": total,
+            "agreed_frac": round(frac, 4), "band": band,
+            "diverged": diverged}
+
+
+def _not_in_slice(what: str, where: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet: it comes with {where} (ROADMAP.md, "
+        f"Queue A)")
+
+
+class ServeEngine:
+    """Continuous batching over `b_max` slots for a one-rank dense
+    `DenseLLM`. Decode attention reads the pages in place through the
+    block table (ops/attention.flash_decode_paged: the CUDA kernel on
+    the GPU, its plain version on the CPU)."""
+
+    def __init__(self, model, params, *, b_max: int = 4,
+                 max_len: int = 2048, block: int = 128,
+                 num_blocks: int | None = None, prefill_chunk: int = 256,
+                 attn_method: str | None = None,
+                 temperature: float = 0.0, top_k: int = 50,
+                 seed: int = 0, mode: str | None = None,
+                 mk_opts: dict | None = None,
+                 slo_ticks: int | None = None, max_faults: int = 3,
+                 backoff_ticks: int = 2, backoff_cap: int = 16,
+                 chaos=None, prefix_cache: bool | None = None,
+                 tenant_weights: dict | None = None,
+                 preemption: bool = True, speculative=None,
+                 attn_parallelism: str | None = None,
+                 sp_combine: str | None = None,
+                 ep_capacity: int = 0,
+                 kv_dtype: str | None = None,
+                 host_blocks: int = 0,
+                 tp_ranks: int = 1):
+        if speculative is not None:
+            _not_in_slice("speculative decoding", "slice 2b")
+        if chaos is not None or slo_ticks is not None \
+                or (max_faults, backoff_ticks, backoff_cap) != (3, 2, 16):
+            _not_in_slice("the serving watchdog (slo_ticks, chaos, "
+                          "max_faults, backoff_ticks, backoff_cap)",
+                          "slice 2b")
+        if host_blocks:
+            _not_in_slice("the host spill tier (host_blocks)", "slice 2b")
+        if mode not in (None, "engine"):
+            if mode == "megakernel":
+                _not_in_slice("mode='megakernel'", "slice 3")
+            raise ValueError(f"mode={mode!r}: choose 'engine'")
+        if mk_opts is not None:
+            _not_in_slice("mk_opts (the megakernel decode path)", "slice 3")
+        if attn_parallelism not in (None, "tp"):
+            if attn_parallelism == "sp":
+                _not_in_slice("attn_parallelism='sp'", "slice 6")
+            raise ValueError(f"attn_parallelism={attn_parallelism!r}: "
+                             f"choose 'tp' or 'sp'")
+        if sp_combine is not None:
+            _not_in_slice("sp_combine", "slice 6")
+        if isinstance(tp_ranks, bool) \
+                or not isinstance(tp_ranks, (int, np.integer)) \
+                or tp_ranks < 1:
+            raise ValueError(f"tp_ranks must be a positive integer, got "
+                             f"{tp_ranks!r}")
+        if tp_ranks > 1:
+            _not_in_slice("tp_ranks > 1", "slice 6")
+        if getattr(model.config, "is_moe", False) or ep_capacity:
+            _not_in_slice("MoE serving (ep_capacity)", "slice 4")
+        if attn_method not in (None, "kernel", "xla"):
+            raise ValueError(f"attn_method={attn_method!r}: choose "
+                             f"'kernel' or 'xla'")
+        if attn_method == "xla" and model.device.type != "cpu":
+            _not_in_slice("attn_method='xla' on a CUDA device (the "
+                          "watchdog's plain-attention rung)", "slice 2b")
+        for t, w in (tenant_weights or {}).items():
+            if not isinstance(t, str) or not t:
+                raise ValueError(
+                    f"tenant_weights keys must be non-empty strings, "
+                    f"got {type(t).__name__} {t!r}")
+            if isinstance(w, bool) or not isinstance(
+                    w, (int, float, np.integer, np.floating)) or w <= 0:
+                raise ValueError(
+                    f"tenant_weights[{t!r}] must be a positive "
+                    f"number, got {w!r}")
+        self.model = model
+        self.params = params
+        self.b_max = b_max
+        self.max_len = max_len
+        self.block = block
+        self.num_blocks = num_blocks
+        self.prefill_chunk = prefill_chunk
+        self.attn_method = attn_method
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.seed = seed
+        self.kv_dtype = wire.resolve_wire_dtype(kv_dtype)
+        self.sched = SchedulerState.create(SchedCfg(
+            b_max=b_max, block=block, prefill_chunk=prefill_chunk,
+            prefix_caching=True if prefix_cache is None
+            else bool(prefix_cache),
+            tenant_weights=tuple(sorted((tenant_weights or {}).items())),
+            preemption=bool(preemption)))
+        self._pool = _CachePool(self)
+        self._cache: PagedKVCache | None = None
+        self._running = False
+        self._budget_extra = 0
+        self._next_rid = 0
+        self._run_wall_s = 0.0
+        self._run_t0 = 0.0
+        self._pool_blocks = (num_blocks if num_blocks is not None
+                             else b_max * (-(-max_len // block)))
+        self._steps = {"decode": 0, "prefill_prefix": 0}
+
+    # -- control-plane views (the SchedulerState is the truth) -----------
+    @property
+    def queue(self):
+        return self.sched.queue
+
+    @property
+    def _slots(self):
+        return self.sched.slots
+
+    # -- request intake ---------------------------------------------------
+    def submit(self, prompt_ids, gen_len: int, *,
+               tenant: str = "default", slo_class: str = "batch",
+               priority: int = 0, rid: int | None = None) -> int:
+        """Queue one request; returns its arrival id. Malformed requests
+        are refused here, before they reach the scheduler."""
+        raw = np.asarray(prompt_ids)
+        if raw.size == 0:
+            raise ValueError("empty prompt: at least one token id is "
+                             "required")
+        if not np.issubdtype(raw.dtype, np.integer):
+            raise ValueError(
+                f"prompt_ids must be integer token ids, got dtype "
+                f"{raw.dtype}")
+        ids = raw.astype(np.int32).reshape(-1)
+        if isinstance(gen_len, bool) \
+                or not isinstance(gen_len, (int, np.integer)):
+            raise ValueError(
+                f"gen_len must be an integer, got "
+                f"{type(gen_len).__name__} {gen_len!r}")
+        if gen_len < 1:
+            raise ValueError(f"gen_len must be >= 1, got {gen_len}")
+        total = len(ids) + gen_len
+        if total > self.max_len:
+            raise ValueError(f"{len(ids)}+{gen_len} exceeds per-slot "
+                             f"max_len={self.max_len}")
+        need = -(-total // self.block)
+        if need > self._pool_blocks:
+            raise ValueError(
+                f"request needs {need} blocks but the pool only has "
+                f"{self._pool_blocks}; raise num_blocks or max_len")
+        if not isinstance(tenant, str) or not tenant:
+            raise ValueError(
+                f"tenant must be a non-empty string, got "
+                f"{type(tenant).__name__} {tenant!r}")
+        if slo_class not in SLO_CLASSES:
+            raise ValueError(
+                f"unknown slo_class {slo_class!r}; choose from "
+                f"{SLO_CLASSES}")
+        if isinstance(priority, bool) \
+                or not isinstance(priority, (int, np.integer)):
+            raise ValueError(
+                f"priority must be an integer, got "
+                f"{type(priority).__name__} {priority!r}")
+        if rid is None:
+            rid = self._next_rid
+        else:
+            if isinstance(rid, bool) \
+                    or not isinstance(rid, (int, np.integer)):
+                raise ValueError(
+                    f"rid must be an integer, got "
+                    f"{type(rid).__name__} {rid!r}")
+            rid = int(rid)
+            if rid < self._next_rid:
+                raise ValueError(
+                    f"duplicate or non-monotone rid {rid}: arrival "
+                    f"ids must be fresh and increasing (next free is "
+                    f"{self._next_rid}) — requeue ordering is FIFO by "
+                    f"arrival id")
+        self._next_rid = rid + 1
+        self.sched.queue.append(Request(
+            rid, ids, int(gen_len), tenant=tenant, slo=slo_class,
+            priority=int(priority)))
+        if self._running:
+            # a mid-run arrival (from a stream_cb) extends the drain
+            # loop's progress budget
+            self._budget_extra += 16 * (
+                len(ids) // self.prefill_chunk + int(gen_len) + 2)
+        return rid
+
+    # -- scheduler --------------------------------------------------------
+    def _emit(self, i: int, tok: int, stream_cb):
+        s = self._slots[i]
+        serve_state.emit(self.sched, i, tok)
+        if stream_cb is not None:
+            stream_cb(s.req.rid, tok, len(s.out) - 1)
+
+    def _admit(self):
+        pre = self.sched.counters["preempted"]
+        serve_state.admit(self.sched, self._pool)
+        for _ in range(self.sched.counters["preempted"] - pre):
+            # a preempted request re-runs from its cached prefix; the
+            # drain budget must cover the retry's ticks
+            self._budget_extra += 16 * (
+                self.max_len // self.prefill_chunk
+                + self.max_len // self.block + 2)
+
+    def _generator(self):
+        """The step's generator, re-seeded from (seed, step) when
+        sampling; None for greedy."""
+        self._step += 1
+        if self.temperature <= 0.0:
+            return None
+        return self._gen.manual_seed(
+            (self.seed * 1_000_003 + self._step) % (1 << 62))
+
+    def _prefill_tick(self, stream_cb):
+        i = serve_state.pick_prefill(self.sched)
+        if i is None:
+            return
+        s = self._slots[i]
+        C = self.prefill_chunk
+        off, valid = serve_state.prefill_args(self.sched, i)
+        chunk = np.zeros((C,), np.int32)
+        chunk[:valid] = s.req.ids[off:off + valid]
+        tok, self._cache = self.model.prefill_chunk_paged(
+            self.params, chunk, self._cache, i, off, valid,
+            generator=self._generator(),
+            sampling=self.temperature > 0.0, temperature=self.temperature,
+            top_k=self.top_k)
+        self._steps["prefill_prefix"] += off > 0
+        if serve_state.prefill_advance(self.sched, i, valid):
+            # final chunk: the first generated token
+            self._emit(i, int(tok), stream_cb)
+            self._maybe_finish(i, stream_cb)
+
+    def _decode_tick(self, stream_cb):
+        live = serve_state.decode_live(self.sched)
+        if not live:
+            return
+        toks = [s.last_tok for s in self._slots]
+        active = [i in live for i in range(self.b_max)]
+        got, self._cache = self.model.decode_step_paged(
+            self.params, toks, self._cache, active, self._generator(),
+            sampling=self.temperature > 0.0, temperature=self.temperature,
+            top_k=self.top_k, attn_method=self.attn_method)
+        self._steps["decode"] += 1
+        got = got.cpu().numpy()
+        for i in live:
+            self._emit(i, int(got[i]), stream_cb)
+            self._maybe_finish(i, stream_cb)
+
+    def _maybe_finish(self, i: int, stream_cb):
+        if not serve_state.finish_ready(self.sched, i):
+            return
+        s = self._slots[i]
+        self._results[s.req.rid] = np.asarray(s.out, np.int64)
+        serve_state.finish(self.sched, i, self._pool)
+
+    def _tick(self, stream_cb=None):
+        self.sched.tick += 1
+        self._admit()
+        self._prefill_tick(stream_cb)
+        self._decode_tick(stream_cb)
+
+    # -- observability ----------------------------------------------------
+    def stats(self) -> dict:
+        """Counter snapshot of the control plane for the most recent
+        run(), with live gauges (queue, occupancy, free blocks), so a
+        snapshot from a stream_cb reads the current state. The keys
+        are the JAX engine's for what this slice serves, plus the
+        model steps the run took (`decode_steps`, `prefill_chunks`,
+        and `prefix_chunks`: chunks that merged a cached-prefix
+        partial)."""
+        c = self.sched.counters
+        cache = self._cache
+        free = (cache.num_free_blocks if cache is not None
+                else self._pool_blocks)
+        toks = c["tokens"]
+        wall = (self._run_wall_s if self._run_wall_s > 0
+                else (time.perf_counter() - self._run_t0
+                      if self._run_t0 > 0 else 0.0))
+        return {
+            "ticks": self.sched.tick,
+            "queue_depth": len(self.sched.queue),
+            "occupancy": self.sched.occupancy(),
+            "b_max": self.b_max,
+            "free_blocks": free,
+            "total_blocks": self._pool_blocks,
+            "admitted": c["admitted"],
+            "finished": c["finished"],
+            "evictions": c["evicted"],
+            "requeued": c["requeued"],
+            "prefill_chunks": c["prefill_chunks"],
+            "quarantined": len(self.sched.quarantined),
+            "faults": len(self.sched.fault_log),
+            "tokens": toks,
+            "wall_s": round(wall, 6),
+            "tokens_per_s": round(toks / wall, 1) if wall > 0 else 0.0,
+            "prefix_hit_blocks": c["prefix_hit_blocks"],
+            "prefix_miss_blocks": c["prefix_miss_blocks"],
+            "cow_copies": c["cow_copies"],
+            "cached_free_blocks": (self._pool._cached_only()
+                                   if cache is not None else 0),
+            "reclaimed_blocks": c["reclaimed_blocks"],
+            "preemptions": c["preempted"],
+            "grant_refusals": c["grant_refusals"],
+            "kv_dtype": self.kv_dtype,
+            "quant_kv_bytes_saved": self._quant_kv_bytes_saved(),
+            "decode_steps": self._steps["decode"],
+            "prefix_chunks": self._steps["prefill_prefix"],
+        }
+
+    def _quant_kv_bytes_saved(self) -> int:
+        """Device bytes the wire-width pool saves against an f32 pool
+        over the blocks in use."""
+        cache = self._cache
+        if cache is None or not cache.quantized:
+            return 0
+        L, _, hkv, blk, d = cache.k_pool.shape
+        fp32 = 2 * L * hkv * blk * d * 4
+        in_use = cache.num_blocks - cache.num_free_blocks
+        return (fp32 - cache.block_nbytes()) * in_use
+
+    # -- run loop ---------------------------------------------------------
+    def run(self, stream_cb=None) -> dict:
+        """Drive the scheduler until the queue and every slot drain.
+        Returns {rid: np.ndarray generated tokens}; `stream_cb(rid,
+        token, index)` fires per token as it is produced. Each run
+        starts from a fresh pool and prefix cache."""
+        self._cache = self.model.new_paged_kv_cache(
+            self.b_max, self.max_len, block=self.block,
+            num_blocks=self.num_blocks, kv_dtype=self.kv_dtype)
+        self.sched.reset_run()
+        self._results: dict = {}
+        self._gen = torch.Generator(device=self.model.device)
+        self._step = 0
+        self._steps = dict.fromkeys(self._steps, 0)
+        self._budget_extra = 0
+        # every tick makes progress (a chunk, a token or an admission),
+        # so hitting this bound means a scheduler or allocator bug
+        budget = 16 * (sum(len(r.ids) // self.prefill_chunk + r.gen_len + 2
+                           for r in self.queue) + 1)
+        used = 0
+        self._run_t0 = time.perf_counter()
+        self._run_wall_s = 0.0
+        self._running = True
+        try:
+            while serve_state.pending(self.sched):
+                used += 1
+                if used > budget + self._budget_extra:
+                    raise RuntimeError(
+                        "ServeEngine scheduler made no progress "
+                        "(slot/allocator bug)")
+                self._tick(stream_cb)
+        finally:
+            self._running = False
+            self._run_wall_s = time.perf_counter() - self._run_t0
+        return self._results
+
+    def serve(self, prompts, gen_lens) -> list:
+        """Submit every (prompt, gen_len) pair, run to completion, and
+        return the outputs in submission order."""
+        rids = [self.submit(p, g) for p, g in zip(prompts, gen_lens)]
+        results = self.run()
+        return [results[r] for r in rids]

@@ -6,22 +6,28 @@ Layouts follow the JAX package: q (B, Sq, H, D), k/v (B, Skv, Hkv, D),
 GQA with kv head h // (H // Hkv); decode q (B, H, D) against a cache
 (B, Smax, Hkv, D).
 
-The two kernel-bearing entries (`flash_attention[_partial]`,
-`flash_decode[_partial]`) dispatch on where their tensors lie: a CPU
-tensor goes through the plain PyTorch version beside the kernel
-(`_flash_attention_plain`, `_flash_decode_plain`); a CUDA tensor
+The paged decode reads K/V pages (num_blocks, Hkv, block, D) of one
+layer's pool through a (B, max_blocks) block table.
+
+The kernel-bearing entries (`flash_attention[_partial]`,
+`flash_decode[_partial]`, `flash_decode_paged[_partial]`) dispatch on
+where their tensors lie: a CPU tensor goes through the plain PyTorch
+version beside the kernel (`_flash_attention_plain`,
+`_flash_decode_plain`, `_flash_decode_paged_plain`); a CUDA tensor
 launches the hand-written kernel in csrc/ (FLASH_ATTENTION,
-FLASH_DECODE, each with a `launches` count) or raises on a dtype, shape
-or layout the kernel does not take. Nothing falls back from one to the
-other.
+FLASH_DECODE, FLASH_DECODE_PAGED[arm], each with a `launches` count) or
+raises on a dtype, shape or layout the kernel does not take. Nothing
+falls back from one to the other.
 
 Numerical contract, the same for a kernel and its plain version and the
 JAX kernels': scores accumulate in f32; masked scores are -1e30 (not
 -inf) and contribute nothing, and the denominator is clamped at 1e-30,
 so a row that sees no column gives out = 0 and lse ~ -1e30; p is
 rounded to the value dtype before the PV product. The prefill kernel
-takes q multiplied by the scale in q's dtype; the decode kernel scales
-the f32 scores.
+takes q multiplied by the scale in q's dtype; the decode kernels scale
+the f32 scores. The quantized paged decode folds the per-row f32 scales
+into the scores (s = q.k_q * k_scale * scale) and the probabilities
+(acc += (p * v_scale) v_q) and keeps p in f32, as the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import math
 
 import torch
 
+from . import wire
 from ._build import CudaKernel, ptr, stream_of
 
 _NEG_INF = -1e30
@@ -43,9 +50,18 @@ FLASH_DECODE = CudaKernel(
     "flash_decode", "tdt_flash_decode",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_void_p])
+# one entry point per pool dtype (arm) of csrc/flash_decode_paged.cu,
+# each with its own launch count
+FLASH_DECODE_PAGED = {
+    arm: CudaKernel("flash_decode_paged", f"tdt_flash_decode_paged_{sym}",
+                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                    + [ctypes.c_float, ctypes.c_void_p])
+    for arm, sym in (("bfloat16", "bf16"), ("int8", "int8"),
+                     ("float8_e4m3fn", "fp8"))}
 
 _KERNEL_HEAD_DIMS = (64, 128)
 _DECODE_GROUPS = (1, 2, 4, 5, 8, 10)
+_PAGED_BLOCKS = tuple(range(32, 257, 32))
 
 
 def _check_cuda(name, tensors, dtype=torch.bfloat16):
@@ -230,6 +246,143 @@ def flash_decode(q, k, v, kv_len, **kwargs):
     (B, H, D)."""
     out, _ = flash_decode_partial(q, k, v, kv_len, **kwargs)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Paged decode: K/V pages read in place through a block table
+# ---------------------------------------------------------------------------
+
+def paged_rows(pool, pages, *, scales=None):
+    """Contiguous (len(pages) * block, Hkv, D) rows of the given pages of
+    ONE layer's pool (nb, Hkv, block, D). With `scales` ((nb, Hkv,
+    block) f32) the wire-width pages are dequantized against their
+    sidecar rows and come back float32."""
+    p = wire.byte_view(pool)[pages].view(pool.dtype)   # (n, Hkv, blk, D)
+    if scales is not None:
+        p = p.float() * scales[pages][..., None]
+    p = p.transpose(1, 2)                              # (n, blk, Hkv, D)
+    return p.reshape(-1, *p.shape[2:]).contiguous()   # a view when n = 1
+
+
+def _flash_decode_paged_plain(q, k_pool, v_pool, block_table, kv_lens, *,
+                              scale, k_scales=None, v_scales=None):
+    """Plain PyTorch version of the paged decode kernel, the math of the
+    JAX `flash_decode_paged_xla`: gather every page of the table (-1
+    reads page 0), dequantize a wire-width pool, then a masked f32
+    softmax."""
+    B, H, D = q.shape
+    _, Hkv, blk, _ = k_pool.shape
+    G = H // Hkv
+    mb = block_table.shape[1]
+    pages = block_table.clamp_min(0).reshape(-1).long()
+    k = paged_rows(k_pool, pages, scales=k_scales).float()
+    v = paged_rows(v_pool, pages, scales=v_scales).float()
+    k = k.reshape(B, mb * blk, Hkv, D)
+    v = v.reshape(B, mb * blk, Hkv, D)
+    qf = q.reshape(B, Hkv, G, D).float() * scale
+    s = torch.einsum("bhgd,bshd->bhgs", qf, k)
+    cols = torch.arange(mb * blk, device=q.device)
+    seen = (cols[None, :] < kv_lens[:, None].to(cols.dtype))[:, None, None]
+    s = torch.where(seen, s, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(seen, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhgs,bshd->bhgd", p / l, v)
+    lse = (m + torch.log(l)).reshape(B, H)
+    return out.reshape(B, H, D).to(q.dtype), lse
+
+
+def flash_decode_paged_partial(q, k_pool, v_pool, block_table, kv_lens, *,
+                               scale: float | None = None, k_scales=None,
+                               v_scales=None):
+    """One decode step against a PAGED cache, reading pages in place.
+
+    q: (B, H, D) single-position queries. k_pool/v_pool: (num_blocks,
+    Hkv, block, D) ONE layer's pool (the models/paged_kv_cache.py
+    layout). block_table: (B, max_blocks) int pool indices (-1 =
+    unassigned; inside kv_len it reads page 0, as the JAX index map
+    clamps); kv_lens: (B,) valid tokens per sequence, or an int. Pages
+    past a sequence's end are never read. `k_scales`/`v_scales`
+    ((num_blocks, Hkv, block) f32) make it the quantized form over an
+    int8 / float8_e4m3fn pool. Returns (out (B, H, D), lse (B, H) f32).
+
+    On CUDA tensors it launches the kernel of the pool's dtype
+    (FLASH_DECODE_PAGED: bf16, int8 or fp8 arm) and raises on what the
+    kernel does not take: head_dim outside (64, 128), a group size
+    outside _DECODE_GROUPS, a block not a multiple of 32 in [32, 256]."""
+    B, H, D = q.shape
+    nbp, Hkv, blk, Dk = k_pool.shape
+    if v_pool.shape != k_pool.shape or Dk != D or H % Hkv \
+            or tuple(block_table.shape[:1]) != (B,):
+        raise ValueError(f"q {tuple(q.shape)}, pools {tuple(k_pool.shape)} "
+                         f"/ {tuple(v_pool.shape)}, table "
+                         f"{tuple(block_table.shape)} do not match")
+    quant = k_scales is not None
+    if quant != (v_scales is not None) \
+            or quant != (k_pool.dtype in wire.TORCH_WIRE_DTYPES.values()):
+        raise ValueError("a wire-dtype pool takes both scale sidecars, "
+                         "any other pool neither")
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    if isinstance(kv_lens, torch.Tensor):
+        kv_lens = kv_lens.to(device=q.device, dtype=torch.int32).expand(B)
+    else:
+        kv_lens = torch.full((B,), int(kv_lens), dtype=torch.int32,
+                             device=q.device)
+    block_table = block_table.to(device=q.device, dtype=torch.int32)
+    if _on_cpu(q):
+        return _flash_decode_paged_plain(
+            q, k_pool, v_pool, block_table, kv_lens, scale=scale,
+            k_scales=k_scales, v_scales=v_scales)
+    arm = str(k_pool.dtype).removeprefix("torch.")
+    if arm not in FLASH_DECODE_PAGED:
+        raise TypeError(f"flash_decode_paged: no kernel for a "
+                        f"{k_pool.dtype} pool")
+    _check_cuda("flash_decode_paged", (q,))
+    _check_cuda("flash_decode_paged", (k_pool, v_pool), k_pool.dtype)
+    if quant:
+        _check_cuda("flash_decode_paged", (k_scales, v_scales),
+                    torch.float32)
+    kv_lens = kv_lens.contiguous()
+    block_table = block_table.contiguous()
+    if D not in _KERNEL_HEAD_DIMS or H // Hkv not in _DECODE_GROUPS \
+            or blk not in _PAGED_BLOCKS:
+        raise ValueError(
+            f"flash_decode_paged: head_dim {D} / group {H // Hkv} / block "
+            f"{blk} not in {_KERNEL_HEAD_DIMS} / {_DECODE_GROUPS} / "
+            f"multiples of 32 up to 256")
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return out, lse
+    null = ctypes.c_void_p(0)
+    FLASH_DECODE_PAGED[arm].launch(
+        ptr(q), ptr(k_pool), ptr(v_pool),
+        ptr(k_scales) if quant else null, ptr(v_scales) if quant else null,
+        ptr(block_table), ptr(kv_lens), ptr(out), ptr(lse),
+        B, nbp, H, Hkv, D, blk, block_table.shape[1], float(scale),
+        stream_of(q))
+    return out, lse
+
+
+def flash_decode_paged(q, k_pool, v_pool, block_table, kv_lens, *,
+                       scale: float | None = None,
+                       method: str | None = None, k_scales=None,
+                       v_scales=None):
+    """Paged decode step; returns out (B, H, D). `method` None or
+    "kernel" reads pages in place (the kernel on CUDA, its plain version
+    on the CPU); "xla", the JAX package's gather path, is the plain
+    version, which the port runs on the CPU only (on the card it is the
+    watchdog's demotion rung, ROADMAP Queue A slice 2b)."""
+    if method not in (None, "kernel", "xla"):
+        raise ValueError(f"method {method!r}: choose 'kernel' or 'xla'")
+    if method == "xla" and not _on_cpu(q):
+        raise NotImplementedError(
+            "flash_decode_paged(method='xla') on a CUDA device is the "
+            "demotion rung of the serving watchdog (ROADMAP Queue A, "
+            "slice 2b)")
+    return flash_decode_paged_partial(
+        q, k_pool, v_pool, block_table, kv_lens, scale=scale,
+        k_scales=k_scales, v_scales=v_scales)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,28 @@ Phases, in order; any failure raises and exits non-zero:
      prefix hits, copy-on-write, exact launch counts, conservation,
      a rerun with identical tokens), then the int8 and fp8 pools; with
      --profile, the device's idle share over a short serve run;
- 10. one JSON line of per-kernel numbers, then the device JSON line.
+ 10. the megakernel (csrc/megakernel.cu) against its plain queue walk on
+     2-layer decode graphs: f32 at hidden 256 (1e-4 of the largest
+     value), and at Qwen3-8B widths for the main path's two programs
+     (one decode row and a 256-row chunk at cache_len 500) in f32
+     (1e-4) and bf16 (2e-2);
+ 11. a small model's MegaDecoder on the GPU (kernel) against the same
+     model on the CPU (plain walk), f32: greedy tokens equal;
+ 12. the slice-3 main path: MegaDecoder.from_dense over the same Qwen3-8B
+     weights, max_cache 1024, a 500-token prompt (two 256-row chunks),
+     32 greedy tokens: exactly 2 + 31 megakernel launches and no other
+     kernel's, identical tokens on a rerun, the first token equal to
+     Engine.serve's, teacher-forced hidden rows within 5e-2 of the
+     engine's; prefill ms, decode ms per step and tokens/s, aten ops per
+     decode step; with --profile, the device's idle share over decode
+     steps;
+ 13. the main path's Qwen3-8B programs on copies of the caches it
+     filled, the 256-row prefill chunk at cache_len 256 and the decode
+     step at cache_len 500: the kernel against its plain walk and the
+     golden executor (5e-2 of the largest value), outputs and appended
+     K/V rows of every layer; the decode step's times and bound; with
+     --profile, a breakdown of the step's time;
+ 14. one JSON line of per-kernel numbers, then the device JSON line.
 Without a GPU it exits non-zero before printing anything.
 """
 
@@ -51,6 +72,12 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_8BIT_OPS = 1979e12    # H100 SXM dense int8 / fp8 tensor-core rate
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
 OUT_TOL = 2e-2             # bf16 outputs: p and out rounded at other points
+MK_F32_TOL = 1e-4          # megakernel f32, of max |ref|: summation order
+MK_BF16_TOL = 5e-2         # megakernel bf16 x 36 layers, of max |ref|: a
+                           # bf16 rounding step in one layer carries on
+MK_BF16_2L_TOL = 2e-2      # megakernel bf16 x 2 layers, of max |ref|: one-
+                           # ulp flips of a bf16 rounding (as the 2-layer
+                           # GPU tests, tests/test_torch_cuda.py MK_TOL)
 LSE_TOL = 1e-3             # f32 lse from f32 scores: summation order, exp2
 COLD_COPIES = 4            # input copies rotated so each launch finds L2 cold
 
@@ -551,23 +578,362 @@ def check_serve(models, attn, model, params, cfg, seed, smi, profile):
     return total
 
 
-def profile_decode(engine, tok, cache, step_ms, steps=3):
-    """Device-busy time of a decode step from a profiler trace, against
-    the step's wall time measured without the profiler (`step_ms`)."""
+def profile_steps(name, step, steps, step_ms):
+    """Device-busy ms per step of `steps` calls of `step()` from a
+    profiler trace, against the step's wall time measured without the
+    profiler (`step_ms`). Returns the busy ms."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            tok, cache = engine.step(tok, cache)
+            step()
         torch.cuda.synchronize()
     rows = [(getattr(e, "self_device_time_total", 0) / 1e3 / steps, e.key,
              e.count // steps) for e in prof.key_averages()]
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile: decode step device-busy {busy:.3f} ms of {step_ms:.3f} "
-          f"ms wall: idle share {1 - busy / step_ms:.3f}")
-    for ms, name, count in rows[:8]:
-        print(f"profile:   {ms:8.3f} ms/step  {count:5d}/step  {name[:70]}")
+    print(f"profile{name}: decode step device-busy {busy:.3f} ms of "
+          f"{step_ms:.3f} ms wall: idle share {1 - busy / step_ms:.3f}")
+    for ms, key, count in rows[:8]:
+        print(f"profile{name}:   {ms:8.3f} ms/step  {count:5d}/step  "
+              f"{key[:70]}")
+    return busy
+
+
+def profile_decode(engine, tok, cache, step_ms, steps=3):
+    """Device-busy time of an Engine decode step (profile_steps)."""
+    state = [tok, cache]
+
+    def step():
+        state[0], state[1] = engine.step(state[0], state[1])
+
+    return profile_steps("", step, steps, step_ms)
+
+
+def _mk_kernel_vs_plain(prog, x, cache_len, start=None):
+    """One step of a megakernel program through the kernel, then through
+    its plain queue walk, each from its own copy of the caches (`start`,
+    or the bound ones, which are bound again afterwards). Returns
+    ((kernel out, plain out), (kernel rows, plain rows)) with the
+    appended rows [cache_len, +S) of every cache, in prog.caches order."""
+    S = x.shape[0]
+    bound = prog.caches
+    start = bound if start is None else start
+    outs, rows = [], []
+    for plain in (False, True):
+        prog.bind_caches({n: t.clone() for n, t in start.items()})
+        out = prog.step({"x": x}, cache_len, plain=plain)[0]
+        torch.cuda.synchronize()
+        prog.check_fault()
+        outs.append(out.float().clone())
+        rows.append(torch.cat([c[cache_len:cache_len + S].float()
+                               for c in prog.caches.values()]))
+    if bound:
+        prog.bind_caches(bound)
+    return outs, rows
+
+
+def _rel_err(a, b):
+    return (a - b).abs().max().item() / b.abs().max().item()
+
+
+def _device_io(mb, dev, seed):
+    """Random f32 inputs and weights on the device for a built graph:
+    x ~ N(0, 1), caches ~ N(0, 0.25), norm weights 1 + |N(0, 0.04)|,
+    dense weights N(0, 1 / rows) so that activations keep their scale
+    at any width."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(h, scale):
+        return torch.randn(h.shape, generator=gen, device=dev) * scale
+
+    g = mb.graph
+    ins = {n: draw(h, 1.0 if n == "x" else 0.5) for n, h in g.inputs.items()}
+    ws = {n: draw(h, 0.2).abs() + 1.0 if "ln" in n or "norm" in n
+          else draw(h, h.rows ** -0.5) for n, h in g.weights.items()}
+    return ins, ws
+
+
+def check_megakernel_graphs(dev):
+    """2-layer decode graphs, the kernel against its plain walk on the
+    card: in f32 (MK_F32_TOL) at hidden 256 (head_dim 128, G 4), one
+    decode row at cache_len 37 and a 24-row chunk at cache_len 13; in
+    f32 and in bf16 (MK_BF16_2L_TOL) at Qwen3-8B widths (hidden 4096,
+    32/8 heads, head_dim 128, intermediate 12288, max_cache 1024), the
+    main path's two programs, one decode row and a 256-row chunk, at
+    cache_len 500."""
+    from triton_distributed_tpu_torch.megakernel.models import (
+        build_qwen3_decode)
+    small = dict(hidden=256, intermediate=512, num_heads=8, num_kv_heads=2,
+                 max_cache=128)
+    wide = dict(hidden=4096, intermediate=12288, num_heads=32,
+                num_kv_heads=8, max_cache=1024, rope_theta=1e6)
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: MK_F32_TOL, bf16: MK_BF16_2L_TOL}
+    for S, cl, dims, dt in ((1, 37, small, f32), (24, 13, small, f32),
+                            (1, 500, wide, f32), (256, 500, wide, f32),
+                            (1, 500, wide, bf16), (256, 500, wide, bf16)):
+        mb = build_qwen3_decode(seq_len=S, num_layers=2, head_dim=128,
+                                qk_norm=True, kv_append=True, dtype=dt,
+                                **dims)
+        ins, ws = ({n: t.to(dt) for n, t in d.items()}
+                   for d in _device_io(mb, dev, S))
+        prog = mb.compile("kernel", device=dev)
+        prog.bind_weights(ws)
+        start = {n: ins[n] for n in mb.graph.caches}
+        (ko, po), (kr, pr) = _mk_kernel_vs_plain(prog, ins["x"], cl, start)
+        e, er = _rel_err(ko, po), _rel_err(kr, pr)
+        print(f"megakernel {str(dt)[6:]} 2 layers, hidden {dims['hidden']} "
+              f"S={S} cache_len {cl}: out {e:.3e}, appended rows {er:.3e} "
+              f"of max |plain|")
+        assert e <= tol[dt] and er <= tol[dt], (dt, S, e, er)
+        del prog, ins, ws, start
+        torch.cuda.empty_cache()
+
+
+def check_megadecoder_small(models, seed):
+    """A small Qwen3-shaped model's MegaDecoder in f32 on the GPU (the
+    kernel) against the same weights on the CPU (the plain walk): a
+    37-token prompt in 16-row chunks (11 pad rows), 8 greedy tokens."""
+    from triton_distributed_tpu_torch.megakernel import MegaDecoder
+    cfg = models.get_config("Qwen/Qwen3-8B").tiny(
+        hidden_size=256, num_heads=8, num_kv_heads=2, head_dim=128,
+        intermediate_size=512, vocab_size=512, num_layers=2)
+    cpu = models.DenseLLM(cfg, dtype="float32", device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(seed))
+    gpu = models.DenseLLM(cfg, dtype="float32", device="cuda")
+    gparams = {"embed": params["embed"].cuda(), "norm": params["norm"].cuda(),
+               "lm_head": params["lm_head"].cuda(),
+               "layers": {k: t.cuda() for k, t in params["layers"].items()}}
+    prompt = np.random.RandomState(seed).randint(0, cfg.vocab_size, 37)
+    toks = [MegaDecoder.from_dense(m, p, max_cache=64, prompt_len=37,
+                                   prefill_chunk=16, device=d).serve(prompt, 8)
+            for m, p, d in ((cpu, params, "cpu"), (gpu, gparams, "cuda"))]
+    print(f"small MegaDecoder f32 GPU (kernel) vs CPU (plain walk): "
+          f"{toks[1].tolist()} vs {toks[0].tolist()}")
+    assert np.array_equal(toks[0], toks[1])
+
+
+def check_megadecoder(attn, model, params, cfg, prompt, engine_toks, smi,
+                      profile):
+    """The slice-3 main path: MegaDecoder over the engine cell's weights
+    and its first prompt. Returns (decoder, tokens, launches)."""
+    from triton_distributed_tpu_torch.megakernel import MegaDecoder
+    from triton_distributed_tpu_torch.megakernel import executor_cuda as mkx
+    P, GEN = len(prompt), engine_toks.shape[0]
+    md = MegaDecoder.from_dense(model, params, max_cache=1024, prompt_len=P)
+    others = [attn.FLASH_ATTENTION, attn.FLASH_DECODE,
+              *attn.FLASH_DECODE_PAGED.values()]
+    for k in [mkx.MEGAKERNEL, *others]:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = md.serve(prompt, GEN)
+    first_s = time.perf_counter() - t0
+    launches = mkx.MEGAKERNEL.launches
+    print(f"megadecoder: {toks.shape[0]} tokens, {first_s * 1e3:.1f} ms "
+          f"(first call), megakernel launches {launches} "
+          f"({md._n_prefill_chunks} prefill chunks + {GEN - 1} decode steps)")
+    assert toks.shape == (GEN,) and toks.dtype == np.int32
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    assert launches == md._n_prefill_chunks + GEN - 1 == 2 + 31, launches
+    assert all(k.launches == 0 for k in others), [k.launches for k in others]
+    again = md.serve(prompt, GEN)
+    assert np.array_equal(again, toks), "a second serve gave other tokens"
+    print("megadecoder: a second serve gives identical tokens")
+    # timing: prefill alone (serve of one token), then the whole serve
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    md.serve(prompt, 1)
+    t1 = time.perf_counter()
+    md.serve(prompt, GEN)
+    t2 = time.perf_counter()
+    prefill_ms = (t1 - t0) * 1e3
+    step_ms = ((t2 - t1) - (t1 - t0)) / (GEN - 1) * 1e3
+    print(f"megadecoder prefill ms {prefill_ms:.2f} (S={P}, 2 chunks of "
+          f"256) | decode {step_ms:.3f} ms/step, tokens/s "
+          f"{1e3 / step_ms:.1f} (batch 1, {GEN - 1} steps) | {smi}")
+    tok = torch.as_tensor(toks[-1:], device=model.device)
+    with OpCount() as ops:
+        h, _ = md._decode_hidden(tok, P + GEN - 1, None)
+        md._pick(h, None, 1.0, sampling=False, top_k=1)
+    torch.cuda.synchronize()
+    print(f"megadecoder decode step: {ops.n} aten ops dispatched on the "
+          f"host and 1 megakernel launch")
+    # against the engine: the first token, then teacher forcing
+    ref_first = int(engine_toks[0])
+    print(f"megadecoder first token {int(toks[0])}, Engine.serve's "
+          f"{ref_first}; greedy agreement over {GEN} tokens (information "
+          f"only, random weights): "
+          f"{int((toks == engine_toks).sum())}/{GEN}")
+    assert int(toks[0]) == ref_first
+    forced = md.teacher_forced(prompt, engine_toks[:-1])
+    eng = []
+    last, cache = model._prefill_hidden(params, prompt[None],
+                                        model.new_kv_cache(1, 1024))
+    eng.append(last.float())
+    for t in engine_toks[:-1]:
+        x, cache = model._decode_hidden(
+            params, torch.tensor([int(t)], device=model.device), cache)
+        eng.append(x.float())
+    eng = torch.cat(eng)
+    errs = [_rel_err(forced[i], eng[i]) for i in range(GEN)]
+    print(f"megadecoder teacher-forced hidden rows vs the engine's: max "
+          f"{max(errs):.3e} of max |engine row| (steps 0..{GEN - 1}: "
+          f"{' '.join(f'{e:.2e}' for e in errs)})")
+    assert max(errs) <= MK_BF16_TOL, errs
+    if profile:
+        state = [tok]
+
+        def step():
+            h, _ = md._decode_hidden(state[0], P + GEN - 1, None)
+            state[0] = md._pick(h, None, 1.0, sampling=False, top_k=1)
+
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 8 * 1e3
+        profile_steps(" megadecoder", step, 8, wall)
+    return md, toks, launches
+
+
+def megakernel_breakdown(prog, ms, cl):
+    """Where a decode step's time goes, from launches of the same kernel:
+    the step at cache_len 0 (the attention over the prefix is the
+    difference), one graph per projection shape on the model's own
+    weight views (torch.mm beside it as a yardstick), and the latency of
+    a dependent single-tile stage (a chain of 72 adds less one add)."""
+    from triton_distributed_tpu_torch.megakernel.builder import ModelBuilder
+    x = prog.inputs["x"].clone()
+    ms0 = time_ms([lambda: prog.step({"x": x}, 0)])
+    # host time of a step call while earlier launches are still running:
+    # near the kernel's time if a cooperative launch waits for them
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        prog.step({"x": x}, cl)
+    host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda.synchronize()
+    print(f"megakernel breakdown: host ms per step call, 10 calls without "
+          f"a sync: {host_ms:.3f}")
+    print(f"megakernel breakdown: step at cache_len 0 {ms0:.4f} ms, so the "
+          f"attention over {cl} cached rows costs ~{ms - ms0:.4f} ms")
+    dt, dev = prog.dtype, prog.device
+    line = []
+    for name in ("w_qkv", "w_o", "w_gate", "w_down"):
+        w = prog.weights[f"l0.{name}"]
+        K, N = w.shape
+        mb = ModelBuilder(dtype=dt)
+        mb.output(mb.linear(mb.input("x", (1, K)), mb.weight("w", (K, N))))
+        p = mb.compile("kernel", device=dev)
+        p.bind_weights({"w": w})
+        xx = torch.randn((1, K), device=dev).to(dt)
+        us = time_ms([lambda: p.step({"x": xx}, 0)], reps=50) * 1e3
+        mm = time_ms([lambda: torch.mm(xx, w)], reps=50) * 1e3
+        p.check_fault()
+        line.append(f"{name} {K}x{N} {us:.1f} us ({K * N * 2 / us / 1e6:.2f} "
+                    f"TB/s; torch.mm {mm:.1f} us)")
+    print("megakernel breakdown: one linear per launch: " + "; ".join(line))
+    us = []
+    for n in (1, 73):
+        mb = ModelBuilder(dtype=dt)
+        h0 = h = mb.input("x", (1, 4096))
+        for _ in range(n):
+            h = mb.add(h, h0)
+        mb.output(h)
+        p = mb.compile("kernel", device=dev)
+        p.bind_weights({})
+        xx = torch.randn((1, 4096), device=dev).to(dt)
+        us.append(time_ms([lambda: p.step({"x": xx}, 0)], reps=50) * 1e3)
+        p.check_fault()
+    print(f"megakernel breakdown: a launch of one add task {us[0]:.2f} us; "
+          f"each further dependent single-tile stage {(us[1] - us[0]) / 72:.2f}"
+          f" us")
+
+
+def _mk_golden(md, cfg, x, cl):
+    """The golden executor on a fresh build of the decoder's program of
+    x.shape[0] rows, from its bound caches and weights at cache_len
+    `cl`: (output, the appended rows of every cache in prog.caches
+    order)."""
+    from triton_distributed_tpu_torch.megakernel.models import (
+        build_qwen3_decode)
+    S = x.shape[0]
+    prog = md._prog_decode if S == 1 else md._prog_prefill
+    mb = build_qwen3_decode(
+        seq_len=S, hidden=cfg.hidden_size,
+        intermediate=cfg.intermediate_size, num_layers=cfg.num_layers,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, max_cache=md.cfg["max_cache"],
+        rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+        rms_eps=cfg.rms_norm_eps, kv_append=True, dtype=md.dtype)
+    g = mb.graph
+    kv = [nd for nd in g.nodes if nd.op == "kv_append"]
+    g.outputs.extend(nd.out for nd in kv)
+    names = {h.idx: n for n, h in g.caches.items()}
+    gold = mb.compile("graph").run({"x": x, **prog.caches}, prog.weights,
+                                   {"cache_len": cl})
+    new = {names[nd.inputs[1].idx]: c for nd, c in zip(kv, gold[1:])}
+    return gold[0].float(), torch.cat([new[n][cl:cl + S].float()
+                                       for n in prog.caches])
+
+
+def check_megakernel_main(md, cfg, prompt, smi, profile):
+    """The main path's two programs on the caches its serve filled, each
+    from copies of them: the 256-row prefill chunk at cache_len 256 (the
+    prompt's second chunk with its 12 pad rows) and the decode step at
+    cache_len 500, through the kernel, its plain walk and the golden
+    executor; then the decode step's times and bound."""
+    P, C = len(prompt), md.prefill_chunk
+    ids = torch.as_tensor(prompt, device=md.device)
+    x_pre = md.embed[ids[C:]]
+    x_pre = torch.cat([x_pre, x_pre.new_zeros((2 * C - P, x_pre.shape[1]))])
+    gen = torch.Generator(device=md.device).manual_seed(5)
+    x = md.embed[torch.randint(0, cfg.vocab_size, (1,), generator=gen,
+                               device=md.device)]
+    cl = P
+    abs_err = 0.0
+    for what, prog, xx, c0 in (("prefill chunk", md._prog_prefill, x_pre, C),
+                               ("decode step", md._prog_decode, x, cl)):
+        (ko, po), (kr, pr) = _mk_kernel_vs_plain(prog, xx, c0)
+        go, gr = _mk_golden(md, cfg, xx, c0)
+        err_p, rows_p = _rel_err(ko, po), _rel_err(kr, pr)
+        err_g, rows_g = _rel_err(ko, go), _rel_err(kr, gr)
+        ab = max((ko - po).abs().max().item(), (kr - pr).abs().max().item())
+        abs_err = max(abs_err, ab)
+        print(f"megakernel {str(md.dtype)[6:]} Qwen3-8B {what} "
+              f"({xx.shape[0]} rows), cache_len {c0}: vs plain walk out "
+              f"{err_p:.3e}, appended rows {rows_p:.3e}; vs golden out "
+              f"{err_g:.3e}, appended rows {rows_g:.3e} (of max |ref|; max "
+              f"abs vs plain {ab:.3e})")
+        assert torch.isfinite(ko).all() and torch.isfinite(kr).all()
+        assert max(err_p, rows_p, err_g, rows_g) <= MK_BF16_TOL, what
+        del ko, po, kr, pr, go, gr
+    prog = md._prog_decode
+    ms = time_ms([lambda: prog.step({"x": x}, cl)])
+    prog.check_fault()
+    plain_ms = time_ms([lambda: prog.step({"x": x}, cl, plain=True)],
+                       reps=1, rounds=1)
+    costs = prog.task_costs(cl)
+    moved = sum(c["bytes"] for c in costs)
+    flops = sum(c["flops"] for c in costs)
+    bms, by = bound(moved, flops)
+    tiles = int(prog.n_tiles.sum())
+    print(f"megakernel: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{bms:.4f} ms ({by}: {moved / 1e9:.3f} GB, {flops / 1e9:.2f} "
+          f"GFLOP), {len(prog.tasks)} tasks in {tiles} tiles on "
+          f"{prog.n_sm} SMs; no single library call computes the step | "
+          f"{smi}")
+    if profile:
+        megakernel_breakdown(prog, ms, cl)
+    return {"name": "megakernel", "route": "cuda",
+            "source": "triton_distributed_tpu_torch/csrc/megakernel.cu",
+            "replaces": "triton_distributed_tpu/megakernel/executor_pallas.py:106",
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
 def main():
@@ -667,6 +1033,14 @@ def main():
         k["launches"] = launches.get(k["name"], 0) \
             + serve_launches.get(k["name"], 0)
         assert k["launches"] > 0, k["name"]
+
+    check_megakernel_graphs(dev)
+    check_megadecoder_small(models, args.seed)
+    md, _, mk_launches = check_megadecoder(attn, model, params, cfg, ids[0],
+                                           toks[0], smi, args.profile)
+    mk = check_megakernel_main(md, cfg, ids[0], smi, args.profile)
+    mk["launches"] = mk_launches
+    kernels.append(mk)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (prefill flash attention, decode, and the paged
-decode over bf16, int8 and fp8 pools) against their plain PyTorch
-versions, on the GPU. Every test here needs an NVIDIA GPU with nvcc and skips without one.
+"""The port's CUDA kernels (prefill flash attention, decode, the paged
+decode over bf16, int8 and fp8 pools, and the megakernel) against their
+plain PyTorch versions, on the GPU. Every test here needs an NVIDIA GPU with nvcc and skips without one.
 The file imports neither jax nor the JAX package, so it runs on a GPU
 box without them:
 
@@ -9,12 +9,20 @@ box without them:
 Tolerances: outputs are bf16, compared at 2e-2 absolute (bf16 rounding
 of p and of the output at different points of a blocked vs one-shot
 softmax); lse is f32 from f32 scores, compared at 1e-3 (summation order
-and the exp2-based exponential).
+and the exp2-based exponential). The megakernel's outputs and appended
+cache rows are compared as a fraction of the largest reference value:
+1e-4 in f32 (summation order over two layers), 2e-2 in bf16 (a value
+that rounds to the other side of a bf16 step in one task carries into
+the next).
 """
 
+import numpy as np
 import pytest
 import torch
 
+from triton_distributed_tpu_torch.megakernel import executor_cuda as mkx
+from triton_distributed_tpu_torch.megakernel.models import (
+    build_qwen3_decode, build_qwen3_forward, init_random_io)
 from triton_distributed_tpu_torch.ops import attention as attn
 
 pytestmark = pytest.mark.cuda
@@ -174,3 +182,123 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     kv32 = torch.zeros((2, 8, 1, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):    # head_dim 32 has no kernel
         attn.flash_decode(q32, kv32, kv32, 4)
+
+
+# -- the megakernel -----------------------------------------------------------
+
+MK_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _mk_case(device, dtype, S, qk_norm, D, G=4, Hkv=2, layers=2,
+             max_cache=160):
+    mb = build_qwen3_decode(
+        seq_len=S, hidden=256, intermediate=384, num_layers=layers,
+        num_heads=G * Hkv, num_kv_heads=Hkv, head_dim=D,
+        max_cache=max_cache, qk_norm=qk_norm, kv_append=True, dtype=dtype)
+    ins, ws = init_random_io(mb, np.random.default_rng(S + D))
+    prog = mb.compile("kernel", device=device)
+    return mb, prog, ins, ws
+
+
+def _mk_kernel_and_plain(prog, ins, cache_len):
+    """Kernel outputs and caches, then the plain walk's from the same
+    starting caches."""
+    dt, dev = prog.dtype, prog.device
+    start = {n: torch.as_tensor(ins[n]).to(dev, dt) for n in prog.graph.caches}
+    x = torch.as_tensor(ins["x"]).to(dev, dt)
+    runs = []
+    for plain in (False, True):
+        prog.bind_caches({n: t.clone() for n, t in start.items()})
+        before = mkx.MEGAKERNEL.launches
+        outs = prog.step({"x": x}, cache_len, plain=plain)
+        torch.cuda.synchronize()
+        prog.check_fault()
+        assert mkx.MEGAKERNEL.launches == before + (0 if plain else 1)
+        runs.append(([o.float().clone() for o in outs],
+                     {n: t.float().clone() for n, t in prog.caches.items()}))
+    return runs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,cache_len,qk_norm,D", [
+    (1, 0, True, 128), (1, 37, True, 128), (1, 101, False, 64),
+    (24, 0, True, 128), (24, 37, False, 128), (70, 13, True, 64),
+])
+def test_megakernel_matches_plain(cuda, dtype, S, cache_len, qk_norm, D):
+    mb, prog, ins, ws = _mk_case(cuda, dtype, S, qk_norm, D)
+    prog.bind_weights({n: torch.as_tensor(w).to(cuda, dtype)
+                       for n, w in ws.items()})
+    (ko, kc), (po, pc) = _mk_kernel_and_plain(prog, ins, cache_len)
+    tol = MK_TOL[dtype]
+    for a, b in zip(ko, po):
+        assert torch.isfinite(a).all()
+        err = (a - b).abs().max().item()
+        assert err <= tol * b.abs().max().item(), err
+    rows = slice(cache_len, cache_len + S)
+    for n in kc:
+        a, b = kc[n][rows], pc[n][rows]
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item(), n
+        assert torch.equal(kc[n][:cache_len], pc[n][:cache_len])
+
+
+def test_megakernel_attention_without_cache(cuda):
+    """The `attention` op (no cache, positions from 0) through the ATTN
+    body, in a whole-forward graph."""
+    mb = build_qwen3_forward(seq_len=20, hidden=256, intermediate=384,
+                             num_layers=2, num_heads=8, num_kv_heads=2,
+                             head_dim=128)
+    ins, ws = init_random_io(mb, np.random.default_rng(3))
+    got = mb.compile("kernel", device=cuda).run(ins, ws)[0]
+    ref = mb.compile("kernel", device="cpu").run(ins, ws)[0]
+    err = (got.cpu() - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item(), err
+
+
+def test_megakernel_bounded_wait_names_the_task(cuda):
+    """A task made to wait on itself never becomes ready: a wait passes
+    its budget, the launch ends, and the host raises naming the first
+    unfinished task; the program then runs again."""
+    mb, prog, ins, ws = _mk_case(cuda, torch.float32, 1, True, 128)
+    prog.wait_budget_ns = int(0.05e9)
+    prog.bind_weights({n: torch.as_tensor(w).to(cuda) for n, w in
+                       ws.items()})
+    t = 5
+    prog.deps[t] = prog.deps[t] + [t]
+    prog._desc = None
+    x = torch.as_tensor(ins["x"]).to(cuda)
+    prog.step({"x": x}, 3)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match=f"first unfinished task is task "
+                                           f"{t} "):
+        prog.check_fault()
+    prog.deps[t] = prog.deps[t][:-1]
+    prog._desc = None
+    prog.step({"x": x}, 3)
+    torch.cuda.synchronize()
+    prog.check_fault()
+
+
+def test_megakernel_refuses_what_it_does_not_take(cuda):
+    mb = build_qwen3_decode(seq_len=1, hidden=256, intermediate=384,
+                            num_layers=1, num_heads=4, num_kv_heads=2,
+                            head_dim=32, max_cache=16, kv_append=True)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        mb.compile("kernel", device=cuda)
+    mb = build_qwen3_decode(seq_len=1, hidden=260, intermediate=384,
+                            num_layers=1, num_heads=4, num_kv_heads=2,
+                            head_dim=64, max_cache=16, kv_append=True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        mb.compile("kernel", device=cuda)
+    mb = build_qwen3_decode(seq_len=1, hidden=256, intermediate=384,
+                            num_layers=1, num_heads=4, num_kv_heads=2,
+                            head_dim=64, max_cache=16, kv_append=True,
+                            dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        mb.compile("kernel", device=cuda)
+    mb = build_qwen3_decode(seq_len=1, hidden=256, intermediate=384,
+                            num_layers=1, num_heads=4, num_kv_heads=2,
+                            head_dim=64, max_cache=16, kv_append=True)
+    with pytest.raises(ValueError, match="n_sm"):
+        mb.compile("kernel", device=cuda, n_sm=4)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert mb.compile("kernel", device=cuda).n_sm == sms

@@ -6,10 +6,14 @@ The layout mirrors the JAX package (`ops/`, `layers/`, `models/`,
 code is PyTorch; every Pallas kernel on a ported path is a CUDA C++
 kernel under `csrc/`, built with `nvcc` at first use and loaded with
 ctypes (`ops/_build.py`). One rank only so far: dense Qwen3 / Llama
-generation through `models.Engine`.
+generation through `models.Engine`, continuous batching through
+`models.ServeEngine`, and the megakernel decode path through
+`MegaDecoder` (megakernel/).
 """
 
 __version__ = "0.1.0"
 
 from . import runtime  # noqa: F401
 from .runtime import default_device  # noqa: F401
+from .megakernel import MegaDecoder  # noqa: F401
+from .models import Engine  # noqa: F401

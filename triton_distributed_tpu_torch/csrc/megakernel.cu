@@ -1,0 +1,764 @@
+// The megakernel: one persistent kernel that walks per-SM task queues over
+// a whole transformer trunk (a decode step, or one prefill chunk).
+//
+// Replaces: triton_distributed_tpu/megakernel/executor_pallas.py::_kernel
+// (:106, launched by ExecutorPallas._pallas :3046) — TPU kernel row 5 of
+// PERF.md. It carries the task bodies LINEAR (:328), RMS_NORM (:598),
+// SILU_MUL and ADD (:640), ATTN (:885; with rope_cs :797, head_prep :819,
+// attn_step :834, head_rms :879) and KVA_K / KVA_V (:1512 / :1559). The
+// paged bodies (ATTN_P, KVA_PK, KVA_PV), GROUPED_GEMM and the collective
+// bodies (AR, A2A, GEMM_AR) come with later slices.
+//
+// The host side is megakernel/executor_cuda.py: one descriptor row per
+// task (a graph node cut into tiles), a flat list of each task's producer
+// tasks, and per-SM queues of packed (task << 20 | tile) entries from
+// scheduler.schedule — a round-robin deal of ONE topological order of all
+// (task, tile) items, so each queue lists its items in that order.
+//
+// Persistent walk. One CTA per SM, launched with cudaLaunchCooperativeKernel
+// so that every CTA is resident at once (or the launch fails with
+// cudaErrorCooperativeLaunchTooLarge, which the wrapper raises). Each CTA
+// walks its own queue in order. A scoreboard keeps one counter per task,
+// counting its finished tiles. Before a tile, thread 0 spins with
+// ld.acquire.gpu until every producer task's counter reaches its tile count
+// (node-level dependencies), then __syncthreads(). After a tile, all threads
+// have stored, __syncthreads(), and thread 0 does __threadfence() +
+// atomicAdd on its task's counter (a release).
+//
+// Why it cannot deadlock. Take the first unfinished item of the global
+// order. Its producers' items come earlier in that order, so they are
+// finished. The items before it in its own queue come earlier too, so its
+// CTA has reached it; the CTA is resident, so it runs it. Every item
+// therefore finishes, by induction along the order. A missing dependency
+// edge breaks no wait but gives a wrong answer, which the plain walk and
+// the comparisons catch; a wait that still does not end (a broken table)
+// is bounded: after the budget (about a second, on %globaltimer) thread 0
+// records (code, task, producer) in a device flag and every CTA returns.
+// The host reads the flag after the stream syncs and raises naming the
+// task. A launch that finds the flag set returns at once.
+//
+// Scoreboard reset: an epoch passed by each launch. Counters are never
+// cleared; launch e waits for e x tiles (u32 arithmetic, compared by signed
+// difference), so no memset runs between launches. After a fault the host
+// zeroes the counters and restarts the epochs.
+//
+// Coherence. Activations written inside the launch are read by other SMs
+// only through plain ld.global (never ld.global.nc / __ldg / const
+// __restrict__), after the acquire. Weights, the RoPE table and the cache
+// prefix [0, cache_len) (written by earlier launches) go through __ldg. The
+// cache appends of a launch write rows [cache_len, cache_len + S), which no
+// task of the same launch reads from the cache.
+//
+// Numerics (the plain walk in executor_cuda.py rounds at the same points):
+// LINEAR accumulates in f32 and rounds to the graph dtype T once; RMS_NORM
+// and SILU_MUL compute in f32; ADD rounds the f32 sum. ATTN and KVA_K prepare
+// each q / k head row as the golden executor does: per-head RMSNorm in f32
+// rounded to T, then rotate-half RoPE in f32 from the (positions, D/2) f32
+// table of rope_cos_sin (no sinf in the kernel), rounded to T, with the
+// products and differences not contracted into FMAs. Scores are f32 dots
+// times 1/sqrt(D); an online softmax in f32 over 64-key chunks of the cache
+// prefix then of the current rows (causal); p is rounded to T for the PV
+// product and summed in f32 for the denominator.
+//
+// What bounds it on the H100: bytes. A decode step (S = 1) reads every
+// trunk weight once: 13.9 GB for Qwen3-8B (36 layers), 4.15 ms at
+// 3.35 TB/s, plus the cache rows up to cache_len and a few MB of
+// activations. A 256-row prefill chunk does ~2.9 TFLOP; its SIMT f32 FMAs
+// (no tensor cores yet) bound it by operations.
+//
+// What the design does about it: the decode LINEAR gives each SM a
+// 32-column tile (128-384 tiles per projection at Qwen3-8B) and keeps eight
+// 16-byte weight loads per thread in flight; ATTN reads the cache prefix in
+// 16-byte vectors, 64 rows per chunk; the whole trunk is one launch, so no
+// host dispatch sits between its ~470 tasks. It is the simple form:
+// node-level dependencies stall each SM at every layer's stage boundary,
+// the elementwise tasks are not fused into their neighbours, a decode
+// step's ATTN runs on only Hkv CTAs per layer, and nothing uses TMA or the
+// tensor cores. Those are later work (PERF.md §7).
+
+#include "tdt_common.cuh"
+
+namespace {
+
+constexpr int NT = 256;           // threads per CTA
+constexpr int NW = NT / 32;
+constexpr int NF = 32;            // descriptor fields (executor_cuda.NF)
+enum : int {
+  F_OP = 0, F_TILES, F_DEP_LO, F_DEP_HI, F_OUT, F_A, F_B, F_C, F_D, F_E,
+  F_M, F_N, F_K, F_LDA, F_LDB, F_LDO, F_TR, F_NCT, F_TN, F_H, F_HKV, F_HD,
+  F_QKN, F_CACHED, F_CAUSAL, F_EPS, F_SCALE, F_COS, F_SIN, F_LDC, F_MODE
+};
+enum : int {
+  OP_LINEAR = 0, OP_RMS_NORM = 1, OP_SILU_MUL = 2, OP_ADD = 3, OP_ATTN = 4,
+  OP_KVA_K = 6, OP_KVA_V = 7
+};
+enum : int { FAULT_TIMEOUT = 1, FAULT_BAD_OP = 2 };
+
+// shared memory plan, in floats
+constexpr int QR_MAX = 64;        // q rows of one ATTN task (G x row tile)
+constexpr int KCH = 64;           // keys per attention chunk
+constexpr int DMAX = 128;
+constexpr int ATTN_FLOATS = QR_MAX * DMAX + KCH * (DMAX + 1) + KCH * DMAX +
+                            QR_MAX * KCH + 3 * QR_MAX;
+constexpr int XS_FLOATS = 16384;  // skinny LINEAR: staged x rows
+constexpr int SKINNY_TN = 32;
+constexpr int RED_FLOATS = NT * 8;
+constexpr int LIN_FLOATS = XS_FLOATS + RED_FLOATS;
+constexpr int SMEM_FLOATS = ATTN_FLOATS > LIN_FLOATS ? ATTN_FLOATS : LIN_FLOATS;
+constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
+constexpr int UNROLL = 8;         // skinny LINEAR: weight loads in flight
+
+struct Params {
+  const long long* desc;
+  const int* deps;
+  const int* queues;
+  const int* qlen;
+  unsigned* counts;
+  int* fault;
+  long long budget_ns;
+  int qcap;
+  int cache_len;
+  unsigned epoch;
+};
+
+// -- element helpers ---------------------------------------------------------
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16_rn(x);
+}
+template <typename T> __device__ __forceinline__ float round_t(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// 16 bytes of weights -> floats
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(const uint4& u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+template <typename T> __device__ __forceinline__ const T* cptr(long long a) {
+  return reinterpret_cast<const T*>(a);
+}
+template <typename T> __device__ __forceinline__ T* mptr(long long a) {
+  return reinterpret_cast<T*>(a);
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ int ld_volatile(const int* p) {
+  return *reinterpret_cast<const volatile int*>(p);
+}
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// block-wide sum; every thread gets the result. `red` holds NW floats.
+__device__ __forceinline__ float block_sum(float x, float* red) {
+  x = tdt_warp_sum(x);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) s += red[w];
+  return s;
+}
+
+// -- scoreboard ----------------------------------------------------------------
+// Thread 0 only. Returns false (after recording a fault, or on finding one)
+// when the CTA must stop.
+__device__ bool wait_deps(const Params& p, const long long* d, int task) {
+  const int lo = static_cast<int>(d[F_DEP_LO]);
+  const int hi = static_cast<int>(d[F_DEP_HI]);
+  for (int i = lo; i < hi; ++i) {
+    const int dep = p.deps[i];
+    const unsigned target =
+        p.epoch * static_cast<unsigned>(p.desc[static_cast<long long>(dep) * NF +
+                                               F_TILES]);
+    unsigned long long t0 = 0;
+    while (static_cast<int>(ld_acquire(p.counts + dep) - target) < 0) {
+      if (ld_volatile(p.fault) != 0) return false;
+      const unsigned long long now = globaltimer();
+      if (t0 == 0) {
+        t0 = now;
+      } else if (now - t0 > static_cast<unsigned long long>(p.budget_ns)) {
+        if (atomicCAS(p.fault, 0, FAULT_TIMEOUT) == 0) {
+          p.fault[1] = task;
+          p.fault[2] = dep;
+          __threadfence();
+        }
+        return false;
+      }
+      __nanosleep(100);
+    }
+  }
+  return true;
+}
+
+// -- LINEAR, decode form: rows <= 8, 32-column tiles -------------------------
+// Threads split as CV column vectors (16 bytes) x RL row lanes over K; x rows
+// are staged in shared memory as f32; the RL partial sums of each output meet
+// in shared memory at the end.
+template <typename T, int R>
+__device__ void linear_skinny(const long long* d, int tile, float* sm) {
+  constexpr int VEC = Vec<T>::N;
+  constexpr int CV = SKINNY_TN / VEC;
+  constexpr int RL = NT / CV;
+  const int M = static_cast<int>(d[F_M]), N = static_cast<int>(d[F_N]);
+  const int K = static_cast<int>(d[F_K]);
+  const long long lda = d[F_LDA], ldb = d[F_LDB], ldo = d[F_LDO];
+  const int nct = static_cast<int>(d[F_NCT]), tr = static_cast<int>(d[F_TR]);
+  const int rt = tile / nct, ct = tile % nct;
+  const int r0 = rt * tr, nr = min(tr, M - r0);
+  const T* x = cptr<T>(d[F_A]);           // activation: coherent loads
+  const T* w = cptr<T>(d[F_B]);
+  T* out = mptr<T>(d[F_OUT]);
+  const int tid = threadIdx.x, cv = tid % CV, rl = tid / CV;
+  const int col = ct * SKINNY_TN + cv * VEC;
+  const bool live = col < N;
+  float acc[R][VEC];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
+  float* xs = sm;
+  const int kcap = XS_FLOATS / R;
+  for (int k0 = 0; k0 < K; k0 += kcap) {
+    const int kc = min(kcap, K - k0);
+    __syncthreads();
+    for (int i = tid; i < nr * kc; i += NT) {
+      const int r = i / kc, k = i - r * kc;
+      xs[r * kc + k] = to_f(x[(r0 + r) * lda + k0 + k]);
+    }
+    __syncthreads();
+    if (!live) continue;
+    const T* wp = w + static_cast<long long>(k0) * ldb + col;
+    int k = rl;
+    for (; k + (UNROLL - 1) * RL < kc; k += UNROLL * RL) {
+      uint4 u[UNROLL];
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j)
+        u[j] = __ldg(reinterpret_cast<const uint4*>(
+            wp + static_cast<long long>(k + j * RL) * ldb));
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j) {
+        float wf[VEC];
+        Vec<T>::unpack(u[j], wf);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (r < nr) {
+            const float xv = xs[r * kc + k + j * RL];
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(xv, wf[e], acc[r][e]);
+          }
+        }
+      }
+    }
+    for (; k < kc; k += RL) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+          wp + static_cast<long long>(k) * ldb));
+      float wf[VEC];
+      Vec<T>::unpack(u, wf);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < nr) {
+          const float xv = xs[r * kc + k];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(xv, wf[e], acc[r][e]);
+        }
+      }
+    }
+  }
+  float* red = sm + XS_FLOATS;   // [RL][SKINNY_TN]
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= nr) break;
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) red[rl * SKINNY_TN + cv * VEC + e] = acc[r][e];
+    __syncthreads();
+    if (tid < SKINNY_TN) {
+      float s = 0.f;
+      for (int l = 0; l < RL; ++l) s += red[l * SKINNY_TN + tid];
+      const int c = ct * SKINNY_TN + tid;
+      if (c < N) out[(r0 + r) * ldo + c] = from_f<T>(s);
+    }
+  }
+}
+
+// -- LINEAR, prefill form: 64 x 64 output tiles, SIMT f32 FMA ----------------
+template <typename T>
+__device__ void linear_tiled(const long long* d, int tile, float* sm) {
+  constexpr int BM = 64, BN = 64, BK = 32;
+  const int M = static_cast<int>(d[F_M]), N = static_cast<int>(d[F_N]);
+  const int K = static_cast<int>(d[F_K]);
+  const long long lda = d[F_LDA], ldb = d[F_LDB], ldo = d[F_LDO];
+  const int nct = static_cast<int>(d[F_NCT]);
+  const int m0 = (tile / nct) * BM, n0 = (tile % nct) * BN;
+  const T* x = cptr<T>(d[F_A]);
+  const T* w = cptr<T>(d[F_B]);
+  T* out = mptr<T>(d[F_OUT]);
+  float* As = sm;             // [BK][BM]
+  float* Bs = sm + BK * BM;   // [BK][BN]
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    __syncthreads();
+    for (int i = tid; i < BM * BK; i += NT) {
+      const int m = i / BK, k = i % BK;
+      const int gm = m0 + m, gk = k0 + k;
+      As[k * BM + m] = (gm < M && gk < K) ? to_f(x[gm * lda + gk]) : 0.f;
+    }
+    for (int i = tid; i < BK * BN; i += NT) {
+      const int k = i / BN, n = i % BN;
+      const int gk = k0 + k, gn = n0 + n;
+      Bs[k * BN + n] =
+          (gk < K && gn < N) ? to_f(__ldg(w + gk * ldb + gn)) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < BK; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(As + k * BM + ty * 4);
+      const float4 b = *reinterpret_cast<const float4*>(Bs + k * BN + tx * 4);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty * 4 + i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx * 4 + j;
+      if (gn < N) out[gm * ldo + gn] = from_f<T>(acc[i][j]);
+    }
+  }
+}
+
+// -- RMS_NORM, SILU_MUL, ADD: row tiles at full width -------------------------
+template <typename T>
+__device__ void rms_norm_task(const long long* d, int tile, float* sm) {
+  const int M = static_cast<int>(d[F_M]), N = static_cast<int>(d[F_N]);
+  const int tr = static_cast<int>(d[F_TR]);
+  const long long lda = d[F_LDA], ldo = d[F_LDO];
+  const float eps = __int_as_float(static_cast<int>(d[F_EPS]));
+  const T* x = cptr<T>(d[F_A]);
+  const T* w = cptr<T>(d[F_B]);
+  T* out = mptr<T>(d[F_OUT]);
+  const int r0 = tile * tr, r1 = min(M, r0 + tr);
+  for (int r = r0; r < r1; ++r) {
+    const T* xr = x + r * lda;
+    float ss = 0.f;
+    for (int c = threadIdx.x; c < N; c += NT) {
+      const float v = to_f(xr[c]);
+      ss = fmaf(v, v, ss);
+    }
+    ss = block_sum(ss, sm);
+    const float inv = 1.0f / sqrtf(ss / N + eps);
+    for (int c = threadIdx.x; c < N; c += NT)
+      out[r * ldo + c] =
+          from_f<T>(__fmul_rn(__fmul_rn(to_f(xr[c]), inv), to_f(__ldg(w + c))));
+  }
+}
+
+template <typename T, bool SILU>
+__device__ void elementwise_task(const long long* d, int tile) {
+  const int M = static_cast<int>(d[F_M]), N = static_cast<int>(d[F_N]);
+  const int tr = static_cast<int>(d[F_TR]);
+  const long long lda = d[F_LDA], ldb = d[F_LDB], ldo = d[F_LDO];
+  const T* a = cptr<T>(d[F_A]);
+  const T* b = cptr<T>(d[F_B]);
+  T* out = mptr<T>(d[F_OUT]);
+  const int r0 = tile * tr, r1 = min(M, r0 + tr);
+  for (int r = r0; r < r1; ++r)
+    for (int c = threadIdx.x; c < N; c += NT) {
+      const float av = to_f(a[r * lda + c]), bv = to_f(b[r * ldb + c]);
+      float y;
+      if (SILU) {
+        const float sig = 1.0f / (1.0f + expf(-av));
+        y = __fmul_rn(__fmul_rn(av, sig), bv);
+      } else {
+        y = __fadd_rn(av, bv);
+      }
+      out[r * ldo + c] = from_f<T>(y);
+    }
+}
+
+// -- head-row prep: per-head RMSNorm, then RoPE (one warp per row) ----------
+// src: D elements of one head of one row (an activation); nw: the (1, D)
+// norm weight or null; cs/sn: the table row of its position. Writes the
+// prepared row as f32 values exactly representable in T.
+template <typename T, int D>
+__device__ __forceinline__ void prep_row(const T* src, const T* nw, float eps,
+                                         const float* cs, const float* sn,
+                                         float* x) {
+  constexpr int P = D / 32;   // dims per lane: d = lane + 32 u
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < P; ++u) x[u] = to_f(src[lane + 32 * u]);
+  if (nw != nullptr) {
+    float ss = 0.f;
+#pragma unroll
+    for (int u = 0; u < P; ++u) ss = fmaf(x[u], x[u], ss);
+    ss = tdt_warp_sum(ss);
+    const float inv = 1.0f / sqrtf(ss / D + eps);
+#pragma unroll
+    for (int u = 0; u < P; ++u)
+      x[u] = round_t<T>(
+          __fmul_rn(__fmul_rn(x[u], inv), to_f(__ldg(nw + lane + 32 * u))));
+  }
+  // rotate-half: lane's u < P/2 pairs with u + P/2 (d and d + D/2)
+#pragma unroll
+  for (int u = 0; u < P / 2; ++u) {
+    const int dd = lane + 32 * u;
+    const float c = __ldg(cs + dd), s = __ldg(sn + dd);
+    const float a = x[u], b = x[u + P / 2];
+    x[u] = round_t<T>(__fsub_rn(__fmul_rn(a, c), __fmul_rn(b, s)));
+    x[u + P / 2] = round_t<T>(__fadd_rn(__fmul_rn(b, c), __fmul_rn(a, s)));
+  }
+}
+
+// -- ATTN: one (row tile, kv head); the G q heads share every K/V row --------
+template <typename T, int D>
+__device__ void attn_task(const long long* d, int tile, float* sm,
+                          int cache_len) {
+  constexpr int P = D / 32;
+  constexpr int RS = NT / D;            // PV: rows between a thread's rows
+  constexpr int RPT = QR_MAX / RS;      // PV: rows per thread
+  const int H = static_cast<int>(d[F_H]), Hkv = static_cast<int>(d[F_HKV]);
+  const int G = H / Hkv;
+  const int M = static_cast<int>(d[F_M]), tr = static_cast<int>(d[F_TR]);
+  const int rt = tile / Hkv, j = tile % Hkv;
+  const int r0 = rt * tr, nr = min(tr, M - r0);
+  const int QR = G * nr;                // q row it = g * nr + rr
+  const int cl = d[F_CACHED] ? cache_len : 0;
+  const bool causal = d[F_CAUSAL] != 0;
+  const long long lda = d[F_LDA], ldo = d[F_LDO], ldc = d[F_LDC];
+  const T* qkv = cptr<T>(d[F_A]);
+  const T* kc = cptr<T>(d[F_B]);
+  const T* vc = cptr<T>(d[F_C]);
+  const T* qn = d[F_QKN] ? cptr<T>(d[F_D]) : nullptr;
+  const T* kn = d[F_QKN] ? cptr<T>(d[F_E]) : nullptr;
+  const float eps = __int_as_float(static_cast<int>(d[F_EPS]));
+  const float scale = __int_as_float(static_cast<int>(d[F_SCALE]));
+  const float* cos_t = cptr<float>(d[F_COS]);
+  const float* sin_t = cptr<float>(d[F_SIN]);
+  T* out = mptr<T>(d[F_OUT]);
+
+  float* qs = sm;                        // [QR_MAX][D]
+  float* ks = qs + QR_MAX * DMAX;        // [KCH][D + 1]
+  float* vs = ks + KCH * (DMAX + 1);     // [KCH][D]
+  float* ss = vs + KCH * DMAX;           // [QR_MAX][KCH]
+  float* mrow = ss + QR_MAX * KCH;
+  float* lrow = mrow + QR_MAX;
+  float* arow = lrow + QR_MAX;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  for (int it = warp; it < QR; it += NW) {
+    const int g = it / nr, r = r0 + it % nr;
+    const int pos = cl + r;
+    float x[P];
+    prep_row<T, D>(qkv + r * lda + (j * G + g) * D, qn, eps,
+                   cos_t + static_cast<long long>(pos) * (D / 2),
+                   sin_t + static_cast<long long>(pos) * (D / 2), x);
+#pragma unroll
+    for (int u = 0; u < P; ++u) qs[it * D + lane + 32 * u] = x[u];
+  }
+  for (int it = tid; it < QR; it += NT) {
+    mrow[it] = TDT_NEG_INF;
+    lrow[it] = 0.f;
+  }
+  float acc[RPT];
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) acc[u] = 0.f;
+
+  const int ncur = causal ? r0 + nr : M;
+  for (int phase = 0; phase < 2; ++phase) {
+    const int nk = phase == 0 ? cl : ncur;
+    for (int c0 = 0; c0 < nk; c0 += KCH) {
+      const int kn_ = min(KCH, nk - c0);
+      __syncthreads();   // q prep done / previous chunk consumed
+      if (phase == 0) {
+        constexpr int VEC = Vec<T>::N;
+        constexpr int RV = D / VEC;      // 16-byte vectors per head row
+        for (int i = tid; i < kn_ * RV; i += NT) {
+          const int jj = i / RV, dd = (i % RV) * VEC;
+          const long long off = (c0 + jj) * ldc + j * D + dd;
+          float kf[VEC], vf[VEC];
+          Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(kc + off)), kf);
+          Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(vc + off)), vf);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            ks[jj * (D + 1) + dd + e] = kf[e];
+            vs[jj * D + dd + e] = vf[e];
+          }
+        }
+      } else {
+        for (int jj = warp; jj < kn_; jj += NW) {
+          const int row = c0 + jj, pos = cl + row;
+          float x[P];
+          prep_row<T, D>(qkv + row * lda + (H + j) * D, kn, eps,
+                         cos_t + static_cast<long long>(pos) * (D / 2),
+                         sin_t + static_cast<long long>(pos) * (D / 2), x);
+#pragma unroll
+          for (int u = 0; u < P; ++u) {
+            ks[jj * (D + 1) + lane + 32 * u] = x[u];
+            vs[jj * D + lane + 32 * u] =
+                to_f(qkv[row * lda + (H + Hkv + j) * D + lane + 32 * u]);
+          }
+        }
+      }
+      __syncthreads();
+      {   // scores: thread -> key jj, q rows it = tid / KCH + 4 u
+        const int jj = tid % KCH;
+        for (int it = tid / KCH; it < QR; it += NT / KCH) {
+          float s = TDT_NEG_INF;
+          const bool seen =
+              jj < kn_ && (phase == 0 || !causal || c0 + jj <= r0 + it % nr);
+          if (seen) {
+            float a = 0.f;
+#pragma unroll 16
+            for (int dd = 0; dd < D; ++dd)
+              a = fmaf(qs[it * D + dd], ks[jj * (D + 1) + dd], a);
+            s = a * scale;
+          }
+          ss[it * KCH + jj] = s;
+        }
+      }
+      __syncthreads();
+      for (int it = warp; it < QR; it += NW) {   // online softmax, f32
+        const float s0 = ss[it * KCH + lane], s1 = ss[it * KCH + lane + 32];
+        const float m_old = mrow[it];
+        const float m_new = fmaxf(m_old, tdt_warp_max(fmaxf(s0, s1)));
+        const float p0 = s0 > 0.5f * TDT_NEG_INF ? expf(s0 - m_new) : 0.f;
+        const float p1 = s1 > 0.5f * TDT_NEG_INF ? expf(s1 - m_new) : 0.f;
+        ss[it * KCH + lane] = round_t<T>(p0);
+        ss[it * KCH + lane + 32] = round_t<T>(p1);
+        const float psum = tdt_warp_sum(p0 + p1);
+        if (lane == 0) {
+          const float alpha = expf(m_old - m_new);
+          mrow[it] = m_new;
+          lrow[it] = alpha * lrow[it] + psum;
+          arow[it] = alpha;
+        }
+      }
+      __syncthreads();
+      {   // PV: thread -> dim dd, q rows it = tid / D + RS u
+        const int dd = tid % D;
+#pragma unroll
+        for (int u = 0; u < RPT; ++u) {
+          const int it = tid / D + RS * u;
+          if (it < QR) {
+            float a = acc[u] * arow[it];
+            for (int jj = 0; jj < kn_; ++jj)
+              a = fmaf(ss[it * KCH + jj], vs[jj * D + dd], a);
+            acc[u] = a;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  {
+    const int dd = tid % D;
+#pragma unroll
+    for (int u = 0; u < RPT; ++u) {
+      const int it = tid / D + RS * u;
+      if (it < QR) {
+        const int g = it / nr, r = r0 + it % nr;
+        out[r * ldo + (j * G + g) * D + dd] =
+            from_f<T>(acc[u] / fmaxf(lrow[it], 1e-30f));
+      }
+    }
+  }
+}
+
+// -- KVA_K / KVA_V: the step's rows into cache rows [cache_len, +S) ----------
+template <typename T, int D, bool K_PART>
+__device__ void kv_append_task(const long long* d, int tile, int cache_len) {
+  constexpr int P = D / 32;
+  const int H = static_cast<int>(d[F_H]), Hkv = static_cast<int>(d[F_HKV]);
+  const int M = static_cast<int>(d[F_M]), tr = static_cast<int>(d[F_TR]);
+  const long long lda = d[F_LDA], ldc = d[F_LDC];
+  const T* qkv = cptr<T>(d[F_A]);
+  const T* kn = d[F_QKN] ? cptr<T>(d[F_E]) : nullptr;
+  const float eps = __int_as_float(static_cast<int>(d[F_EPS]));
+  const float* cos_t = cptr<float>(d[F_COS]);
+  const float* sin_t = cptr<float>(d[F_SIN]);
+  T* cache = mptr<T>(d[F_OUT]);
+  const int r0 = tile * tr, r1 = min(M, r0 + tr);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int item = warp; item < (r1 - r0) * Hkv; item += NW) {
+    const int r = r0 + item / Hkv, j = item % Hkv;
+    const int pos = cache_len + r;
+    T* dst = cache + static_cast<long long>(pos) * ldc + j * D;
+    if (K_PART) {
+      float x[P];
+      prep_row<T, D>(qkv + r * lda + (H + j) * D, kn, eps,
+                     cos_t + static_cast<long long>(pos) * (D / 2),
+                     sin_t + static_cast<long long>(pos) * (D / 2), x);
+#pragma unroll
+      for (int u = 0; u < P; ++u) dst[lane + 32 * u] = from_f<T>(x[u]);
+    } else {
+      const T* src = qkv + r * lda + (H + Hkv + j) * D;
+#pragma unroll
+      for (int u = 0; u < P; ++u) dst[lane + 32 * u] = src[lane + 32 * u];
+    }
+  }
+}
+
+template <typename T>
+__device__ void linear_task(const long long* d, int tile, float* sm) {
+  if (d[F_MODE] == 1) {
+    linear_tiled<T>(d, tile, sm);
+    return;
+  }
+  const int tr = static_cast<int>(d[F_TR]);
+  if (tr <= 1) linear_skinny<T, 1>(d, tile, sm);
+  else if (tr <= 2) linear_skinny<T, 2>(d, tile, sm);
+  else if (tr <= 4) linear_skinny<T, 4>(d, tile, sm);
+  else linear_skinny<T, 8>(d, tile, sm);
+}
+
+// returns false on an op the kernel does not have
+template <typename T>
+__device__ bool run_task(const long long* d, int tile, float* sm,
+                         int cache_len) {
+  const bool d128 = d[F_HD] == 128;
+  switch (static_cast<int>(d[F_OP])) {
+    case OP_LINEAR: linear_task<T>(d, tile, sm); return true;
+    case OP_RMS_NORM: rms_norm_task<T>(d, tile, sm); return true;
+    case OP_SILU_MUL: elementwise_task<T, true>(d, tile); return true;
+    case OP_ADD: elementwise_task<T, false>(d, tile); return true;
+    case OP_ATTN:
+      if (d128) attn_task<T, 128>(d, tile, sm, cache_len);
+      else attn_task<T, 64>(d, tile, sm, cache_len);
+      return true;
+    case OP_KVA_K:
+      if (d128) kv_append_task<T, 128, true>(d, tile, cache_len);
+      else kv_append_task<T, 64, true>(d, tile, cache_len);
+      return true;
+    case OP_KVA_V:
+      if (d128) kv_append_task<T, 128, false>(d, tile, cache_len);
+      else kv_append_task<T, 64, false>(d, tile, cache_len);
+      return true;
+    default: return false;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 1) megakernel(Params p) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int s_go;
+  const int* queue = p.queues + static_cast<long long>(blockIdx.x) * p.qcap;
+  const int n = p.qlen[blockIdx.x];
+  if (threadIdx.x == 0) s_go = ld_volatile(p.fault) == 0;
+  __syncthreads();
+  if (!s_go) return;
+  for (int i = 0; i < n; ++i) {
+    const int e = queue[i];
+    const int task = e >> 20, tile = e & 0xfffff;
+    const long long* d = p.desc + static_cast<long long>(task) * NF;
+    if (threadIdx.x == 0) s_go = wait_deps(p, d, task);
+    __syncthreads();
+    if (!s_go) return;
+    const bool known = run_task<T>(d, tile, sm, p.cache_len);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (!known) {
+        if (atomicCAS(p.fault, 0, FAULT_BAD_OP) == 0) p.fault[1] = task;
+      } else {
+        __threadfence();
+        atomicAdd(p.counts + task, 1u);
+      }
+    }
+    if (!known) return;
+  }
+}
+
+template <typename T>
+int launch(const Params& prm, int n_sm, cudaStream_t st) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        megakernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  Params p = prm;
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(megakernel<T>), dim3(n_sm), dim3(NT), args,
+      SMEM_BYTES, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// desc int64 (n_tasks, 32), deps int32, queues int32 (n_sm, qcap) packed
+// task << 20 | tile, qlen int32 (n_sm,), counts u32 (n_tasks,) (the
+// scoreboard, never cleared: launch `epoch` waits for epoch x tiles),
+// fault int32 (4,) = (code, task, producer, -). dtype 0 = float32,
+// 1 = bfloat16. One CTA per SM for n_sm SMs, cooperative.
+extern "C" int tdt_megakernel(const void* desc, const void* deps,
+                              const void* queues, const void* qlen,
+                              void* counts, void* fault, int n_sm, int qcap,
+                              int cache_len, unsigned epoch,
+                              long long budget_ns, int dtype, void* stream) {
+  Params p;
+  p.desc = static_cast<const long long*>(desc);
+  p.deps = static_cast<const int*>(deps);
+  p.queues = static_cast<const int*>(queues);
+  p.qlen = static_cast<const int*>(qlen);
+  p.counts = static_cast<unsigned*>(counts);
+  p.fault = static_cast<int*>(fault);
+  p.budget_ns = budget_ns;
+  p.qcap = qcap;
+  p.cache_len = cache_len;
+  p.epoch = epoch;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(p, n_sm, st);
+  if (dtype == 1) return launch<__nv_bfloat16>(p, n_sm, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,646 @@
+"""The persistent CUDA megakernel's host side, and its plain version
+(counterpart of the host side of
+triton_distributed_tpu/megakernel/executor_pallas.py::ExecutorPallas).
+
+A graph compiles into:
+
+- a task per compute node (the scheduler's "task"), cut into tiles by
+  the Hopper decomposition of `_tiling`: LINEAR in 32-column tiles for a
+  decode row block (<= 8 rows) and 64x64 tiles above that; RMS_NORM,
+  SILU_MUL, ADD and the cache appends KVA_K / KVA_V in row tiles of
+  ceil(S / n_sm) rows; ATTN in (row tile, kv head) tiles whose G q heads
+  share every K/V row;
+- one descriptor row per task (`desc`, int64 (n_tasks, NF)): op code,
+  tile count, the task's slice of the flat dependency list (`deps`: the
+  producer tasks of its inputs), device addresses of its operands, their
+  leading dimensions, its tile geometry and the attention constants;
+- per-SM queues from `scheduler.schedule` over `n_sm` cores (the
+  card's SM count; on the CPU, where only the plain walk runs, `n_sm`
+  may be given and defaults to the H100's 132) and a scoreboard of one
+  counter per task;
+- a persistent device arena holding every activation (and the graph's
+  non-cache inputs), the per-layer caches, and the RoPE cos/sin table
+  of `rope_cos_sin` (f32, one row per position).
+
+The descriptor table is built once per binding of weights and caches;
+the only run-time scalar of a launch is `cache_len` (and the scoreboard
+epoch, below). On a CUDA device `step` launches csrc/megakernel.cu (one
+cooperative launch, one CTA per SM) and counts it in
+`MEGAKERNEL.launches`; on the CPU it runs the plain version.
+
+The plain version (`plain_walk`) reads the same descriptor rows and the
+same queues and computes each task's tile with torch ops, taking at each
+step the head of a queue, chosen by a seeded generator among those whose
+producers are all complete; it raises if no head can run. So on the CPU
+it checks what the kernel's correctness rests on — the decomposition,
+the descriptors, the dependency lists and the deadlock argument — as
+well as its arithmetic. It mirrors the kernel's rounding points (see
+csrc/megakernel.cu), with one difference: its attention softmax is one
+pass over all keys where the kernel's is online over 64-key chunks.
+
+Scoreboard reset: counters are never cleared between launches. Launch
+number `epoch` (1, 2, ...) waits until a producer's counter reaches
+epoch x its tile count (wrapping u32 arithmetic). After a fault the host
+zeroes them and restarts at epoch 1.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import random
+
+import numpy as np
+import torch
+
+from .. import runtime
+from ..ops._build import CudaKernel, ptr, stream_of
+from ..ops.attention import rope_cos_sin
+from . import scheduler
+from .builder import later_slice
+from .executor_torch import as_tensor, check_ops, matmul_f32
+from .graph import (TASK_ADD, TASK_ATTN, TASK_KVA_K, TASK_KVA_V,
+                    TASK_LINEAR, TASK_RMS_NORM, TASK_SILU_MUL)
+
+MEGAKERNEL = CudaKernel(
+    "megakernel", "tdt_megakernel",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    + [ctypes.c_uint, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+
+H100_SMS = 132          # queues for the CPU walk default to the H100's SMs
+SKINNY_ROWS = 8         # LINEAR: up to this many rows, 32-column tiles
+SKINNY_TN = 32
+TILED_TM = TILED_TN = 64
+QR_MAX = 64             # ATTN: q rows (G x rows per tile) of one task
+KERNEL_HEAD_DIMS = (64, 128)
+WAIT_BUDGET_S = 1.0     # a scoreboard wait longer than this is a fault
+
+# descriptor fields (csrc/megakernel.cu keeps the same numbering)
+(F_OP, F_TILES, F_DEP_LO, F_DEP_HI, F_OUT, F_A, F_B, F_C, F_D, F_E, F_M,
+ F_N, F_K, F_LDA, F_LDB, F_LDO, F_TR, F_NCT, F_TN, F_H, F_HKV, F_HD,
+ F_QKN, F_CACHED, F_CAUSAL, F_EPS, F_SCALE, F_COS, F_SIN, F_LDC,
+ F_MODE) = range(31)
+NF = 32                 # one int64 left spare
+
+_FAULTS = {1: "a scoreboard wait passed its budget",
+           2: "a descriptor names an op the kernel does not have"}
+
+
+def indexed(device) -> torch.device:
+    """`device` with its index filled in (cuda -> cuda:N), so that it
+    compares equal to a tensor's device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _f32_bits(x: float) -> int:
+    return int(np.array(x, np.float32).view(np.int32))
+
+
+def _bits_f32(b: int) -> float:
+    return float(np.array(b, np.int64).astype(np.int32).view(np.float32))
+
+
+class ExecutorCuda:
+    """Compile a builder graph into the persistent CUDA megakernel."""
+
+    def __init__(self, builder, *, device=None, n_sm: int | None = None):
+        g = builder.graph
+        check_ops(g)
+        self.builder = builder
+        self.graph = g
+        self.device = indexed(runtime.resolve_device(device))
+        self.dtype = runtime.resolve_dtype(builder.dtype)
+        if self.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"the megakernel takes float32 or bfloat16 "
+                            f"graphs, got {self.dtype}")
+        cuda = self.device.type == "cuda"
+        if cuda and n_sm is not None:
+            raise ValueError(
+                "n_sm sets the queues of the plain walk on the CPU; on a "
+                "GPU the kernel runs one CTA on every SM of the card")
+        if cuda:
+            n_sm = torch.cuda.get_device_properties(
+                self.device).multi_processor_count
+        self.n_sm = int(H100_SMS if n_sm is None else n_sm)
+        self.wait_budget_ns = int(WAIT_BUDGET_S * 1e9)
+        self.eps = float(builder.rms_eps)
+
+        self.tasks = [nd for nd in g.nodes if nd.op not in ("input", "weight")]
+        prod = {nd.out.idx: t for t, nd in enumerate(self.tasks)}
+        self.deps = [sorted({prod[h.idx] for h in nd.inputs if h.idx in prod})
+                     for nd in self.tasks]
+        self.tiling = [self._tiling(nd) for nd in self.tasks]
+        self.n_tiles = np.asarray([t["tiles"] for t in self.tiling], np.int32)
+        self.queues, self.qlen = scheduler.schedule(self.n_tiles, self.n_sm)
+        self._scalar_names = {nd.attrs["cache_len_name"] for nd in self.tasks
+                              if nd.op in ("attention_kv", "kv_append")}
+        if len(self._scalar_names) > 1:
+            raise ValueError(f"one cache_len per program, got "
+                             f"{sorted(self._scalar_names)}")
+        # the largest cache_len whose S appended rows fit every cache
+        self.max_cache_len = min(
+            (nd.inputs[1].rows - nd.inputs[0].rows for nd in self.tasks
+             if nd.op in ("attention_kv", "kv_append")), default=0)
+        # a kv_append output is its cache: return the cache handle
+        kv_out = {nd.out.idx: nd.inputs[1] for nd in self.tasks
+                  if nd.op == "kv_append"}
+        self._out_handles = [kv_out.get(h.idx, h) for h in g.outputs]
+        if cuda:
+            self._check_kernel_shapes()
+
+        # persistent arena: every activation, and the non-cache inputs
+        dt, dev = self.dtype, self.device
+        self._views = {}
+        acts = [h for n, h in g.inputs.items() if n not in g.caches]
+        acts += [nd.out for nd in self.tasks if nd.op != "kv_append"]
+        offs, total = {}, 0
+        for h in acts:
+            offs[h.idx] = total
+            total += runtime.round_up(h.rows * h.cols, 8)
+        self.arena = torch.zeros(max(total, 8), dtype=dt, device=dev)
+        for h in acts:
+            self._views[h.idx] = self.arena[offs[h.idx]:offs[h.idx]
+                                            + h.rows * h.cols].view(h.shape)
+        self.inputs = {n: self._views[h.idx] for n, h in g.inputs.items()
+                       if n not in g.caches}
+
+        # RoPE tables, one per (head_dim, theta): row p = position p, for
+        # every position a program can reach (cache rows, or S rows)
+        lengths = {}
+        for nd in self.tasks:
+            if nd.op in ("attention", "attention_kv", "kv_append"):
+                key = (nd.attrs["head_dim"], float(nd.attrs["rope_theta"]))
+                lengths[key] = max(lengths.get(key, 0),
+                                   *(h.rows for h in nd.inputs[:2]))
+        self._rope = {(d, th): rope_cos_sin(torch.arange(n, device=dev), d,
+                                            th)
+                      for (d, th), n in lengths.items()}
+        self.weights: dict = {}
+        self.caches: dict = {}
+        self.counts = torch.zeros(len(self.tasks), dtype=torch.int32,
+                                  device=dev)
+        self.fault = torch.zeros(4, dtype=torch.int32, device=dev)
+        self.epoch = 0
+        self._desc = None
+
+    # -- decomposition ---------------------------------------------------
+    def _tiling(self, nd) -> dict:
+        """The Hopper task decomposition of one node: rows per tile
+        (tr), and for LINEAR columns per tile (tn), column tiles (nct)
+        and the body's mode (0: <= 8 rows, 32-column tiles; 1: 64x64
+        tiles)."""
+        S = nd.inputs[0].rows
+        rows_tile = runtime.cdiv(S, self.n_sm)
+        if nd.op == "linear":
+            N = nd.out.cols
+            if S <= SKINNY_ROWS:
+                tr, tn, mode = S, SKINNY_TN, 0
+            else:
+                tr, tn, mode = TILED_TM, TILED_TN, 1
+            nct = runtime.cdiv(N, tn)
+            return dict(op=TASK_LINEAR, tr=tr, tn=tn, nct=nct, mode=mode,
+                        tiles=runtime.cdiv(S, tr) * nct)
+        if nd.op in ("attention", "attention_kv"):
+            at = nd.attrs
+            G = at["num_heads"] // at["num_kv_heads"]
+            if at["num_heads"] % at["num_kv_heads"] or G > QR_MAX:
+                raise ValueError(
+                    f"attention: {at['num_heads']} q heads over "
+                    f"{at['num_kv_heads']} kv heads; the ATTN body takes "
+                    f"groups of 1..{QR_MAX} q heads")
+            tr = min(S, max(1, QR_MAX // G))
+            return dict(op=TASK_ATTN, tr=tr,
+                        tiles=runtime.cdiv(S, tr) * at["num_kv_heads"])
+        op = {"rms_norm": TASK_RMS_NORM, "silu_mul": TASK_SILU_MUL,
+              "add": TASK_ADD}.get(nd.op)
+        if nd.op == "kv_append":
+            op = TASK_KVA_K if nd.attrs["part"] == "k" else TASK_KVA_V
+        return dict(op=op, tr=rows_tile, tiles=runtime.cdiv(S, rows_tile))
+
+    def _check_kernel_shapes(self):
+        """Refuse, before anything runs, what the CUDA kernel does not
+        take: a head_dim other than 64 or 128, and widths that are not
+        a multiple of 8 (16-byte weight vectors)."""
+        for nd in self.tasks:
+            if nd.op in ("attention", "attention_kv", "kv_append") \
+                    and nd.attrs["head_dim"] not in KERNEL_HEAD_DIMS:
+                raise ValueError(
+                    f"megakernel: head_dim {nd.attrs['head_dim']} not in "
+                    f"{KERNEL_HEAD_DIMS}")
+            for h in (nd.out,) + tuple(nd.inputs):
+                if h.cols % 8:
+                    raise ValueError(
+                        f"megakernel: tensor width {h.cols} of a "
+                        f"{nd.op} node is not a multiple of 8")
+
+    # -- binding ---------------------------------------------------------
+    def _check_operand(self, name, t, shape):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, the graph "
+                             f"declares {tuple(shape)}")
+        if t.dtype != self.dtype or t.device != self.device:
+            raise ValueError(f"{name}: {t.dtype} on {t.device}, the program "
+                             f"runs {self.dtype} on {self.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: rows must be contiguous")
+        if self.device.type == "cuda" and (
+                t.data_ptr() % 16 or (t.stride(0) * t.element_size()) % 16
+                and t.shape[0] > 1):
+            raise ValueError(f"{name}: the kernel needs 16-byte aligned "
+                             f"rows")
+
+    def bind_weights(self, weights: dict):
+        """Use these tensors (views are fine: rows contiguous, any row
+        stride) as the program's weights, without copying them."""
+        g = self.graph
+        missing = set(g.weights) - set(weights)
+        if missing:
+            raise KeyError(f"missing weights {sorted(missing)}")
+        for n, h in g.weights.items():
+            self._check_operand(n, weights[n], h.shape)
+        self.weights = {n: weights[n] for n in g.weights}
+        self._desc = None
+
+    def bind_caches(self, caches: dict | None = None):
+        """Use these (max_cache, Hkv*D) tensors as the caches, updated in
+        place by the kv_append tasks; None allocates zeroed ones. Two
+        programs given the same tensors share one cache."""
+        g = self.graph
+        if caches is None:
+            caches = {n: torch.zeros(h.shape, dtype=self.dtype,
+                                     device=self.device)
+                      for n, h in g.caches.items()}
+        for n, h in g.caches.items():
+            self._check_operand(n, caches[n], h.shape)
+        self.caches = {n: caches[n] for n in g.caches}
+        self._desc = None
+        return self.caches
+
+    def _tensor(self, h):
+        """The bound tensor behind a handle."""
+        g = self.graph
+        if h.idx in self._views:
+            return self._views[h.idx]
+        for table, src in ((g.weights, self.weights), (g.caches, self.caches)):
+            for n, hh in table.items():
+                if hh.idx == h.idx:
+                    return src[n]
+        raise KeyError(h)
+
+    # -- descriptor table --------------------------------------------------
+    def descriptors(self):
+        """(desc int64 (n_tasks, NF), deps int32) as numpy, and the
+        per-task tensors behind each address (the plain walk's view of
+        the same table). Built once per binding."""
+        if self._desc is not None:
+            return self._desc
+        g = self.graph
+        if set(self.weights) != set(g.weights):
+            raise RuntimeError("bind_weights before running the program")
+        if set(self.caches) != set(g.caches):
+            self.bind_caches()
+        desc = np.zeros((len(self.tasks), NF), np.int64)
+        flat, views = [], []
+        for t, nd in enumerate(self.tasks):
+            row, til, at = desc[t], self.tiling[t], nd.attrs
+            row[F_OP], row[F_TILES], row[F_TR] = til["op"], til["tiles"], \
+                til["tr"]
+            row[F_DEP_LO] = len(flat)
+            flat += self.deps[t]
+            row[F_DEP_HI] = len(flat)
+            ins = [self._tensor(h) for h in nd.inputs]
+            if nd.op == "kv_append":
+                # a = qkv, e = k_norm; the output is the cache itself
+                out = ins[1]
+                slots = {"a": ins[0]}
+                if len(ins) > 2:
+                    slots["e"] = ins[2]
+            else:
+                out = self._views[nd.out.idx]
+                slots = dict(zip("abcde", ins))
+            v = {"out": out, **slots}
+            row[F_OUT] = out.data_ptr()
+            for name, t_ in slots.items():
+                row[F_A + "abcde".index(name)] = t_.data_ptr()
+            row[F_M] = nd.inputs[0].rows
+            row[F_N] = nd.out.cols
+            row[F_LDA] = ins[0].stride(0)
+            row[F_LDO] = out.stride(0)
+            if nd.op == "linear":
+                row[F_K] = nd.inputs[0].cols
+                row[F_LDB] = ins[1].stride(0)
+                row[F_NCT], row[F_TN], row[F_MODE] = til["nct"], til["tn"], \
+                    til["mode"]
+            elif nd.op == "rms_norm":
+                row[F_EPS] = _f32_bits(at["eps"])
+            elif nd.op in ("silu_mul", "add"):
+                row[F_LDB] = ins[1].stride(0)
+            else:  # attention / attention_kv / kv_append
+                d = at["head_dim"]
+                row[F_H], row[F_HKV], row[F_HD] = at["num_heads"], \
+                    at["num_kv_heads"], d
+                row[F_QKN] = int(at.get("qk_norm", False))
+                row[F_CACHED] = int(nd.op != "attention")
+                row[F_CAUSAL] = int(at.get("causal", True))
+                row[F_EPS] = _f32_bits(self.eps)
+                row[F_SCALE] = _f32_bits(1.0 / math.sqrt(d))
+                cos, sin = self._rope[(d, float(at["rope_theta"]))]
+                row[F_COS], row[F_SIN] = cos.data_ptr(), sin.data_ptr()
+                v["cos"], v["sin"] = cos, sin
+                cache = {"attention_kv": ins[1] if len(ins) > 1 else None,
+                         "kv_append": out}.get(nd.op)
+                if cache is not None:
+                    row[F_LDC] = cache.stride(0)
+            views.append(v)
+        deps = np.asarray(flat if flat else [0], np.int32)
+        dev = self.device
+        self._desc = (desc, deps, views,
+                      torch.from_numpy(desc).to(dev),
+                      torch.from_numpy(deps).to(dev),
+                      torch.from_numpy(self.queues).to(dev),
+                      torch.from_numpy(self.qlen).to(dev))
+        return self._desc
+
+    # -- running ---------------------------------------------------------
+    def step(self, inputs: dict | None = None, cache_len: int = 0, *,
+             plain: bool = False, seed: int = 0):
+        """Copy `inputs` into the arena, run the program once at
+        `cache_len`, and return the graph outputs as views of the arena
+        (overwritten by the next step; a kv_append output is its cache).
+        On a CUDA device this is one kernel launch, with no host sync;
+        `plain=True` runs the plain walk instead (for comparisons)."""
+        cache_len = int(cache_len)
+        if not 0 <= cache_len <= self.max_cache_len:
+            raise ValueError(f"cache_len {cache_len}: the step's rows must "
+                             f"fit the caches (0 <= cache_len <= "
+                             f"{self.max_cache_len})")
+        for n, v in (inputs or {}).items():
+            self.inputs[n].copy_(v)
+        desc, deps, views, d_desc, d_deps, d_q, d_qlen = self.descriptors()
+        if plain or self.device.type == "cpu":
+            plain_walk(self, cache_len, seed=seed)
+        else:
+            self.epoch += 1
+            MEGAKERNEL.launch(
+                ptr(d_desc), ptr(d_deps), ptr(d_q), ptr(d_qlen),
+                ptr(self.counts), ptr(self.fault), self.n_sm,
+                self.queues.shape[1], cache_len,
+                ctypes.c_uint(self.epoch & 0xFFFFFFFF),
+                ctypes.c_longlong(self.wait_budget_ns),
+                int(self.dtype == torch.bfloat16), stream_of(self.arena))
+        return self.outputs()
+
+    def outputs(self):
+        return tuple(self._tensor(h) for h in self._out_handles)
+
+    def check_fault(self):
+        """Raise if a launch since the last check recorded a fault
+        (reads a device flag: synchronises). The scoreboard is reset so
+        the program can run again."""
+        if self.device.type != "cuda":
+            return
+        code, task, dep, _ = (int(x) for x in self.fault.cpu())
+        if code == 0:
+            return
+        # the first task of the topological order left unfinished is the
+        # one that could not run (every task before it did)
+        left = (self.counts.cpu().numpy().astype(np.int64)
+                - self.epoch * self.n_tiles.astype(np.int64)) % 2 ** 32
+        first = int(np.flatnonzero(left)[0]) if left.any() else -1
+        self.counts.zero_()
+        self.fault.zero_()
+        self.epoch = 0
+
+        def name(t):
+            return f"task {t} ({self.tasks[t].op})" \
+                if 0 <= t < len(self.tasks) else f"task {t}"
+
+        what = name(task)
+        if code == 1:
+            what += f" waiting on {name(dep)}"
+        raise RuntimeError(f"megakernel: {_FAULTS.get(code, code)}: {what}; "
+                           f"the first unfinished task is {name(first)}")
+
+    def run(self, inputs: dict, weights: dict,
+            scalars: dict | None = None):
+        """Execute the program once (compat path): weights and caches are
+        bound from the dicts (cache tensors already on the device in the
+        graph dtype are updated in place), `scalars` carries cache_len.
+        Returns the outputs (activations copied out of the arena)."""
+        scalars = dict(scalars or {})
+        unknown = set(scalars) - self._scalar_names
+        if unknown:
+            raise ValueError(
+                f"unknown scalars {sorted(unknown)}; this program "
+                f"expects {sorted(self._scalar_names) or 'none'}")
+        g = self.graph
+        dt, dev = self.dtype, self.device
+        self.bind_weights({n: as_tensor(weights[n], dt, dev)
+                           for n in g.weights})
+        if g.caches:
+            self.bind_caches({n: as_tensor(inputs[n], dt, dev)
+                              for n in g.caches})
+        acts = {n: as_tensor(v, dt, dev) for n, v in inputs.items()
+                if n not in g.caches}
+        outs = self.step(acts, next(iter(scalars.values()), 0))
+        self.check_fault()
+        cache_ids = {id(t) for t in self.caches.values()}
+        return tuple(o if id(o) in cache_ids else o.clone() for o in outs)
+
+    def run_sharded(self, *args, **kwargs):
+        raise later_slice("run_sharded", "6", " (the multi-rank layer)")
+
+    def step_fn_sharded(self, *args, **kwargs):
+        raise later_slice("step_fn_sharded", "6", " (the multi-rank layer)")
+
+    def profile_tasks(self, *args, **kwargs):
+        raise later_slice("profile_tasks", "7", " (tools and verification)")
+
+    # -- cost model ------------------------------------------------------
+    def task_costs(self, cache_len: int = 0):
+        """(flops, bytes) per task at `cache_len`: each input read once,
+        each output written once (a LINEAR's weight once, a cache prefix
+        row once per kv head's K and V), as ExecutorPallas.task_costs
+        counts each task."""
+        item = torch.finfo(self.dtype).bits // 8
+        costs = []
+        for nd in self.tasks:
+            S = nd.inputs[0].rows
+            if nd.op == "linear":
+                K, N = nd.inputs[0].cols, nd.out.cols
+                flops = 2 * S * K * N
+                bytes_ = (S * K + K * N + S * N) * item
+            elif nd.op == "rms_norm":
+                N = nd.out.cols
+                flops = 4 * S * N
+                bytes_ = (2 * S * N + N) * item
+            elif nd.op in ("silu_mul", "add"):
+                flops = (8 if nd.op == "silu_mul" else 1) * S * nd.out.cols
+                bytes_ = 3 * S * nd.out.cols * item
+            elif nd.op in ("attention", "attention_kv"):
+                at = nd.attrs
+                H, Hkv, D = at["num_heads"], at["num_kv_heads"], at["head_dim"]
+                cl = cache_len if nd.op == "attention_kv" else 0
+                causal = at.get("causal", True)
+                pairs = S * cl + (S * (S + 1) // 2 if causal else S * S)
+                flops = 4 * pairs * H * D
+                bytes_ = (S * nd.inputs[0].cols + 2 * cl * Hkv * D
+                          + S * H * D) * item
+            else:   # kv_append: read the part, write the rows
+                at = nd.attrs
+                w = at["num_kv_heads"] * at["head_dim"]
+                flops = 10 * S * w if at["part"] == "k" else 0
+                bytes_ = 2 * S * w * item
+            costs.append({"flops": int(flops), "bytes": int(bytes_)})
+        return costs
+
+
+# ---------------------------------------------------------------------------
+# The plain version: the same table and queues, each tile in torch
+# ---------------------------------------------------------------------------
+
+def _round(x, dt):
+    return x.to(dt).float()
+
+
+def prep_rows(x, norm_w, pos, cos, sin, eps, dt):
+    """Qwen3 per-head RMSNorm (f32, rounded to dt) then rotate-half RoPE
+    in f32 with the f32 table rows of `pos` (rounded to dt): the
+    kernel's prep_row. x: (rows, heads, D). Returns f32 values that are
+    exactly representable in dt."""
+    xf = x.float()
+    if norm_w is not None:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        xf = _round(xf * torch.rsqrt(var + eps) * norm_w.float()[0], dt)
+    half = xf.shape[-1] // 2
+    c, s = cos[pos][:, None, :], sin[pos][:, None, :]
+    x1, x2 = xf[..., :half], xf[..., half:]
+    return _round(torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1), dt)
+
+
+def _plain_tile(ex, row, v, tile, cache_len):
+    """Compute one tile of one task from its descriptor row."""
+    dt = ex.dtype
+    op = int(row[F_OP])
+    M, tr = int(row[F_M]), int(row[F_TR])
+    if op == TASK_LINEAR:
+        nct, tn = int(row[F_NCT]), int(row[F_TN])
+        rt, ct = divmod(tile, nct)
+        r0, c0 = rt * tr, ct * tn
+        x, w = v["a"][r0:r0 + tr], v["b"][:, c0:c0 + tn]
+        v["out"][r0:r0 + tr, c0:c0 + tn] = matmul_f32(x, w).to(dt)
+        return
+    if op == TASK_ATTN:
+        H, Hkv, D = int(row[F_H]), int(row[F_HKV]), int(row[F_HD])
+        G = H // Hkv
+        rt, j = divmod(tile, Hkv)
+        r0 = rt * tr
+        r1 = min(M, r0 + tr)
+        cl = cache_len if row[F_CACHED] else 0
+        eps, scale = _bits_f32(row[F_EPS]), _bits_f32(row[F_SCALE])
+        qkv = v["a"]
+        qn = v.get("d") if row[F_QKN] else None
+        kn = v.get("e") if row[F_QKN] else None
+        dev = qkv.device
+        q = qkv[r0:r1, j * G * D:(j + 1) * G * D].reshape(r1 - r0, G, D)
+        q = prep_rows(q, qn, cl + torch.arange(r0, r1, device=dev),
+                      v["cos"], v["sin"], eps, dt)            # (rows, G, D)
+        ncur = r1 if row[F_CAUSAL] else M
+        kcur = qkv[:ncur, (H + j) * D:(H + j + 1) * D].reshape(ncur, 1, D)
+        kcur = prep_rows(kcur, kn, cl + torch.arange(ncur, device=dev),
+                         v["cos"], v["sin"], eps, dt)[:, 0]
+        vcur = qkv[:ncur, (H + Hkv + j) * D:(H + Hkv + j + 1) * D].float()
+        if cl:
+            keys = torch.cat([v["b"][:cl, j * D:(j + 1) * D].float(), kcur])
+            vals = torch.cat([v["c"][:cl, j * D:(j + 1) * D].float(), vcur])
+        else:
+            keys, vals = kcur, vcur
+        s = torch.einsum("rgd,kd->rgk", q, keys) * scale
+        cols = torch.arange(cl + ncur, device=dev)[None, :]
+        rows = torch.arange(r0, r1, device=dev)[:, None]
+        seen = (cols < cl) | (cols - cl <= rows)
+        if not row[F_CAUSAL]:
+            seen = torch.ones_like(seen)
+        s = torch.where(seen[:, None, :], s, -1e30)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(seen[:, None, :], torch.exp(s - m), 0.0)
+        o = torch.einsum("rgk,kd->rgd", _round(p, dt), vals) \
+            / p.sum(dim=-1, keepdim=True)
+        v["out"][r0:r1, j * G * D:(j + 1) * G * D] = \
+            o.reshape(r1 - r0, G * D).to(dt)
+        return
+    r0 = tile * tr
+    r1 = min(M, r0 + tr)
+    if op == TASK_RMS_NORM:
+        xf = v["a"][r0:r1].float()
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        v["out"][r0:r1] = (xf * torch.rsqrt(var + _bits_f32(row[F_EPS]))
+                           * v["b"].float()[0]).to(dt)
+    elif op == TASK_SILU_MUL:
+        af = v["a"][r0:r1].float()
+        v["out"][r0:r1] = (af * torch.sigmoid(af)
+                           * v["b"][r0:r1].float()).to(dt)
+    elif op == TASK_ADD:
+        v["out"][r0:r1] = v["a"][r0:r1] + v["b"][r0:r1]
+    elif op in (TASK_KVA_K, TASK_KVA_V):
+        H, Hkv, D = int(row[F_H]), int(row[F_HKV]), int(row[F_HD])
+        lo = H if op == TASK_KVA_K else H + Hkv
+        part = v["a"][r0:r1, lo * D:(lo + Hkv) * D]
+        if op == TASK_KVA_K:
+            dev = part.device
+            part = prep_rows(part.reshape(r1 - r0, Hkv, D),
+                             v.get("e") if row[F_QKN] else None,
+                             cache_len + torch.arange(r0, r1, device=dev),
+                             v["cos"], v["sin"], _bits_f32(row[F_EPS]), dt)
+            part = part.reshape(r1 - r0, Hkv * D)
+        v["out"][cache_len + r0:cache_len + r1] = part.to(dt)
+    else:
+        raise RuntimeError(f"descriptor names op {op}, which the kernel "
+                           f"does not have")
+
+
+def plain_walk(ex: ExecutorCuda, cache_len: int, *, seed: int = 0):
+    """Run the program's queues with torch ops: at each step the head of
+    a queue chosen by `random.Random(seed)` among those whose producer
+    tasks have all finished every tile. Raises if no head can run (a
+    missing or cyclic dependency), which on the card would be a
+    deadlock."""
+    desc, _, views, *_ = ex.descriptors()
+    queues, qlen = ex.queues, ex.qlen
+    rng = random.Random(seed)
+    done = np.zeros(len(ex.tasks), np.int64)
+    ready = np.zeros(len(ex.tasks), bool)
+    heads = np.zeros(ex.n_sm, np.int64)
+    live = [c for c in range(ex.n_sm) if qlen[c] > 0]
+    deps = ex.deps
+    tiles = ex.n_tiles
+
+    def runnable(task):
+        if not ready[task]:
+            ready[task] = all(done[p] == tiles[p] for p in deps[task])
+        return ready[task]
+
+    while live:
+        start = rng.randrange(len(live))
+        for k in range(len(live)):
+            c = live[(start + k) % len(live)]
+            task, tile = scheduler.unpack(queues[c, heads[c]])
+            if runnable(task):
+                break
+        else:
+            stuck = {live_c: scheduler.unpack(queues[live_c, heads[live_c]])
+                     for live_c in live}
+            raise RuntimeError(
+                f"megakernel plain walk: no queue head can run (a "
+                f"dependency is missing or cyclic); heads (sm: task, tile) "
+                f"{stuck}")
+        _plain_tile(ex, desc[task], views[task], tile, cache_len)
+        done[task] += 1
+        heads[c] += 1
+        if heads[c] == qlen[c]:
+            live.remove(c)
+    if not (done == tiles).all():
+        raise RuntimeError("megakernel plain walk: tiles left unrun")

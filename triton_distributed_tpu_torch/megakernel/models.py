@@ -1,0 +1,194 @@
+"""Megakernel model assembly: Qwen3-style transformer blocks
+(counterpart of triton_distributed_tpu/megakernel/models.py).
+
+Analog of reference mega_triton_kernel/models/qwen3.py:202 — the Qwen3
+forward assembled as one megakernel program. The builders emit the same
+op graph as the JAX package's, node for node. The batched serving and
+MoE builders come with later slices and raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .builder import ModelBuilder, later_slice
+
+
+def _one_rank(mesh, tp_shards):
+    if mesh is not None or tp_shards:
+        raise later_slice("tp_shards / mesh", "6", " (the multi-rank layer)")
+
+
+def build_qwen3_block(mb: ModelBuilder, x, *, layer: int, hidden: int,
+                      intermediate: int, num_heads: int,
+                      num_kv_heads: int, head_dim: int,
+                      rope_theta: float = 1e6, tp_shards: bool = False):
+    """Append one transformer block (attn + SwiGLU MLP, pre-norm,
+    residuals) to the graph; returns the block output handle."""
+    _one_rank(None, tp_shards)
+    pre = f"l{layer}."
+    d = head_dim
+    qkv_cols = (num_heads + 2 * num_kv_heads) * d
+
+    ln1 = mb.weight(pre + "ln1", (1, hidden))
+    w_qkv = mb.weight(pre + "w_qkv", (hidden, qkv_cols))
+    w_o = mb.weight(pre + "w_o", (num_heads * d, hidden))
+    ln2 = mb.weight(pre + "ln2", (1, hidden))
+    w_gate = mb.weight(pre + "w_gate", (hidden, intermediate))
+    w_up = mb.weight(pre + "w_up", (hidden, intermediate))
+    w_down = mb.weight(pre + "w_down", (intermediate, hidden))
+
+    h = mb.rms_norm(x, ln1)
+    qkv = mb.linear(h, w_qkv)
+    attn = mb.attention(qkv, num_heads=num_heads,
+                        num_kv_heads=num_kv_heads, head_dim=d,
+                        rope_theta=rope_theta)
+    o = mb.linear(attn, w_o)
+    x = mb.add(x, o)
+
+    h = mb.rms_norm(x, ln2)
+    a = mb.silu_mul(mb.linear(h, w_gate), mb.linear(h, w_up))
+    y = mb.linear(a, w_down)
+    return mb.add(x, y)
+
+
+def build_qwen3_decode_block(mb: ModelBuilder, x, *, layer: int,
+                             hidden: int, intermediate: int,
+                             num_heads: int, num_kv_heads: int,
+                             head_dim: int, max_cache: int,
+                             rope_theta: float = 1e6,
+                             qk_norm: bool = False,
+                             tp_shards: bool = False,
+                             kv_append: bool = False):
+    """One transformer block of a DECODE step: attention runs against a
+    per-layer KV cache (cache inputs `l{i}.k_cache` / `l{i}.v_cache`,
+    valid prefix length = the shared `cache_len` run-time scalar).
+    `kv_append=True` also emits the cache-update tasks: the step's new K
+    (normed + roped) and raw V rows land in the caches at
+    [cache_len, cache_len + S) inside the same launch — the
+    device-resident serving form MegaDecoder uses."""
+    _one_rank(None, tp_shards)
+    pre = f"l{layer}."
+    d = head_dim
+    qkv_cols = (num_heads + 2 * num_kv_heads) * d
+
+    ln1 = mb.weight(pre + "ln1", (1, hidden))
+    w_qkv = mb.weight(pre + "w_qkv", (hidden, qkv_cols))
+    w_o = mb.weight(pre + "w_o", (num_heads * d, hidden))
+    ln2 = mb.weight(pre + "ln2", (1, hidden))
+    w_gate = mb.weight(pre + "w_gate", (hidden, intermediate))
+    w_up = mb.weight(pre + "w_up", (hidden, intermediate))
+    w_down = mb.weight(pre + "w_down", (intermediate, hidden))
+    kc = mb.cache(pre + "k_cache", (max_cache, num_kv_heads * d))
+    vc = mb.cache(pre + "v_cache", (max_cache, num_kv_heads * d))
+    qn = kn = None
+    if qk_norm:
+        qn = mb.weight(pre + "q_norm", (1, d))
+        kn = mb.weight(pre + "k_norm", (1, d))
+
+    h = mb.rms_norm(x, ln1)
+    qkv = mb.linear(h, w_qkv)
+    attn = mb.attention_kv(qkv, kc, vc, num_heads=num_heads,
+                           num_kv_heads=num_kv_heads, head_dim=d,
+                           rope_theta=rope_theta, q_norm=qn, k_norm=kn)
+    if kv_append:
+        mb.kv_append(qkv, kc, vc, num_heads=num_heads,
+                     num_kv_heads=num_kv_heads, head_dim=d,
+                     rope_theta=rope_theta, k_norm=kn)
+    o = mb.linear(attn, w_o)
+    x = mb.add(x, o)
+
+    h = mb.rms_norm(x, ln2)
+    a = mb.silu_mul(mb.linear(h, w_gate), mb.linear(h, w_up))
+    y = mb.linear(a, w_down)
+    return mb.add(x, y)
+
+
+def build_qwen3_decode(*, seq_len: int, hidden: int, intermediate: int,
+                       num_layers: int, num_heads: int, num_kv_heads: int,
+                       head_dim: int, max_cache: int,
+                       rope_theta: float = 1e6, qk_norm: bool = False,
+                       rms_eps: float = 1e-6, mesh=None,
+                       axis: str = "tp", tp_shards: bool = False,
+                       kv_append: bool = False,
+                       dtype=None) -> ModelBuilder:
+    """Whole decode-step trunk (hidden states of the `seq_len` new tokens
+    in -> normalized hidden states out) against per-layer KV caches, as
+    one megakernel program. `qk_norm` adds Qwen3's per-head q/k RMSNorm
+    weights (`l{i}.q_norm`/`k_norm`)."""
+    _one_rank(mesh, tp_shards)
+    kwargs = {} if dtype is None else {"dtype": dtype}
+    mb = ModelBuilder(axis=axis, rms_eps=rms_eps, **kwargs)
+    x = mb.input("x", (seq_len, hidden))
+    for layer in range(num_layers):
+        x = build_qwen3_decode_block(
+            mb, x, layer=layer, hidden=hidden, intermediate=intermediate,
+            num_heads=num_heads, num_kv_heads=num_kv_heads,
+            head_dim=head_dim, max_cache=max_cache,
+            rope_theta=rope_theta, qk_norm=qk_norm, kv_append=kv_append)
+    fn = mb.weight("final_norm", (1, hidden))
+    mb.output(mb.rms_norm(x, fn))
+    return mb
+
+
+def build_qwen3_forward(*, seq_len: int, hidden: int, intermediate: int,
+                        num_layers: int, num_heads: int, num_kv_heads: int,
+                        head_dim: int, rope_theta: float = 1e6,
+                        mesh=None, axis: str = "tp",
+                        tp_shards: bool = False) -> ModelBuilder:
+    """Whole-trunk forward (hidden states in -> hidden states out) as
+    one megakernel program; embed/lm_head stay outside like the
+    reference's server wrapper."""
+    _one_rank(mesh, tp_shards)
+    mb = ModelBuilder(axis=axis)
+    x = mb.input("x", (seq_len, hidden))
+    for layer in range(num_layers):
+        x = build_qwen3_block(
+            mb, x, layer=layer, hidden=hidden, intermediate=intermediate,
+            num_heads=num_heads, num_kv_heads=num_kv_heads,
+            head_dim=head_dim, rope_theta=rope_theta)
+    fn = mb.weight("final_norm", (1, hidden))
+    mb.output(mb.rms_norm(x, fn))
+    return mb
+
+
+def init_random_io(mb: ModelBuilder, rng, *, stack: int | None = None,
+                   dtype=None):
+    """Random (inputs, weights) numpy arrays for a built graph from a
+    numpy Generator, with the JAX package's conventions and draw order
+    (norm weights positive around 1, small dense weights), so one seed
+    gives both packages the same numbers."""
+    if stack is not None:
+        raise later_slice("init_random_io(stack=...)", "6",
+                          " (the multi-rank layer)")
+    dtype = dtype or np.float32
+
+    def draw(hdl, scale, positive=False):
+        w = rng.normal(size=hdl.shape).astype(dtype) * scale
+        return (np.abs(w) + 1.0).astype(dtype) if positive else w
+
+    inputs, weights = {}, {}
+    for name, hdl in mb.graph.inputs.items():
+        inputs[name] = draw(hdl, 1.0 if name == "x" else 0.5)
+    for name, hdl in mb.graph.weights.items():
+        positive = "ln" in name or "norm" in name
+        weights[name] = draw(hdl, 0.2, positive=positive)
+    return inputs, weights
+
+
+def build_qwen3_serve_block(*args, **kwargs):
+    raise later_slice("build_qwen3_serve_block", "3b",
+                      " (paged serving: MegaServe)")
+
+
+def build_qwen3_serve_batched(*args, **kwargs):
+    raise later_slice("build_qwen3_serve_batched", "3b",
+                      " (paged serving: MegaServe)")
+
+
+def build_qwen3_moe_serve_block(*args, **kwargs):
+    raise later_slice("build_qwen3_moe_serve_block", "4", " (MoE)")
+
+
+def build_qwen3_moe_serve_batched(*args, **kwargs):
+    raise later_slice("build_qwen3_moe_serve_batched", "4", " (MoE)")

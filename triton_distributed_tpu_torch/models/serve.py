@@ -194,10 +194,10 @@ class ServeEngine:
             _not_in_slice("the host spill tier (host_blocks)", "slice 2b")
         if mode not in (None, "engine"):
             if mode == "megakernel":
-                _not_in_slice("mode='megakernel'", "slice 3")
+                _not_in_slice("mode='megakernel'", "slice 3b")
             raise ValueError(f"mode={mode!r}: choose 'engine'")
         if mk_opts is not None:
-            _not_in_slice("mk_opts (the megakernel decode path)", "slice 3")
+            _not_in_slice("mk_opts (the megakernel serving path)", "slice 3b")
         if attn_parallelism not in (None, "tp"):
             if attn_parallelism == "sp":
                 _not_in_slice("attn_parallelism='sp'", "slice 6")

@@ -51,13 +51,41 @@ Phases, in order; any failure raises and exits non-zero:
      golden executor (5e-2 of the largest value), outputs and appended
      K/V rows of every layer; the decode step's times and bound; with
      --profile, a breakdown of the step's time;
- 14. one JSON line of per-kernel numbers, then the device JSON line.
-Without a GPU it exits non-zero before printing anything.
+ 14. the MoE grouped GEMM (csrc/grouped_gemm.cu) against its plain
+     version at Qwen3-30B-A3B shapes in bf16 (2e-2 of the largest value):
+     gate_up (K 2048, N 1536) and down (K 768, N 2048) over 128 experts,
+     each under the decode routing (4 rows x top-8) and the prefill
+     routing (2048 rows x top-8) of a seeded router; pad rows exactly 0;
+     times for the kernel, the plain version, torch._grouped_mm over the
+     same aligned rows (a yardstick only) and gather_sorted;
+ 15. GQA group 8 (Qwen3-30B-A3B's 32 q heads over 4 kv heads) through
+     the three attention kernels against their plain versions;
+ 16. a small Qwen3MoE (head_dim 128, group 8, block_m 16) on the GPU
+     against the same model on the CPU, bf16: prefill logits and the
+     logits of one decode step from the CPU's greedy tokens within 5e-2
+     of the largest, the first greedy token equal;
+ 17. the slice-4 main path: the Qwen3-8B weights, caches and decoders are
+     released (device memory under 1 GiB), then Qwen3-30B-A3B at full
+     width and depth (48 layers, 128 experts, top-8) with random bf16
+     weights behind Engine.serve on 4 prompts of 500 tokens, 32 tokens
+     each: exact launch counts (flash_attention 48, flash_decode 48 x 31,
+     gmm 2 x 48 x 32), start + step reproduce serve's tokens, prefill ms,
+     decode tokens/s, aten ops per decode step, one MoE layer's decode
+     forward under torch.cuda.set_sync_debug_mode("error"); with
+     --profile, the device's idle share over decode steps;
+ 18. ServeEngine over the same MoE weights with the serve cell's stream
+     and settings (bf16 pool): the checks of step 9 with exact gmm
+     launch counts, then ep_capacity=2: slots deferred, every request at
+     its length, ep_rows equal to the rows decode routed;
+ 19. one JSON line of per-kernel numbers, then the device JSON line.
+Steps 14-16 run with the other kernel checks, before step 4; steps 17-18
+run last. Without a GPU it exits non-zero before printing anything.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -79,6 +107,8 @@ MK_BF16_2L_TOL = 2e-2      # megakernel bf16 x 2 layers, of max |ref|: one-
                            # ulp flips of a bf16 rounding (as the 2-layer
                            # GPU tests, tests/test_torch_cuda.py MK_TOL)
 LSE_TOL = 1e-3             # f32 lse from f32 scores: summation order, exp2
+GMM_TOL = 2e-2             # gmm bf16, of max |plain|: the same f32 sums in
+                           # other orders, each rounded once to bf16
 COLD_COPIES = 4            # input copies rotated so each launch finds L2 cold
 
 
@@ -124,6 +154,12 @@ def bound(nbytes, flops, peak=PEAK_BF16_FLOPS):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _to_device(params, dev):
+    return {"embed": params["embed"].to(dev), "norm": params["norm"].to(dev),
+            "lm_head": params["lm_head"].to(dev),
+            "layers": {k: t.to(dev) for k, t in params["layers"].items()}}
 
 
 def check_flash_attention(attn, dev, gen):
@@ -227,9 +263,7 @@ def check_small_model(models, seed):
     cpu = models.DenseLLM(cfg, dtype="bfloat16", device="cpu")
     params = cpu.init_params(torch.Generator().manual_seed(seed))
     gpu = models.DenseLLM(cfg, dtype="bfloat16", device="cuda")
-    gparams = {"embed": params["embed"].cuda(), "norm": params["norm"].cuda(),
-               "lm_head": params["lm_head"].cuda(),
-               "layers": {k: t.cuda() for k, t in params["layers"].items()}}
+    gparams = _to_device(params, "cuda")
     ids = np.random.RandomState(seed).randint(0, cfg.vocab_size, (2, 37))
     logits = []
     for m, p in ((cpu, params), (gpu, gparams)):
@@ -389,9 +423,7 @@ def check_small_model_paged(models, seed):
     cpu = models.DenseLLM(cfg, dtype="bfloat16", device="cpu")
     params = cpu.init_params(torch.Generator().manual_seed(seed))
     gpu = models.DenseLLM(cfg, dtype="bfloat16", device="cuda")
-    gparams = {"embed": params["embed"].cuda(), "norm": params["norm"].cuda(),
-               "lm_head": params["lm_head"].cuda(),
-               "layers": {k: t.cuda() for k, t in params["layers"].items()}}
+    gparams = _to_device(params, "cuda")
     rng = np.random.RandomState(seed)
     prompts = [rng.randint(0, cfg.vocab_size, 200),
                rng.randint(0, cfg.vocab_size, 70)]
@@ -441,11 +473,12 @@ def serve_stream(rng, vocab):
             (np.concatenate([pre, ids(200)]), 40), (b.copy(), 20)]
 
 
-def run_serve(models, attn, engine, stream, L):
+def run_serve(models, attn, engine, stream, L, gg):
     """One ServeEngine run of the stream with the launch counts set to 0
     just before it; returns (tokens by rid, stats, launches, decode tick
     ms list, aten ops one decode tick dispatched). The sixth decode tick
-    is counted, not timed."""
+    is counted, not timed. A MoE model launches two grouped GEMMs per
+    layer per prefill chunk and per decode step, a dense one none."""
     for rid_ids, gen_len in stream:
         engine.submit(rid_ids, gen_len)
     tick_ms, tick_ops = [], []
@@ -469,6 +502,7 @@ def run_serve(models, attn, engine, stream, L):
                "flash_decode": attn.FLASH_DECODE}
     kernels.update({f"flash_decode_paged[{a}]": k
                     for a, k in attn.FLASH_DECODE_PAGED.items()})
+    kernels["gmm"] = gg.GMM
     for k in kernels.values():
         k.launches = 0
     out = engine.run()
@@ -480,6 +514,8 @@ def run_serve(models, attn, engine, stream, L):
     want = {n: 0 for n in kernels}
     want["flash_attention"] = L * (st["prefill_chunks"] + st["prefix_chunks"])
     want[f"flash_decode_paged[{arm}]"] = L * st["decode_steps"]
+    if engine.model.config.is_moe:
+        want["gmm"] = 2 * L * (st["prefill_chunks"] + st["decode_steps"])
     assert launches == want, (launches, want)
     return out, st, launches, tick_ms, tick_ops[0]
 
@@ -521,7 +557,7 @@ def profile_serve(models, model, params, vocab, seed):
         print(f"profile serve:   {ms:9.3f} ms  {count:6d}  {name[:70]}")
 
 
-def check_serve(models, attn, model, params, cfg, seed, smi, profile):
+def check_serve(models, attn, gg, model, params, cfg, seed, smi, profile):
     """The slice-2 main path at full width: ServeEngine over Qwen3-8B,
     bf16 pool checked in full, then int8 and fp8 pools."""
     L = cfg.num_layers
@@ -534,7 +570,7 @@ def check_serve(models, attn, model, params, cfg, seed, smi, profile):
                                 block=128, prefill_chunk=256, num_blocks=64,
                                 kv_dtype=kv)
         out, st, launches, tick_ms, ops = run_serve(models, attn, se, stream,
-                                                    L)
+                                                    L, gg)
         pool_gib = se._cache.block_nbytes() * 64 / 2**30
         for n, c in launches.items():
             total[n] = total.get(n, 0) + c
@@ -702,9 +738,7 @@ def check_megadecoder_small(models, seed):
     cpu = models.DenseLLM(cfg, dtype="float32", device="cpu")
     params = cpu.init_params(torch.Generator().manual_seed(seed))
     gpu = models.DenseLLM(cfg, dtype="float32", device="cuda")
-    gparams = {"embed": params["embed"].cuda(), "norm": params["norm"].cuda(),
-               "lm_head": params["lm_head"].cuda(),
-               "layers": {k: t.cuda() for k, t in params["layers"].items()}}
+    gparams = _to_device(params, "cuda")
     prompt = np.random.RandomState(seed).randint(0, cfg.vocab_size, 37)
     toks = [MegaDecoder.from_dense(m, p, max_cache=64, prompt_len=37,
                                    prefill_chunk=16, device=d).serve(prompt, 8)
@@ -936,6 +970,313 @@ def check_megakernel_main(md, cfg, prompt, smi, profile):
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
+def check_attention_group8(attn, dev, gen, entries):
+    """GQA group 8 (32 q heads over 4 kv heads, Qwen3-30B-A3B) through
+    the three attention kernels against their plain versions; the
+    errors join each kernel's max_abs_err."""
+    B, H, Hkv, D = 4, 32, 4, 128
+    rnd = lambda *shape: torch.randn(shape, generator=gen,   # noqa: E731
+                                     device=dev).bfloat16()
+    q, k, v = rnd(B, 512, H, D), rnd(B, 512, Hkv, D), rnd(B, 512, Hkv, D)
+    out = attn.flash_attention(q, k, v, causal=True)
+    ref, _ = attn._flash_attention_plain(q, k, v, 0, 0, 512, causal=True,
+                                         scale=D ** -0.5)
+    errs = {"flash_attention": (out.float() - ref.float()).abs().max().item()}
+    q1, kc, vc = rnd(B, H, D), rnd(B, 1024, Hkv, D), rnd(B, 1024, Hkv, D)
+    kv_len = torch.tensor([501, 0, 17, 531], dtype=torch.int32, device=dev)
+    out, lse = attn.flash_decode_partial(q1, kc, vc, kv_len)
+    ref, ref_lse = attn._flash_decode_plain(q1, kc, vc, kv_len,
+                                            scale=D ** -0.5)
+    errs["flash_decode"] = (out.float() - ref.float()).abs().max().item()
+    le = (lse - ref_lse).abs().max().item()
+    nb, mb, blk = 64, 16, 128
+    tab = torch.from_numpy(_paged_table(np.random.RandomState(2),
+                                        [2, 7, 12, 1], nb, mb)).to(dev)
+    kp, vp = rnd(nb, Hkv, blk, D), rnd(nb, Hkv, blk, D)
+    kv_len = torch.tensor([130, 700, 1500, 0], dtype=torch.int32, device=dev)
+    out, lse = attn.flash_decode_paged_partial(q1, kp, vp, tab, kv_len)
+    ref, ref_lse = attn._flash_decode_paged_plain(q1, kp, vp, tab, kv_len,
+                                                  scale=D ** -0.5)
+    errs["flash_decode_paged[bfloat16]"] = (
+        out.float() - ref.float()).abs().max().item()
+    le = max(le, (lse[:3] - ref_lse[:3]).abs().max().item())
+    print(f"attention at GQA group 8 (H {H}, Hkv {Hkv}): max_abs_err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f"; lse {le:.3e}")
+    assert max(errs.values()) <= OUT_TOL and le <= LSE_TOL, (errs, le)
+    for e in entries:
+        if e["name"] in errs:
+            e["max_abs_err"] = max(e["max_abs_err"], errs[e["name"]])
+
+
+def _grouped_mm_ms(lhs, ws, disp, bm):
+    """torch._grouped_mm over the same aligned rows (groups ending at the
+    aligned offsets), a yardstick only: (ms, None) or (None, reason)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "this torch has no torch._grouped_mm"
+    offs = torch.cumsum((disp.group_sizes + bm - 1) // bm * bm, 0,
+                        dtype=torch.int32)
+    fns = [lambda w=w: torch._grouped_mm(lhs, w, offs=offs) for w in ws]
+    try:
+        fns[0]()
+        torch.cuda.synchronize()
+    except RuntimeError as e:     # refused shapes or layouts: no yardstick
+        return None, f"torch._grouped_mm refused: {str(e)[:160]}"
+    return time_ms(fns), None
+
+
+def check_gmm(dev, gen):
+    """The grouped GEMM kernel against its plain version at Qwen3-30B-A3B
+    shapes (E 128, top-8, block_m 128), bf16, for both projections under
+    the decode (4 rows) and prefill (2048 rows) routing of a seeded
+    router over random rows. Returns the kernels-line entry, timed on
+    the decode gate_up call (31 of every 32 main-path calls are decode
+    calls)."""
+    from triton_distributed_tpu_torch.ops import grouped_gemm as gg
+    from triton_distributed_tpu_torch.ops import moe_utils as mu
+    E, top_k, H, I, bm = 128, 8, 2048, 768, 128
+    cfg = gg.GroupedGemmConfig(block_m=bm)
+    router = torch.randn((H, E), generator=gen, device=dev) * H ** -0.5
+
+    def slabs(K, N):      # two copies: the live slabs exceed L2 between runs
+        return [torch.randn((E, K, N), generator=gen, device=dev,
+                            dtype=torch.bfloat16).mul_(K ** -0.5)
+                for _ in range(2)]
+
+    w_gu, w_dn = slabs(H, 2 * I), slabs(I, H)
+    entry, err_all = None, 0.0
+    for route, M in (("decode", 4), ("prefill", 2048)):
+        x = torch.randn((M, H), generator=gen, device=dev).bfloat16()
+        weights, experts = mu.route_topk(x.float() @ router, top_k)
+        disp = mu.sort_tokens_by_expert(experts, E, bm)
+        gs = disp.group_sizes
+        P = disp.gather_token.shape[0]
+        pad = disp.sorted_assignment == M * top_k
+        live_e, rows = int((gs > 0).sum()), M * top_k
+        xs = mu.gather_sorted(x, disp)
+        g_ms = time_ms([lambda: mu.gather_sorted(x, disp)])
+        live_t = int(((gs + bm - 1) // bm).sum())
+        print(f"gmm {route}: {M} rows x top-{top_k} -> {rows} rows on "
+              f"{live_e} experts, P {P} ({P // bm} tiles, {live_t} live); "
+              f"gather_sorted (P, {H}) {g_ms:.4f} ms")
+        act = torch.randn((P, I), generator=gen, device=dev).bfloat16()
+        act[pad] = 0                            # pad rows are zero rows
+        for proj, lhs, ws in (("gate_up", xs, w_gu), ("down", act, w_dn)):
+            K, N = ws[0].shape[1:]
+            out = gg.gmm(lhs, ws[0], disp.tile_expert, config=cfg,
+                         group_sizes=gs)
+            ref = gg._gmm_plain(lhs, ws[0], disp.tile_expert, bm)
+            err = (out.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            assert torch.isfinite(out.float()).all() and \
+                torch.all(out[pad] == 0), (route, proj)
+            assert rel <= GMM_TOL, (route, proj, rel)
+            err_all = max(err_all, err)
+            ms = time_ms([lambda w=w: gg.gmm(lhs, w, disp.tile_expert,
+                                             config=cfg, group_sizes=gs)
+                          for w in ws])
+            plain_ms = time_ms([lambda w=w: gg._gmm_plain(
+                lhs, w, disp.tile_expert, bm) for w in ws], reps=3, rounds=3)
+            lib_ms, why = _grouped_mm_ms(lhs, ws, disp, bm)
+            moved = (live_e * K * N + rows * K + P * N) * 2
+            bms, by = bound(moved, 2 * rows * K * N)
+            lib = f"{lib_ms:.4f} ms" if lib_ms is not None else why
+            print(f"gmm {route} {proj} (K {K}, N {N}): max_abs_err {err:.3e}"
+                  f" ({rel:.3e} of max |plain|); kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, torch._grouped_mm {lib}, bound "
+                  f"{bms:.4f} ms ({by}: {moved / 1e9:.3f} GB, "
+                  f"{2 * rows * K * N / 1e9:.1f} GFLOP)")
+            if route == "decode" and proj == "gate_up":
+                entry = {"name": "gmm", "route": "cuda",
+                         "source": "triton_distributed_tpu_torch/csrc/"
+                                   "grouped_gemm.cu",
+                         "replaces": "triton_distributed_tpu/ops/"
+                                     "grouped_gemm.py:41",
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                         "bound_by": by, "library_ms": lib_ms}
+            del out, ref
+    entry["max_abs_err"] = err_all
+    return entry
+
+
+def check_small_moe(models, gg, seed):
+    """A small Qwen3MoE (hidden 256, 8 q heads over 1 kv head, head_dim
+    128, 8 experts, top-2, block_m 16) on the GPU through the kernels
+    against the same weights on the CPU through the plain versions, in
+    bf16: prefill logits of the last rows, then one decode step from the
+    CPU's greedy tokens."""
+    from triton_distributed_tpu_torch.ops.moe_parallel import (
+        MoEParallelConfig)
+    cfg = models.get_config("Qwen/Qwen3-30B-A3B").tiny(
+        hidden_size=256, num_heads=8, num_kv_heads=1, head_dim=128,
+        vocab_size=512, num_layers=2, num_experts=8, num_experts_per_tok=2,
+        moe_intermediate_size=256)
+    mc = MoEParallelConfig(gemm=gg.GroupedGemmConfig(block_m=16))
+    cpu = models.Qwen3MoE(cfg, dtype="bfloat16", device="cpu", moe_config=mc)
+    params = cpu.init_params(torch.Generator().manual_seed(seed))
+    gpu = models.Qwen3MoE(cfg, dtype="bfloat16", device="cuda",
+                          moe_config=mc)
+    gparams = _to_device(params, "cuda")
+    ids = np.random.RandomState(seed).randint(0, cfg.vocab_size, (2, 37))
+    before = gg.GMM.launches
+    logits, tok = [], None
+    for m, p in ((cpu, params), (gpu, gparams)):
+        last, cache = m._prefill_hidden(p, ids, m.new_kv_cache(2, 64))
+        pre = (last.float() @ p["lm_head"].float()).cpu()
+        tok = pre.argmax(-1) if tok is None else tok
+        x, _ = m._decode_hidden(p, tok.to(m.device), cache)
+        logits.append((pre, (x.float() @ p["lm_head"].float()).cpu()))
+    torch.cuda.synchronize()
+    assert gg.GMM.launches == before + 2 * 2 * cfg.num_layers
+    (cpre, cdec), (gpre, gdec) = logits
+    _agree("small Qwen3MoE prefill", cpre, gpre)
+    _agree("small Qwen3MoE decode step", cdec, gdec)
+    assert torch.equal(gpre.argmax(-1), cpre.argmax(-1)), "first token"
+
+
+def run_engine(models, kernels, model, params, cfg, ids, gen_len, smi,
+               profile, name):
+    """Engine(max_len=1024).serve with the launch counts of `kernels` set
+    to 0 just before it and read just after; then start + step must
+    reproduce its tokens, with prefill ms, decode tokens/s and the aten
+    ops of one decode step. Returns (engine, tokens, launches)."""
+    from triton_distributed_tpu_torch.models.engine import prompt_bucket
+    B, S = ids.shape
+    engine = models.Engine(model, params, max_len=1024)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    toks = engine.serve(ids, gen_len)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    print(f"{name} Engine.serve: tokens {toks.shape}, {serve_s * 1e3:.1f} ms "
+          f"(first call), launches {launches}")
+    assert toks.shape == (B, gen_len) and toks.dtype == np.int32
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, cache = engine.start(ids)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    steps = [tok]
+    for _ in range(gen_len - 1):
+        tok, cache = engine.step(tok, cache)
+        steps.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    stepwise = torch.stack(steps, dim=1).cpu().numpy()
+    assert np.array_equal(stepwise, toks), "start+step differ from serve"
+    prefill_ms = (t1 - t0) * 1e3
+    decode_tps = B * (gen_len - 1) / (t2 - t1)
+    print(f"{name} prefill ms {prefill_ms:.2f} (B={B}, S={S}, bucket "
+          f"{prompt_bucket(S, 1024)}) | "
+          f"decode tokens/s {decode_tps:.1f} (B={B}, {gen_len - 1} steps, "
+          f"{(t2 - t1) / (gen_len - 1) * 1e3:.2f} ms/step) | {smi}")
+    with OpCount() as ops:
+        engine.step(tok, cache)
+    torch.cuda.synchronize()
+    print(f"{name} decode step: {ops.n} aten ops dispatched on the host "
+          f"({ops.n / cfg.num_layers:.1f} per layer)")
+    if profile:
+        profile_decode(engine, tok, cache, (t2 - t1) / (gen_len - 1) * 1e3)
+    return engine, toks, launches
+
+
+def check_moe_engine(models, kernels, seed, smi, profile):
+    """The slice-4 main path: Qwen3-30B-A3B at full width and depth with
+    random bf16 weights behind Engine.serve. Returns (model, params,
+    launches)."""
+    cfg = models.get_config("Qwen/Qwen3-30B-A3B")
+    model = models.Qwen3MoE(cfg, dtype="bfloat16", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(
+        seed))
+    torch.cuda.synchronize()
+    print(f"Qwen3-30B-A3B: {cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+          f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} (moe "
+          f"intermediate {cfg.moe_intermediate_size}), vocab "
+          f"{cfg.vocab_size}; weights "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak while "
+          f"drawing them {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    B, S, GEN, L = 4, 500, 32, cfg.num_layers
+    ids = np.random.RandomState(seed + 7).randint(0, cfg.vocab_size, (B, S))
+    torch.cuda.reset_peak_memory_stats()
+    _, toks, launches = run_engine(models, kernels, model, params, cfg, ids,
+                                   GEN, smi, profile, "moe")
+    assert launches == {"flash_attention": L, "flash_decode": L * (GEN - 1),
+                        "gmm": 2 * L * GEN}, launches
+    print(f"moe: peak device memory of the engine runs "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # one MoE layer's decode forward never waits on the device
+    p = {k: t[0] for k, t in params["layers"].items()}
+    x = torch.randn((B, cfg.hidden_size), device="cuda").bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = model.moe._shard_fwd(x, p["router"], p["w_moe_gate_up"],
+                                 p["w_moe_down"], mode="ar")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(y.float()).all()
+    print("moe: one MoE layer decode forward ran under "
+          "set_sync_debug_mode('error'): no host synchronisation")
+    return model, params, launches
+
+
+def check_moe_serve(models, attn, gg, model, params, cfg, seed, smi):
+    """ServeEngine over the Qwen3-30B-A3B weights with the serve cell's
+    stream and settings (bf16 pool): checked as the Qwen3-8B bf16 run,
+    then with ep_capacity=2. Returns the launch totals."""
+    L = cfg.num_layers
+    stream = serve_stream(np.random.RandomState(seed), cfg.vocab_size)
+    total, first = {}, None
+    for cap in (0, 0, 2):
+        se = models.ServeEngine(model, params, b_max=4, max_len=2048,
+                                block=128, prefill_chunk=256, num_blocks=64,
+                                ep_capacity=cap)
+        out, st, launches, tick_ms, ops = run_serve(models, attn, se, stream,
+                                                    L, gg)
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+        print(f"moe serve[ep_capacity={cap}]: {st['tokens']} tokens in "
+              f"{st['wall_s']:.3f} s ({st['tokens_per_s']} tokens/s), "
+              f"{st['ticks']} ticks, {st['decode_steps']} decode steps at "
+              f"{statistics.median(tick_ms):.2f} ms median "
+              f"({min(tick_ms):.2f}-{max(tick_ms):.2f}; {ops} aten ops "
+              f"on the host, {ops / L:.1f} per layer), "
+              f"{st['prefill_chunks']} chunks ({st['prefix_chunks']} over a "
+              f"cached prefix), prefix hits {st['prefix_hit_blocks']} blocks, "
+              f"CoW {st['cow_copies']}, capacity_drops "
+              f"{st['capacity_drops']}, ep_rows {st['ep_rows']}, ep_plan "
+              f"{st['ep_plan']}, launches "
+              f"{ {n: c for n, c in launches.items() if c} } | {smi}")
+        assert sorted(out) == list(range(len(stream)))
+        for rid, (_, gen_len) in enumerate(stream):
+            assert len(out[rid]) == gen_len, (rid, len(out[rid]))
+            assert ((out[rid] >= 0) & (out[rid] < cfg.vocab_size)).all()
+        se._cache.check_conservation(cached=st["cached_free_blocks"])
+        assert st["free_blocks"] + st["cached_free_blocks"] == 64, st
+        if cap:
+            assert st["capacity_drops"] > 0, st
+            assert st["ep_rows"] == sum(g - 1 for _, g in stream), st
+            rep = models.serve.banded_token_identity(first, out, band=1.0)
+            print(f"moe serve[ep_capacity={cap}] vs unbudgeted (information "
+                  f"only: bf16, other batch compositions): agreed "
+                  f"{rep['agreed_steps']}/{rep['total_steps']} steps")
+        elif first is None:
+            assert st["prefix_hit_blocks"] > 0 and st["cow_copies"] > 0, st
+            assert st["capacity_drops"] == 0 and st["ep_rows"] == 0, st
+            first = out
+        else:
+            for rid in out:
+                assert np.array_equal(out[rid], first[rid]), rid
+            print("moe serve: a second run gives identical tokens")
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -949,6 +1290,7 @@ def main():
     from triton_distributed_tpu_torch import models
     from triton_distributed_tpu_torch.ops import _build
     from triton_distributed_tpu_torch.ops import attention as attn
+    from triton_distributed_tpu_torch.ops import grouped_gemm as gg
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -968,9 +1310,13 @@ def main():
     kernels = [check_flash_attention(attn, dev, gen),
                check_flash_decode(attn, dev, gen)]
     kernels += check_flash_decode_paged(attn, dev, gen)
+    check_attention_group8(attn, dev, gen, kernels)
+    torch.cuda.empty_cache()
+    gmm_entry = check_gmm(dev, gen)
     torch.cuda.empty_cache()
     check_small_model(models, args.seed)
     check_small_model_paged(models, args.seed)
+    check_small_moe(models, gg, args.seed)
 
     cfg = models.get_config("Qwen/Qwen3-8B")
     model = models.DenseLLM(cfg, dtype="bfloat16", device=dev)
@@ -981,58 +1327,18 @@ def main():
           f"heads {cfg.num_heads}/{cfg.num_kv_heads}, vocab "
           f"{cfg.vocab_size}; weights "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    B, S, GEN = 4, 500, 32
+    B, S, GEN, L = 4, 500, 32, cfg.num_layers
     ids = np.random.RandomState(args.seed).randint(0, cfg.vocab_size, (B, S))
-    engine = models.Engine(model, params, max_len=1024)
+    engine_kernels = {"flash_attention": attn.FLASH_ATTENTION,
+                      "flash_decode": attn.FLASH_DECODE, "gmm": gg.GMM}
+    engine, toks, launches = run_engine(models, engine_kernels, model, params,
+                                        cfg, ids, GEN, smi, args.profile,
+                                        "Qwen3-8B")
+    assert launches == {"flash_attention": L, "flash_decode": L * (GEN - 1),
+                        "gmm": 0}, launches
 
-    for k in (attn.FLASH_ATTENTION, attn.FLASH_DECODE):
-        k.launches = 0
-    t0 = time.perf_counter()
-    toks = engine.serve(ids, GEN)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    launches = {"flash_attention": attn.FLASH_ATTENTION.launches,
-                "flash_decode": attn.FLASH_DECODE.launches}
-    print(f"serve: tokens {toks.shape}, {serve_s * 1e3:.1f} ms (first call), "
-          f"launches {launches}")
-    assert toks.shape == (B, GEN) and toks.dtype == np.int32
-    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
-    assert launches == {"flash_attention": cfg.num_layers,
-                        "flash_decode": cfg.num_layers * (GEN - 1)}, launches
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tok, cache = engine.start(ids)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    steps = [tok]
-    for _ in range(GEN - 1):
-        tok, cache = engine.step(tok, cache)
-        steps.append(tok)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    stepwise = torch.stack(steps, dim=1).cpu().numpy()
-    assert np.array_equal(stepwise, toks), "start+step differ from serve"
-    prefill_ms = (t1 - t0) * 1e3
-    decode_tps = B * (GEN - 1) / (t2 - t1)
-    print(f"prefill ms {prefill_ms:.2f} (B={B}, S={S}, bucket 512) | "
-          f"decode tokens/s {decode_tps:.1f} (B={B}, {GEN - 1} steps, "
-          f"{(t2 - t1) / (GEN - 1) * 1e3:.2f} ms/step) | {smi}")
-    with OpCount() as ops:
-        engine.step(tok, cache)
-    torch.cuda.synchronize()
-    print(f"decode step: {ops.n} aten ops dispatched on the host "
-          f"({ops.n / cfg.num_layers:.1f} per layer) and "
-          f"{cfg.num_layers} flash_decode launches")
-    if args.profile:
-        profile_decode(engine, tok, cache, (t2 - t1) / (GEN - 1) * 1e3)
-
-    serve_launches = check_serve(models, attn, model, params, cfg, args.seed,
-                                 smi, args.profile)
-    for k in kernels:
-        k["launches"] = launches.get(k["name"], 0) \
-            + serve_launches.get(k["name"], 0)
-        assert k["launches"] > 0, k["name"]
+    serve_launches = check_serve(models, attn, gg, model, params, cfg,
+                                 args.seed, smi, args.profile)
 
     check_megakernel_graphs(dev)
     check_megadecoder_small(models, args.seed)
@@ -1040,7 +1346,26 @@ def main():
                                            toks[0], smi, args.profile)
     mk = check_megakernel_main(md, cfg, ids[0], smi, args.profile)
     mk["launches"] = mk_launches
-    kernels.append(mk)
+
+    # the slice-4 main path needs the card to itself: release every
+    # Qwen3-8B weight, cache, pool and program first
+    del md, engine, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"released Qwen3-8B: {held / 2**20:.1f} MiB still allocated")
+    assert held < 2**30, held
+    moe, moe_params, moe_launches = check_moe_engine(
+        models, engine_kernels, args.seed, smi, args.profile)
+    moe_serve = check_moe_serve(models, attn, gg, moe, moe_params,
+                                moe.config, args.seed, smi)
+
+    counts = (launches, serve_launches, moe_launches, moe_serve)
+    for k in kernels:
+        k["launches"] = sum(c.get(k["name"], 0) for c in counts)
+        assert k["launches"] > 0, k["name"]
+    gmm_entry["launches"] = moe_launches["gmm"] + moe_serve["gmm"]
+    kernels += [mk, gmm_entry]
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

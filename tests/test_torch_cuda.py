@@ -1,6 +1,6 @@
 """The port's CUDA kernels (prefill flash attention, decode, the paged
-decode over bf16, int8 and fp8 pools, and the megakernel) against their
-plain PyTorch versions, on the GPU. Every test here needs an NVIDIA GPU with nvcc and skips without one.
+decode over bf16, int8 and fp8 pools, the megakernel and the MoE grouped
+GEMM) against their plain PyTorch versions, on the GPU. Every test here needs an NVIDIA GPU with nvcc and skips without one.
 The file imports neither jax nor the JAX package, so it runs on a GPU
 box without them:
 
@@ -13,7 +13,10 @@ and the exp2-based exponential). The megakernel's outputs and appended
 cache rows are compared as a fraction of the largest reference value:
 1e-4 in f32 (summation order over two layers), 2e-2 in bf16 (a value
 that rounds to the other side of a bf16 step in one task carries into
-the next).
+the next). The grouped GEMM's bf16 outputs are compared at 2e-2 of the
+largest value: the kernel and the plain version sum the same bf16
+products in f32 in other orders and round once to bf16, so they differ
+by at most a bf16 step or two of each value.
 """
 
 import numpy as np
@@ -24,6 +27,8 @@ from triton_distributed_tpu_torch.megakernel import executor_cuda as mkx
 from triton_distributed_tpu_torch.megakernel.models import (
     build_qwen3_decode, build_qwen3_forward, init_random_io)
 from triton_distributed_tpu_torch.ops import attention as attn
+from triton_distributed_tpu_torch.ops import grouped_gemm as gg
+from triton_distributed_tpu_torch.ops import moe_utils
 
 pytestmark = pytest.mark.cuda
 
@@ -49,6 +54,7 @@ def _rand(shape, gen, device):
     (2, 64, 64, 4, 1, 128, False),
     (1, 33, 200, 10, 2, 128, False),
     (4, 512, 512, 32, 8, 128, True),
+    (2, 300, 300, 32, 4, 128, True),     # GQA group 8 (Qwen3-30B-A3B)
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, D,
                                               causal):
@@ -90,7 +96,7 @@ def test_flash_attention_partial_kernel_matches_plain(cuda, q_off, kv_off,
 
 
 @pytest.mark.parametrize("G,D", [(1, 64), (2, 128), (4, 128), (5, 128),
-                                 (8, 64), (10, 128)])
+                                 (8, 64), (8, 128), (10, 128)])
 def test_flash_decode_kernel_matches_plain(cuda, G, D):
     gen = torch.Generator(device=cuda).manual_seed(2)
     B, Skv, Hkv = 5, 300, 2
@@ -302,3 +308,121 @@ def test_megakernel_refuses_what_it_does_not_take(cuda):
         mb.compile("kernel", device=cuda, n_sm=4)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert mb.compile("kernel", device=cuda).n_sm == sms
+
+
+# -- the MoE grouped GEMM -------------------------------------------------------
+
+GMM_TOL = 2e-2
+
+
+def _gmm_case(device, M, K, N, E, top_k, bm, skip=(), seed=0):
+    """A routed batch through moe_utils: sorted rows, the (E, K, N) slabs
+    and the plan. Experts in `skip` get no token."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    logits = torch.randn((M, E), generator=gen, device=device)
+    if skip:
+        logits[:, list(skip)] = -1e9
+    _, experts = moe_utils.route_topk(logits, top_k)
+    disp = moe_utils.sort_tokens_by_expert(experts, E, bm)
+    x = _rand((M, K), gen, device)
+    w = (torch.randn((E, K, N), generator=gen, device=device)
+         * K ** -0.5).to(torch.bfloat16)
+    return moe_utils.gather_sorted(x, disp), w, disp
+
+
+def _gmm_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("M,K,N,E,top_k,bm", [
+    (4, 2048, 1536, 128, 8, 128),     # Qwen3-30B-A3B decode, gate_up
+    (4, 768, 2048, 128, 8, 128),      # ... down
+    (300, 256, 200, 8, 2, 16),        # ragged N (200 = 128 + 72)
+    (37, 144, 64, 6, 2, 32),          # K % 32 == 16
+    (64, 128, 256, 4, 1, 64),
+])
+def test_gmm_kernel_matches_plain(cuda, M, K, N, E, top_k, bm):
+    xs, w, disp = _gmm_case(cuda, M, K, N, E, top_k, bm, skip=(1,))
+    assert int(disp.group_sizes[1]) == 0                   # an empty group
+    cfg = gg.GroupedGemmConfig(block_m=bm)
+    before = gg.GMM.launches
+    got = gg.gmm(xs, w, disp.tile_expert, config=cfg,
+                 group_sizes=disp.group_sizes)
+    torch.cuda.synchronize()
+    assert gg.GMM.launches == before + 1
+    want = gg._gmm_plain(xs, w, disp.tile_expert, bm)
+    assert _gmm_err(got, want) <= GMM_TOL
+    pad = disp.sorted_assignment == M * top_k              # pad rows
+    assert bool(pad[-bm:].all())                           # a pad tile
+    assert torch.all(got[pad] == 0)
+
+
+def test_gmm_never_reads_an_idle_expert(cuda):
+    """Expert E-1 (which every trailing pad tile maps to) and expert 2
+    get no token, and their slabs are NaN: with group_sizes the kernel
+    reads no weight for a pad row, so the output is finite and equal to
+    the plain version on finite weights."""
+    E, bm = 16, 128
+    xs, w, disp = _gmm_case(cuda, 6, 512, 384, E, 4, bm, skip=(2, E - 1),
+                            seed=1)
+    idle = disp.group_sizes == 0
+    assert bool(idle[E - 1]) and int(idle.sum()) >= 2
+    want = gg._gmm_plain(xs, w, disp.tile_expert, bm)
+    w_nan = w.clone()
+    w_nan[idle] = float("nan")
+    got = gg.gmm(xs, w_nan, disp.tile_expert,
+                 config=gg.GroupedGemmConfig(block_m=bm),
+                 group_sizes=disp.group_sizes)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _gmm_err(got, want) <= GMM_TOL
+
+
+def test_gmm_refuses_what_it_does_not_take(cuda):
+    xs, w, disp = _gmm_case(cuda, 8, 64, 64, 4, 2, 16)
+    cfg = gg.GroupedGemmConfig(block_m=16)
+    gs = disp.group_sizes
+    with pytest.raises(ValueError, match="group_sizes"):   # not given
+        gg.gmm(xs, w, disp.tile_expert, config=cfg)
+    with pytest.raises(ValueError):          # f32 operands
+        gg.gmm(xs.float(), w.float(), disp.tile_expert, config=cfg,
+               group_sizes=gs)
+    with pytest.raises(ValueError, match="block_m"):       # block_m 8
+        d8 = moe_utils.sort_tokens_by_expert(
+            torch.zeros((8, 2), dtype=torch.int32, device=cuda), 4, 8)
+        gg.gmm(torch.zeros((d8.tile_expert.shape[0] * 8, 64), device=cuda,
+                           dtype=torch.bfloat16), w, d8.tile_expert,
+               config=gg.GroupedGemmConfig(block_m=8),
+               group_sizes=d8.group_sizes)
+    with pytest.raises(ValueError, match="N % 8"):         # N % 8 != 0
+        gg.gmm(xs, w[..., :60].contiguous(), disp.tile_expert, config=cfg,
+               group_sizes=gs)
+    with pytest.raises(ValueError):          # use_xla is the CPU form
+        gg.gmm(xs, w, disp.tile_expert,
+               config=gg.GroupedGemmConfig(block_m=16, use_xla=True),
+               group_sizes=gs)
+
+
+def test_moe_layer_decode_forward_never_waits_on_the_host(cuda):
+    """The MoE layer's decode forward (routing, sort, gather, two grouped
+    GEMMs, combine) at Qwen3-30B-A3B widths with a 4-row batch makes no
+    call that synchronises with the device, and matches its dense
+    golden."""
+    from triton_distributed_tpu_torch.layers.tp_moe import TPMoE
+    layer = TPMoE(2048, 768, 128, 8, mode="ar")
+    params = layer.init_params(torch.Generator(device=cuda).manual_seed(0),
+                               device=cuda)
+    x = _rand((4, 2048), torch.Generator(device=cuda).manual_seed(1), cuda)
+    layer(params, x)                                      # builds, warms up
+    torch.cuda.synchronize()
+    before = gg.GMM.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = layer(params, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert gg.GMM.launches == before + 2
+    ref = layer.reference_forward(params, x)
+    assert _gmm_err(out, ref) <= GMM_TOL

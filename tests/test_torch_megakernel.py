@@ -329,10 +329,14 @@ def test_megadecoder_sampling_in_top_k_and_reproducible():
     (lambda mb, h: tmodels.build_qwen3_serve_block(), "3b"),
     (lambda mb, h: mk.MegaServe, "3b"),
     (lambda mb, h: models.ServeEngine(None, None, mode="megakernel"), "3b"),
-    (lambda mb, h: mb.moe_ffn(h), "4"),
-    (lambda mb, h: mb.all_to_all(h), "4"),
-    (lambda mb, h: tmodels.build_qwen3_moe_serve_batched(), "4"),
-    (lambda mb, h: tdecoder.moe_weight_map(None, None), "4"),
+    (lambda mb, h: mb.moe_ffn(h), "3c"),
+    (lambda mb, h: mb.all_to_all(h), "6"),
+    (lambda mb, h: tmodels.build_qwen3_moe_serve_batched(), "3c"),
+    (lambda mb, h: tdecoder.moe_weight_map(None, None), "3c"),
+    (lambda mb, h: port.MegaDecoder.from_dense(
+        models.Qwen3MoE(models.get_config("Qwen/Qwen3-30B-A3B").tiny(
+            num_layers=2), dtype="float32", device="cpu"), None,
+        max_cache=MAX_CACHE, prompt_len=P, device="cpu"), "3c"),
     (lambda mb, h: mb.all_reduce(h), "6"),
     (lambda mb, h: tmodels.build_qwen3_decode(seq_len=1, **TINY,
                                               tp_shards=True), "6"),

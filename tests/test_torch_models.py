@@ -266,8 +266,9 @@ def test_init_params_layout_and_scales():
 def test_autollm_and_one_rank_scope():
     assert isinstance(models.AutoLLM.from_config("Qwen3-8B", device="cpu"),
                       models.DenseLLM)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        models.AutoLLM.from_config("Qwen/Qwen3-30B-A3B", device="cpu")
+    assert isinstance(models.AutoLLM.from_config("Qwen/Qwen3-30B-A3B",
+                                                 device="cpu"),
+                      models.Qwen3MoE)
     with pytest.raises(NotImplementedError, match="Queue A"):
         _port_model("Qwen/Qwen3-8B").__class__(
             models.get_config("Qwen3-8B"), device="cpu", num_ranks=2)

@@ -177,7 +177,6 @@ def test_sampled_stream_reproducible_and_in_top_k(port_model):
     ({"attn_parallelism": "sp"}, "slice 6"),
     ({"sp_combine": "ll"}, "slice 6"),
     ({"tp_ranks": 2}, "slice 6"),
-    ({"ep_capacity": 8}, "slice 4"),
 ])
 def test_out_of_scope_arguments_raise(port_model, kw, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -187,7 +186,8 @@ def test_out_of_scope_arguments_raise(port_model, kw, match):
 def test_argument_and_submit_guards(port_model):
     for kw in ({"mode": "turbo"}, {"attn_parallelism": "dp"},
                {"attn_method": "pallas"}, {"tp_ranks": 0},
-               {"tenant_weights": {"a": 0}}, {"kv_dtype": "int4"}):
+               {"tenant_weights": {"a": 0}}, {"kv_dtype": "int4"},
+               {"ep_capacity": 8}):     # a dense model routes no experts
         with pytest.raises(ValueError):
             models.ServeEngine(*port_model, **kw)
     se = models.ServeEngine(*port_model, **ENGINE)

@@ -5,9 +5,9 @@ The layout mirrors the JAX package (`ops/`, `layers/`, `models/`,
 `runtime.py`) so each module's counterpart is easy to find. Plain tensor
 code is PyTorch; every Pallas kernel on a ported path is a CUDA C++
 kernel under `csrc/`, built with `nvcc` at first use and loaded with
-ctypes (`ops/_build.py`). One rank only so far: dense Qwen3 / Llama
-generation through `models.Engine`, continuous batching through
-`models.ServeEngine`, and the megakernel decode path through
+ctypes (`ops/_build.py`). One rank only so far: dense Qwen3 / Llama and
+Qwen3-MoE generation through `models.Engine`, continuous batching
+through `models.ServeEngine`, and the megakernel decode path through
 `MegaDecoder` (megakernel/).
 """
 

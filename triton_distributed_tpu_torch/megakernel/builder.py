@@ -27,7 +27,7 @@ def later_slice(what: str, slice_: str, detail: str = "") -> NotImplementedError
 
 
 _SLICE_PAGED = ("3b", " (paged serving: MegaServe)")
-_SLICE_MOE = ("4", " (MoE)")
+_SLICE_MOE = ("3c", " (the megakernel's MoE program)")
 _SLICE_MULTI = ("6", " (the multi-rank layer)")
 
 
@@ -171,7 +171,7 @@ class ModelBuilder:
         raise later_slice("ModelBuilder.moe_ffn", *_SLICE_MOE)
 
     def all_to_all(self, *args, **kwargs):
-        raise later_slice("ModelBuilder.all_to_all", *_SLICE_MOE)
+        raise later_slice("ModelBuilder.all_to_all", *_SLICE_MULTI)
 
     def all_reduce(self, *args, **kwargs):
         raise later_slice("ModelBuilder.all_reduce", *_SLICE_MULTI)

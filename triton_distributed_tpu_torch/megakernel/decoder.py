@@ -39,6 +39,8 @@ def dense_weight_map(model, params):
         raise later_slice("dense_weight_map of a multi-rank model", "6",
                           " (the multi-rank layer)")
     c = model.config
+    if c.is_moe:
+        moe_weight_map(model, params)          # raises, naming its slice
     lay = params["layers"]
     inter = c.intermediate_size
     weights = {"final_norm": params["norm"][None]}
@@ -62,7 +64,8 @@ def dense_weight_map_tp(model, params):
 
 
 def moe_weight_map(model, params):
-    raise later_slice("moe_weight_map", "4", " (MoE)")
+    raise later_slice("moe_weight_map", "3c",
+                      " (the megakernel's MoE program)")
 
 
 class MegaDecoder:

@@ -48,7 +48,8 @@ def as_tensor(v, dtype, device):
 
 _LATER = {"attention_paged": ("3b", " (paged serving: MegaServe)"),
           "kv_append_paged": ("3b", " (paged serving: MegaServe)"),
-          "moe_ffn": ("4", " (MoE)"), "all_to_all": ("4", " (MoE)"),
+          "moe_ffn": ("3c", " (the megakernel's MoE program)"),
+          "all_to_all": ("6", " (the multi-rank layer)"),
           "all_reduce": ("6", " (the multi-rank layer)")}
 
 

@@ -187,8 +187,10 @@ def build_qwen3_serve_batched(*args, **kwargs):
 
 
 def build_qwen3_moe_serve_block(*args, **kwargs):
-    raise later_slice("build_qwen3_moe_serve_block", "4", " (MoE)")
+    raise later_slice("build_qwen3_moe_serve_block", "3c",
+                      " (the megakernel's MoE program)")
 
 
 def build_qwen3_moe_serve_batched(*args, **kwargs):
-    raise later_slice("build_qwen3_moe_serve_batched", "4", " (MoE)")
+    raise later_slice("build_qwen3_moe_serve_batched", "3c",
+                      " (the megakernel's MoE program)")

@@ -1,5 +1,5 @@
 """Model zoo + AutoLLM registry (counterpart of
-triton_distributed_tpu/models/__init__.py), dense models only so far,
+triton_distributed_tpu/models/__init__.py): dense models and Qwen3-MoE,
 with the per-request `Engine` and the continuous-batching
 `ServeEngine`."""
 
@@ -11,13 +11,14 @@ from .dense import DenseLLM
 from .engine import Engine
 from .kv_cache import KVCache
 from .paged_kv_cache import PagedKVCache
+from .qwen_moe import Qwen3MoE
 from .serve import ServeEngine
 from .serve_state import BlockAlloc, Request, SchedCfg, SchedulerState
 
 __all__ = ["AutoLLM", "BlockAlloc", "DenseLLM", "Engine", "KVCache",
-           "ModelConfig", "MODEL_CONFIGS", "PagedKVCache", "Request",
-           "SchedCfg", "SchedulerState", "ServeEngine", "get_config",
-           "params_from_jax"]
+           "ModelConfig", "MODEL_CONFIGS", "PagedKVCache", "Qwen3MoE",
+           "Request", "SchedCfg", "SchedulerState", "ServeEngine",
+           "get_config", "params_from_jax"]
 
 
 class AutoLLM:
@@ -25,9 +26,7 @@ class AutoLLM:
     @staticmethod
     def model_class(config: ModelConfig):
         if config.is_moe:
-            raise NotImplementedError(
-                f"{config.name} is a MoE model; the PyTorch port runs dense "
-                f"models only (MoE is ROADMAP.md Queue A, slice 4)")
+            return Qwen3MoE
         return DenseLLM
 
     @staticmethod

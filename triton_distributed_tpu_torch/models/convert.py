@@ -30,7 +30,9 @@ def _leaf(a, device):
 def params_from_jax(tree, *, device=None):
     """JAX params pytree of numpy arrays -> the port's params dict
     ({"embed", "layers": {ln1, ln2, w_qkv, w_o, w_gate_up, w_down,
-    q_norm, k_norm}, "norm", "lm_head"}) on `device`."""
+    q_norm, k_norm}, "norm", "lm_head"}; a Qwen3MoE tree has router
+    (f32), w_moe_gate_up and w_moe_down in place of the MLP) on
+    `device`, each leaf at its own dtype."""
     device = runtime.resolve_device(device)
 
     def conv(node):

@@ -76,6 +76,8 @@ class DenseLLM(nn.Module):
                            qk_norm=c.qk_norm, num_ranks=num_ranks)
         self.mlp = TPMLP(c.hidden_size, c.intermediate_size, mode=mode,
                          num_ranks=num_ranks)
+        # decode steps run the MLP in the AllReduce modes (JAX dense.py:133)
+        self._decode_mlp_mode = "gemm_ar" if mode == "gemm_ar" else "ar"
 
     # ------------------------------------------------------------------
     # Parameters
@@ -184,6 +186,12 @@ class DenseLLM(nn.Module):
             return {"q_norm": p["q_norm"], "k_norm": p["k_norm"]}
         return {}
 
+    def _mlp_rows(self, h, p, *, mode):
+        """The MLP of one layer on (B, S, H) or (B, H) rows: the hook a
+        subclass swaps (Qwen3MoE routes rows through its experts). At one
+        rank every mode is the same dense math."""
+        return self.mlp._shard_fwd(h, p["w_gate_up"], p["w_down"])
+
     def _layers(self, params):
         lp = params["layers"]
         for i in range(self.config.num_layers):
@@ -219,7 +227,7 @@ class DenseLLM(nn.Module):
                 cache.k[i], cache.v[i], seq_len=S)
             x = x + a
             h = rms_norm(x, p["ln2"], eps)
-            x = x + self.mlp._shard_fwd(h, p["w_gate_up"], p["w_down"])
+            x = x + self._mlp_rows(h, p, mode=self.mode)
         last = rms_norm(x[:, true_len - 1], params["norm"], eps)
         return last, KVCache(k=cache.k, v=cache.v, offset=true_len)
 
@@ -257,7 +265,7 @@ class DenseLLM(nn.Module):
                 cache.k[i], cache.v[i], cache.offset)
             x = x + a
             h = rms_norm(x, p["ln2"], eps)
-            x = x + self.mlp._shard_fwd(h, p["w_gate_up"], p["w_down"])
+            x = x + self._mlp_rows(h, p, mode=self._decode_mlp_mode)
         x = rms_norm(x, params["norm"], eps)
         return x, KVCache(k=cache.k, v=cache.v, offset=cache.offset + 1)
 
@@ -311,7 +319,7 @@ class DenseLLM(nn.Module):
                 cache.k_pool[i], cache.v_pool[i], table, kv_len, rope, at,
                 attn_method=attn_method, **self._pool_layer(cache, i))
             h = rms_norm(x, p["ln2"], eps)
-            x = x + self.mlp._shard_fwd(h, p["w_gate_up"], p["w_down"])
+            x = x + self._mlp_rows(h, p, mode=self._decode_mlp_mode)
         x = rms_norm(x, params["norm"], eps)
         nxt = self._next_token(x, params, generator, sampling=sampling,
                                temperature=temperature, top_k=top_k)
@@ -351,7 +359,7 @@ class DenseLLM(nn.Module):
                 cache.k_pool[i], cache.v_pool[i], rope, at, prefix, off,
                 valid_len, **self._pool_layer(cache, i))
             h = rms_norm(x, p["ln2"], eps)
-            x = x + self.mlp._shard_fwd(h, p["w_gate_up"], p["w_down"])
+            x = x + self._mlp_rows(h, p, mode=self._decode_mlp_mode)
         last = rms_norm(x[valid_len - 1], params["norm"], eps)
         tok = self._next_token(last[None], params, generator,
                                sampling=sampling,

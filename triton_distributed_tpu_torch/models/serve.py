@@ -32,11 +32,19 @@ engine folds the step into its key: a request's sampled stream depends
 on the batch composition, and differs from the JAX engine's by
 construction (another RNG).
 
+A Qwen3MoE model serves unchanged (its steps route rows through the
+experts). `ep_capacity` > 0 arms the per-tick expert-dispatch row
+budget: `serve_state.partition_capacity` defers whole slots past it
+(oldest progress first), so a routing storm becomes an explicit
+deferral, never a silent drop; `stats()` counts the deferred slot-ticks
+(`capacity_drops`), the rows dispatched (`ep_rows`) and the last tick's
+live-occupancy EP plan (`ep_plan`).
+
 Not in this slice (each raises NotImplementedError): speculative
 decoding, the watchdog (`slo_ticks`) and fault injection (`chaos`), the
 host spill tier (`host_blocks`), the megakernel decode mode, sequence
-parallel and multi-rank serving, MoE capacity budgets, and the plain
-("xla") attention rung on a CUDA device.
+parallel and multi-rank serving, and the plain ("xla") attention rung
+on a CUDA device.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import time
 import numpy as np
 import torch
 
+from .. import perf_model
 from ..ops import wire
 from . import serve_state
 from .engine import pow2_bucket
@@ -160,8 +169,8 @@ def _not_in_slice(what: str, where: str):
 
 
 class ServeEngine:
-    """Continuous batching over `b_max` slots for a one-rank dense
-    `DenseLLM`. Decode attention reads the pages in place through the
+    """Continuous batching over `b_max` slots for a one-rank `DenseLLM`
+    or `Qwen3MoE`. Decode attention reads the pages in place through the
     block table (ops/attention.flash_decode_paged: the CUDA kernel on
     the GPU, its plain version on the CPU)."""
 
@@ -212,8 +221,6 @@ class ServeEngine:
                              f"{tp_ranks!r}")
         if tp_ranks > 1:
             _not_in_slice("tp_ranks > 1", "slice 6")
-        if getattr(model.config, "is_moe", False) or ep_capacity:
-            _not_in_slice("MoE serving (ep_capacity)", "slice 4")
         if attn_method not in (None, "kernel", "xla"):
             raise ValueError(f"attn_method={attn_method!r}: choose "
                              f"'kernel' or 'xla'")
@@ -242,12 +249,29 @@ class ServeEngine:
         self.top_k = int(top_k)
         self.seed = seed
         self.kv_dtype = wire.resolve_wire_dtype(kv_dtype)
+        # MoE continuous batching: ep_capacity > 0 arms the per-tick
+        # expert-dispatch row budget; the model's guard refuses at
+        # construction what one engine step could route past an explicit
+        # expert capacity
+        self._is_moe = bool(getattr(model.config, "is_moe", False))
+        if ep_capacity and not self._is_moe:
+            raise ValueError(
+                f"ep_capacity={ep_capacity} needs a MoE model: dense "
+                f"decode routes no experts, so the budget would only "
+                f"defer slots for nothing")
+        cap_guard = getattr(model, "check_serving_capacity", None)
+        if cap_guard is not None:
+            cap_guard(b_max, prefill_chunk=prefill_chunk, spec_k=0,
+                      ep_capacity=int(ep_capacity))
+        self._cap_ledger = (serve_state.CapacityLedger(int(ep_capacity))
+                            if ep_capacity else None)
+        self.ep_plan: dict | None = None    # last tick's live EP plan
         self.sched = SchedulerState.create(SchedCfg(
             b_max=b_max, block=block, prefill_chunk=prefill_chunk,
             prefix_caching=True if prefix_cache is None
             else bool(prefix_cache),
             tenant_weights=tuple(sorted((tenant_weights or {}).items())),
-            preemption=bool(preemption)))
+            preemption=bool(preemption), ep_capacity=int(ep_capacity)))
         self._pool = _CachePool(self)
         self._cache: PagedKVCache | None = None
         self._running = False
@@ -388,6 +412,23 @@ class ServeEngine:
         live = serve_state.decode_live(self.sched)
         if not live:
             return
+        # the expert-capacity budget partitions the live batch first:
+        # deferred slots vanish from this tick's mask with their state,
+        # pages and stream untouched (they sort first next tick); the
+        # first slot always fits, so a non-empty batch serves someone
+        if self.sched.cfg.ep_capacity:
+            live, _deferred = serve_state.partition_capacity(
+                self.sched, live, self._cap_ledger)
+        if self._is_moe:
+            # the EP plan at the rows this tick routes (live occupancy),
+            # recorded for stats()
+            c = self.model.config
+            rows = sum(serve_state.capacity_rows(self.sched, i)
+                       for i in live)
+            self.ep_plan = perf_model.ep_tick_plan(
+                rows, hidden=c.hidden_size,
+                moe_intermediate=c.moe_intermediate_size,
+                top_k=c.num_experts_per_tok, num_ranks=1)
         toks = [s.last_tok for s in self._slots]
         active = [i in live for i in range(self.b_max)]
         got, self._cache = self.model.decode_step_paged(
@@ -459,6 +500,12 @@ class ServeEngine:
             "quant_kv_bytes_saved": self._quant_kv_bytes_saved(),
             "decode_steps": self._steps["decode"],
             "prefix_chunks": self._steps["prefill_prefix"],
+            # slot-ticks the expert-capacity budget deferred, routed rows
+            # dispatched, and the last tick's live-occupancy EP plan
+            "capacity_drops": c["capacity_drops"],
+            "ep_rows": c["ep_rows"],
+            "ep_capacity": self.sched.cfg.ep_capacity,
+            "ep_plan": self.ep_plan,
         }
 
     def _quant_kv_bytes_saved(self) -> int:
@@ -482,6 +529,11 @@ class ServeEngine:
             self.b_max, self.max_len, block=self.block,
             num_blocks=self.num_blocks, kv_dtype=self.kv_dtype)
         self.sched.reset_run()
+        if self._cap_ledger is not None:
+            # fresh run, fresh budget clock (reset_run rewound the tick)
+            self._cap_ledger = serve_state.CapacityLedger(
+                self.sched.cfg.ep_capacity)
+        self.ep_plan = None
         self._results: dict = {}
         self._gen = torch.Generator(device=self.model.device)
         self._step = 0

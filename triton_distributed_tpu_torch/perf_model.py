@@ -1,13 +1,18 @@
 """The decode-path health ladder the serving control plane reads
-(counterpart of triton_distributed_tpu/perf_model.py:811-852).
+(counterpart of triton_distributed_tpu/perf_model.py:811-852), and the
+one-rank form of the per-tick EP plan the MoE serving loop records
+(`ep_tick_plan`, JAX perf_model.py:989).
 
-Only `DECODE_PATH_LADDER` and `DecodePathHealth` are here: they are what
-models/serve_state.py imports. The JAX module's cost models and choosers
-are built on TPU figures (`CHIP_SPECS`); their H100 counterparts wait for
-a slice that measures the card's own.
+Only these are here: `DECODE_PATH_LADDER` and `DecodePathHealth` are
+what models/serve_state.py imports, `ep_tick_plan` what
+models/serve.py reads. The JAX module's cost models and choosers are
+built on TPU figures (`CHIP_SPECS`); their H100 counterparts wait for a
+slice that measures the card's own.
 """
 
 from __future__ import annotations
+
+from .layers.common import check_one_rank
 
 # The serving decode ladder, fastest-but-most-fragile first: one
 # persistent megakernel -> the per-op engine step (paged decode kernel)
@@ -49,3 +54,19 @@ class DecodePathHealth:
 
     def describe(self) -> dict:
         return dict(self.trips)
+
+
+def ep_tick_plan(occupancy: int, *, hidden: int, moe_intermediate: int,
+                 top_k: int, num_ranks: int) -> dict:
+    """The per-tick EP dispatch plan for a live decode batch, at one rank:
+    the dict the JAX function returns at `num_ranks=1`, which reads no
+    chip figure there. One rank has one transport ("flat") and no
+    all-to-all (`a2a_round_s` 0.0). Its chunk count is 1: with no
+    transfer to overlap, S chunks cost the grouped MLP S times over
+    ceil(rows / S) rows, and a roofline time max(a*m, b*m + c) with a
+    weight term c >= 0 gives S * t(m / S) >= t(m), so the JAX chooser's
+    first candidate, 1, is its least. `num_ranks > 1` raises (slice
+    6)."""
+    check_one_rank(num_ranks)
+    return {"occupancy": max(1, int(occupancy)), "transport": "flat",
+            "num_chunks": 1, "a2a_round_s": 0.0}

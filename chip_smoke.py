@@ -77,9 +77,30 @@ Phases, in order; any failure raises and exits non-zero:
      and settings (bf16 pool): the checks of step 9 with exact gmm
      launch counts, then ep_capacity=2: slots deferred, every request at
      its length, ep_rows equal to the rows decode routed;
- 19. one JSON line of per-kernel numbers, then the device JSON line.
-Steps 14-16 run with the other kernel checks, before step 4; steps 17-18
-run last. Without a GPU it exits non-zero before printing anything.
+ 19. the megakernel's paged serving bodies (ATTN_P, KVA_PK, KVA_PV) on
+     2-layer serve graphs at Qwen3-8B widths and the serve cell's pool
+     (four slots at lengths 0 (idle, on its trash page), 128, 777, 1500,
+     a shuffled table): the kernel against its plain walk, f32 (1e-4)
+     and bf16 (2e-2), and in bf16 against the golden executor, with
+     every pool row outside the appends bitwise unchanged;
+ 20. a small model's ServeEngine(mode="megakernel") on the GPU against
+     the CPU (bf16: logits of every pick within 5e-2, picks equal where
+     the margin allows);
+ 21. the slice-3b main path: ServeEngine(mode="megakernel") over the
+     Qwen3-8B weights with step 9's stream and settings, bf16 pool:
+     step 9's checks (no prefix hits: megakernel slots plan fresh),
+     exactly one megakernel launch per decode tick and no
+     flash_decode_paged launch, the median decode tick and its aten ops,
+     token agreement with step 9's engine-mode run (information), a
+     second run with identical tokens whose first all-slots-decoding
+     tick's logits are held within 5e-2 of the largest against
+     decode_step_paged on the same state, the batched step's time
+     against its bound; then the int8 pool; with --profile, the device's
+     idle share over a short megakernel serve run;
+ 22. one JSON line of per-kernel numbers, then the device JSON line.
+Steps 14-16 run with the other kernel checks, before step 4; steps 19-20
+run after step 10, step 21 after step 13; steps 17-18 run last. Without
+a GPU it exits non-zero before printing anything.
 """
 
 from __future__ import annotations
@@ -478,7 +499,9 @@ def run_serve(models, attn, engine, stream, L, gg):
     just before it; returns (tokens by rid, stats, launches, decode tick
     ms list, aten ops one decode tick dispatched). The sixth decode tick
     is counted, not timed. A MoE model launches two grouped GEMMs per
-    layer per prefill chunk and per decode step, a dense one none."""
+    layer per prefill chunk and per decode step, a dense one none; a
+    megakernel tick launches the megakernel once and nothing else."""
+    from triton_distributed_tpu_torch.megakernel import executor_cuda as mkx
     for rid_ids, gen_len in stream:
         engine.submit(rid_ids, gen_len)
     tick_ms, tick_ops = [], []
@@ -503,6 +526,7 @@ def run_serve(models, attn, engine, stream, L, gg):
     kernels.update({f"flash_decode_paged[{a}]": k
                     for a, k in attn.FLASH_DECODE_PAGED.items()})
     kernels["gmm"] = gg.GMM
+    kernels["megakernel"] = mkx.MEGAKERNEL
     for k in kernels.values():
         k.launches = 0
     out = engine.run()
@@ -513,14 +537,18 @@ def run_serve(models, attn, engine, stream, L, gg):
     arm = engine.kv_dtype or "bfloat16"
     want = {n: 0 for n in kernels}
     want["flash_attention"] = L * (st["prefill_chunks"] + st["prefix_chunks"])
-    want[f"flash_decode_paged[{arm}]"] = L * st["decode_steps"]
+    # one megakernel launch per megakernel decode tick, the paged decode
+    # kernel once per layer on the others
+    want["megakernel"] = st["megakernel_steps"]
+    want[f"flash_decode_paged[{arm}]"] = L * (st["decode_steps"]
+                                             - st["megakernel_steps"])
     if engine.model.config.is_moe:
         want["gmm"] = 2 * L * (st["prefill_chunks"] + st["decode_steps"])
     assert launches == want, (launches, want)
     return out, st, launches, tick_ms, tick_ops[0]
 
 
-def profile_serve(models, model, params, vocab, seed):
+def profile_serve(models, model, params, vocab, seed, mode="engine"):
     """Device-busy time of a short ServeEngine run (4 requests) from a
     torch.profiler trace, against the wall time of the same run made
     without the profiler (as profile_decode does)."""
@@ -529,7 +557,8 @@ def profile_serve(models, model, params, vocab, seed):
     def engine():
         rng = np.random.RandomState(seed + 1)
         se = models.ServeEngine(model, params, b_max=4, max_len=2048,
-                                block=128, prefill_chunk=256, num_blocks=64)
+                                block=128, prefill_chunk=256, num_blocks=64,
+                                mode=mode)
         for n, g in ((300, 8), (100, 8), (700, 8), (64, 8)):
             se.submit(rng.randint(0, vocab, n).astype(np.int32), g)
         return se
@@ -549,12 +578,14 @@ def profile_serve(models, model, params, vocab, seed):
                     e.count) for e in prof.key_averages()), reverse=True)
     busy = sum(r[0] for r in rows if r[0] > 0)
     st = se.stats()
-    print(f"profile serve: {st['ticks']} ticks, {st['decode_steps']} decode "
+    print(f"profile serve[{mode}]: {st['ticks']} ticks, "
+          f"{st['decode_steps']} decode "
           f"steps, {st['prefill_chunks']} chunks: device-busy {busy:.1f} ms "
           f"of {wall:.1f} ms wall (unprofiled run): idle share "
           f"{1 - busy / wall:.3f}")
     for ms, name, count in rows[:8]:
-        print(f"profile serve:   {ms:9.3f} ms  {count:6d}  {name[:70]}")
+        print(f"profile serve[{mode}]:   {ms:9.3f} ms  {count:6d}  "
+              f"{name[:70]}")
 
 
 def check_serve(models, attn, gg, model, params, cfg, seed, smi, profile):
@@ -611,7 +642,7 @@ def check_serve(models, attn, gg, model, params, cfg, seed, smi, profile):
                   f"TOKEN_BAND floor {1 - models.serve.TOKEN_BAND[kv]})")
     if profile:
         profile_serve(models, model, params, cfg.vocab_size, seed)
-    return total
+    return total, results[None]
 
 
 def profile_steps(name, step, steps, step_ms):
@@ -968,6 +999,314 @@ def check_megakernel_main(md, cfg, prompt, smi, profile):
             "replaces": "triton_distributed_tpu/megakernel/executor_pallas.py:106",
             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+def _slot_table(lens, blk, mp, num_blocks, seed):
+    """A shuffled table for slots at `lens`: each slot's pages up to its
+    append page drawn from a permutation of the shared pages, an idle
+    slot (length 0) and every other column on the slot's own trash page
+    (num_blocks + b)."""
+    perm = iter(np.random.RandomState(seed).permutation(num_blocks))
+    return np.asarray([[next(perm) if cl and c <= cl // blk
+                        else num_blocks + b for c in range(mp)]
+                       for b, cl in enumerate(lens)], np.int32)
+
+
+def check_megakernel_paged_graphs(dev):
+    """2-layer paged serve graphs at Qwen3-8B widths and the serve cell's
+    pool (64 + 4 pages of 128 rows, 16 pages a slot): four slots, one
+    idle (length 0 on its trash page), the others at 128 (a page
+    boundary), 777 and 1500, on a shuffled table; the kernel against its
+    plain walk, f32 (MK_F32_TOL) and bf16 (MK_BF16_2L_TOL), and in bf16
+    against the golden executor too (its attention partials go through
+    the bf16-only prefill kernel on the card), outputs and appended rows;
+    every pool row outside the appends bitwise unchanged."""
+    from triton_distributed_tpu_torch.megakernel.models import (
+        build_qwen3_serve_batched)
+    lens = np.asarray([0, 128, 777, 1500], np.int32)
+    blk, mp, nbk = 128, 16, 64
+    tbl = _slot_table(lens, blk, mp, nbk, 7)
+    rows = torch.as_tensor(tbl[np.arange(4), lens // blk] * blk + lens % blk,
+                           device=dev)
+    scalars = {f"cache_len_s{b}": int(cl) for b, cl in enumerate(lens)}
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: MK_F32_TOL, bf16: MK_BF16_2L_TOL}
+    for dt in (f32, bf16):
+        mb = build_qwen3_serve_batched(
+            b_slots=4, slot_rows=1, hidden=4096, intermediate=12288,
+            num_layers=2, num_heads=32, num_kv_heads=8, head_dim=128,
+            num_blocks=nbk, block=blk, max_pages=mp, rope_theta=1e6,
+            qk_norm=True, dtype=dt)
+        g = mb.graph
+        kv = [nd for nd in g.nodes if nd.op == "kv_append_paged"]
+        names = {h.idx: n for n, h in g.caches.items()}
+        ins, ws = ({n: t.to(dt) for n, t in d.items()}
+                   for d in _device_io(mb, dev, 11))
+        start = {n: ins[n] for n in g.caches}
+        prog = mb.compile("kernel", device=dev)
+        prog.bind_weights(ws)
+        got = []
+        for plain in (False, True):
+            prog.bind_caches({n: t.clone() for n, t in start.items()})
+            out = prog.step({"x": ins["x"]}, cache_lens=lens,
+                            block_table=tbl, plain=plain)[0]
+            torch.cuda.synchronize()
+            prog.check_fault()
+            keep = torch.ones(start[names[kv[0].inputs[1].idx]].shape[0],
+                              dtype=torch.bool, device=dev)
+            keep[rows] = False
+            for n, c in prog.caches.items():
+                assert torch.equal(c[keep], start[n][keep]), (plain, n)
+            got.append((out.float().clone(),
+                        torch.cat([c[rows].float()
+                                   for c in prog.caches.values()])))
+        (ko, kr), (po, pr) = got
+        errs = [_rel_err(ko, po), _rel_err(kr, pr)]
+        line = ""
+        if dt == bf16:
+            g.outputs.extend(nd.out for nd in kv)
+            gold = mb.compile("graph").run({"x": ins["x"], **start}, ws,
+                                           scalars, block_table=tbl)
+            new = {names[nd.inputs[1].idx]: c for nd, c in zip(kv, gold[1:])}
+            errs += [_rel_err(ko, gold[0].float()),
+                     _rel_err(kr, torch.cat([new[n][rows].float()
+                                             for n in prog.caches]))]
+            line = f"; vs golden {errs[2]:.3e} / {errs[3]:.3e}"
+            del gold, new
+        print(f"megakernel paged {str(dt)[6:]} 2 layers at Qwen3-8B widths, "
+              f"lengths {lens.tolist()}: vs plain walk out {errs[0]:.3e}, "
+              f"appended rows {errs[1]:.3e}{line} (of max |ref|); other "
+              f"pool rows unchanged")
+        assert torch.isfinite(ko).all() and max(errs) <= tol[dt], (dt, errs)
+        del prog, ins, ws, start, got
+        torch.cuda.empty_cache()
+
+
+def check_mega_serve_small(models, seed):
+    """A small model's ServeEngine(mode="megakernel") on the GPU (the
+    kernel) against the same weights on the CPU (the plain walk): four
+    requests through two slots, 16-token pages, 8-token chunks; bf16
+    (the engine path's prefill kernel takes bf16 only). Every greedy
+    pick's logits agree within 5e-2 of the largest and the picks are
+    equal where the CPU's top-2 gap exceeds twice the error, up to the
+    first pick that differs (the streams part there)."""
+    from triton_distributed_tpu_torch.megakernel import serve as mserve
+    from triton_distributed_tpu_torch.models import dense
+    cfg = models.get_config("Qwen/Qwen3-8B").tiny(
+        hidden_size=256, num_heads=8, num_kv_heads=2, head_dim=128,
+        intermediate_size=512, vocab_size=512, num_layers=2)
+    cpu = models.DenseLLM(cfg, dtype="bfloat16", device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(seed))
+    gpu = models.DenseLLM(cfg, dtype="bfloat16", device="cuda")
+    rng = np.random.RandomState(seed)
+    reqs = [(rng.randint(0, 512, n).astype(np.int32), g)
+            for n, g in ((37, 6), (5, 9), (20, 4), (16, 5))]
+    real = dense.greedy_token
+    runs = []
+    for m, p in ((cpu, params), (gpu, _to_device(params, "cuda"))):
+        seen = []
+
+        def spy(x, lm_head):
+            seen.append((x.float() @ lm_head.float()).cpu())
+            return real(x, lm_head)
+
+        dense.greedy_token = mserve.greedy_token = spy
+        try:
+            se = models.ServeEngine(m, p, mode="megakernel", b_max=2,
+                                    max_len=64, block=16, prefill_chunk=8)
+            se.serve([r for r, _ in reqs], [g for _, g in reqs])
+        finally:
+            dense.greedy_token = mserve.greedy_token = real
+        runs.append(seen)
+    errs, parted = [], None
+    for k, (c, g) in enumerate(zip(*runs)):
+        err = (g - c).abs().max().item()
+        errs.append(err / c.abs().max().item())
+        assert err <= 5e-2 * max(1.0, c.abs().max().item()), (k, err)
+        top2 = c.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+        assert torch.equal(g.argmax(-1)[sure], c.argmax(-1)[sure]), k
+        if not torch.equal(g.argmax(-1), c.argmax(-1)):
+            parted = k
+            break
+    print(f"small ServeEngine(mode='megakernel') bf16 GPU (kernel) vs CPU "
+          f"(plain walk): {len(errs)} of {len(runs[0])} picks compared, "
+          f"logits max {max(errs):.3e} of max |logit|, streams "
+          + ("equal" if parted is None else f"part at pick {parted}"))
+    assert len(errs) >= 4
+
+
+def _mk_snapshot(se):
+    """Wrap `se._decode_tick` to keep, at the first tick where every slot
+    decodes, the state before its launch (tokens, lengths, tables and
+    the megakernel's pools in the engine pool's layout) and the hidden
+    rows the launch gave."""
+    snap = {}
+    real = se._decode_tick
+    mk = se._mk
+
+    def layout(pool, like):
+        L, nb, hkv, blk, d = like.shape
+        return pool.view(L, -1, blk, hkv, d)[:, :nb].permute(
+            0, 1, 3, 2, 4).contiguous()
+
+    def tick(stream_cb):
+        from triton_distributed_tpu_torch.models import serve_state
+        if snap or len(serve_state.decode_live(se.sched)) < se.b_max:
+            return real(stream_cb)
+        c = se._cache
+        snap.update(toks=[s.last_tok for s in se._slots],
+                    lens=c.seq_lens.copy(), table=c.block_table.copy(),
+                    k=layout(mk.k_pool, c.k_pool),
+                    v=layout(mk.v_pool, c.v_pool))
+        snap["ktab"] = mk.kernel_table(torch.from_numpy(snap["table"]),
+                                       torch.ones(se.b_max, dtype=torch.bool))
+        real(stream_cb)
+        snap["hid"] = mk.prog.outputs()[0][::mk.slot_rows].float().clone()
+
+    se._decode_tick = tick
+    return snap
+
+
+def mk_serve_breakdown(prog, ms, lens):
+    """Where the batched serve step's time goes, from launches of the same
+    kernel: the step with every slot idle (length 0 on its trash page),
+    so the attention over the slots' prefixes is the difference; then
+    each projection shape alone at the step's rows and at one row, on
+    the program's own weight views."""
+    from triton_distributed_tpu_torch.megakernel.builder import ModelBuilder
+    nb, R, blk, mp, _ = prog.paged
+    idle = prog.graph.caches["l0.k_pool"].rows // blk - nb \
+        + np.arange(nb, dtype=np.int32)[:, None] + np.zeros((1, mp), np.int32)
+    ms0 = time_ms([lambda: prog.step(cache_lens=np.zeros(nb, np.int32),
+                                     block_table=idle)])
+    prog.check_fault()
+    print(f"mk-serve breakdown: the step with every slot idle {ms0:.4f} ms, "
+          f"so the attention over lengths {lens.tolist()} costs "
+          f"~{ms - ms0:.4f} ms")
+    dt, dev = prog.dtype, prog.device
+    line = []
+    for name in ("w_qkv", "w_o", "w_gate", "w_down"):
+        w = prog.weights[f"l0.{name}"]
+        K, N = w.shape
+        us = []
+        for rows in (nb * R, 1):
+            mb = ModelBuilder(dtype=dt)
+            mb.output(mb.linear(mb.input("x", (rows, K)),
+                                mb.weight("w", (K, N))))
+            p = mb.compile("kernel", device=dev)
+            p.bind_weights({"w": w})
+            xx = torch.randn((rows, K), device=dev).to(dt)
+            us.append(time_ms([lambda: p.step({"x": xx}, 0)], reps=50) * 1e3)
+            p.check_fault()
+        line.append(f"{name} {K}x{N} {us[0]:.1f} us at {nb * R} rows, "
+                    f"{us[1]:.1f} us at 1")
+    print("mk-serve breakdown: one linear per launch: " + "; ".join(line))
+
+
+def check_mega_serve(models, attn, gg, model, params, cfg, seed, smi, profile,
+                     engine_out):
+    """The slice-3b main path at full width: ServeEngine(mode="megakernel")
+    over the Qwen3-8B weights with the serve cell's stream and settings.
+    The bf16 pool run is counted (exactly one megakernel launch and no
+    flash_decode_paged launch per decode tick) and checked as step 9's
+    runs are, then run again for identical tokens and a teacher-forced
+    check; then the batched step's time against its bound; then the int8
+    pool. Returns the launch counts."""
+    from triton_distributed_tpu_torch.megakernel import executor_cuda as mkx
+    L = cfg.num_layers
+    stream = serve_stream(np.random.RandomState(seed), cfg.vocab_size)
+    total = {}
+    first = None
+    for kv in (None, "int8"):
+        se = models.ServeEngine(model, params, mode="megakernel", b_max=4,
+                                max_len=2048, block=128, prefill_chunk=256,
+                                num_blocks=64, kv_dtype=kv)
+        out, st, launches, tick_ms, ops = run_serve(models, attn, se, stream,
+                                                    L, gg)
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+        name = kv or "bf16"
+        assert launches["megakernel"] == st["decode_steps"] > 0, launches
+        print(f"mk-serve[{name}]: {st['tokens']} tokens in {st['wall_s']:.3f} "
+              f"s ({st['tokens_per_s']} tokens/s), {st['ticks']} ticks, "
+              f"{st['decode_steps']} decode ticks at "
+              f"{statistics.median(tick_ms):.2f} ms median "
+              f"({min(tick_ms):.2f}-{max(tick_ms):.2f}; {ops} aten ops on "
+              f"the host), {st['prefill_chunks']} chunks, launches "
+              f"{ {n: c for n, c in launches.items() if c} }, megakernel "
+              f"pool {2 * se._mk.k_pool.numel() * 2 / 2**30:.3f} GiB | {smi}")
+        assert sorted(out) == list(range(len(stream)))
+        for rid, (_, gen_len) in enumerate(stream):
+            toks = out[rid]
+            assert len(toks) == gen_len, (rid, len(toks))
+            assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+        se._cache.check_conservation(cached=st["cached_free_blocks"])
+        assert st["free_blocks"] + st["cached_free_blocks"] == 64, st
+        # megakernel slots are admitted without prefix sharing
+        assert st["prefix_hit_blocks"] == 0 and st["cow_copies"] == 0, st
+        rep = models.serve.banded_token_identity(engine_out, out, band=1.0)
+        print(f"mk-serve[{name}] vs engine mode bf16 (information only, "
+              f"random weights): agreed {rep['agreed_steps']}/"
+              f"{rep['total_steps']} steps ({rep['agreed_frac']})")
+        if kv is not None:
+            continue
+        first = out
+        snap = _mk_snapshot(se)
+        for rid_ids, gen_len in stream:
+            se.submit(rid_ids, gen_len)
+        again = se.run()
+        del se._decode_tick
+        se._mk.prog.check_fault()
+        assert all(np.array_equal(again[r + len(stream)], first[r])
+                   for r in first), "a second run gave other tokens"
+        print("mk-serve[bf16]: a second run gives identical tokens")
+        # teacher forcing: the engine's decode step on the same state
+        ref = model.new_paged_kv_cache(4, 2048, block=128, num_blocks=64)
+        ref.k_pool.copy_(snap["k"])
+        ref.v_pool.copy_(snap["v"])
+        ref.block_table[:] = snap["table"]
+        ref.seq_lens[:] = snap["lens"]
+        seen = _spy_logits(model, params)
+        model.decode_step_paged(params, snap["toks"], ref, [True] * 4)
+        del model._next_token
+        want = seen[0].to(snap["hid"].device)
+        got = snap["hid"] @ params["lm_head"].float()
+        err = _rel_err(got, want)
+        print(f"mk-serve teacher forcing: the first all-slots tick (lengths "
+              f"{snap['lens'].tolist()}) logits vs decode_step_paged on the "
+              f"same state {err:.3e} of max |logit|; greedy tokens "
+              f"{got.argmax(-1).tolist()} vs {want.argmax(-1).tolist()}")
+        assert torch.isfinite(got).all() and err <= MK_BF16_TOL, err
+        del ref, seen
+        # the batched step at that state, against its bound
+        prog = se._mk.prog
+        lens, ktab = snap["lens"], snap["ktab"]
+        ms = time_ms([lambda: prog.step(cache_lens=lens, block_table=ktab)])
+        prog.check_fault()
+        costs = prog.task_costs(cache_lens=lens)
+        moved = sum(c["bytes"] for c in costs)
+        flops = sum(c["flops"] for c in costs)
+        bms, by = bound(moved, flops)
+        print(f"mk-serve batched step (4 live rows, lengths "
+              f"{lens.tolist()}): kernel {ms:.4f} ms, bound {bms:.4f} ms "
+              f"({by}: {moved / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP), "
+              f"{len(prog.tasks)} tasks in {int(prog.n_tiles.sum())} tiles "
+              f"| {smi}")
+        plain_ms = time_ms([lambda: prog.step(
+            cache_lens=lens, block_table=ktab, plain=True)], reps=1, rounds=1)
+        print(f"mk-serve batched step: plain walk {plain_ms:.1f} ms (paced "
+              f"by the host)")
+        step = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": by}
+        if profile:
+            mk_serve_breakdown(prog, ms, lens)
+        del snap
+        torch.cuda.empty_cache()
+    if profile:
+        profile_serve(models, model, params, cfg.vocab_size, seed,
+                      mode="megakernel")
+    return total, step
 
 
 def check_attention_group8(attn, dev, gen, entries):
@@ -1337,15 +1676,22 @@ def main():
     assert launches == {"flash_attention": L, "flash_decode": L * (GEN - 1),
                         "gmm": 0}, launches
 
-    serve_launches = check_serve(models, attn, gg, model, params, cfg,
-                                 args.seed, smi, args.profile)
+    serve_launches, engine_out = check_serve(models, attn, gg, model, params,
+                                             cfg, args.seed, smi, args.profile)
 
     check_megakernel_graphs(dev)
+    check_megakernel_paged_graphs(dev)
     check_megadecoder_small(models, args.seed)
+    check_mega_serve_small(models, args.seed)
     md, _, mk_launches = check_megadecoder(attn, model, params, cfg, ids[0],
                                            toks[0], smi, args.profile)
     mk = check_megakernel_main(md, cfg, ids[0], smi, args.profile)
-    mk["launches"] = mk_launches
+    mk_serve, mk_step = check_mega_serve(models, attn, gg, model, params, cfg,
+                                         args.seed, smi, args.profile,
+                                         engine_out)
+    assert all(c == 0 for n, c in mk_serve.items()
+               if n.startswith("flash_decode_paged")), mk_serve
+    mk["launches"] = mk_launches + mk_serve["megakernel"]
 
     # the slice-4 main path needs the card to itself: release every
     # Qwen3-8B weight, cache, pool and program first
@@ -1360,11 +1706,16 @@ def main():
     moe_serve = check_moe_serve(models, attn, gg, moe, moe_params,
                                 moe.config, args.seed, smi)
 
-    counts = (launches, serve_launches, moe_launches, moe_serve)
+    counts = (launches, serve_launches, mk_serve, moe_launches, moe_serve)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in counts)
         assert k["launches"] > 0, k["name"]
     gmm_entry["launches"] = moe_launches["gmm"] + moe_serve["gmm"]
+    print(f"megakernel launches: {mk_launches} (MegaDecoder) + "
+          f"{mk_serve['megakernel']} (ServeEngine mode='megakernel'); the "
+          f"batched serve step {mk_step['ms']:.4f} ms against "
+          f"{mk_step['bound_ms']:.4f} ms ({mk_step['bound_by']}), plain "
+          f"walk {mk_step['plain_ms']:.1f} ms")
     kernels += [mk, gmm_entry]
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

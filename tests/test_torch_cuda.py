@@ -1,6 +1,7 @@
 """The port's CUDA kernels (prefill flash attention, decode, the paged
-decode over bf16, int8 and fp8 pools, the megakernel and the MoE grouped
-GEMM) against their plain PyTorch versions, on the GPU. Every test here needs an NVIDIA GPU with nvcc and skips without one.
+decode over bf16, int8 and fp8 pools, the megakernel with its paged
+serving bodies, and the MoE grouped GEMM) against their plain PyTorch
+versions, on the GPU. Every test here needs an NVIDIA GPU with nvcc and skips without one.
 The file imports neither jax nor the JAX package, so it runs on a GPU
 box without them:
 
@@ -13,10 +14,14 @@ and the exp2-based exponential). The megakernel's outputs and appended
 cache rows are compared as a fraction of the largest reference value:
 1e-4 in f32 (summation order over two layers), 2e-2 in bf16 (a value
 that rounds to the other side of a bf16 step in one task carries into
-the next). The grouped GEMM's bf16 outputs are compared at 2e-2 of the
-largest value: the kernel and the plain version sum the same bf16
-products in f32 in other orders and round once to bf16, so they differ
-by at most a bf16 step or two of each value.
+the next); so are the paged serving program's outputs and appends, and
+every other pool row must be bitwise unchanged. The grouped GEMM's bf16
+outputs are compared at 2e-2 of the largest value: the kernel and the
+plain version sum the same bf16 products in f32 in other orders and
+round once to bf16, so they differ by at most a bf16 step or two of
+each value. The small megakernel ServeEngine runs bf16 (the engine
+path's prefill kernel takes bf16 only): its logits agree with the CPU's
+within 5e-2 of the largest, its picks wherever the margin allows.
 """
 
 import numpy as np
@@ -25,7 +30,8 @@ import torch
 
 from triton_distributed_tpu_torch.megakernel import executor_cuda as mkx
 from triton_distributed_tpu_torch.megakernel.models import (
-    build_qwen3_decode, build_qwen3_forward, init_random_io)
+    build_qwen3_decode, build_qwen3_forward, build_qwen3_serve_batched,
+    init_random_io)
 from triton_distributed_tpu_torch.ops import attention as attn
 from triton_distributed_tpu_torch.ops import grouped_gemm as gg
 from triton_distributed_tpu_torch.ops import moe_utils
@@ -308,6 +314,159 @@ def test_megakernel_refuses_what_it_does_not_take(cuda):
         mb.compile("kernel", device=cuda, n_sm=4)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert mb.compile("kernel", device=cuda).n_sm == sms
+
+
+# -- the megakernel's paged serving bodies (ATTN_P, KVA_PK, KVA_PV) ------------
+
+def _mk_paged_case(device, dtype, R, D, blk, seed=0):
+    """A 2-layer serve program over five slots: slot 0 idle (length 0, a
+    table row of its trash page), the others at lengths 1, blk - 1, blk
+    and 2 blk + 5 (page boundaries), their pages drawn from a shuffled
+    pool, unassigned columns on their trash pages."""
+    lens = np.asarray([0, 1, blk - 1, blk, 2 * blk + 5], np.int32)
+    nb, mp, num_blocks = len(lens), 4, 12
+    mb = build_qwen3_serve_batched(
+        b_slots=nb, slot_rows=R, hidden=256, intermediate=384, num_layers=2,
+        num_heads=8, num_kv_heads=2, head_dim=D, num_blocks=num_blocks,
+        block=blk, max_pages=mp, qk_norm=True, dtype=dtype)
+    rng = np.random.default_rng(seed)
+    ins, ws = init_random_io(mb, rng)
+    pad = np.arange(nb * R) % R != 0
+    ins["x"][pad] = 0.0
+    perm = iter(rng.permutation(num_blocks))
+    tbl = np.asarray([[next(perm) if 0 < cl and c <= cl // blk
+                       else num_blocks + b for c in range(mp)]
+                      for b, cl in enumerate(lens)], np.int32)
+    prog = mb.compile("kernel", device=device)
+    prog.bind_weights({n: torch.as_tensor(w).to(device, dtype)
+                       for n, w in ws.items()})
+    return prog, ins, lens, tbl, pad
+
+
+def _mk_paged_runs(prog, ins, lens, tbl):
+    dt, dev = prog.dtype, prog.device
+    start = {n: torch.as_tensor(ins[n]).to(dev, dt) for n in prog.graph.caches}
+    x = torch.as_tensor(ins["x"]).to(dev, dt)
+    runs = []
+    for plain in (False, True):
+        prog.bind_caches({n: t.clone() for n, t in start.items()})
+        before = mkx.MEGAKERNEL.launches
+        out = prog.step({"x": x}, cache_lens=lens, block_table=tbl,
+                        plain=plain)[0]
+        torch.cuda.synchronize()
+        prog.check_fault()
+        assert mkx.MEGAKERNEL.launches == before + (0 if plain else 1)
+        runs.append((out.float().clone(),
+                     {n: t.float().clone() for n, t in prog.caches.items()}))
+    return start, runs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D,blk", [(1, 128, 16), (8, 64, 32),
+                                     (1, 128, 128)])
+def test_megakernel_paged_matches_plain(cuda, dtype, R, D, blk):
+    prog, ins, lens, tbl, pad = _mk_paged_case(cuda, dtype, R, D, blk)
+    start, ((ko, kc), (po, pc)) = _mk_paged_runs(prog, ins, lens, tbl)
+    tol = MK_TOL[dtype]
+    assert torch.isfinite(ko).all()
+    assert (ko - po).abs().max().item() <= tol * po.abs().max().item()
+    assert (ko[torch.from_numpy(pad).to(cuda)] == 0).all()
+    rows = torch.as_tensor(tbl[np.arange(len(lens)), lens // blk] * blk
+                           + lens % blk, device=cuda)
+    keep = torch.ones(next(iter(kc.values())).shape[0], dtype=torch.bool,
+                      device=cuda)
+    keep[rows] = False
+    for n in kc:
+        a, b = kc[n][rows], pc[n][rows]
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item(), n
+        ref = start[n].float()
+        assert torch.equal(kc[n][keep], ref[keep]), n
+        assert torch.equal(pc[n][keep], ref[keep]), n
+    # the idle slot wrote row 0 of its trash page and nothing else
+    assert rows[0].item() == tbl[0, 0] * blk == (12 + 0) * blk
+
+
+def test_megakernel_paged_broken_descriptor_raises(cuda):
+    """A descriptor whose op code the kernel does not have: the launch
+    records the fault, check_fault raises naming the task, and the
+    program runs again once the table is rebuilt."""
+    prog, ins, lens, tbl, _ = _mk_paged_case(cuda, torch.float32, 1, 128, 16)
+    prog.wait_budget_ns = int(0.05e9)
+    prog.bind_caches({n: torch.as_tensor(ins[n]).to(cuda)
+                      for n in prog.graph.caches})
+    x = torch.as_tensor(ins["x"]).to(cuda)
+    t = next(i for i, nd in enumerate(prog.tasks)
+             if nd.op == "attention_paged")
+    d_desc = prog.descriptors()[3]
+    d_desc[t, mkx.F_OP] = 99
+    prog.step({"x": x}, cache_lens=lens, block_table=tbl)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match=f"op the kernel does not have: "
+                                           f"task {t} "):
+        prog.check_fault()
+    prog._desc = None
+    prog.step({"x": x}, cache_lens=lens, block_table=tbl)
+    torch.cuda.synchronize()
+    prog.check_fault()
+
+
+def test_mega_serve_gpu_matches_cpu(cuda):
+    """A small model's ServeEngine(mode="megakernel") on the GPU (the
+    kernel) against the same engine on the CPU (the plain walk), one
+    megakernel launch per decode tick. bf16: the engine path's prefill
+    kernel takes bf16 only. Every greedy pick's logits (the prefill's
+    first tokens and each decode tick's) agree within 5e-2 of the
+    largest, and the picks are equal wherever the CPU's top-2 gap
+    exceeds twice that call's error, up to the first pick where they
+    may differ and differ (the streams part there)."""
+    from triton_distributed_tpu_torch import models
+    from triton_distributed_tpu_torch.megakernel import serve as mserve
+    from triton_distributed_tpu_torch.models import dense
+    cfg = models.get_config("Qwen/Qwen3-8B").tiny(
+        hidden_size=256, num_heads=8, num_kv_heads=2, head_dim=128,
+        intermediate_size=512, vocab_size=512, num_layers=2)
+    cpu = models.DenseLLM(cfg, dtype="bfloat16", device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = models.DenseLLM(cfg, dtype="bfloat16", device=cuda)
+    gparams = {"embed": params["embed"].to(cuda),
+               "norm": params["norm"].to(cuda),
+               "lm_head": params["lm_head"].to(cuda),
+               "layers": {k: t.to(cuda) for k, t in params["layers"].items()}}
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, 512, n).astype(np.int32), g)
+            for n, g in ((37, 6), (5, 9), (20, 4), (16, 5))]
+    real = dense.greedy_token
+    runs = []
+    for m, p in ((cpu, params), (gpu, gparams)):
+        seen = []
+
+        def spy(x, lm_head):
+            seen.append((x.float() @ lm_head.float()).cpu())
+            return real(x, lm_head)
+
+        dense.greedy_token = mserve.greedy_token = spy
+        try:
+            se = models.ServeEngine(m, p, mode="megakernel", b_max=2,
+                                    max_len=64, block=16, prefill_chunk=8)
+            before = mkx.MEGAKERNEL.launches
+            se.serve([r for r, _ in reqs], [g for _, g in reqs])
+        finally:
+            dense.greedy_token = mserve.greedy_token = real
+        st = se.stats()
+        assert st["megakernel_steps"] == st["decode_steps"] > 0
+        runs.append(seen)
+    assert mkx.MEGAKERNEL.launches - before == st["decode_steps"]
+    compared = 0
+    for c, g in zip(*runs):
+        err = (g - c).abs().max().item()
+        assert err <= 5e-2 * max(1.0, c.abs().max().item()), err
+        top2 = c.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+        assert torch.equal(g.argmax(-1)[sure], c.argmax(-1)[sure])
+        compared += 1
+        if not torch.equal(g.argmax(-1), c.argmax(-1)):
+            break
+    assert compared >= 4, compared
 
 
 # -- the MoE grouped GEMM -------------------------------------------------------

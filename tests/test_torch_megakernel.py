@@ -322,13 +322,30 @@ def test_megadecoder_sampling_in_top_k_and_reproducible():
 
 # -- (h) what this slice does not run -------------------------------------------
 
+_MS = dict(b_max=1, max_len=16, block=8, num_blocks=2)
+
+
+def _tiny_dense():
+    m = models.DenseLLM(models.get_config("Qwen/Qwen3-0.6B").tiny(**SHRINK),
+                        dtype="float32", device="cpu")
+    return m, m.init_params(torch.Generator().manual_seed(0))
+
+
+def _tiny_moe():
+    return models.Qwen3MoE(models.get_config("Qwen/Qwen3-30B-A3B").tiny(
+        num_layers=2), dtype="float32", device="cpu")
+
+
 @pytest.mark.parametrize("call,slice_", [
-    (lambda mb, h: mb.attention_paged(h), "3b"),
-    (lambda mb, h: mb.kv_append_paged(h), "3b"),
-    (lambda mb, h: tmodels.build_qwen3_serve_batched(), "3b"),
-    (lambda mb, h: tmodels.build_qwen3_serve_block(), "3b"),
-    (lambda mb, h: mk.MegaServe, "3b"),
-    (lambda mb, h: models.ServeEngine(None, None, mode="megakernel"), "3b"),
+    (lambda mb, h: mk.MegaServe(*_tiny_dense(), **_MS).verify(), "2b"),
+    (lambda mb, h: models.ServeEngine(*_tiny_dense(), mode="megakernel",
+                                      speculative=object()), "2b"),
+    (lambda mb, h: mk.MegaServe(_tiny_moe(), None, **_MS), "3c"),
+    (lambda mb, h: models.ServeEngine(_tiny_moe(), None, mode="megakernel"),
+     "3c"),
+    (lambda mb, h: mk.MegaServe(*_tiny_dense(), **_MS, tp_ranks=2), "6"),
+    (lambda mb, h: models.ServeEngine(None, None, mode="megakernel",
+                                      tp_ranks=2), "6"),
     (lambda mb, h: mb.moe_ffn(h), "3c"),
     (lambda mb, h: mb.all_to_all(h), "6"),
     (lambda mb, h: tmodels.build_qwen3_moe_serve_batched(), "3c"),
@@ -429,3 +446,15 @@ def test_task_costs_count_each_operand_once():
     assert all(c["flops"] == 4 * (cl + 1) * H * D for c in att)
     assert all(c["bytes"] == ((H + 2 * Hkv) * D + 2 * cl * Hkv * D
                               + H * D) * item for c in att)
+
+
+def test_plain_walk_of_the_forward_graph_matches_golden():
+    """The cacheless `attention` op through the kernel's descriptors:
+    the whole-forward graph's plain queue walk equals the golden
+    executor."""
+    kw = {k: v for k, v in TINY.items() if k != "max_cache"}
+    mb = tmodels.build_qwen3_forward(seq_len=8, **kw)
+    ins, ws = tmodels.init_random_io(mb, np.random.default_rng(6))
+    got = mb.compile("kernel", device="cpu", n_sm=4).run(ins, ws)[0]
+    ref = mb.compile("graph").run(ins, ws)[0]
+    assert _rel(got.numpy(), ref.numpy()) <= 1e-5

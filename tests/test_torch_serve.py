@@ -172,8 +172,8 @@ def test_sampled_stream_reproducible_and_in_top_k(port_model):
     ({"backoff_ticks": 1}, "slice 2b"),
     ({"backoff_cap": 32}, "slice 2b"),
     ({"host_blocks": 4}, "slice 2b"),
-    ({"mode": "megakernel"}, "slice 3"),
-    ({"mk_opts": {}}, "slice 3"),
+    ({"mode": "megakernel", "speculative": True}, "slice 2b"),
+    ({"mode": "megakernel", "tp_ranks": 2}, "slice 6"),
     ({"attn_parallelism": "sp"}, "slice 6"),
     ({"sp_combine": "ll"}, "slice 6"),
     ({"tp_ranks": 2}, "slice 6"),

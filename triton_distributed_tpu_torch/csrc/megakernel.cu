@@ -5,9 +5,10 @@
 // (:106, launched by ExecutorPallas._pallas :3046) — TPU kernel row 5 of
 // PERF.md. It carries the task bodies LINEAR (:328), RMS_NORM (:598),
 // SILU_MUL and ADD (:640), ATTN (:885; with rope_cs :797, head_prep :819,
-// attn_step :834, head_rms :879) and KVA_K / KVA_V (:1512 / :1559). The
-// paged bodies (ATTN_P, KVA_PK, KVA_PV), GROUPED_GEMM and the collective
-// bodies (AR, A2A, GEMM_AR) come with later slices.
+// attn_step :834, head_rms :879), KVA_K / KVA_V (:1512 / :1559), and the
+// paged serving bodies ATTN_P (:1189) and KVA_PK / KVA_PV (:1351).
+// GROUPED_GEMM and the collective bodies (AR, A2A, GEMM_AR) come with later
+// slices.
 //
 // The host side is megakernel/executor_cuda.py: one descriptor row per
 // task (a graph node cut into tiles), a flat list of each task's producer
@@ -49,6 +50,22 @@
 // cache appends of a launch write rows [cache_len, cache_len + S), which no
 // task of the same launch reads from the cache.
 //
+// Paged serving (ATTN_P, KVA_PK, KVA_PV). Slot b's lengths and block-table
+// row are run-time data, copied to the device before the launch (stream-
+// ordered) and read through __ldg. Its append writes one row: row
+// cache_len_b of the slot, at page btab[b][cache_len_b / block], row
+// cache_len_b % block. No task of the same launch reads that row from the
+// pool: ATTN_P of slot b reads rows [0, cache_len_b) and takes its own
+// current row from the qkv activation, and the host refuses a table in which
+// another slot reads or appends that pool row
+// (ExecutorCuda._paged_run_data). The prefix rows a slot reads were written
+// by earlier launches or by MegaServe.handoff's copy, stream-ordered before
+// the launch. So the __ldg rule above holds for the pool too. An inactive
+// slot arrives with length 0 and a table row of its own trash page, so it
+// writes only row 0 of that page. Unlike the TPU body, which moves an
+// aligned tile of rows through a read-modify-write because its DMAs move
+// whole tiles, the CUDA append writes the one row and nothing else.
+//
 // Numerics (the plain walk in executor_cuda.py rounds at the same points):
 // LINEAR accumulates in f32 and rounds to the graph dtype T once; RMS_NORM
 // and SILU_MUL compute in f32; ADD rounds the f32 sum. ATTN and KVA_K prepare
@@ -66,6 +83,11 @@
 // activations. A 256-row prefill chunk does ~2.9 TFLOP; its SIMT f32 FMAs
 // (no tensor cores yet) bound it by operations.
 //
+// A paged serving step (b_slots live rows) reads the same weights once, plus
+// each slot's cache_len_b prefix rows: ATTN_P resolves the page of each
+// prefix row through the table as it loads it, so a 64-key chunk may span
+// pages and `block` need not be a multiple of 64.
+//
 // What the design does about it: the decode LINEAR gives each SM a
 // 32-column tile (128-384 tiles per projection at Qwen3-8B) and keeps eight
 // 16-byte weight loads per thread in flight; ATTN reads the cache prefix in
@@ -82,15 +104,17 @@ namespace {
 
 constexpr int NT = 256;           // threads per CTA
 constexpr int NW = NT / 32;
-constexpr int NF = 32;            // descriptor fields (executor_cuda.NF)
+constexpr int NF = 34;            // descriptor fields (executor_cuda.NF)
 enum : int {
   F_OP = 0, F_TILES, F_DEP_LO, F_DEP_HI, F_OUT, F_A, F_B, F_C, F_D, F_E,
   F_M, F_N, F_K, F_LDA, F_LDB, F_LDO, F_TR, F_NCT, F_TN, F_H, F_HKV, F_HD,
-  F_QKN, F_CACHED, F_CAUSAL, F_EPS, F_SCALE, F_COS, F_SIN, F_LDC, F_MODE
+  F_QKN, F_CACHED, F_CAUSAL, F_EPS, F_SCALE, F_COS, F_SIN, F_LDC, F_MODE,
+  F_BLOCK, F_SROWS, F_MAXP
 };
+// op codes of megakernel/graph.py
 enum : int {
   OP_LINEAR = 0, OP_RMS_NORM = 1, OP_SILU_MUL = 2, OP_ADD = 3, OP_ATTN = 4,
-  OP_KVA_K = 6, OP_KVA_V = 7
+  OP_KVA_K = 6, OP_KVA_V = 7, OP_ATTN_P = 9, OP_KVA_PK = 10, OP_KVA_PV = 11
 };
 enum : int { FAULT_TIMEOUT = 1, FAULT_BAD_OP = 2 };
 
@@ -115,9 +139,12 @@ struct Params {
   const int* qlen;
   unsigned* counts;
   int* fault;
+  const int* lens;     // paged serving: per-slot cache lengths (b_slots,)
+  const int* btab;     // paged serving: block table (b_slots, btab_ld)
   long long budget_ns;
   int qcap;
   int cache_len;
+  int btab_ld;
   unsigned epoch;
 };
 
@@ -457,21 +484,30 @@ __device__ __forceinline__ void prep_row(const T* src, const T* nw, float eps,
   }
 }
 
-// -- ATTN: one (row tile, kv head); the G q heads share every K/V row --------
+// -- ATTN / ATTN_P: one kv head over a group of q rows; the G q heads share
+// every K/V row --------------------------------------------------------------
+// The rows of one attention tile. q rows: trunk rows qrow0 .. qrow0 + nr - 1
+// at positions pos0 + i. Keys: the cache prefix, positions [0, cl), then the
+// current rows: trunk rows krow0 .. krow0 + ncur - 1 at positions kpos0 + i,
+// causal by trunk row when `causal`. Prefix row c lies at cache row c, or,
+// through a block-table row `trow`, at row c % blk of page trow[c / blk].
+// `pad` rows after the q rows get zeros in the tile's output columns.
+struct AttnRows {
+  int qrow0, nr, pos0, krow0, ncur, kpos0, cl, blk, pad;
+  bool causal;
+  const int* trow;
+};
+
 template <typename T, int D>
-__device__ void attn_task(const long long* d, int tile, float* sm,
-                          int cache_len) {
+__device__ void attn_task(const long long* d, int j, const AttnRows& g_,
+                          float* sm) {
   constexpr int P = D / 32;
   constexpr int RS = NT / D;            // PV: rows between a thread's rows
   constexpr int RPT = QR_MAX / RS;      // PV: rows per thread
   const int H = static_cast<int>(d[F_H]), Hkv = static_cast<int>(d[F_HKV]);
   const int G = H / Hkv;
-  const int M = static_cast<int>(d[F_M]), tr = static_cast<int>(d[F_TR]);
-  const int rt = tile / Hkv, j = tile % Hkv;
-  const int r0 = rt * tr, nr = min(tr, M - r0);
+  const int nr = g_.nr, cl = g_.cl;
   const int QR = G * nr;                // q row it = g * nr + rr
-  const int cl = d[F_CACHED] ? cache_len : 0;
-  const bool causal = d[F_CAUSAL] != 0;
   const long long lda = d[F_LDA], ldo = d[F_LDO], ldc = d[F_LDC];
   const T* qkv = cptr<T>(d[F_A]);
   const T* kc = cptr<T>(d[F_B]);
@@ -494,8 +530,8 @@ __device__ void attn_task(const long long* d, int tile, float* sm,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   for (int it = warp; it < QR; it += NW) {
-    const int g = it / nr, r = r0 + it % nr;
-    const int pos = cl + r;
+    const int g = it / nr, r = g_.qrow0 + it % nr;
+    const int pos = g_.pos0 + it % nr;
     float x[P];
     prep_row<T, D>(qkv + r * lda + (j * G + g) * D, qn, eps,
                    cos_t + static_cast<long long>(pos) * (D / 2),
@@ -511,9 +547,8 @@ __device__ void attn_task(const long long* d, int tile, float* sm,
 #pragma unroll
   for (int u = 0; u < RPT; ++u) acc[u] = 0.f;
 
-  const int ncur = causal ? r0 + nr : M;
   for (int phase = 0; phase < 2; ++phase) {
-    const int nk = phase == 0 ? cl : ncur;
+    const int nk = phase == 0 ? cl : g_.ncur;
     for (int c0 = 0; c0 < nk; c0 += KCH) {
       const int kn_ = min(KCH, nk - c0);
       __syncthreads();   // q prep done / previous chunk consumed
@@ -522,7 +557,13 @@ __device__ void attn_task(const long long* d, int tile, float* sm,
         constexpr int RV = D / VEC;      // 16-byte vectors per head row
         for (int i = tid; i < kn_ * RV; i += NT) {
           const int jj = i / RV, dd = (i % RV) * VEC;
-          const long long off = (c0 + jj) * ldc + j * D + dd;
+          const int c = c0 + jj;
+          const long long crow =
+              g_.trow == nullptr
+                  ? c
+                  : static_cast<long long>(__ldg(g_.trow + c / g_.blk)) *
+                            g_.blk + c % g_.blk;
+          const long long off = crow * ldc + j * D + dd;
           float kf[VEC], vf[VEC];
           Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(kc + off)), kf);
           Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(vc + off)), vf);
@@ -534,7 +575,7 @@ __device__ void attn_task(const long long* d, int tile, float* sm,
         }
       } else {
         for (int jj = warp; jj < kn_; jj += NW) {
-          const int row = c0 + jj, pos = cl + row;
+          const int row = g_.krow0 + c0 + jj, pos = g_.kpos0 + c0 + jj;
           float x[P];
           prep_row<T, D>(qkv + row * lda + (H + j) * D, kn, eps,
                          cos_t + static_cast<long long>(pos) * (D / 2),
@@ -553,7 +594,8 @@ __device__ void attn_task(const long long* d, int tile, float* sm,
         for (int it = tid / KCH; it < QR; it += NT / KCH) {
           float s = TDT_NEG_INF;
           const bool seen =
-              jj < kn_ && (phase == 0 || !causal || c0 + jj <= r0 + it % nr);
+              jj < kn_ && (phase == 0 || !g_.causal ||
+                           g_.krow0 + c0 + jj <= g_.qrow0 + it % nr);
           if (seen) {
             float a = 0.f;
 #pragma unroll 16
@@ -604,46 +646,105 @@ __device__ void attn_task(const long long* d, int tile, float* sm,
     for (int u = 0; u < RPT; ++u) {
       const int it = tid / D + RS * u;
       if (it < QR) {
-        const int g = it / nr, r = r0 + it % nr;
+        const int g = it / nr, r = g_.qrow0 + it % nr;
         out[r * ldo + (j * G + g) * D + dd] =
             from_f<T>(acc[u] / fmaxf(lrow[it], 1e-30f));
       }
     }
   }
+  const int r_pad = g_.qrow0 + nr;       // pad rows: zeros, G heads wide
+  for (int i = tid; i < g_.pad * G * D; i += NT)
+    out[(r_pad + i / (G * D)) * ldo + j * G * D + i % (G * D)] = from_f<T>(0.f);
 }
 
-// -- KVA_K / KVA_V: the step's rows into cache rows [cache_len, +S) ----------
+// ATTN: tile = (row tile, kv head) of the step's rows against the cache
+// prefix [0, cache_len) and the causal current rows.
+template <typename T, int D>
+__device__ void attn_rows_task(const long long* d, int tile, float* sm,
+                               int cache_len) {
+  const int Hkv = static_cast<int>(d[F_HKV]);
+  const int M = static_cast<int>(d[F_M]), tr = static_cast<int>(d[F_TR]);
+  const int rt = tile / Hkv, j = tile % Hkv;
+  const int r0 = rt * tr, nr = min(tr, M - r0);
+  const int cl = d[F_CACHED] ? cache_len : 0;
+  const bool causal = d[F_CAUSAL] != 0;
+  const AttnRows g{r0, nr, cl + r0, 0, causal ? r0 + nr : M, cl, cl, 0, 0,
+                   causal, nullptr};
+  attn_task<T, D>(d, j, g, sm);
+}
+
+// ATTN_P: tile = (slot b, kv head). The slot's one live row (trunk row
+// b * slot_rows) at position cache_len_b attends the slot's pages up to
+// cache_len_b, then itself; its slot_rows - 1 pad rows get zeros.
+template <typename T, int D>
+__device__ void attn_paged_task(const long long* d, int tile, float* sm,
+                                const Params& p) {
+  const int Hkv = static_cast<int>(d[F_HKV]);
+  const int R = static_cast<int>(d[F_SROWS]), blk = static_cast<int>(d[F_BLOCK]);
+  const int b = tile / Hkv, j = tile % Hkv;
+  const int cl = __ldg(p.lens + b);
+  const AttnRows g{b * R, 1, cl, b * R, 1, cl, cl, blk, R - 1, true,
+                   p.btab + static_cast<long long>(b) * p.btab_ld};
+  attn_task<T, D>(d, j, g, sm);
+}
+
+// -- KVA_K / KVA_V / KVA_PK / KVA_PV: one head row of a step's K or V --------
+// K rows are normed (with k_norm) and roped at their position; V rows copied.
 template <typename T, int D, bool K_PART>
-__device__ void kv_append_task(const long long* d, int tile, int cache_len) {
+__device__ __forceinline__ void kv_append_row(const long long* d, int r, int j,
+                                              int pos, long long dst_row) {
   constexpr int P = D / 32;
   const int H = static_cast<int>(d[F_H]), Hkv = static_cast<int>(d[F_HKV]);
-  const int M = static_cast<int>(d[F_M]), tr = static_cast<int>(d[F_TR]);
   const long long lda = d[F_LDA], ldc = d[F_LDC];
   const T* qkv = cptr<T>(d[F_A]);
-  const T* kn = d[F_QKN] ? cptr<T>(d[F_E]) : nullptr;
-  const float eps = __int_as_float(static_cast<int>(d[F_EPS]));
-  const float* cos_t = cptr<float>(d[F_COS]);
-  const float* sin_t = cptr<float>(d[F_SIN]);
-  T* cache = mptr<T>(d[F_OUT]);
-  const int r0 = tile * tr, r1 = min(M, r0 + tr);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int item = warp; item < (r1 - r0) * Hkv; item += NW) {
-    const int r = r0 + item / Hkv, j = item % Hkv;
-    const int pos = cache_len + r;
-    T* dst = cache + static_cast<long long>(pos) * ldc + j * D;
-    if (K_PART) {
-      float x[P];
-      prep_row<T, D>(qkv + r * lda + (H + j) * D, kn, eps,
-                     cos_t + static_cast<long long>(pos) * (D / 2),
-                     sin_t + static_cast<long long>(pos) * (D / 2), x);
+  T* dst = mptr<T>(d[F_OUT]) + dst_row * ldc + j * D;
+  const int lane = threadIdx.x & 31;
+  if (K_PART) {
+    const T* kn = d[F_QKN] ? cptr<T>(d[F_E]) : nullptr;
+    const float eps = __int_as_float(static_cast<int>(d[F_EPS]));
+    const float* cos_t = cptr<float>(d[F_COS]);
+    const float* sin_t = cptr<float>(d[F_SIN]);
+    float x[P];
+    prep_row<T, D>(qkv + r * lda + (H + j) * D, kn, eps,
+                   cos_t + static_cast<long long>(pos) * (D / 2),
+                   sin_t + static_cast<long long>(pos) * (D / 2), x);
 #pragma unroll
-      for (int u = 0; u < P; ++u) dst[lane + 32 * u] = from_f<T>(x[u]);
-    } else {
-      const T* src = qkv + r * lda + (H + Hkv + j) * D;
+    for (int u = 0; u < P; ++u) dst[lane + 32 * u] = from_f<T>(x[u]);
+  } else {
+    const T* src = qkv + r * lda + (H + Hkv + j) * D;
 #pragma unroll
-      for (int u = 0; u < P; ++u) dst[lane + 32 * u] = src[lane + 32 * u];
-    }
+    for (int u = 0; u < P; ++u) dst[lane + 32 * u] = src[lane + 32 * u];
   }
+}
+
+// KVA_K / KVA_V: the step's rows into cache rows [cache_len, +S), one warp
+// per (row, kv head) of the tile's rows.
+template <typename T, int D, bool K_PART>
+__device__ void kv_append_task(const long long* d, int tile, int cache_len) {
+  const int Hkv = static_cast<int>(d[F_HKV]);
+  const int M = static_cast<int>(d[F_M]), tr = static_cast<int>(d[F_TR]);
+  const int r0 = tile * tr, r1 = min(M, r0 + tr);
+  for (int item = threadIdx.x >> 5; item < (r1 - r0) * Hkv; item += NW) {
+    const int r = r0 + item / Hkv, pos = cache_len + r;
+    kv_append_row<T, D, K_PART>(d, r, item % Hkv, pos, pos);
+  }
+}
+
+// KVA_PK / KVA_PV: tile = slot b. Its live row lands at row
+// cache_len_b % block of page btab[b][cache_len_b / block]: that one row,
+// one warp per kv head, and nothing else of the page.
+template <typename T, int D, bool K_PART>
+__device__ void kv_append_paged_task(const long long* d, int tile,
+                                     const Params& p) {
+  const int Hkv = static_cast<int>(d[F_HKV]);
+  const int R = static_cast<int>(d[F_SROWS]), blk = static_cast<int>(d[F_BLOCK]);
+  const int cl = __ldg(p.lens + tile);
+  const long long dst_row =
+      static_cast<long long>(
+          __ldg(p.btab + static_cast<long long>(tile) * p.btab_ld + cl / blk)) *
+          blk + cl % blk;
+  for (int j = threadIdx.x >> 5; j < Hkv; j += NW)
+    kv_append_row<T, D, K_PART>(d, tile * R, j, cl, dst_row);
 }
 
 template <typename T>
@@ -662,24 +763,40 @@ __device__ void linear_task(const long long* d, int tile, float* sm) {
 // returns false on an op the kernel does not have
 template <typename T>
 __device__ bool run_task(const long long* d, int tile, float* sm,
-                         int cache_len) {
+                         const Params& p) {
   const bool d128 = d[F_HD] == 128;
+  const int cl = p.cache_len;
   switch (static_cast<int>(d[F_OP])) {
     case OP_LINEAR: linear_task<T>(d, tile, sm); return true;
     case OP_RMS_NORM: rms_norm_task<T>(d, tile, sm); return true;
     case OP_SILU_MUL: elementwise_task<T, true>(d, tile); return true;
     case OP_ADD: elementwise_task<T, false>(d, tile); return true;
     case OP_ATTN:
-      if (d128) attn_task<T, 128>(d, tile, sm, cache_len);
-      else attn_task<T, 64>(d, tile, sm, cache_len);
+      if (d128) attn_rows_task<T, 128>(d, tile, sm, cl);
+      else attn_rows_task<T, 64>(d, tile, sm, cl);
       return true;
     case OP_KVA_K:
-      if (d128) kv_append_task<T, 128, true>(d, tile, cache_len);
-      else kv_append_task<T, 64, true>(d, tile, cache_len);
+      if (d128) kv_append_task<T, 128, true>(d, tile, cl);
+      else kv_append_task<T, 64, true>(d, tile, cl);
       return true;
     case OP_KVA_V:
-      if (d128) kv_append_task<T, 128, false>(d, tile, cache_len);
-      else kv_append_task<T, 64, false>(d, tile, cache_len);
+      if (d128) kv_append_task<T, 128, false>(d, tile, cl);
+      else kv_append_task<T, 64, false>(d, tile, cl);
+      return true;
+    case OP_ATTN_P:
+      if (p.lens == nullptr) return false;
+      if (d128) attn_paged_task<T, 128>(d, tile, sm, p);
+      else attn_paged_task<T, 64>(d, tile, sm, p);
+      return true;
+    case OP_KVA_PK:
+      if (p.lens == nullptr) return false;
+      if (d128) kv_append_paged_task<T, 128, true>(d, tile, p);
+      else kv_append_paged_task<T, 64, true>(d, tile, p);
+      return true;
+    case OP_KVA_PV:
+      if (p.lens == nullptr) return false;
+      if (d128) kv_append_paged_task<T, 128, false>(d, tile, p);
+      else kv_append_paged_task<T, 64, false>(d, tile, p);
       return true;
     default: return false;
   }
@@ -701,7 +818,7 @@ __global__ void __launch_bounds__(NT, 1) megakernel(Params p) {
     if (threadIdx.x == 0) s_go = wait_deps(p, d, task);
     __syncthreads();
     if (!s_go) return;
-    const bool known = run_task<T>(d, tile, sm, p.cache_len);
+    const bool known = run_task<T>(d, tile, sm, p);
     __syncthreads();
     if (threadIdx.x == 0) {
       if (!known) {
@@ -736,15 +853,18 @@ int launch(const Params& prm, int n_sm, cudaStream_t st) {
 
 }  // namespace
 
-// desc int64 (n_tasks, 32), deps int32, queues int32 (n_sm, qcap) packed
+// desc int64 (n_tasks, 34), deps int32, queues int32 (n_sm, qcap) packed
 // task << 20 | tile, qlen int32 (n_sm,), counts u32 (n_tasks,) (the
 // scoreboard, never cleared: launch `epoch` waits for epoch x tiles),
-// fault int32 (4,) = (code, task, producer, -). dtype 0 = float32,
+// fault int32 (4,) = (code, task, producer, -); a paged serving program's
+// per-slot lengths lens int32 (b_slots,) and block table btab int32
+// (b_slots, btab_ld), both null for other programs. dtype 0 = float32,
 // 1 = bfloat16. One CTA per SM for n_sm SMs, cooperative.
 extern "C" int tdt_megakernel(const void* desc, const void* deps,
                               const void* queues, const void* qlen,
-                              void* counts, void* fault, int n_sm, int qcap,
-                              int cache_len, unsigned epoch,
+                              void* counts, void* fault, const void* lens,
+                              const void* btab, int n_sm, int qcap,
+                              int cache_len, int btab_ld, unsigned epoch,
                               long long budget_ns, int dtype, void* stream) {
   Params p;
   p.desc = static_cast<const long long*>(desc);
@@ -753,6 +873,9 @@ extern "C" int tdt_megakernel(const void* desc, const void* deps,
   p.qlen = static_cast<const int*>(qlen);
   p.counts = static_cast<unsigned*>(counts);
   p.fault = static_cast<int*>(fault);
+  p.lens = static_cast<const int*>(lens);
+  p.btab = static_cast<const int*>(btab);
+  p.btab_ld = btab_ld;
   p.budget_ns = budget_ns;
   p.qcap = qcap;
   p.cache_len = cache_len;

@@ -13,18 +13,12 @@ graph and builder API and runs them two ways:
   walking its queue and spinning on the scoreboard — the counterpart of
   the JAX `ExecutorPallas` — with its plain queue walk on the CPU.
 
-`MegaDecoder` serves one sequence over contiguous caches through them.
-Paged serving (`MegaServe`, ServeEngine mode="megakernel") is the next
-slice.
+`MegaDecoder` serves one sequence over contiguous caches through them;
+`MegaServe` is ServeEngine's batched decode step (mode="megakernel")
+over the paged KV pool.
 """
 
 from .builder import ModelBuilder  # noqa: F401
 from .decoder import MegaDecoder  # noqa: F401
 from .graph import Graph, TensorHandle  # noqa: F401
-
-
-def __getattr__(name):
-    if name == "MegaServe":
-        from .builder import later_slice
-        raise later_slice("MegaServe", "3b", " (paged serving)")
-    raise AttributeError(name)
+from .serve import MegaServe  # noqa: F401

@@ -26,7 +26,6 @@ def later_slice(what: str, slice_: str, detail: str = "") -> NotImplementedError
         f"comes with ROADMAP.md Queue A, slice {slice_}{detail}")
 
 
-_SLICE_PAGED = ("3b", " (paged serving: MegaServe)")
 _SLICE_MOE = ("3c", " (the megakernel's MoE program)")
 _SLICE_MULTI = ("6", " (the multi-rank layer)")
 
@@ -160,13 +159,75 @@ class ModelBuilder:
             part="v", qk_norm=False, **common)
         return k_new, v_new
 
+    def attention_paged(self, qkv: TensorHandle, k_pool: TensorHandle,
+                        v_pool: TensorHandle, *, num_heads: int,
+                        num_kv_heads: int, head_dim: int, block: int,
+                        max_pages: int, slot_rows: int,
+                        rope_theta: float = 1e6,
+                        q_norm: TensorHandle | None = None,
+                        k_norm: TensorHandle | None = None,
+                        cache_len_name: str = "cache_len_s"):
+        """Batched-serving decode attention over a PAGED KV pool. The
+        trunk's rows split into `slot_rows`-row tiles, one slot per
+        tile: row 0 of tile b is slot b's current token, the rest are
+        zero pad (their output rows are exactly 0). Each slot attends
+        its own cache prefix [0, cache_len_b), pages resolved through
+        the block table, plus its own current row at position
+        cache_len_b. The per-slot lengths are the run-time scalars
+        `{cache_len_name}{slot}` and the (b_slots, max_pages) block
+        table run-time data, so admission, eviction and length changes
+        never rebuild the program. `k_pool` / `v_pool` are cache tensors
+        of (pool_pages * block, Hkv*D): page p holds rows
+        [p*block, (p+1)*block)."""
+        d = head_dim
+        assert qkv.cols == (num_heads + 2 * num_kv_heads) * d, qkv.shape
+        assert qkv.rows % slot_rows == 0, (qkv.shape, slot_rows)
+        assert k_pool.shape == v_pool.shape
+        assert k_pool.cols == num_kv_heads * d, k_pool.shape
+        assert k_pool.rows % block == 0, (k_pool.shape, block)
+        assert (q_norm is None) == (k_norm is None), "need both norms"
+        inputs = (qkv, k_pool, v_pool)
+        if q_norm is not None:
+            assert q_norm.shape == (1, d) and k_norm.shape == (1, d)
+            inputs = inputs + (q_norm, k_norm)
+        return self.graph.add_node(
+            "attention_paged", inputs,
+            (qkv.rows, num_heads * d), self.dtype,
+            num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=d,
+            rope_theta=rope_theta, block=block, max_pages=max_pages,
+            slot_rows=slot_rows, qk_norm=q_norm is not None,
+            cache_len_name=cache_len_name)
+
+    def kv_append_paged(self, qkv: TensorHandle, k_pool: TensorHandle,
+                        v_pool: TensorHandle, *, num_heads: int,
+                        num_kv_heads: int, head_dim: int, block: int,
+                        max_pages: int, slot_rows: int,
+                        rope_theta: float = 1e6,
+                        k_norm: TensorHandle | None = None,
+                        cache_len_name: str = "cache_len_s"):
+        """Per-slot cache append through the block table: slot b's
+        current K row (k_norm-ed if given, roped at position
+        cache_len_b) and raw V row land at page
+        block_table[b, cache_len_b // block], in-page row
+        cache_len_b % block. Returns the updated pool handles."""
+        d = head_dim
+        assert qkv.cols == (num_heads + 2 * num_kv_heads) * d, qkv.shape
+        assert k_pool.shape == v_pool.shape
+        assert k_pool.cols == num_kv_heads * d, k_pool.shape
+        common = dict(num_heads=num_heads, num_kv_heads=num_kv_heads,
+                      head_dim=d, rope_theta=rope_theta, block=block,
+                      max_pages=max_pages, slot_rows=slot_rows,
+                      cache_len_name=cache_len_name)
+        k_in = (qkv, k_pool) + ((k_norm,) if k_norm is not None else ())
+        k_new = self.graph.add_node(
+            "kv_append_paged", k_in, k_pool.shape, self.dtype, part="k",
+            qk_norm=k_norm is not None, **common)
+        v_new = self.graph.add_node(
+            "kv_append_paged", (qkv, v_pool), v_pool.shape, self.dtype,
+            part="v", qk_norm=False, **common)
+        return k_new, v_new
+
     # -- ops of later slices -----------------------------------------------
-    def attention_paged(self, *args, **kwargs):
-        raise later_slice("ModelBuilder.attention_paged", *_SLICE_PAGED)
-
-    def kv_append_paged(self, *args, **kwargs):
-        raise later_slice("ModelBuilder.kv_append_paged", *_SLICE_PAGED)
-
     def moe_ffn(self, *args, **kwargs):
         raise later_slice("ModelBuilder.moe_ffn", *_SLICE_MOE)
 

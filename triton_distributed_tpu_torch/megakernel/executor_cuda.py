@@ -9,7 +9,8 @@ A graph compiles into:
   decode row block (<= 8 rows) and 64x64 tiles above that; RMS_NORM,
   SILU_MUL, ADD and the cache appends KVA_K / KVA_V in row tiles of
   ceil(S / n_sm) rows; ATTN in (row tile, kv head) tiles whose G q heads
-  share every K/V row;
+  share every K/V row; the paged serving ops ATTN_P in (slot, kv head)
+  tiles and the paged appends KVA_PK / KVA_PV in one tile per slot;
 - one descriptor row per task (`desc`, int64 (n_tasks, NF)): op code,
   tile count, the task's slice of the flat dependency list (`deps`: the
   producer tasks of its inputs), device addresses of its operands, their
@@ -23,10 +24,14 @@ A graph compiles into:
   of `rope_cos_sin` (f32, one row per position).
 
 The descriptor table is built once per binding of weights and caches;
-the only run-time scalar of a launch is `cache_len` (and the scoreboard
-epoch, below). On a CUDA device `step` launches csrc/megakernel.cu (one
-cooperative launch, one CTA per SM) and counts it in
-`MEGAKERNEL.launches`; on the CPU it runs the plain version.
+the run-time data of a launch is `cache_len`, or for a paged serving
+program the per-slot lengths and the (b_slots, max_pages) block table,
+which one small host-to-device copy per step writes into a persistent
+device buffer (and the scoreboard epoch, below). A program keeps one
+cache_len or the per-slot vector, never both. On a CUDA device `step`
+launches csrc/megakernel.cu (one cooperative launch, one CTA per SM) and
+counts it in `MEGAKERNEL.launches`; on the CPU it runs the plain
+version.
 
 The plain version (`plain_walk`) reads the same descriptor rows and the
 same queues and computes each task's tile with torch ops, taking at each
@@ -58,13 +63,16 @@ from ..ops._build import CudaKernel, ptr, stream_of
 from ..ops.attention import rope_cos_sin
 from . import scheduler
 from .builder import later_slice
-from .executor_torch import as_tensor, check_ops, matmul_f32
-from .graph import (TASK_ADD, TASK_ATTN, TASK_KVA_K, TASK_KVA_V,
-                    TASK_LINEAR, TASK_RMS_NORM, TASK_SILU_MUL)
+from .executor_torch import (PAGED_OPS, as_tensor, check_ops,
+                             identity_table, matmul_f32, paged_geometry,
+                             slot_lengths)
+from .graph import (TASK_ADD, TASK_ATTN, TASK_ATTN_P, TASK_KVA_K,
+                    TASK_KVA_PK, TASK_KVA_PV, TASK_KVA_V, TASK_LINEAR,
+                    TASK_RMS_NORM, TASK_SILU_MUL)
 
 MEGAKERNEL = CudaKernel(
     "megakernel", "tdt_megakernel",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
     + [ctypes.c_uint, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 H100_SMS = 132          # queues for the CPU walk default to the H100's SMs
@@ -79,8 +87,8 @@ WAIT_BUDGET_S = 1.0     # a scoreboard wait longer than this is a fault
 (F_OP, F_TILES, F_DEP_LO, F_DEP_HI, F_OUT, F_A, F_B, F_C, F_D, F_E, F_M,
  F_N, F_K, F_LDA, F_LDB, F_LDO, F_TR, F_NCT, F_TN, F_H, F_HKV, F_HD,
  F_QKN, F_CACHED, F_CAUSAL, F_EPS, F_SCALE, F_COS, F_SIN, F_LDC,
- F_MODE) = range(31)
-NF = 32                 # one int64 left spare
+ F_MODE, F_BLOCK, F_SROWS, F_MAXP) = range(34)
+NF = 34
 
 _FAULTS = {1: "a scoreboard wait passed its budget",
            2: "a descriptor names an op the kernel does not have"}
@@ -140,13 +148,17 @@ class ExecutorCuda:
         if len(self._scalar_names) > 1:
             raise ValueError(f"one cache_len per program, got "
                              f"{sorted(self._scalar_names)}")
+        self.paged = paged_geometry(g)       # a PagedGeometry, or None
+        if self.paged is not None:
+            self._scalar_names = {f"{self.paged.cache_len_name}{b}"
+                                  for b in range(self.paged.b_slots)}
         # the largest cache_len whose S appended rows fit every cache
         self.max_cache_len = min(
             (nd.inputs[1].rows - nd.inputs[0].rows for nd in self.tasks
              if nd.op in ("attention_kv", "kv_append")), default=0)
         # a kv_append output is its cache: return the cache handle
         kv_out = {nd.out.idx: nd.inputs[1] for nd in self.tasks
-                  if nd.op == "kv_append"}
+                  if nd.op in ("kv_append", "kv_append_paged")}
         self._out_handles = [kv_out.get(h.idx, h) for h in g.outputs]
         if cuda:
             self._check_kernel_shapes()
@@ -155,7 +167,7 @@ class ExecutorCuda:
         dt, dev = self.dtype, self.device
         self._views = {}
         acts = [h for n, h in g.inputs.items() if n not in g.caches]
-        acts += [nd.out for nd in self.tasks if nd.op != "kv_append"]
+        acts += [nd.out for nd in self.tasks if nd.out.idx not in kv_out]
         offs, total = {}, 0
         for h in acts:
             offs[h.idx] = total
@@ -171,10 +183,13 @@ class ExecutorCuda:
         # every position a program can reach (cache rows, or S rows)
         lengths = {}
         for nd in self.tasks:
-            if nd.op in ("attention", "attention_kv", "kv_append"):
+            if nd.op in ("attention", "attention_kv", "kv_append") \
+                    or nd.op in PAGED_OPS:
                 key = (nd.attrs["head_dim"], float(nd.attrs["rope_theta"]))
-                lengths[key] = max(lengths.get(key, 0),
-                                   *(h.rows for h in nd.inputs[:2]))
+                n = (nd.attrs["max_pages"] * nd.attrs["block"]
+                     if nd.op in PAGED_OPS
+                     else max(h.rows for h in nd.inputs[:2]))
+                lengths[key] = max(lengths.get(key, 0), n)
         self._rope = {(d, th): rope_cos_sin(torch.arange(n, device=dev), d,
                                             th)
                       for (d, th), n in lengths.items()}
@@ -185,6 +200,18 @@ class ExecutorCuda:
         self.fault = torch.zeros(4, dtype=torch.int32, device=dev)
         self.epoch = 0
         self._desc = None
+        # a paged program's run-time data: the per-slot lengths, then the
+        # block table, in one device buffer that one asynchronous copy
+        # per step fills from a pinned host buffer; the host rewrites
+        # that buffer once the previous step's copy has left it
+        self._rt = None
+        if self.paged is not None and cuda:
+            nb, mp = self.paged.b_slots, self.paged.max_pages
+            self._rt = torch.zeros(nb * (1 + mp), dtype=torch.int32,
+                                   device=dev)
+            self._rt_host = torch.zeros(nb * (1 + mp), dtype=torch.int32,
+                                        pin_memory=True)
+            self._rt_copied = torch.cuda.Event()
 
     # -- decomposition ---------------------------------------------------
     def _tiling(self, nd) -> dict:
@@ -203,7 +230,7 @@ class ExecutorCuda:
             nct = runtime.cdiv(N, tn)
             return dict(op=TASK_LINEAR, tr=tr, tn=tn, nct=nct, mode=mode,
                         tiles=runtime.cdiv(S, tr) * nct)
-        if nd.op in ("attention", "attention_kv"):
+        if nd.op in ("attention", "attention_kv", "attention_paged"):
             at = nd.attrs
             G = at["num_heads"] // at["num_kv_heads"]
             if at["num_heads"] % at["num_kv_heads"] or G > QR_MAX:
@@ -211,9 +238,17 @@ class ExecutorCuda:
                     f"attention: {at['num_heads']} q heads over "
                     f"{at['num_kv_heads']} kv heads; the ATTN body takes "
                     f"groups of 1..{QR_MAX} q heads")
+            if nd.op == "attention_paged":   # one tile per (slot, kv head)
+                R = at["slot_rows"]
+                return dict(op=TASK_ATTN_P, tr=R,
+                            tiles=S // R * at["num_kv_heads"])
             tr = min(S, max(1, QR_MAX // G))
             return dict(op=TASK_ATTN, tr=tr,
                         tiles=runtime.cdiv(S, tr) * at["num_kv_heads"])
+        if nd.op == "kv_append_paged":       # one tile per slot
+            R = nd.attrs["slot_rows"]
+            op = TASK_KVA_PK if nd.attrs["part"] == "k" else TASK_KVA_PV
+            return dict(op=op, tr=R, tiles=S // R)
         op = {"rms_norm": TASK_RMS_NORM, "silu_mul": TASK_SILU_MUL,
               "add": TASK_ADD}.get(nd.op)
         if nd.op == "kv_append":
@@ -225,7 +260,8 @@ class ExecutorCuda:
         take: a head_dim other than 64 or 128, and widths that are not
         a multiple of 8 (16-byte weight vectors)."""
         for nd in self.tasks:
-            if nd.op in ("attention", "attention_kv", "kv_append") \
+            if nd.op in ("attention", "attention_kv", "kv_append",
+                         *PAGED_OPS) \
                     and nd.attrs["head_dim"] not in KERNEL_HEAD_DIMS:
                 raise ValueError(
                     f"megakernel: head_dim {nd.attrs['head_dim']} not in "
@@ -312,7 +348,7 @@ class ExecutorCuda:
             flat += self.deps[t]
             row[F_DEP_HI] = len(flat)
             ins = [self._tensor(h) for h in nd.inputs]
-            if nd.op == "kv_append":
+            if nd.op in ("kv_append", "kv_append_paged"):
                 # a = qkv, e = k_norm; the output is the cache itself
                 out = ins[1]
                 slots = {"a": ins[0]}
@@ -338,7 +374,7 @@ class ExecutorCuda:
                 row[F_EPS] = _f32_bits(at["eps"])
             elif nd.op in ("silu_mul", "add"):
                 row[F_LDB] = ins[1].stride(0)
-            else:  # attention / attention_kv / kv_append
+            else:  # attention / attention_kv / kv_append, and the paged ops
                 d = at["head_dim"]
                 row[F_H], row[F_HKV], row[F_HD] = at["num_heads"], \
                     at["num_kv_heads"], d
@@ -350,10 +386,13 @@ class ExecutorCuda:
                 cos, sin = self._rope[(d, float(at["rope_theta"]))]
                 row[F_COS], row[F_SIN] = cos.data_ptr(), sin.data_ptr()
                 v["cos"], v["sin"] = cos, sin
-                cache = {"attention_kv": ins[1] if len(ins) > 1 else None,
-                         "kv_append": out}.get(nd.op)
+                cache = out if nd.op in ("kv_append", "kv_append_paged") \
+                    else ins[1] if nd.op != "attention" else None
                 if cache is not None:
                     row[F_LDC] = cache.stride(0)
+                if nd.op in PAGED_OPS:
+                    row[F_BLOCK], row[F_SROWS], row[F_MAXP] = \
+                        at["block"], at["slot_rows"], at["max_pages"]
             views.append(v)
         deps = np.asarray(flat if flat else [0], np.int32)
         dev = self.device
@@ -366,14 +405,28 @@ class ExecutorCuda:
 
     # -- running ---------------------------------------------------------
     def step(self, inputs: dict | None = None, cache_len: int = 0, *,
-             plain: bool = False, seed: int = 0):
-        """Copy `inputs` into the arena, run the program once at
-        `cache_len`, and return the graph outputs as views of the arena
-        (overwritten by the next step; a kv_append output is its cache).
-        On a CUDA device this is one kernel launch, with no host sync;
-        `plain=True` runs the plain walk instead (for comparisons)."""
+             cache_lens=None, block_table=None, plain: bool = False,
+             seed: int = 0):
+        """Copy `inputs` into the arena, run the program once, and return
+        the graph outputs as views of the arena (overwritten by the next
+        step; a kv_append output is its cache). A program runs at
+        `cache_len`; a paged serving program at the per-slot
+        `cache_lens` (b_slots,) through `block_table` (b_slots,
+        max_pages), both host arrays, uploaded to the device together in
+        one copy. On a CUDA device this is one kernel launch, with no
+        host sync; `plain=True` runs the plain walk instead (for
+        comparisons)."""
         cache_len = int(cache_len)
-        if not 0 <= cache_len <= self.max_cache_len:
+        lens = btab = None
+        if self.paged is not None:
+            if cache_len:
+                raise ValueError("a paged program runs at the per-slot "
+                                 "cache_lens, not at one cache_len")
+            lens, btab = self._paged_run_data(cache_lens, block_table)
+        elif cache_lens is not None or block_table is not None:
+            raise ValueError("cache_lens / block_table: this program has "
+                             "no paged node")
+        elif not 0 <= cache_len <= self.max_cache_len:
             raise ValueError(f"cache_len {cache_len}: the step's rows must "
                              f"fit the caches (0 <= cache_len <= "
                              f"{self.max_cache_len})")
@@ -381,17 +434,72 @@ class ExecutorCuda:
             self.inputs[n].copy_(v)
         desc, deps, views, d_desc, d_deps, d_q, d_qlen = self.descriptors()
         if plain or self.device.type == "cpu":
-            plain_walk(self, cache_len, seed=seed)
+            plain_walk(self, cache_len, seed=seed, lens=lens, btab=btab)
         else:
+            lens_p = btab_p = ld_btab = 0
+            if lens is not None:
+                self._rt_copied.synchronize()
+                host = self._rt_host.numpy()
+                host[:lens.shape[0]] = lens
+                host[lens.shape[0]:] = btab.reshape(-1)
+                self._rt.copy_(self._rt_host, non_blocking=True)
+                self._rt_copied.record()
+                lens_p = ptr(self._rt)
+                btab_p = ctypes.c_void_p(self._rt.data_ptr()
+                                         + 4 * lens.shape[0])
+                ld_btab = btab.shape[1]
             self.epoch += 1
             MEGAKERNEL.launch(
                 ptr(d_desc), ptr(d_deps), ptr(d_q), ptr(d_qlen),
-                ptr(self.counts), ptr(self.fault), self.n_sm,
-                self.queues.shape[1], cache_len,
+                ptr(self.counts), ptr(self.fault), lens_p, btab_p,
+                self.n_sm, self.queues.shape[1], cache_len, ld_btab,
                 ctypes.c_uint(self.epoch & 0xFFFFFFFF),
                 ctypes.c_longlong(self.wait_budget_ns),
                 int(self.dtype == torch.bfloat16), stream_of(self.arena))
         return self.outputs()
+
+    def _paged_run_data(self, cache_lens, block_table):
+        """Check a paged step's lengths and table on the host and return
+        them as int32 numpy arrays. Refused: a length whose append row
+        lies past the slot's max_pages pages, a page id outside the pool
+        among the pages a slot reads or appends to, and a table whose
+        appends would land on one row twice or on a row another slot of
+        the same launch reads (the kernel reads the pool through the
+        read-only cache; see csrc/megakernel.cu)."""
+        nb, _, blk, mp, _ = self.paged
+        if cache_lens is None or block_table is None:
+            raise ValueError("a paged program needs cache_lens and "
+                             "block_table")
+        lens = np.asarray(torch.as_tensor(cache_lens).cpu(),
+                          np.int32).reshape(-1)
+        btab = np.ascontiguousarray(
+            np.asarray(torch.as_tensor(block_table).cpu(), np.int32))
+        if lens.shape != (nb,) or btab.shape != (nb, mp):
+            raise ValueError(f"cache_lens {lens.shape} / block_table "
+                             f"{btab.shape}: the program takes ({nb},) / "
+                             f"{(nb, mp)}")
+        if not ((lens >= 0) & (lens < mp * blk)).all():
+            raise ValueError(f"cache_lens {lens.tolist()}: each must lie in "
+                             f"[0, {mp * blk}) (max_pages x block)")
+        pool_pages = self.graph.caches[next(iter(self.graph.caches))].rows \
+            // blk
+        cols = np.arange(mp)[None, :]
+        used = cols <= (lens // blk)[:, None]      # pages read or appended
+        if ((btab < 0) | (btab >= pool_pages))[used].any():
+            raise ValueError(f"block_table names a page outside the pool "
+                             f"[0, {pool_pages}) among the pages a slot "
+                             f"uses")
+        # rows of each column a slot reads, and where each slot appends
+        read = np.clip(lens[:, None] - cols * blk, 0, blk)
+        ap, ar = btab[np.arange(nb), lens // blk], lens % blk
+        clash = (btab[None] == ap[:, None, None]) \
+            & (ar[:, None, None] < read[None])
+        dest = ap.astype(np.int64) * blk + ar
+        if clash.any() or len(set(dest.tolist())) < nb:
+            raise ValueError("block_table: a slot's append lands on a pool "
+                             "row that another slot reads or appends to "
+                             "in the same step")
+        return lens, btab
 
     def outputs(self):
         return tuple(self._tensor(h) for h in self._out_handles)
@@ -402,7 +510,7 @@ class ExecutorCuda:
         the program can run again."""
         if self.device.type != "cuda":
             return
-        code, task, dep, _ = (int(x) for x in self.fault.cpu())
+        code, task, dep, _ = self.fault.cpu().tolist()
         if code == 0:
             return
         # the first task of the topological order left unfinished is the
@@ -425,11 +533,14 @@ class ExecutorCuda:
                            f"the first unfinished task is {name(first)}")
 
     def run(self, inputs: dict, weights: dict,
-            scalars: dict | None = None):
+            scalars: dict | None = None, block_table=None):
         """Execute the program once (compat path): weights and caches are
         bound from the dicts (cache tensors already on the device in the
-        graph dtype are updated in place), `scalars` carries cache_len.
-        Returns the outputs (activations copied out of the arena)."""
+        graph dtype are updated in place), `scalars` carries cache_len
+        (or a paged program's `{cache_len_name}{b}`), `block_table` a
+        paged program's table (default: slot b owns pages
+        [b*max_pages, (b+1)*max_pages)). Returns the outputs
+        (activations copied out of the arena)."""
         scalars = dict(scalars or {})
         unknown = set(scalars) - self._scalar_names
         if unknown:
@@ -445,7 +556,14 @@ class ExecutorCuda:
                               for n in g.caches})
         acts = {n: as_tensor(v, dt, dev) for n, v in inputs.items()
                 if n not in g.caches}
-        outs = self.step(acts, next(iter(scalars.values()), 0))
+        if self.paged is not None:
+            outs = self.step(acts, cache_lens=slot_lengths(self.paged,
+                                                           scalars),
+                             block_table=identity_table(self.paged)
+                             if block_table is None else block_table)
+        else:
+            outs = self.step(acts, next(iter(scalars.values()), 0),
+                             block_table=block_table)
         self.check_fault()
         cache_ids = {id(t) for t in self.caches.values()}
         return tuple(o if id(o) in cache_ids else o.clone() for o in outs)
@@ -460,12 +578,19 @@ class ExecutorCuda:
         raise later_slice("profile_tasks", "7", " (tools and verification)")
 
     # -- cost model ------------------------------------------------------
-    def task_costs(self, cache_len: int = 0):
-        """(flops, bytes) per task at `cache_len`: each input read once,
-        each output written once (a LINEAR's weight once, a cache prefix
-        row once per kv head's K and V), as ExecutorPallas.task_costs
-        counts each task."""
+    def task_costs(self, cache_len: int = 0, cache_lens=None):
+        """(flops, bytes) per task at `cache_len` (a paged program: at the
+        per-slot `cache_lens`): each input read once, each output written
+        once (a LINEAR's weight once, a cache prefix row once per kv
+        head's K and V), as ExecutorPallas.task_costs counts each task.
+        ATTN_P counts the cache_len_b prefix rows each slot reads (the
+        CUDA body reads exactly those; the Pallas body reads whole pages,
+        round_up(cache_len_b, block)), its live row's q, k and v, and
+        its output tile, pad rows included (written as zeros)."""
         item = torch.finfo(self.dtype).bits // 8
+        if self.paged is not None:
+            lens = np.asarray(cache_lens if cache_lens is not None
+                              else np.zeros(self.paged.b_slots), np.int64)
         costs = []
         for nd in self.tasks:
             S = nd.inputs[0].rows
@@ -489,11 +614,19 @@ class ExecutorCuda:
                 flops = 4 * pairs * H * D
                 bytes_ = (S * nd.inputs[0].cols + 2 * cl * Hkv * D
                           + S * H * D) * item
-            else:   # kv_append: read the part, write the rows
+            elif nd.op == "attention_paged":
+                at = nd.attrs
+                H, Hkv, D = at["num_heads"], at["num_kv_heads"], at["head_dim"]
+                nb = len(lens)
+                flops = 4 * int((lens + 1).sum()) * H * D
+                bytes_ = (nb * nd.inputs[0].cols + 2 * int(lens.sum()) * Hkv
+                          * D + S * H * D) * item
+            else:   # kv_append(_paged): read the part, write the rows
                 at = nd.attrs
                 w = at["num_kv_heads"] * at["head_dim"]
-                flops = 10 * S * w if at["part"] == "k" else 0
-                bytes_ = 2 * S * w * item
+                rows = S // at["slot_rows"] if nd.op in PAGED_OPS else S
+                flops = 10 * rows * w if at["part"] == "k" else 0
+                bytes_ = 2 * rows * w * item
             costs.append({"flops": int(flops), "bytes": int(bytes_)})
         return costs
 
@@ -521,11 +654,72 @@ def prep_rows(x, norm_w, pos, cos, sin, eps, dt):
     return _round(torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1), dt)
 
 
-def _plain_tile(ex, row, v, tile, cache_len):
+def _softmax_pv(q, keys, vals, seen, scale, dt):
+    """The ATTN bodies' softmax and PV product over all keys at once:
+    q (rows, G, D), keys / vals (keys, D) f32, `seen` (rows, keys). f32
+    scores and softmax, p rounded to dt for the PV product and summed in
+    f32 for the denominator. Returns (rows, G, D) f32."""
+    s = torch.einsum("rgd,kd->rgk", q, keys) * scale
+    s = torch.where(seen[:, None, :], s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(seen[:, None, :], torch.exp(s - m), 0.0)
+    return torch.einsum("rgk,kd->rgd", _round(p, dt), vals) \
+        / p.sum(dim=-1, keepdim=True)
+
+
+def _page_rows(btab_row, n, blk, device):
+    """Pool rows of positions [0, n) of a slot with table row
+    `btab_row`: row c lies in page btab_row[c // blk], at c % blk."""
+    c = np.arange(n)
+    return torch.from_numpy(btab_row[c // blk].astype(np.int64) * blk
+                            + c % blk).to(device)
+
+
+def _plain_tile(ex, row, v, tile, cache_len, lens=None, btab=None):
     """Compute one tile of one task from its descriptor row."""
     dt = ex.dtype
     op = int(row[F_OP])
     M, tr = int(row[F_M]), int(row[F_TR])
+    if op == TASK_ATTN_P:
+        H, Hkv, D = int(row[F_H]), int(row[F_HKV]), int(row[F_HD])
+        G, blk = H // Hkv, int(row[F_BLOCK])
+        b, j = divmod(tile, Hkv)
+        r0, cl = b * tr, int(lens[b])
+        eps, scale = _bits_f32(row[F_EPS]), _bits_f32(row[F_SCALE])
+        qkv, dev = v["a"], v["a"].device
+        pos = torch.tensor([cl], device=dev)
+        q = prep_rows(qkv[r0:r0 + 1, j * G * D:(j + 1) * G * D].reshape(
+            1, G, D), v.get("d") if row[F_QKN] else None, pos, v["cos"],
+            v["sin"], eps, dt)                                # (1, G, D)
+        kcur = prep_rows(qkv[r0:r0 + 1, (H + j) * D:(H + j + 1) * D]
+                         .reshape(1, 1, D), v.get("e") if row[F_QKN]
+                         else None, pos, v["cos"], v["sin"], eps, dt)[:, 0]
+        vcur = qkv[r0:r0 + 1, (H + Hkv + j) * D:(H + Hkv + j + 1) * D]
+        rows = _page_rows(btab[b], cl, blk, dev)
+        keys = torch.cat([v["b"][rows, j * D:(j + 1) * D].float(), kcur])
+        vals = torch.cat([v["c"][rows, j * D:(j + 1) * D].float(),
+                          vcur.float()])
+        seen = torch.ones((1, cl + 1), dtype=torch.bool, device=dev)
+        o = _softmax_pv(q, keys, vals, seen, scale, dt)
+        cols = slice(j * G * D, (j + 1) * G * D)
+        v["out"][r0, cols] = o.reshape(G * D).to(dt)
+        v["out"][r0 + 1:r0 + tr, cols] = 0      # pad rows are exactly 0
+        return
+    if op in (TASK_KVA_PK, TASK_KVA_PV):
+        H, Hkv, D = int(row[F_H]), int(row[F_HKV]), int(row[F_HD])
+        blk, b = int(row[F_BLOCK]), tile
+        r0, cl = b * tr, int(lens[b])
+        lo = H if op == TASK_KVA_PK else H + Hkv
+        part = v["a"][r0:r0 + 1, lo * D:(lo + Hkv) * D]
+        if op == TASK_KVA_PK:
+            part = prep_rows(part.reshape(1, Hkv, D),
+                             v.get("e") if row[F_QKN] else None,
+                             torch.tensor([cl], device=part.device),
+                             v["cos"], v["sin"], _bits_f32(row[F_EPS]), dt)
+            part = part.reshape(1, Hkv * D)
+        dest = int(btab[b, cl // blk]) * blk + cl % blk
+        v["out"][dest] = part[0].to(dt)
+        return
     if op == TASK_LINEAR:
         nct, tn = int(row[F_NCT]), int(row[F_TN])
         rt, ct = divmod(tile, nct)
@@ -558,17 +752,12 @@ def _plain_tile(ex, row, v, tile, cache_len):
             vals = torch.cat([v["c"][:cl, j * D:(j + 1) * D].float(), vcur])
         else:
             keys, vals = kcur, vcur
-        s = torch.einsum("rgd,kd->rgk", q, keys) * scale
         cols = torch.arange(cl + ncur, device=dev)[None, :]
         rows = torch.arange(r0, r1, device=dev)[:, None]
         seen = (cols < cl) | (cols - cl <= rows)
         if not row[F_CAUSAL]:
             seen = torch.ones_like(seen)
-        s = torch.where(seen[:, None, :], s, -1e30)
-        m = s.amax(dim=-1, keepdim=True)
-        p = torch.where(seen[:, None, :], torch.exp(s - m), 0.0)
-        o = torch.einsum("rgk,kd->rgd", _round(p, dt), vals) \
-            / p.sum(dim=-1, keepdim=True)
+        o = _softmax_pv(q, keys, vals, seen, scale, dt)
         v["out"][r0:r1, j * G * D:(j + 1) * G * D] = \
             o.reshape(r1 - r0, G * D).to(dt)
         return
@@ -602,12 +791,14 @@ def _plain_tile(ex, row, v, tile, cache_len):
                            f"does not have")
 
 
-def plain_walk(ex: ExecutorCuda, cache_len: int, *, seed: int = 0):
+def plain_walk(ex: ExecutorCuda, cache_len: int, *, seed: int = 0,
+               lens=None, btab=None):
     """Run the program's queues with torch ops: at each step the head of
     a queue chosen by `random.Random(seed)` among those whose producer
     tasks have all finished every tile. Raises if no head can run (a
     missing or cyclic dependency), which on the card would be a
-    deadlock."""
+    deadlock. A paged program runs at the per-slot `lens` through
+    `btab` (host int32 arrays)."""
     desc, _, views, *_ = ex.descriptors()
     queues, qlen = ex.queues, ex.qlen
     rng = random.Random(seed)
@@ -637,7 +828,7 @@ def plain_walk(ex: ExecutorCuda, cache_len: int, *, seed: int = 0):
                 f"megakernel plain walk: no queue head can run (a "
                 f"dependency is missing or cyclic); heads (sm: task, tile) "
                 f"{stuck}")
-        _plain_tile(ex, desc[task], views[task], tile, cache_len)
+        _plain_tile(ex, desc[task], views[task], tile, cache_len, lens, btab)
         done[task] += 1
         heads[c] += 1
         if heads[c] == qlen[c]:

@@ -6,13 +6,18 @@ cast to the graph dtype; `linear` accumulates in f32; `rms_norm`,
 `silu_mul` and `head_rms` compute in f32 — and its attention form: RoPE
 at positions cache_len + i, a partial over the cache prefix
 [0, cache_len), a causal partial over the current rows, and
-`merge_two_partials`. The attention partials go through the port's
+`merge_two_partials`; the paged ops do the same per slot, over the
+slot's pages gathered through the block table at its own length, and
+leave the pad rows of each slot's tile exactly 0. The attention
+partials go through the port's
 `flash_attention_partial` (the prefill kernel on a CUDA tensor, its
 plain version on a CPU one). It is the reference the megakernel
 (executor_cuda.py) is held to; it is not on MegaDecoder's kernel path.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,9 +51,7 @@ def as_tensor(v, dtype, device):
     return v.to(device=device, dtype=dtype)
 
 
-_LATER = {"attention_paged": ("3b", " (paged serving: MegaServe)"),
-          "kv_append_paged": ("3b", " (paged serving: MegaServe)"),
-          "moe_ffn": ("3c", " (the megakernel's MoE program)"),
+_LATER = {"moe_ffn": ("3c", " (the megakernel's MoE program)"),
           "all_to_all": ("6", " (the multi-rank layer)"),
           "all_reduce": ("6", " (the multi-rank layer)")}
 
@@ -57,6 +60,51 @@ def check_ops(graph):
     for n in graph.nodes:
         if n.op in _LATER:
             raise later_slice(f"op {n.op!r}", *_LATER[n.op])
+
+
+PAGED_OPS = ("attention_paged", "kv_append_paged")
+
+
+class PagedGeometry(NamedTuple):
+    b_slots: int
+    slot_rows: int
+    block: int
+    max_pages: int
+    cache_len_name: str
+
+
+def paged_geometry(graph):
+    """The PagedGeometry shared by every paged node of a graph, or None
+    for a graph without one. A program keeps one cache_len or the
+    per-slot vector, never both."""
+    geo = {PagedGeometry(n.inputs[0].rows // n.attrs["slot_rows"],
+                         n.attrs["slot_rows"], n.attrs["block"],
+                         n.attrs["max_pages"], n.attrs["cache_len_name"])
+           for n in graph.nodes if n.op in PAGED_OPS}
+    if not geo:
+        return None
+    if len(geo) > 1:
+        raise ValueError(f"the paged nodes of one program must share "
+                         f"(b_slots, slot_rows, block, max_pages, "
+                         f"cache_len_name), got {sorted(geo)}")
+    if any(n.op in ("attention_kv", "kv_append") for n in graph.nodes):
+        raise ValueError("a program takes one cache_len or the per-slot "
+                         "lengths of paged serving, not both")
+    return geo.pop()
+
+
+def slot_lengths(geo, scalars: dict) -> np.ndarray:
+    """The per-slot lengths of a paged program from its run-time scalars
+    `{cache_len_name}{b}` (0 where one is absent)."""
+    return np.asarray([int(scalars.get(f"{geo.cache_len_name}{b}", 0))
+                       for b in range(geo.b_slots)], np.int32)
+
+
+def identity_table(geo) -> np.ndarray:
+    """The default block table: slot b owns pages [b*max_pages,
+    (b+1)*max_pages) (the JAX executors' default)."""
+    return np.arange(geo.b_slots * geo.max_pages, dtype=np.int32).reshape(
+        geo.b_slots, geo.max_pages)
 
 
 class ExecutorTorch:
@@ -69,8 +117,12 @@ class ExecutorTorch:
         self._scalar_names = {n.attrs["cache_len_name"]
                               for n in self.graph.nodes
                               if n.op in ("attention_kv", "kv_append")}
+        self.paged = paged_geometry(self.graph)
+        if self.paged is not None:
+            self._scalar_names |= {f"{self.paged.cache_len_name}{b}"
+                                   for b in range(self.paged.b_slots)}
 
-    def _eval_graph(self, env_inputs, env_weights, scalars):
+    def _eval_graph(self, env_inputs, env_weights, scalars, btab=None):
         g = self.graph
         eps_h = self.builder.rms_eps
         env = {}
@@ -160,17 +212,83 @@ class ExecutorTorch:
                 new[cache_len:cache_len + s] = rows.reshape(
                     s, hkv * d).to(cache.dtype)
                 env[node.out.idx] = new
+            elif node.op == "attention_paged":
+                qkv, kc, vc = (env[i.idx] for i in node.inputs[:3])
+                h, hkv, d = at["num_heads"], at["num_kv_heads"], at["head_dim"]
+                R, blk, mp = at["slot_rows"], at["block"], at["max_pages"]
+                out = torch.zeros((qkv.shape[0], h * d), dtype=torch.float32,
+                                  device=qkv.device)
+                lens = slot_lengths(self.paged, scalars)
+                for b, cl in enumerate(lens.tolist()):
+                    row = qkv[b * R:b * R + 1]       # the slot's token
+                    q = row[:, :h * d].reshape(1, 1, h, d)
+                    k = row[:, h * d:(h + hkv) * d].reshape(1, 1, hkv, d)
+                    v = row[:, (h + hkv) * d:].reshape(1, 1, hkv, d)
+                    if at.get("qk_norm", False):
+                        q = head_rms(q, env[node.inputs[3].idx].float()[0],
+                                     eps_h)
+                        k = head_rms(k, env[node.inputs[4].idx].float()[0],
+                                     eps_h)
+                    cos, sin = rope_cos_sin(
+                        torch.tensor([cl], device=qkv.device), d,
+                        at["rope_theta"])
+                    q = apply_rope(q, cos, sin).contiguous()
+                    k = apply_rope(k, cos, sin).contiguous()
+                    # the slot's pages gathered into a contiguous view
+                    # (unassigned -1 entries clamp to page 0, as in JAX)
+                    pages = torch.from_numpy(
+                        np.clip(btab[b, :mp], 0, None).astype(np.int64))
+                    idx = (pages[:, None] * blk
+                           + torch.arange(blk)[None, :]).reshape(-1)
+                    idx = idx.to(qkv.device)
+                    kg = kc[idx].reshape(1, mp * blk, hkv, d)
+                    vg = vc[idx].reshape(1, mp * blk, hkv, d)
+                    o1, l1 = flash_attention_partial(
+                        q, kg, vg, q_offset=0, kv_offset=0, kv_valid=cl,
+                        causal=False)
+                    o2, l2 = flash_attention_partial(
+                        q, k, v.contiguous(), q_offset=0, kv_offset=0,
+                        causal=True)
+                    o, _ = merge_two_partials(o1, l1, o2, l2)
+                    out[b * R] = o.reshape(h * d).float()
+                env[node.out.idx] = out.to(dt)
+            elif node.op == "kv_append_paged":
+                h, hkv, d = at["num_heads"], at["num_kv_heads"], at["head_dim"]
+                R, blk = at["slot_rows"], at["block"]
+                qkv, cache = (env[i.idx] for i in node.inputs[:2])
+                new = cache.clone()
+                lens = slot_lengths(self.paged, scalars)
+                for b, cl in enumerate(lens.tolist()):
+                    row = qkv[b * R:b * R + 1]
+                    if at["part"] == "k":
+                        rows = row[:, h * d:(h + hkv) * d].reshape(1, hkv, d)
+                        if at.get("qk_norm", False):
+                            kn = env[node.inputs[2].idx].float()[0]
+                            rows = head_rms(rows, kn, eps_h)
+                        cos, sin = rope_cos_sin(
+                            torch.tensor([cl], device=qkv.device), d,
+                            at["rope_theta"])
+                        rows = apply_rope(rows[None], cos, sin)[0]
+                    else:
+                        rows = row[:, (h + hkv) * d:].reshape(1, hkv, d)
+                    pos = max(int(btab[b, cl // blk]), 0) * blk + cl % blk
+                    new[pos] = rows.reshape(hkv * d).to(new.dtype)
+                env[node.out.idx] = new
             else:  # pragma: no cover - check_ops refused it
                 raise NotImplementedError(node.op)
         return tuple(env[o.idx] for o in g.outputs)
 
-    def run(self, inputs: dict, weights: dict, scalars: dict | None = None):
+    def run(self, inputs: dict, weights: dict, scalars: dict | None = None,
+            block_table=None):
         """Evaluate the graph. `inputs` carries activations and cache
         values (tensors or arrays); `scalars` the run-time cache
-        lengths. Returns the graph outputs as torch tensors (a
-        `kv_append` output is a new cache tensor: the inputs are not
-        changed). Tensors land on the device of `inputs["x"]` when it is
-        a tensor, else on the CPU."""
+        lengths (`cache_len`, or a paged program's per-slot
+        `{cache_len_name}{b}`); `block_table` a paged program's
+        (b_slots, max_pages) table (default: slot b owns pages
+        [b*max_pages, (b+1)*max_pages)). Returns the graph outputs as
+        torch tensors (a `kv_append` / `kv_append_paged` output is a new
+        cache tensor: the inputs are not changed). Tensors land on the
+        device of `inputs["x"]` when it is a tensor, else on the CPU."""
         scalars = dict(scalars or {})
         unknown = set(scalars) - self._scalar_names
         if unknown:
@@ -184,12 +302,26 @@ class ExecutorTorch:
                     raise ValueError(
                         f"cache_len {cl} + {n.inputs[0].rows} rows "
                         f"outside the cache's {n.out.rows} rows")
+        btab = None
+        if self.paged is not None:
+            btab = identity_table(self.paged) if block_table is None \
+                else np.asarray(torch.as_tensor(block_table).cpu(), np.int32)
+            nb, _, blk, mp, _ = self.paged
+            lens = slot_lengths(self.paged, scalars)
+            if btab.shape != (nb, mp):
+                raise ValueError(f"block_table {btab.shape}, the program "
+                                 f"takes {(nb, mp)}")
+            if not ((lens >= 0) & (lens < mp * blk)).all():
+                raise ValueError(f"per-slot lengths {lens.tolist()} outside "
+                                 f"[0, {mp * blk})")
+        elif block_table is not None:
+            raise ValueError("block_table: this program has no paged node")
         x0 = next(iter(inputs.values()))
         dev = x0.device if isinstance(x0, torch.Tensor) else \
             torch.device("cpu")
         ins = {k: as_tensor(v, self.dtype, dev) for k, v in inputs.items()}
         ws = {k: as_tensor(v, self.dtype, dev) for k, v in weights.items()}
-        return self._eval_graph(ins, ws, scalars)
+        return self._eval_graph(ins, ws, scalars, btab)
 
     def run_sharded(self, *args, **kwargs):
         raise later_slice("run_sharded", "6", " (the multi-rank layer)")

@@ -3,8 +3,8 @@
 
 Analog of reference mega_triton_kernel/models/qwen3.py:202 — the Qwen3
 forward assembled as one megakernel program. The builders emit the same
-op graph as the JAX package's, node for node. The batched serving and
-MoE builders come with later slices and raise.
+op graph as the JAX package's, node for node. The MoE serving builders
+come with a later slice and raise.
 """
 
 from __future__ import annotations
@@ -176,14 +176,94 @@ def init_random_io(mb: ModelBuilder, rng, *, stack: int | None = None,
     return inputs, weights
 
 
-def build_qwen3_serve_block(*args, **kwargs):
-    raise later_slice("build_qwen3_serve_block", "3b",
-                      " (paged serving: MegaServe)")
+def build_qwen3_serve_block(mb: ModelBuilder, x, *, layer: int,
+                            hidden: int, intermediate: int,
+                            num_heads: int, num_kv_heads: int,
+                            head_dim: int, pool_pages: int, block: int,
+                            max_pages: int, slot_rows: int,
+                            rope_theta: float = 1e6,
+                            qk_norm: bool = False,
+                            tp_shards: bool = False):
+    """One transformer block of the batched serving decode step:
+    attention and the cache append run per slot against the paged KV
+    pool (`l{i}.k_pool` / `v_pool` cache tensors of `pool_pages` pages
+    of `block` rows), through the block table. The trunk is
+    (b_slots * slot_rows, hidden): slot b's token in row b*slot_rows,
+    pad rows zero."""
+    _one_rank(None, tp_shards)
+    pre = f"l{layer}."
+    d = head_dim
+    qkv_cols = (num_heads + 2 * num_kv_heads) * d
+
+    ln1 = mb.weight(pre + "ln1", (1, hidden))
+    w_qkv = mb.weight(pre + "w_qkv", (hidden, qkv_cols))
+    w_o = mb.weight(pre + "w_o", (num_heads * d, hidden))
+    ln2 = mb.weight(pre + "ln2", (1, hidden))
+    w_gate = mb.weight(pre + "w_gate", (hidden, intermediate))
+    w_up = mb.weight(pre + "w_up", (hidden, intermediate))
+    w_down = mb.weight(pre + "w_down", (intermediate, hidden))
+    kp = mb.cache(pre + "k_pool", (pool_pages * block, num_kv_heads * d))
+    vp = mb.cache(pre + "v_pool", (pool_pages * block, num_kv_heads * d))
+    qn = kn = None
+    if qk_norm:
+        qn = mb.weight(pre + "q_norm", (1, d))
+        kn = mb.weight(pre + "k_norm", (1, d))
+
+    h = mb.rms_norm(x, ln1)
+    qkv = mb.linear(h, w_qkv)
+    attn = mb.attention_paged(qkv, kp, vp, num_heads=num_heads,
+                              num_kv_heads=num_kv_heads, head_dim=d,
+                              block=block, max_pages=max_pages,
+                              slot_rows=slot_rows, rope_theta=rope_theta,
+                              q_norm=qn, k_norm=kn)
+    mb.kv_append_paged(qkv, kp, vp, num_heads=num_heads,
+                       num_kv_heads=num_kv_heads, head_dim=d,
+                       block=block, max_pages=max_pages,
+                       slot_rows=slot_rows, rope_theta=rope_theta,
+                       k_norm=kn)
+    o = mb.linear(attn, w_o)
+    x = mb.add(x, o)
+
+    h = mb.rms_norm(x, ln2)
+    a = mb.silu_mul(mb.linear(h, w_gate), mb.linear(h, w_up))
+    y = mb.linear(a, w_down)
+    return mb.add(x, y)
 
 
-def build_qwen3_serve_batched(*args, **kwargs):
-    raise later_slice("build_qwen3_serve_batched", "3b",
-                      " (paged serving: MegaServe)")
+def build_qwen3_serve_batched(*, b_slots: int, slot_rows: int,
+                              hidden: int, intermediate: int,
+                              num_layers: int, num_heads: int,
+                              num_kv_heads: int, head_dim: int,
+                              num_blocks: int, block: int,
+                              max_pages: int, rope_theta: float = 1e6,
+                              qk_norm: bool = False,
+                              rms_eps: float = 1e-6, mesh=None,
+                              axis: str = "tp", tp_shards: bool = False,
+                              dtype=None) -> ModelBuilder:
+    """ServeEngine's megakernel decode step: one persistent-kernel
+    launch for the whole `b_slots` batch over the paged KV pool. Every
+    slot owns one `slot_rows`-row trunk tile (its token in row
+    b*slot_rows); per-slot cache lengths and the block table are
+    run-time data. The pool carries `num_blocks` shared pages plus
+    `b_slots` per-slot trash pages (ids num_blocks + b): the host routes
+    an inactive slot's table row there (MegaServe.kernel_table), so an
+    empty slot rides the batched walk at cache_len 0 and corrupts
+    nothing."""
+    _one_rank(mesh, tp_shards)
+    kwargs = {} if dtype is None else {"dtype": dtype}
+    mb = ModelBuilder(axis=axis, rms_eps=rms_eps, **kwargs)
+    pool_pages = num_blocks + b_slots
+    x = mb.input("x", (b_slots * slot_rows, hidden))
+    for layer in range(num_layers):
+        x = build_qwen3_serve_block(
+            mb, x, layer=layer, hidden=hidden, intermediate=intermediate,
+            num_heads=num_heads, num_kv_heads=num_kv_heads,
+            head_dim=head_dim, pool_pages=pool_pages, block=block,
+            max_pages=max_pages, slot_rows=slot_rows,
+            rope_theta=rope_theta, qk_norm=qk_norm)
+    fn = mb.weight("final_norm", (1, hidden))
+    mb.output(mb.rms_norm(x, fn))
+    return mb
 
 
 def build_qwen3_moe_serve_block(*args, **kwargs):

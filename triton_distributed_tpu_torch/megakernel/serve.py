@@ -1,0 +1,163 @@
+"""MegaServe: the megakernel as ServeEngine's batched decode step
+(counterpart of triton_distributed_tpu/megakernel/serve.py).
+
+`build_qwen3_serve_batched` gives one program for the whole `b_max`
+batch over a paged KV pool: the per-slot cache lengths and the block
+table are run-time data of each launch, so admission, eviction and
+ragged lengths never rebuild it. `MegaServe` wraps it with what
+ServeEngine (models/serve.py, mode="megakernel") needs:
+
+- the weights as views of the model's parameters (`dense_weight_map`,
+  nothing copied);
+- `decode(...)`: embed into the slots' rows, ONE launch of
+  csrc/megakernel.cu for the whole batch (paged attention and the paged
+  appends inside it), lm_head on each slot's live row, then the engine
+  path's greedy or sampled pick, so greedy tokens equal the engine's;
+- `handoff(cache, slot)`: prefill stays on the engine path; at the
+  prefill->decode transition a slot's pages are copied once from the
+  engine's PagedKVCache pool into the megakernel's pool at the SAME page
+  ids (int8 / fp8 pages dequantized with their f32 scales);
+- `kernel_table(...)`: the table the kernel walks, in which every slot
+  that does not decode this tick, and every unassigned column, points at
+  the slot's own trash page (pool page num_blocks + b), so an inactive
+  slot rides the launch at length 0 and writes only its trash page.
+
+Page ids are shared with the engine's allocator, so admission, eviction
+and the free list need to know nothing of the megakernel.
+
+The slot's trunk tile is `slot_rows` rows (its token in the first, zero
+pad in the rest). The JAX package uses the TPU's 8 / 16-row sublane
+tile; here the default is 1, which keeps a b_max <= 8 trunk on the
+kernel's skinny LINEAR body (each weight read once per step).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..models.dense import greedy_token, sample_token
+from ..ops.wire import byte_view
+from .builder import later_slice
+from .decoder import dense_weight_map
+from .executor_cuda import indexed
+from .models import build_qwen3_serve_batched
+
+
+class MegaServe:
+    """Batched megakernel decode for ServeEngine(mode="megakernel") on
+    a one-rank dense model. On a model on the CPU its program runs the
+    plain queue walk (the tests); on a CUDA model it launches the
+    kernel."""
+
+    def __init__(self, model, params, *, b_max: int, max_len: int,
+                 block: int, num_blocks: int, slot_rows: int = 1,
+                 tp_ranks: int = 1):
+        if tp_ranks != 1 or model.n != 1:
+            raise later_slice("MegaServe over tp_ranks > 1", "6",
+                              " (the multi-rank layer)")
+        c = model.config
+        if c.is_moe:
+            raise later_slice("MegaServe of a MoE model", "3c",
+                              " (the megakernel's MoE program)")
+        if slot_rows < 1:
+            raise ValueError(f"slot_rows must be >= 1, got {slot_rows}")
+        weights, self.embed, self.lm_head = dense_weight_map(model, params)
+        self.device = indexed(model.device)
+        self.b_max, self.num_blocks = b_max, num_blocks
+        self.slot_rows = slot_rows
+        mb = build_qwen3_serve_batched(
+            b_slots=b_max, slot_rows=slot_rows, hidden=c.hidden_size,
+            intermediate=c.intermediate_size, num_layers=c.num_layers,
+            num_heads=c.num_heads, num_kv_heads=c.num_kv_heads,
+            head_dim=c.head_dim, num_blocks=num_blocks, block=block,
+            max_pages=-(-max_len // block), rope_theta=c.rope_theta,
+            qk_norm=c.qk_norm, rms_eps=c.rms_norm_eps, dtype=model.dtype)
+        self.prog = mb.compile("kernel", device=self.device)
+        self.prog.bind_weights(weights)
+        # the pool of every layer in one tensor per part, so the handoff
+        # is one scatter; the program binds each layer's view
+        rows = (num_blocks + b_max) * block
+        kvw = c.num_kv_heads * c.head_dim
+        self.k_pool, self.v_pool = (
+            torch.zeros((c.num_layers, rows, kvw), dtype=model.dtype,
+                        device=self.device) for _ in range(2))
+        self.prog.bind_caches(
+            {f"l{i}.{part}": pool[i] for i in range(c.num_layers)
+             for part, pool in (("k_pool", self.k_pool),
+                                ("v_pool", self.v_pool))})
+
+    def reset(self):
+        """Empty pools for a new ServeEngine.run (the program and the
+        weight views are kept)."""
+        self.k_pool.zero_()
+        self.v_pool.zero_()
+
+    # -- block-table mapping ---------------------------------------------
+    def kernel_table(self, block_table, decode_mask):
+        """The (b_max, max_pages) int32 table the kernel walks, with
+        torch ops on the device of `block_table`: decoding slots keep
+        their allocator pages; every other slot, and every unassigned
+        (-1) column, points at the slot's own trash page
+        (num_blocks + b)."""
+        tbl = torch.as_tensor(block_table, dtype=torch.int32)
+        mask = torch.as_tensor(decode_mask, dtype=torch.bool,
+                               device=tbl.device)
+        trash = self.num_blocks + torch.arange(
+            self.b_max, dtype=torch.int32, device=tbl.device)[:, None]
+        return torch.where(mask[:, None] & (tbl >= 0), tbl, trash)
+
+    # -- chunked-prefill handoff -----------------------------------------
+    def handoff(self, cache, slot: int):
+        """Copy slot `slot`'s pages from the engine pool
+        (L, nb, Hkv, block, D) into the megakernel pool at the same page
+        ids, every layer at once; unassigned columns land on the slot's
+        trash page. A quantized pool's pages are dequantized with their
+        f32 scales (wire.dequant_blockwise's arithmetic) to the model
+        dtype. Call once, at the slot's prefill->decode transition."""
+        row = np.asarray(cache.block_table[slot], np.int64)
+        src = torch.from_numpy(np.clip(row, 0, None)).to(self.device)
+        dst = torch.from_numpy(np.where(row >= 0, row, self.num_blocks + slot)
+                               ).to(self.device)
+        L, _, hkv, blk, d = cache.k_pool.shape
+        for pool, scales, out in ((cache.k_pool, cache.k_scales, self.k_pool),
+                                  (cache.v_pool, cache.v_scales, self.v_pool)):
+            # (L, max_pages, Hkv, blk, D)
+            pages = byte_view(pool)[:, src].view(pool.dtype)
+            if scales is not None:
+                pages = pages.float() * scales[:, src][..., None]
+            pages = pages.to(out.dtype).permute(0, 1, 3, 2, 4)
+            out.view(L, -1, blk, hkv * d)[:, dst] = pages.reshape(
+                L, len(row), blk, hkv * d)
+
+    # -- the batched decode step -----------------------------------------
+    def decode(self, toks, cache_lens, block_table, decode_mask,
+               generator: torch.Generator | None = None, *,
+               sampling: bool = False, temperature: float = 0.0,
+               top_k: int = 50):
+        """Advance every decoding slot one token in ONE megakernel
+        launch. toks, cache_lens, decode_mask: (b_max,) host arrays;
+        block_table: the allocator's (b_max, max_pages) host table.
+        Returns (b_max,) int32 next tokens on the device (slots that do
+        not decode carry garbage the caller masks). Sampling draws from
+        `generator` as DenseLLM.decode_step_paged does, over the same
+        (b_max, top_k) shape, so a stream sampled here equals the engine
+        path's for the same generator state."""
+        mask = np.asarray(decode_mask, bool)
+        lens = np.where(mask, np.asarray(cache_lens, np.int32), 0)
+        tbl = self.kernel_table(torch.from_numpy(
+            np.asarray(block_table, np.int32)), torch.from_numpy(mask))
+        ids = torch.as_tensor(np.asarray(toks, np.int32), device=self.device)
+        x = self.prog.inputs["x"]
+        x[::self.slot_rows] = F.embedding(ids, self.embed)
+        hid = self.prog.step(cache_lens=lens, block_table=tbl)[0]
+        hid = hid[::self.slot_rows]                    # the live rows
+        if sampling:
+            return sample_token(hid, self.lm_head, generator,
+                                temperature=temperature, top_k=top_k)
+        return greedy_token(hid, self.lm_head)
+
+    def verify(self, *args, **kwargs):
+        raise later_slice("MegaServe.verify", "2b",
+                          " (speculative decoding)")

@@ -32,6 +32,20 @@ engine folds the step into its key: a request's sampled stream depends
 on the batch composition, and differs from the JAX engine's by
 construction (another RNG).
 
+`mode="megakernel"` (a one-rank dense model) moves decode onto the
+persistent megakernel (megakernel/serve.py::MegaServe): each decode tick
+is ONE launch of csrc/megakernel.cu for the whole active batch, with
+paged attention and the paged appends reading and writing each slot's
+pages through the block table inside it. Prefill stays on the engine
+path; on a slot's final prefill chunk its pages are handed off into the
+megakernel's pool at the same page ids. The scheduler runs with
+`base_path="megakernel"`, so megakernel slots are admitted without
+prefix sharing and retain only their prefill-written blocks in the
+prefix cache (their decode rows live in the megakernel's pool). On a
+CUDA model the tick launches the kernel or raises (a scoreboard fault
+raises through `check_fault`); on a CPU model the same program runs its
+plain queue walk. `mk_opts` passes MegaServe's options (`slot_rows`).
+
 A Qwen3MoE model serves unchanged (its steps route rows through the
 experts). `ep_capacity` > 0 arms the per-tick expert-dispatch row
 budget: `serve_state.partition_capacity` defers whole slots past it
@@ -42,9 +56,9 @@ live-occupancy EP plan (`ep_plan`).
 
 Not in this slice (each raises NotImplementedError): speculative
 decoding, the watchdog (`slo_ticks`) and fault injection (`chaos`), the
-host spill tier (`host_blocks`), the megakernel decode mode, sequence
-parallel and multi-rank serving, and the plain ("xla") attention rung
-on a CUDA device.
+host spill tier (`host_blocks`), the megakernel mode of a MoE model,
+sequence parallel and multi-rank serving, and the plain ("xla")
+attention rung on a CUDA device.
 """
 
 from __future__ import annotations
@@ -172,7 +186,8 @@ class ServeEngine:
     """Continuous batching over `b_max` slots for a one-rank `DenseLLM`
     or `Qwen3MoE`. Decode attention reads the pages in place through the
     block table (ops/attention.flash_decode_paged: the CUDA kernel on
-    the GPU, its plain version on the CPU)."""
+    the GPU, its plain version on the CPU), or, with
+    mode="megakernel", inside the megakernel's one launch per tick."""
 
     def __init__(self, model, params, *, b_max: int = 4,
                  max_len: int = 2048, block: int = 128,
@@ -201,12 +216,12 @@ class ServeEngine:
                           "slice 2b")
         if host_blocks:
             _not_in_slice("the host spill tier (host_blocks)", "slice 2b")
-        if mode not in (None, "engine"):
-            if mode == "megakernel":
-                _not_in_slice("mode='megakernel'", "slice 3b")
-            raise ValueError(f"mode={mode!r}: choose 'engine'")
-        if mk_opts is not None:
-            _not_in_slice("mk_opts (the megakernel serving path)", "slice 3b")
+        if mode not in (None, "engine", "megakernel"):
+            raise ValueError(f"mode={mode!r}: choose 'engine' or "
+                             f"'megakernel'")
+        self.mode = mode or "engine"
+        if mk_opts is not None and self.mode != "megakernel":
+            raise ValueError("mk_opts configures mode='megakernel'")
         if attn_parallelism not in (None, "tp"):
             if attn_parallelism == "sp":
                 _not_in_slice("attn_parallelism='sp'", "slice 6")
@@ -268,6 +283,7 @@ class ServeEngine:
         self.ep_plan: dict | None = None    # last tick's live EP plan
         self.sched = SchedulerState.create(SchedCfg(
             b_max=b_max, block=block, prefill_chunk=prefill_chunk,
+            base_path=self.mode,
             prefix_caching=True if prefix_cache is None
             else bool(prefix_cache),
             tenant_weights=tuple(sorted((tenant_weights or {}).items())),
@@ -281,7 +297,19 @@ class ServeEngine:
         self._run_t0 = 0.0
         self._pool_blocks = (num_blocks if num_blocks is not None
                              else b_max * (-(-max_len // block)))
-        self._steps = {"decode": 0, "prefill_prefix": 0}
+        self._steps = {"decode": 0, "prefill_prefix": 0, "megakernel": 0}
+        self._mk = None
+        if self.mode == "megakernel":
+            from ..megakernel.serve import MegaServe
+            self._mk = MegaServe(model, params, b_max=b_max,
+                                 max_len=max_len, block=block,
+                                 num_blocks=self._pool_blocks,
+                                 tp_ranks=tp_ranks, **(mk_opts or {}))
+        # programs built per role (the JAX engine's jit traces): the
+        # megakernel decode program once per engine; the engine path
+        # builds none
+        self.trace_counts = {"decode": int(self._mk is not None),
+                             "prefill": 0, "verify": 0}
 
     # -- control-plane views (the SchedulerState is the truth) -----------
     @property
@@ -404,7 +432,10 @@ class ServeEngine:
             top_k=self.top_k)
         self._steps["prefill_prefix"] += off > 0
         if serve_state.prefill_advance(self.sched, i, valid):
-            # final chunk: the first generated token
+            # final chunk: the first generated token; a megakernel slot's
+            # pages move into the megakernel's pool once, at the same ids
+            if self._mk is not None and s.path == "megakernel":
+                self._mk.handoff(self._cache, i)
             self._emit(i, int(tok), stream_cb)
             self._maybe_finish(i, stream_cb)
 
@@ -429,14 +460,32 @@ class ServeEngine:
                 rows, hidden=c.hidden_size,
                 moe_intermediate=c.moe_intermediate_size,
                 top_k=c.num_experts_per_tok, num_ranks=1)
+        # slots on the megakernel path take its one launch, the others
+        # (none without the watchdog's demotions) the engine's step
+        mk_live, eng_live = serve_state.partition_decode(
+            self.sched, live, self._mk is not None)
         toks = [s.last_tok for s in self._slots]
-        active = [i in live for i in range(self.b_max)]
-        got, self._cache = self.model.decode_step_paged(
-            self.params, toks, self._cache, active, self._generator(),
-            sampling=self.temperature > 0.0, temperature=self.temperature,
-            top_k=self.top_k, attn_method=self.attn_method)
+        sampling = self.temperature > 0.0
+        got = np.zeros((self.b_max,), np.int64)
+        gen = self._generator()
+        if eng_live:
+            active = [i in eng_live for i in range(self.b_max)]
+            out, self._cache = self.model.decode_step_paged(
+                self.params, toks, self._cache, active, gen,
+                sampling=sampling, temperature=self.temperature,
+                top_k=self.top_k, attn_method=self.attn_method)
+            got[eng_live] = out.cpu().numpy()[eng_live]
+        if mk_live:
+            mask = np.asarray([i in mk_live for i in range(self.b_max)])
+            out = self._mk.decode(
+                toks, self._cache.seq_lens, self._cache.block_table, mask,
+                gen, sampling=sampling, temperature=self.temperature,
+                top_k=self.top_k)
+            got[mk_live] = out.cpu().numpy()[mk_live]
+            self._mk.prog.check_fault()
+            self._cache.advance(slice(None), mask.astype(np.int32))
+            self._steps["megakernel"] += 1
         self._steps["decode"] += 1
-        got = got.cpu().numpy()
         for i in live:
             self._emit(i, int(got[i]), stream_cb)
             self._maybe_finish(i, stream_cb)
@@ -500,6 +549,13 @@ class ServeEngine:
             "quant_kv_bytes_saved": self._quant_kv_bytes_saved(),
             "decode_steps": self._steps["decode"],
             "prefix_chunks": self._steps["prefill_prefix"],
+            # the decode path, and the ticks that took the one megakernel
+            # launch; one rank (the JAX engine's per-rank list is empty
+            # at tp_ranks 1)
+            "mode": self.mode,
+            "megakernel_steps": self._steps["megakernel"],
+            "tp_ranks": 1,
+            "per_rank": [],
             # slot-ticks the expert-capacity budget deferred, routed rows
             # dispatched, and the last tick's live-occupancy EP plan
             "capacity_drops": c["capacity_drops"],
@@ -528,6 +584,8 @@ class ServeEngine:
         self._cache = self.model.new_paged_kv_cache(
             self.b_max, self.max_len, block=self.block,
             num_blocks=self.num_blocks, kv_dtype=self.kv_dtype)
+        if self._mk is not None:
+            self._mk.reset()
         self.sched.reset_run()
         if self._cap_ledger is not None:
             # fresh run, fresh budget clock (reset_run rewound the tick)

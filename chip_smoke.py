@@ -97,10 +97,36 @@ Phases, in order; any failure raises and exits non-zero:
      decode_step_paged on the same state, the batched step's time
      against its bound; then the int8 pool; with --profile, the device's
      idle share over a short megakernel serve run;
- 22. one JSON line of per-kernel numbers, then the device JSON line.
+ 22. the megakernel's MoE body (GROUPED_GEMM, two tasks a layer) on
+     2-layer MoE serve graphs at Qwen3-30B-A3B widths (hidden 2048, 128
+     experts, top-8, intermediate 768, 32/4 heads, head_dim 128) and the
+     serve cell's pool, step 19's four slots (the idle one at width 0):
+     the kernel against its plain walk, f32 (1e-4) and bf16 (2e-2), and
+     in bf16 against the golden executor, outputs, each layer's expert
+     output and the appended rows; the idle slot's rows 0, other pool
+     rows unchanged; then every slab no live row routes to is NaN and the
+     outputs keep their bits; the bf16 step's time against its bound;
+ 23. a small Qwen3MoE's ServeEngine(mode="megakernel") on the GPU against
+     the CPU, as step 20;
+ 24. the slice-3c main path: ServeEngine(mode="megakernel") over the
+     Qwen3-30B-A3B weights of step 17 with step 9's stream and settings,
+     bf16 pool: step 9's checks, exactly one megakernel launch per
+     decode tick, no flash_decode_paged launch and gmm only in the
+     engine-path prefill chunks, the median decode tick and its aten
+     ops, a rerun with identical tokens whose first all-slots tick is
+     held against the golden executor on the same state (5e-2 of the
+     largest; every layer's top-8 sets equal but at near-ties, which are
+     counted) and, as information, against decode_step_paged; the
+     batched step's time against its bound (the routed slabs); then the
+     int8 pool, then ep_capacity=2 (slots deferred, every request at its
+     length, ep_rows the rows decode routed); token agreement with step
+     18 as information; the peak device memory; with --profile, a
+     breakdown of the step (every slot idle, rows live at length 0) and
+     the device's idle share over a short megakernel serve run;
+ 25. one JSON line of per-kernel numbers, then the device JSON line.
 Steps 14-16 run with the other kernel checks, before step 4; steps 19-20
-run after step 10, step 21 after step 13; steps 17-18 run last. Without
-a GPU it exits non-zero before printing anything.
+and 22-23 run after step 10, step 21 after step 13; steps 17, 18 and 24
+run last. Without a GPU it exits non-zero before printing anything.
 """
 
 from __future__ import annotations
@@ -543,7 +569,10 @@ def run_serve(models, attn, engine, stream, L, gg):
     want[f"flash_decode_paged[{arm}]"] = L * (st["decode_steps"]
                                              - st["megakernel_steps"])
     if engine.model.config.is_moe:
-        want["gmm"] = 2 * L * (st["prefill_chunks"] + st["decode_steps"])
+        # two per layer per engine-path prefill chunk and decode step; a
+        # megakernel decode tick launches none
+        want["gmm"] = 2 * L * (st["prefill_chunks"] + st["decode_steps"]
+                               - st["megakernel_steps"])
     assert launches == want, (launches, want)
     return out, st, launches, tick_ms, tick_ops[0]
 
@@ -1082,22 +1111,166 @@ def check_megakernel_paged_graphs(dev):
         torch.cuda.empty_cache()
 
 
-def check_mega_serve_small(models, seed):
+MOE_WIDTHS = dict(hidden=2048, moe_intermediate=768, num_experts=128,
+                  top_k=8, num_heads=32, num_kv_heads=4, head_dim=128)
+
+
+def _moe_weight_names(g, nd):
+    """The weight names of a moe_ffn node's gate/up and down slabs."""
+    by_idx = {h.idx: n for n, h in g.weights.items()}
+    return by_idx[nd.inputs[2].idx], by_idx[nd.inputs[3].idx]
+
+
+def check_megakernel_moe_graphs(dev):
+    """2-layer MoE serve graphs at Qwen3-30B-A3B widths (hidden 2048, 128
+    experts, top-8, intermediate 768, 32/4 heads, head_dim 128, qk-norm)
+    on the serve cell's pool (64 + 4 pages of 128 rows, 16 pages a slot):
+    four slots, one idle (length 0 on its trash page, width 0, x row 0),
+    the others at 128, 777 and 1500 on a shuffled table. The kernel
+    against its plain walk, f32 (MK_F32_TOL) and bf16 (MK_BF16_2L_TOL),
+    and in bf16 against the golden executor too: the outputs, each
+    layer's moe_ffn output and the appended rows; the idle slot's rows
+    exactly 0; every pool row outside the appends bitwise unchanged.
+    Then every expert slab that no live row routes to (each layer's, from
+    the launch's router logits) is NaN: the outputs must be finite and
+    bitwise the first launch's. Returns the bf16 step's numbers."""
+    from triton_distributed_tpu_torch.megakernel.models import (
+        build_qwen3_moe_serve_batched)
+    lens = np.asarray([0, 128, 777, 1500], np.int32)
+    widths = (lens > 0).astype(np.int32)
+    blk, mp, nbk, E = 128, 16, 64, MOE_WIDTHS["num_experts"]
+    H, inter = MOE_WIDTHS["hidden"], MOE_WIDTHS["moe_intermediate"]
+    tbl = _slot_table(lens, blk, mp, nbk, 7)
+    rows = torch.as_tensor(tbl[np.arange(4), lens // blk] * blk + lens % blk,
+                           device=dev)
+    scalars = {f"cache_len_s{b}": int(cl) for b, cl in enumerate(lens)}
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: MK_F32_TOL, bf16: MK_BF16_2L_TOL}
+    for dt in (f32, bf16):
+        mb = build_qwen3_moe_serve_batched(
+            b_slots=4, slot_rows=1, num_layers=2, num_blocks=nbk, block=blk,
+            max_pages=mp, rope_theta=1e6, qk_norm=True, dtype=dt,
+            **MOE_WIDTHS)
+        g = mb.graph
+        moe = [nd for nd in g.nodes if nd.op == "moe_ffn"]
+        kv = [nd for nd in g.nodes if nd.op == "kv_append_paged"]
+        names = {h.idx: n for n, h in g.caches.items()}
+        g.outputs.extend(nd.out for nd in moe)
+        ins, ws = _device_io(mb, dev, 13)
+        for n in ws:       # N(0, 1 / rows) of one expert's slab
+            if "w_moe" in n:
+                ws[n] *= E ** 0.5
+        ins, ws = ({n: t.to(dt) for n, t in d.items()} for d in (ins, ws))
+        ins["x"][0] = 0                   # the idle slot
+        start = {n: ins[n] for n in g.caches}
+        prog = mb.compile("kernel", device=dev)
+        prog.bind_weights(ws)
+        keep = torch.ones(start[names[kv[0].inputs[1].idx]].shape[0],
+                          dtype=torch.bool, device=dev)
+        keep[rows] = False
+
+        def launch(plain=False):
+            prog.bind_caches({n: t.clone() for n, t in start.items()})
+            outs = prog.step({"x": ins["x"]}, cache_lens=lens,
+                             block_table=tbl, widths=widths, plain=plain)
+            torch.cuda.synchronize()
+            prog.check_fault()
+            for n, c in prog.caches.items():
+                assert torch.equal(c[keep], start[n][keep]), (plain, n)
+            return ([o.float().clone() for o in outs],
+                    torch.cat([c[rows].float() for c in prog.caches.values()]))
+
+        ko, kr = launch()
+        routed = prog.routed_experts(widths)
+        t0 = time.perf_counter()
+        po, pr = launch(plain=True)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        assert all((o[0] == 0).all() for o in ko), "idle slot rows"
+        errs = [max(_rel_err(a, b) for a, b in zip(ko, po)),
+                _rel_err(kr, pr)]
+        line = ""
+        if dt == bf16:
+            g.outputs.extend(nd.out for nd in kv)
+            gold = mb.compile("graph").run({"x": ins["x"], **start}, ws,
+                                           scalars, block_table=tbl)
+            new = {names[nd.inputs[1].idx]: c
+                   for nd, c in zip(kv, gold[len(ko):])}
+            errs += [max(_rel_err(a, b.float()) for a, b in zip(ko, gold)),
+                     _rel_err(kr, torch.cat([new[n][rows].float()
+                                             for n in prog.caches]))]
+            line = f"; vs golden {errs[2]:.3e} / {errs[3]:.3e}"
+            del gold, new
+        # the slabs no live row routes to, NaN: the kernel never reads them
+        nan_ws, n_nan = dict(ws), 0
+        for nd in moe:
+            gu_n, dn_n = _moe_weight_names(g, nd)
+            gu, dn = ws[gu_n].clone(), ws[dn_n].clone()
+            for e in set(range(E)) - set(routed[nd.out.idx]):
+                gu[e * H:(e + 1) * H] = float("nan")
+                dn[e * inter:(e + 1) * inter] = float("nan")
+                n_nan += 1
+            nan_ws[gu_n], nan_ws[dn_n] = gu, dn
+        prog.bind_weights(nan_ws)
+        no, nr = launch()
+        assert all(torch.isfinite(o).all() and torch.equal(o, k)
+                   for o, k in zip(no, ko)) and torch.equal(nr, kr), "NaN"
+        print(f"megakernel moe {str(dt)[6:]} 2 layers at Qwen3-30B-A3B "
+              f"widths, lengths {lens.tolist()} widths {widths.tolist()}: "
+              f"vs plain walk out {errs[0]:.3e}, appended rows "
+              f"{errs[1]:.3e}{line} (of max |ref|); idle slot rows 0, other "
+              f"pool rows unchanged; routed experts a layer "
+              f"{[len(v) for v in routed.values()]}, {n_nan} unrouted slabs "
+              f"NaN: same bits; plain walk {plain_ms:.1f} ms")
+        assert max(errs) <= tol[dt], (dt, errs)
+        step = None
+        if dt == bf16:
+            prog.bind_weights(ws)
+            prog.bind_caches({n: t.clone() for n, t in start.items()})
+            ms = time_ms([lambda: prog.step(cache_lens=lens, block_table=tbl,
+                                            widths=widths)])
+            prog.check_fault()
+            costs = prog.task_costs(cache_lens=lens, widths=widths,
+                                    experts=routed)
+            moved = sum(c["bytes"] for c in costs)
+            bms, by = bound(moved, sum(c["flops"] for c in costs))
+            mb_moe = sum(c["bytes"] for nd, c in zip(prog.tasks, costs)
+                         if nd.op == "moe_ffn")
+            print(f"megakernel moe bf16 2-layer step: {ms:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by}: {moved / 1e9:.3f} GB, of it "
+                  f"{mb_moe / 1e9:.3f} GB in the GROUPED_GEMM tasks)")
+            step = {"ms": ms, "bound_ms": bms, "plain_ms": plain_ms,
+                    "err": max(errs)}
+        del prog, ins, ws, nan_ws, start
+        torch.cuda.empty_cache()
+    return step
+
+
+def check_mega_serve_small(models, seed, moe=False):
     """A small model's ServeEngine(mode="megakernel") on the GPU (the
     kernel) against the same weights on the CPU (the plain walk): four
     requests through two slots, 16-token pages, 8-token chunks; bf16
     (the engine path's prefill kernel takes bf16 only). Every greedy
     pick's logits agree within 5e-2 of the largest and the picks are
     equal where the CPU's top-2 gap exceeds twice the error, up to the
-    first pick that differs (the streams part there)."""
+    first pick that differs (the streams part there). `moe`: a small
+    Qwen3MoE (head_dim 128, group 8, 8 experts, top-2) instead of the
+    dense model."""
     from triton_distributed_tpu_torch.megakernel import serve as mserve
     from triton_distributed_tpu_torch.models import dense
-    cfg = models.get_config("Qwen/Qwen3-8B").tiny(
-        hidden_size=256, num_heads=8, num_kv_heads=2, head_dim=128,
-        intermediate_size=512, vocab_size=512, num_layers=2)
-    cpu = models.DenseLLM(cfg, dtype="bfloat16", device="cpu")
+    if moe:
+        cls = models.Qwen3MoE
+        cfg = models.get_config("Qwen/Qwen3-30B-A3B").tiny(
+            hidden_size=256, num_heads=8, num_kv_heads=1, head_dim=128,
+            vocab_size=512, num_layers=2, num_experts=8,
+            num_experts_per_tok=2, moe_intermediate_size=256)
+    else:
+        cls = models.DenseLLM
+        cfg = models.get_config("Qwen/Qwen3-8B").tiny(
+            hidden_size=256, num_heads=8, num_kv_heads=2, head_dim=128,
+            intermediate_size=512, vocab_size=512, num_layers=2)
+    cpu = cls(cfg, dtype="bfloat16", device="cpu")
     params = cpu.init_params(torch.Generator().manual_seed(seed))
-    gpu = models.DenseLLM(cfg, dtype="bfloat16", device="cuda")
+    gpu = cls(cfg, dtype="bfloat16", device="cuda")
     rng = np.random.RandomState(seed)
     reqs = [(rng.randint(0, 512, n).astype(np.int32), g)
             for n, g in ((37, 6), (5, 9), (20, 4), (16, 5))]
@@ -1129,21 +1302,26 @@ def check_mega_serve_small(models, seed):
         if not torch.equal(g.argmax(-1), c.argmax(-1)):
             parted = k
             break
-    print(f"small ServeEngine(mode='megakernel') bf16 GPU (kernel) vs CPU "
-          f"(plain walk): {len(errs)} of {len(runs[0])} picks compared, "
+    print(f"small {cls.__name__} ServeEngine(mode='megakernel') bf16 GPU "
+          f"(kernel) vs CPU (plain walk): {len(errs)} of {len(runs[0])} "
+          f"picks compared, "
           f"logits max {max(errs):.3e} of max |logit|, streams "
           + ("equal" if parted is None else f"part at pick {parted}"))
     assert len(errs) >= 4
 
 
-def _mk_snapshot(se):
+def _mk_snapshot(se, raw=False):
     """Wrap `se._decode_tick` to keep, at the first tick where every slot
     decodes, the state before its launch (tokens, lengths, tables and
     the megakernel's pools in the engine pool's layout) and the hidden
-    rows the launch gave."""
+    rows the launch gave; with `raw`, also the pools as the megakernel
+    holds them and, after the launch, every layer's router-logit rows
+    (a MoE program)."""
     snap = {}
     real = se._decode_tick
     mk = se._mk
+    logit_handles = [nd.inputs[1] for nd in mk.prog.graph.nodes
+                     if nd.op == "moe_ffn"]
 
     def layout(pool, like):
         L, nb, hkv, blk, d = like.shape
@@ -1161,8 +1339,13 @@ def _mk_snapshot(se):
                     v=layout(mk.v_pool, c.v_pool))
         snap["ktab"] = mk.kernel_table(torch.from_numpy(snap["table"]),
                                        torch.ones(se.b_max, dtype=torch.bool))
+        if raw:
+            snap.update(kpool=mk.k_pool.clone(), vpool=mk.v_pool.clone())
         real(stream_cb)
         snap["hid"] = mk.prog.outputs()[0][::mk.slot_rows].float().clone()
+        if raw:
+            snap["logits"] = [mk.prog._tensor(h)[::mk.slot_rows].float()
+                              .clone() for h in logit_handles]
 
     se._decode_tick = tick
     return snap
@@ -1303,6 +1486,208 @@ def check_mega_serve(models, attn, gg, model, params, cfg, seed, smi, profile,
             mk_serve_breakdown(prog, ms, lens)
         del snap
         torch.cuda.empty_cache()
+    if profile:
+        profile_serve(models, model, params, cfg.vocab_size, seed,
+                      mode="megakernel")
+    return total, step
+
+
+def _bf16_ulp(m):
+    """The spacing of bf16 values at magnitude m."""
+    return torch.finfo(torch.bfloat16).eps * 2.0 ** np.floor(np.log2(m))
+
+
+def _mk_moe_tick_checks(se, snap, model, params):
+    """The first all-slots tick of a MoE megakernel serve run against the
+    golden executor on the same state (the megakernel's pools, the
+    kernel's table, the slots' tokens): hidden rows within MK_BF16_TOL of
+    the largest, and every layer's router-logit rows compared: a row
+    whose top-k set differs between the two must be a near-tie, its k-th
+    and (k+1)-th largest golden logits no further apart than the row's
+    largest logit difference between the two plus one bf16 step (the
+    rounding that can swap them); any other difference fails. Then
+    against decode_step_paged (f32 router) as information. Returns
+    (flips, layers x rows compared)."""
+    from triton_distributed_tpu_torch.ops.moe_utils import route_topk
+    mk = se._mk
+    prog = mk.prog
+    g = prog.graph
+    c = model.config
+    k = c.num_experts_per_tok
+    lens = snap["lens"]
+    ids = torch.as_tensor(np.asarray(snap["toks"]), device=prog.device)
+    ins = {"x": mk.embed[ids]}
+    for i in range(c.num_layers):
+        ins[f"l{i}.k_pool"] = snap["kpool"][i]
+        ins[f"l{i}.v_pool"] = snap["vpool"][i]
+    logit_handles = [nd.inputs[1] for nd in g.nodes if nd.op == "moe_ffn"]
+    n_out = len(g.outputs)
+    g.outputs.extend(logit_handles)
+    try:
+        gold = prog.builder.compile("graph").run(
+            ins, prog.weights, {f"cache_len_s{b}": int(cl)
+                                for b, cl in enumerate(lens)},
+            block_table=snap["ktab"])
+    finally:
+        del g.outputs[n_out:]
+    err = _rel_err(snap["hid"], gold[0].float())
+    flips, n = 0, 0
+    for layer, (kl, gl) in enumerate(zip(snap["logits"], gold[1:])):
+        gl = gl.float()
+        _, ke = route_topk(kl, k)
+        _, ge = route_topk(gl, k)
+        for r in range(kl.shape[0]):
+            n += 1
+            if set(ke[r].tolist()) == set(ge[r].tolist()):
+                continue
+            srt = gl[r].sort(descending=True).values
+            gap = (srt[k - 1] - srt[k]).item()
+            slack = (kl[r] - gl[r]).abs().max().item() \
+                + _bf16_ulp(srt[k - 1].abs().item())
+            assert gap <= slack, ("a routing difference that is no near-tie",
+                                  layer, r, gap, slack)
+            flips += 1
+    lm = params["lm_head"].float()
+    gerr = _rel_err(snap["hid"] @ lm, gold[0].float() @ lm)
+    print(f"mk-moe-serve golden check: the first all-slots tick (lengths "
+          f"{lens.tolist()}): hidden rows {err:.3e} of max |ref|, logits "
+          f"{gerr:.3e} of max |logit| against the golden executor on the "
+          f"same state; top-{k} sets of {n} (layer, row) routings differ in "
+          f"{flips}, each a near-tie")
+    assert torch.isfinite(snap["hid"]).all() and err <= MK_BF16_TOL, err
+    del gold
+    ref = model.new_paged_kv_cache(4, 2048, block=128, num_blocks=64)
+    ref.k_pool.copy_(snap["k"])
+    ref.v_pool.copy_(snap["v"])
+    ref.block_table[:] = snap["table"]
+    ref.seq_lens[:] = lens
+    seen = _spy_logits(model, params)
+    model.decode_step_paged(params, snap["toks"], ref, [True] * 4)
+    del model._next_token
+    want = seen[0].to(snap["hid"].device)
+    got = snap["hid"] @ lm
+    print(f"mk-moe-serve vs decode_step_paged on the same state (information "
+          f"only: its router runs in f32): logits "
+          f"{_rel_err(got, want):.3e} of max |logit|; greedy tokens "
+          f"{got.argmax(-1).tolist()} vs {want.argmax(-1).tolist()}")
+    return flips, n
+
+
+def mk_moe_breakdown(prog, ms, lens):
+    """Where the MoE batched step's time goes, from launches of the same
+    program: every slot idle (length 0 on its trash page, width 0: no
+    expert slab read, no prefix), then the rows live at length 0 (the
+    routed slabs read, no prefix); the differences are the expert FFN's
+    and the attention's shares."""
+    nb, R, blk, mp, _ = prog.paged
+    trash = prog.graph.caches["l0.k_pool"].rows // blk - nb \
+        + np.arange(nb, dtype=np.int32)[:, None] + np.zeros((1, mp), np.int32)
+    zero = np.zeros(nb, np.int32)
+    ms0 = time_ms([lambda: prog.step(cache_lens=zero, block_table=trash,
+                                     widths=zero)])
+    ms1 = time_ms([lambda: prog.step(cache_lens=zero, block_table=trash,
+                                     widths=np.ones(nb, np.int32))])
+    prog.check_fault()
+    print(f"mk-moe-serve breakdown: every slot idle {ms0:.4f} ms; the rows "
+          f"live at length 0 {ms1:.4f} ms, so the expert FFN costs "
+          f"~{ms1 - ms0:.4f} ms and the attention over lengths "
+          f"{lens.tolist()} ~{ms - ms1:.4f} ms")
+
+
+def check_mega_serve_moe(models, attn, gg, model, params, cfg, seed, smi,
+                         profile, engine_out):
+    """The slice-3c main path: ServeEngine(mode="megakernel") over the
+    Qwen3-30B-A3B weights with the serve cell's stream and settings. The
+    bf16 pool run is counted (one megakernel launch per decode tick, no
+    flash_decode_paged launch, gmm only in the engine-path prefill
+    chunks) and checked as step 9's runs are; run again for identical
+    tokens, its first all-slots tick held against the golden executor
+    (`_mk_moe_tick_checks`); the batched step against its bound, routed
+    slabs counted from the launch's router logits; then the int8 pool,
+    then ep_capacity=2 (slots deferred, every request at its length,
+    ep_rows the rows decode routed). Returns (launch totals, the step's
+    numbers)."""
+    L = cfg.num_layers
+    stream = serve_stream(np.random.RandomState(seed), cfg.vocab_size)
+    total, step = {}, None
+    torch.cuda.reset_peak_memory_stats()
+    for kv, cap in ((None, 0), ("int8", 0), (None, 2)):
+        se = models.ServeEngine(model, params, mode="megakernel", b_max=4,
+                                max_len=2048, block=128, prefill_chunk=256,
+                                num_blocks=64, kv_dtype=kv, ep_capacity=cap)
+        out, st, launches, tick_ms, ops = run_serve(models, attn, se, stream,
+                                                    L, gg)
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+        name = (kv or "bf16") + (f", ep_capacity={cap}" if cap else "")
+        assert launches["megakernel"] == st["decode_steps"] > 0, launches
+        print(f"mk-moe-serve[{name}]: {st['tokens']} tokens in "
+              f"{st['wall_s']:.3f} s ({st['tokens_per_s']} tokens/s), "
+              f"{st['ticks']} ticks, {st['decode_steps']} decode ticks at "
+              f"{statistics.median(tick_ms):.2f} ms median "
+              f"({min(tick_ms):.2f}-{max(tick_ms):.2f}; {ops} aten ops on "
+              f"the host), {st['prefill_chunks']} chunks, capacity_drops "
+              f"{st['capacity_drops']}, ep_rows {st['ep_rows']}, launches "
+              f"{ {n: c for n, c in launches.items() if c} } | {smi}")
+        assert sorted(out) == list(range(len(stream)))
+        for rid, (_, gen_len) in enumerate(stream):
+            toks = out[rid]
+            assert len(toks) == gen_len, (rid, len(toks))
+            assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+        se._cache.check_conservation(cached=st["cached_free_blocks"])
+        assert st["free_blocks"] + st["cached_free_blocks"] == 64, st
+        assert st["prefix_hit_blocks"] == 0 and st["cow_copies"] == 0, st
+        rep = models.serve.banded_token_identity(engine_out, out, band=1.0)
+        print(f"mk-moe-serve[{name}] vs engine mode bf16 (information only, "
+              f"random weights): agreed {rep['agreed_steps']}/"
+              f"{rep['total_steps']} steps ({rep['agreed_frac']})")
+        if cap:
+            assert st["capacity_drops"] > 0, st
+            assert st["ep_rows"] == sum(g - 1 for _, g in stream), st
+            continue
+        assert st["capacity_drops"] == 0 and st["ep_rows"] == 0, st
+        if kv is not None:
+            continue
+        snap = _mk_snapshot(se, raw=True)
+        for rid_ids, gen_len in stream:
+            se.submit(rid_ids, gen_len)
+        again = se.run()
+        del se._decode_tick
+        se._mk.prog.check_fault()
+        assert all(np.array_equal(again[r + len(stream)], out[r])
+                   for r in out), "a second run gave other tokens"
+        print("mk-moe-serve[bf16]: a second run gives identical tokens")
+        flips, n_routings = _mk_moe_tick_checks(se, snap, model, params)
+        prog = se._mk.prog
+        lens, ktab = snap["lens"], snap["ktab"]
+        live = np.ones(4, np.int32)
+        ms = time_ms([lambda: prog.step(cache_lens=lens, block_table=ktab,
+                                        widths=live)])
+        prog.check_fault()
+        routed = prog.routed_experts(live)
+        costs = prog.task_costs(cache_lens=lens, widths=live, experts=routed)
+        moved = sum(c["bytes"] for c in costs)
+        flops = sum(c["flops"] for c in costs)
+        bms, by = bound(moved, flops)
+        upper = sum(c["bytes"] for c in prog.task_costs(cache_lens=lens,
+                                                        widths=live))
+        per_layer = [len(v) for v in routed.values()]
+        print(f"mk-moe-serve batched step (4 live rows, lengths "
+              f"{lens.tolist()}): kernel {ms:.4f} ms, bound {bms:.4f} ms "
+              f"({by}: {moved / 1e9:.3f} GB with the {sum(per_layer)} routed "
+              f"slabs, {min(per_layer)}-{max(per_layer)} a layer, mean "
+              f"{statistics.mean(per_layer):.1f}; {upper / 1e9:.3f} GB at "
+              f"top-8 slabs a row), {len(prog.tasks)} tasks in "
+              f"{int(prog.n_tiles.sum())} tiles | {smi}")
+        step = {"ms": ms, "bound_ms": bms, "bound_by": by,
+                "gb": moved / 1e9, "flips": flips, "routings": n_routings}
+        if profile:
+            mk_moe_breakdown(prog, ms, lens)
+        del snap
+        torch.cuda.empty_cache()
+    print(f"mk-moe-serve: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (weights, "
+          f"the engine and megakernel pools, the golden check)")
     if profile:
         profile_serve(models, model, params, cfg.vocab_size, seed,
                       mode="megakernel")
@@ -1613,7 +1998,7 @@ def check_moe_serve(models, attn, gg, model, params, cfg, seed, smi):
             for rid in out:
                 assert np.array_equal(out[rid], first[rid]), rid
             print("moe serve: a second run gives identical tokens")
-    return total
+    return total, first
 
 
 def main():
@@ -1681,8 +2066,10 @@ def main():
 
     check_megakernel_graphs(dev)
     check_megakernel_paged_graphs(dev)
+    moe_graph_step = check_megakernel_moe_graphs(dev)
     check_megadecoder_small(models, args.seed)
     check_mega_serve_small(models, args.seed)
+    check_mega_serve_small(models, args.seed, moe=True)
     md, _, mk_launches = check_megadecoder(attn, model, params, cfg, ids[0],
                                            toks[0], smi, args.profile)
     mk = check_megakernel_main(md, cfg, ids[0], smi, args.profile)
@@ -1703,19 +2090,35 @@ def main():
     assert held < 2**30, held
     moe, moe_params, moe_launches = check_moe_engine(
         models, engine_kernels, args.seed, smi, args.profile)
-    moe_serve = check_moe_serve(models, attn, gg, moe, moe_params,
-                                moe.config, args.seed, smi)
+    moe_serve, moe_engine_out = check_moe_serve(models, attn, gg, moe,
+                                                moe_params, moe.config,
+                                                args.seed, smi)
+    mk_moe, mk_moe_step = check_mega_serve_moe(
+        models, attn, gg, moe, moe_params, moe.config, args.seed, smi,
+        args.profile, moe_engine_out)
+    assert mk_moe["gmm"] > 0 and all(
+        c == 0 for n, c in mk_moe.items()
+        if n.startswith("flash_decode_paged")), mk_moe
 
-    counts = (launches, serve_launches, mk_serve, moe_launches, moe_serve)
+    counts = (launches, serve_launches, mk_serve, moe_launches, moe_serve,
+              mk_moe)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in counts)
         assert k["launches"] > 0, k["name"]
-    gmm_entry["launches"] = moe_launches["gmm"] + moe_serve["gmm"]
+    gmm_entry["launches"] = (moe_launches["gmm"] + moe_serve["gmm"]
+                             + mk_moe["gmm"])
+    mk["launches"] += mk_moe["megakernel"]
     print(f"megakernel launches: {mk_launches} (MegaDecoder) + "
-          f"{mk_serve['megakernel']} (ServeEngine mode='megakernel'); the "
-          f"batched serve step {mk_step['ms']:.4f} ms against "
-          f"{mk_step['bound_ms']:.4f} ms ({mk_step['bound_by']}), plain "
-          f"walk {mk_step['plain_ms']:.1f} ms")
+          f"{mk_serve['megakernel']} (ServeEngine mode='megakernel') + "
+          f"{mk_moe['megakernel']} (the same, Qwen3MoE); the batched serve "
+          f"step {mk_step['ms']:.4f} ms against {mk_step['bound_ms']:.4f} "
+          f"ms ({mk_step['bound_by']}), plain walk "
+          f"{mk_step['plain_ms']:.1f} ms; the MoE batched step "
+          f"{mk_moe_step['ms']:.4f} ms against {mk_moe_step['bound_ms']:.4f} "
+          f"ms ({mk_moe_step['bound_by']}); the 2-layer MoE step "
+          f"{moe_graph_step['ms']:.4f} ms against "
+          f"{moe_graph_step['bound_ms']:.4f} ms, plain walk "
+          f"{moe_graph_step['plain_ms']:.1f} ms")
     kernels += [mk, gmm_entry]
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -15,7 +15,11 @@ cache rows are compared as a fraction of the largest reference value:
 1e-4 in f32 (summation order over two layers), 2e-2 in bf16 (a value
 that rounds to the other side of a bf16 step in one task carries into
 the next); so are the paged serving program's outputs and appends, and
-every other pool row must be bitwise unchanged. The grouped GEMM's bf16
+every other pool row must be bitwise unchanged; so are the MoE serving
+program's (its GROUPED_GEMM tasks sum the same products in other orders),
+whose rows past a slot's live width must be exactly 0 and which must
+give the same bits when every slab no live row routes to is NaN. The
+grouped GEMM's bf16
 outputs are compared at 2e-2 of the largest value: the kernel and the
 plain version sum the same bf16 products in f32 in other orders and
 round once to bf16, so they differ by at most a bf16 step or two of
@@ -30,8 +34,8 @@ import torch
 
 from triton_distributed_tpu_torch.megakernel import executor_cuda as mkx
 from triton_distributed_tpu_torch.megakernel.models import (
-    build_qwen3_decode, build_qwen3_forward, build_qwen3_serve_batched,
-    init_random_io)
+    build_qwen3_decode, build_qwen3_forward, build_qwen3_moe_serve_batched,
+    build_qwen3_serve_batched, init_random_io)
 from triton_distributed_tpu_torch.ops import attention as attn
 from triton_distributed_tpu_torch.ops import grouped_gemm as gg
 from triton_distributed_tpu_torch.ops import moe_utils
@@ -428,6 +432,154 @@ def test_mega_serve_gpu_matches_cpu(cuda):
     cpu = models.DenseLLM(cfg, dtype="bfloat16", device="cpu")
     params = cpu.init_params(torch.Generator().manual_seed(0))
     gpu = models.DenseLLM(cfg, dtype="bfloat16", device=cuda)
+    gparams = {"embed": params["embed"].to(cuda),
+               "norm": params["norm"].to(cuda),
+               "lm_head": params["lm_head"].to(cuda),
+               "layers": {k: t.to(cuda) for k, t in params["layers"].items()}}
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, 512, n).astype(np.int32), g)
+            for n, g in ((37, 6), (5, 9), (20, 4), (16, 5))]
+    real = dense.greedy_token
+    runs = []
+    for m, p in ((cpu, params), (gpu, gparams)):
+        seen = []
+
+        def spy(x, lm_head):
+            seen.append((x.float() @ lm_head.float()).cpu())
+            return real(x, lm_head)
+
+        dense.greedy_token = mserve.greedy_token = spy
+        try:
+            se = models.ServeEngine(m, p, mode="megakernel", b_max=2,
+                                    max_len=64, block=16, prefill_chunk=8)
+            before = mkx.MEGAKERNEL.launches
+            se.serve([r for r, _ in reqs], [g for _, g in reqs])
+        finally:
+            dense.greedy_token = mserve.greedy_token = real
+        st = se.stats()
+        assert st["megakernel_steps"] == st["decode_steps"] > 0
+        runs.append(seen)
+    assert mkx.MEGAKERNEL.launches - before == st["decode_steps"]
+    compared = 0
+    for c, g in zip(*runs):
+        err = (g - c).abs().max().item()
+        assert err <= 5e-2 * max(1.0, c.abs().max().item()), err
+        top2 = c.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+        assert torch.equal(g.argmax(-1)[sure], c.argmax(-1)[sure])
+        compared += 1
+        if not torch.equal(g.argmax(-1), c.argmax(-1)):
+            break
+    assert compared >= 4, compared
+
+
+# -- the megakernel's MoE body (GROUPED_GEMM) ----------------------------------
+
+def _mk_moe_case(device, dtype, seed=0):
+    """A 2-layer MoE serve program (hidden 256, 16 experts, top-4,
+    intermediate 128, head_dim 64) over three slots of 2 rows: slot 0
+    idle (length 0 on its trash page, width 0, its x rows random), the
+    others at lengths 5 and 40 with one live row and a zero pad row.
+    The moe_ffn outputs are exposed as outputs."""
+    lens = np.asarray([0, 5, 40], np.int32)
+    widths = np.asarray([0, 1, 1], np.int32)
+    nb, R, blk, mp, num_blocks = 3, 2, 16, 4, 8
+    mb = build_qwen3_moe_serve_batched(
+        b_slots=nb, slot_rows=R, hidden=256, moe_intermediate=128,
+        num_experts=16, top_k=4, num_layers=2, num_heads=4, num_kv_heads=2,
+        head_dim=64, num_blocks=num_blocks, block=blk, max_pages=mp,
+        qk_norm=True, dtype=dtype)
+    mb.graph.outputs.extend(nd.out for nd in mb.graph.nodes
+                            if nd.op == "moe_ffn")
+    rng = np.random.default_rng(seed)
+    ins, ws = init_random_io(mb, rng)
+    ins["x"][1::R] = 0.0                            # pad rows
+    perm = iter(rng.permutation(num_blocks))
+    tbl = np.asarray([[next(perm) if 0 < cl and c <= cl // blk
+                       else num_blocks + b for c in range(mp)]
+                      for b, cl in enumerate(lens)], np.int32)
+    prog = mb.compile("kernel", device=device)
+    prog.bind_weights({n: torch.as_tensor(w).to(device, dtype)
+                       for n, w in ws.items()})
+    return prog, ins, lens, widths, tbl
+
+
+def _mk_moe_run(prog, ins, lens, widths, tbl, plain=False):
+    dt, dev = prog.dtype, prog.device
+    prog.bind_caches({n: torch.as_tensor(ins[n]).to(dev, dt)
+                      for n in prog.graph.caches})
+    before = mkx.MEGAKERNEL.launches
+    outs = prog.step({"x": torch.as_tensor(ins["x"]).to(dev, dt)},
+                     cache_lens=lens, block_table=tbl, widths=widths,
+                     plain=plain)
+    torch.cuda.synchronize()
+    prog.check_fault()
+    assert mkx.MEGAKERNEL.launches == before + (0 if plain else 1)
+    return [o.float().clone() for o in outs]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_megakernel_moe_matches_plain(cuda, dtype):
+    prog, ins, lens, widths, tbl = _mk_moe_case(cuda, dtype)
+    got = _mk_moe_run(prog, ins, lens, widths, tbl)
+    want = _mk_moe_run(prog, ins, lens, widths, tbl, plain=True)
+    tol = MK_TOL[dtype]
+    for k, p in zip(got, want):
+        assert torch.isfinite(k).all()
+        assert (k - p).abs().max().item() <= tol * p.abs().max().item()
+    for moe in got[1:]:
+        # the idle slot (width 0) and the pad rows route nowhere: zeros
+        assert (moe[[0, 1, 3, 5]] == 0).all() and (moe[[2, 4]] != 0).any()
+
+
+def test_megakernel_moe_never_reads_an_unrouted_slab(cuda):
+    """Every expert slab no live row routes to, in each layer, is NaN:
+    the kernel gives the same bits as with the real slabs (it reads
+    none of them; 0 x NaN would be NaN)."""
+    prog, ins, lens, widths, tbl = _mk_moe_case(cuda, torch.float32, 3)
+    want = _mk_moe_run(prog, ins, lens, widths, tbl)
+    routed = prog.routed_experts(widths)
+    E, H, inter = 16, 256, 128
+    ws = dict(prog.weights)
+    unrouted = 0
+    for nd in prog.tasks:
+        if nd.op != "moe_ffn" or nd.out.idx not in routed:
+            continue
+        gu_name = next(n for n, h in prog.graph.weights.items()
+                       if h.idx == nd.inputs[2].idx)
+        dn_name = next(n for n, h in prog.graph.weights.items()
+                       if h.idx == nd.inputs[3].idx)
+        gu, dn = ws[gu_name].clone(), ws[dn_name].clone()
+        for e in set(range(E)) - set(routed.pop(nd.out.idx)):
+            gu[e * H:(e + 1) * H] = float("nan")
+            dn[e * inter:(e + 1) * inter] = float("nan")
+            unrouted += 1
+        ws[gu_name], ws[dn_name] = gu, dn
+    assert unrouted > 0
+    prog.bind_weights(ws)
+    got = _mk_moe_run(prog, ins, lens, widths, tbl)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, w)
+
+
+def test_mega_serve_moe_gpu_matches_cpu(cuda):
+    """A small Qwen3MoE's ServeEngine(mode="megakernel") on the GPU (the
+    kernel) against the same engine on the CPU (the plain walk), bf16,
+    one megakernel launch per decode tick: every greedy pick's logits
+    within 5e-2 of the largest, the picks equal wherever the CPU's top-2
+    gap exceeds twice that call's error, up to the first pick where
+    they differ."""
+    from triton_distributed_tpu_torch import models
+    from triton_distributed_tpu_torch.megakernel import serve as mserve
+    from triton_distributed_tpu_torch.models import dense
+    cfg = models.get_config("Qwen/Qwen3-30B-A3B").tiny(
+        hidden_size=256, num_heads=8, num_kv_heads=1, head_dim=128,
+        vocab_size=512, num_layers=2, num_experts=8, num_experts_per_tok=2,
+        moe_intermediate_size=256)
+    cpu = models.Qwen3MoE(cfg, dtype="bfloat16", device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = models.Qwen3MoE(cfg, dtype="bfloat16", device=cuda)
     gparams = {"embed": params["embed"].to(cuda),
                "norm": params["norm"].to(cuda),
                "lm_head": params["lm_head"].to(cuda),

@@ -336,24 +336,37 @@ def _tiny_moe():
         num_layers=2), dtype="float32", device="cpu")
 
 
+def _tiny_moe_pair():
+    m = _tiny_moe()
+    return m, m.init_params(torch.Generator().manual_seed(0))
+
+
+_MOE_SERVE = dict(b_slots=1, slot_rows=1, hidden=64, moe_intermediate=64,
+                  num_experts=4, top_k=2, num_layers=1, num_heads=4,
+                  num_kv_heads=2, head_dim=16, num_blocks=2, block=8,
+                  max_pages=2)
+
+
 @pytest.mark.parametrize("call,slice_", [
     (lambda mb, h: mk.MegaServe(*_tiny_dense(), **_MS).verify(), "2b"),
     (lambda mb, h: models.ServeEngine(*_tiny_dense(), mode="megakernel",
                                       speculative=object()), "2b"),
-    (lambda mb, h: mk.MegaServe(_tiny_moe(), None, **_MS), "3c"),
-    (lambda mb, h: models.ServeEngine(_tiny_moe(), None, mode="megakernel"),
-     "3c"),
+    (lambda mb, h: mk.MegaServe(*_tiny_moe_pair(), **_MS).verify(), "2b"),
+    (lambda mb, h: models.ServeEngine(*_tiny_moe_pair(), mode="megakernel",
+                                      speculative=object()), "2b"),
+    (lambda mb, h: mk.MegaServe(_tiny_moe(), None, **_MS, tp_ranks=2), "6"),
+    (lambda mb, h: models.ServeEngine(_tiny_moe(), None, mode="megakernel",
+                                      tp_ranks=2), "6"),
     (lambda mb, h: mk.MegaServe(*_tiny_dense(), **_MS, tp_ranks=2), "6"),
     (lambda mb, h: models.ServeEngine(None, None, mode="megakernel",
                                       tp_ranks=2), "6"),
-    (lambda mb, h: mb.moe_ffn(h), "3c"),
     (lambda mb, h: mb.all_to_all(h), "6"),
-    (lambda mb, h: tmodels.build_qwen3_moe_serve_batched(), "3c"),
-    (lambda mb, h: tdecoder.moe_weight_map(None, None), "3c"),
-    (lambda mb, h: port.MegaDecoder.from_dense(
-        models.Qwen3MoE(models.get_config("Qwen/Qwen3-30B-A3B").tiny(
-            num_layers=2), dtype="float32", device="cpu"), None,
-        max_cache=MAX_CACHE, prompt_len=P, device="cpu"), "3c"),
+    (lambda mb, h: tmodels.build_qwen3_moe_serve_batched(
+        **_MOE_SERVE, tp_shards=True), "6"),
+    (lambda mb, h: tmodels.build_qwen3_moe_serve_batched(
+        **_MOE_SERVE, mesh=object()), "6"),
+    (lambda mb, h: tdecoder.moe_weight_map(
+        dataclasses.make_dataclass("M", [("n", int)])(2), None), "6"),
     (lambda mb, h: mb.all_reduce(h), "6"),
     (lambda mb, h: tmodels.build_qwen3_decode(seq_len=1, **TINY,
                                               tp_shards=True), "6"),

@@ -5,16 +5,20 @@
 // (:106, launched by ExecutorPallas._pallas :3046) — TPU kernel row 5 of
 // PERF.md. It carries the task bodies LINEAR (:328), RMS_NORM (:598),
 // SILU_MUL and ADD (:640), ATTN (:885; with rope_cs :797, head_prep :819,
-// attn_step :834, head_rms :879), KVA_K / KVA_V (:1512 / :1559), and the
-// paged serving bodies ATTN_P (:1189) and KVA_PK / KVA_PV (:1351).
-// GROUPED_GEMM and the collective bodies (AR, A2A, GEMM_AR) come with later
+// attn_step :834, head_rms :879), KVA_K / KVA_V (:1512 / :1559), the
+// paged serving bodies ATTN_P (:1189) and KVA_PK / KVA_PV (:1351), and the
+// MoE expert FFN GROUPED_GEMM (:673-766). The verify-width arms, the fused
+// variants and the collective bodies (AR, A2A, GEMM_AR) come with later
 // slices.
 //
 // The host side is megakernel/executor_cuda.py: one descriptor row per
 // task (a graph node cut into tiles), a flat list of each task's producer
 // tasks, and per-SM queues of packed (task << 20 | tile) entries from
 // scheduler.schedule — a round-robin deal of ONE topological order of all
-// (task, tile) items, so each queue lists its items in that order.
+// (task, tile) items, so each queue lists its items in that order. A MoE
+// node is two tasks, phase 0 then phase 1 (below), and phase 1 lists phase 0
+// among its producers, so the order has every phase-0 item before any
+// phase-1 item of the node and the argument below covers it unchanged.
 //
 // Persistent walk. One CTA per SM, launched with cudaLaunchCooperativeKernel
 // so that every CTA is resident at once (or the launch fails with
@@ -66,6 +70,27 @@
 // aligned tile of rows through a read-modify-write because its DMAs move
 // whole tiles, the CUDA append writes the one row and nothing else.
 //
+// GROUPED_GEMM (the MoE expert FFN over stacked expert slabs). The TPU body
+// is one task per row tile that loops statically over ALL E experts, so its
+// sanitizer can certify the reads; at Qwen3-30B-A3B's widths that reads
+// 1.2 GB of slabs a layer, nearly all of them under routing weight 0. Here a
+// node is two tasks, and only the slabs some live row routes to are read:
+//   phase 0, tile (row, k, 64 columns of I): a warp replays the row's routing
+//     from its logits row (f32 softmax over E, iterative first-max top-k,
+//     optional renormalisation), then the tile dots the x row with the strip
+//     of expert e_k's gate and up columns and writes
+//     round_T(silu(g) * u * w_k) to an arena scratch (S, top_k x I);
+//   phase 1, tile (row, 32 columns of H), after every phase-0 tile: the same
+//     replay gives the same experts; the tile sums act[row, k, :] times the
+//     strip of e_k's down slab over k and I in f32 and rounds once.
+// A row is live unless its slot's width (run-time data beside the lengths)
+// is at or below its place in the slot's tile: a dead row (pad rows, idle
+// and capacity-deferred slots) reads no slab and writes zeros. The numbers
+// are the TPU body's: an unrouted expert adds w_e = 0 times a finite value,
+// exactly +0, to its f32 sum. Coherence: the x and logits rows and the
+// scratch are activations of this launch, read with plain loads after the
+// acquire; the slabs are weights (__ldg).
+//
 // Numerics (the plain walk in executor_cuda.py rounds at the same points):
 // LINEAR accumulates in f32 and rounds to the graph dtype T once; RMS_NORM
 // and SILU_MUL compute in f32; ADD rounds the f32 sum. ATTN and KVA_K prepare
@@ -86,7 +111,12 @@
 // A paged serving step (b_slots live rows) reads the same weights once, plus
 // each slot's cache_len_b prefix rows: ATTN_P resolves the page of each
 // prefix row through the table as it loads it, so a 64-key chunk may span
-// pages and `block` need not be a multiple of 64.
+// pages and `block` need not be a multiple of 64. A MoE serving step reads,
+// for each layer, the slabs of the distinct experts its live rows route to
+// (~29 of 128 at 4 rows and top-8: ~275 MB a layer at Qwen3-30B-A3B's
+// widths), so its bound is the routed slabs plus ~38 MB of attention and
+// router weights a layer; GROUPED_GEMM reads a slab once per (row, k) that
+// routes to it, so two rows sharing an expert read its slab twice.
 //
 // What the design does about it: the decode LINEAR gives each SM a
 // 32-column tile (128-384 tiles per projection at Qwen3-8B) and keeps eight
@@ -104,17 +134,19 @@ namespace {
 
 constexpr int NT = 256;           // threads per CTA
 constexpr int NW = NT / 32;
-constexpr int NF = 34;            // descriptor fields (executor_cuda.NF)
+constexpr int NF = 41;            // descriptor fields (executor_cuda.NF)
 enum : int {
   F_OP = 0, F_TILES, F_DEP_LO, F_DEP_HI, F_OUT, F_A, F_B, F_C, F_D, F_E,
   F_M, F_N, F_K, F_LDA, F_LDB, F_LDO, F_TR, F_NCT, F_TN, F_H, F_HKV, F_HD,
   F_QKN, F_CACHED, F_CAUSAL, F_EPS, F_SCALE, F_COS, F_SIN, F_LDC, F_MODE,
-  F_BLOCK, F_SROWS, F_MAXP
+  F_BLOCK, F_SROWS, F_MAXP, F_NE, F_TOPK, F_INTER, F_NORMK, F_PHASE, F_LDD,
+  F_LDE
 };
 // op codes of megakernel/graph.py
 enum : int {
   OP_LINEAR = 0, OP_RMS_NORM = 1, OP_SILU_MUL = 2, OP_ADD = 3, OP_ATTN = 4,
-  OP_KVA_K = 6, OP_KVA_V = 7, OP_ATTN_P = 9, OP_KVA_PK = 10, OP_KVA_PV = 11
+  OP_KVA_K = 6, OP_KVA_V = 7, OP_ATTN_P = 9, OP_KVA_PK = 10, OP_KVA_PV = 11,
+  OP_GROUPED_GEMM = 13
 };
 enum : int { FAULT_TIMEOUT = 1, FAULT_BAD_OP = 2 };
 
@@ -131,6 +163,14 @@ constexpr int LIN_FLOATS = XS_FLOATS + RED_FLOATS;
 constexpr int SMEM_FLOATS = ATTN_FLOATS > LIN_FLOATS ? ATTN_FLOATS : LIN_FLOATS;
 constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
 constexpr int UNROLL = 8;         // skinny LINEAR: weight loads in flight
+// GROUPED_GEMM (executor_cuda.MOE_*): phase 0 tiles take 64 columns of I,
+// phase 1 tiles 32 columns of H; the routing warp holds 8 experts a lane
+constexpr int MOE_STRIP = 64;
+constexpr int MOE_OUT_TN = 32;
+constexpr int MOE_EPL = 8;
+constexpr int MOE_MAX_TOPK = 32;
+static_assert(XS_FLOATS + RED_FLOATS + 2 * MOE_MAX_TOPK <= SMEM_FLOATS,
+              "GROUPED_GEMM's staged row, partial sums and routing fit");
 
 struct Params {
   const long long* desc;
@@ -140,6 +180,7 @@ struct Params {
   unsigned* counts;
   int* fault;
   const int* lens;     // paged serving: per-slot cache lengths (b_slots,)
+  const int* widths;   // paged serving: per-slot live rows (b_slots,)
   const int* btab;     // paged serving: block table (b_slots, btab_ld)
   long long budget_ns;
   int qcap;
@@ -747,6 +788,230 @@ __device__ void kv_append_paged_task(const long long* d, int tile,
     kv_append_row<T, D, K_PART>(d, tile * R, j, cl, dst_row);
 }
 
+// -- GROUPED_GEMM: the MoE expert FFN, in two tasks -------------------------
+// Row r is live unless the program is paged (F_SROWS rows a slot) and r lies
+// at or past its slot's width. A dead row reads no expert slab and writes
+// zeros.
+__device__ __forceinline__ bool moe_live(const long long* d, int r,
+                                         const Params& p) {
+  const int R = static_cast<int>(d[F_SROWS]);
+  return R == 0 || r % R < __ldg(p.widths + r / R);
+}
+
+// One warp routes one row: an f32 softmax over the E experts of its logits
+// row, then top-k by iterative first-max (ties to the lower expert index,
+// the rule of jax.lax.top_k), renormalised to sum 1 if `norm`. Writes the
+// experts to sel_e and their weights to sel_w. Both phases route a row with
+// this code on the same logits, so they choose the same experts.
+template <typename T>
+__device__ void moe_route(const T* lg, int E, int topk, bool norm,
+                          float* sel_w, int* sel_e) {
+  const int lane = threadIdx.x & 31;
+  float v[MOE_EPL];
+  float m = TDT_NEG_INF;
+#pragma unroll
+  for (int u = 0; u < MOE_EPL; ++u) {
+    v[u] = lane + 32 * u < E ? to_f(lg[lane + 32 * u]) : TDT_NEG_INF;
+    m = fmaxf(m, v[u]);
+  }
+  m = tdt_warp_max(m);
+  float s = 0.f;
+#pragma unroll
+  for (int u = 0; u < MOE_EPL; ++u) {
+    v[u] = lane + 32 * u < E ? expf(v[u] - m) : 0.f;
+    s += v[u];
+  }
+  s = tdt_warp_sum(s);
+  // probabilities; -1 (below every probability) marks absent and taken
+#pragma unroll
+  for (int u = 0; u < MOE_EPL; ++u)
+    v[u] = lane + 32 * u < E ? v[u] / s : -1.f;
+  float tot = 0.f;
+  for (int k = 0; k < topk; ++k) {
+    float best = -2.f;
+    int bi = 0x7fffffff;
+#pragma unroll
+    for (int u = 0; u < MOE_EPL; ++u)
+      if (v[u] > best) {
+        best = v[u];
+        bi = lane + 32 * u;
+      }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (ob > best || (ob == best && oi < bi)) {
+        best = ob;
+        bi = oi;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < MOE_EPL; ++u)
+      if (lane + 32 * u == bi) v[u] = -1.f;
+    if (lane == 0) {
+      sel_e[k] = bi;
+      sel_w[k] = best;
+    }
+    tot += best;
+  }
+  if (norm && lane == 0)
+    for (int k = 0; k < topk; ++k) sel_w[k] = sel_w[k] / tot;
+}
+
+// Phase 0: tile = (row r, k, 64-column strip of I). Routes row r, then
+// act[r, k, strip] = round_T(silu(g) * u * w_k) with g and u the f32 dots of
+// the x row (staged in shared memory) with the strip's gate and up columns
+// of expert e_k's slab. Threads split as CV column vectors (16 bytes; the
+// first half gate, the second up) x RL row lanes over H, as linear_skinny.
+template <typename T>
+__device__ void moe_gate_up_task(const long long* d, int tile, float* sm,
+                                 const Params& p) {
+  constexpr int VEC = Vec<T>::N;
+  constexpr int CVP = MOE_STRIP / VEC;
+  constexpr int CV = 2 * CVP;
+  constexpr int RL = NT / CV;
+  const int H = static_cast<int>(d[F_K]), E = static_cast<int>(d[F_NE]);
+  const int K = static_cast<int>(d[F_TOPK]), I = static_cast<int>(d[F_INTER]);
+  const int nct = static_cast<int>(d[F_NCT]);
+  const int r = tile / (K * nct), rem = tile % (K * nct);
+  const int k = rem / nct, st = rem % nct;
+  const int tid = threadIdx.x;
+  T* act = mptr<T>(d[F_E]) + r * d[F_LDE] + k * I + st * MOE_STRIP;
+  if (!moe_live(d, r, p)) {
+    for (int c = tid; c < MOE_STRIP; c += NT) act[c] = from_f<T>(0.f);
+    return;
+  }
+  float* xs = sm;
+  float* red = sm + XS_FLOATS;           // [RL][2 * MOE_STRIP]
+  float* sel_w = red + RED_FLOATS;
+  int* sel_e = reinterpret_cast<int*>(sel_w + MOE_MAX_TOPK);
+  const T* x = cptr<T>(d[F_A]) + r * d[F_LDA];   // activations: coherent
+  for (int i = tid; i < H; i += NT) xs[i] = to_f(x[i]);
+  if (tid < 32)
+    moe_route<T>(cptr<T>(d[F_B]) + r * d[F_LDB], E, K, d[F_NORMK] != 0,
+                 sel_w, sel_e);
+  __syncthreads();
+  const long long ldc = d[F_LDC];
+  const int cv = tid % CV, rl = tid / CV;
+  const int col = (cv < CVP ? 0 : I) + st * MOE_STRIP + (cv % CVP) * VEC;
+  const T* wp = cptr<T>(d[F_C]) + static_cast<long long>(sel_e[k]) * H * ldc +
+                col;
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  int kk = rl;
+  for (; kk + (UNROLL - 1) * RL < H; kk += UNROLL * RL) {
+    uint4 u[UNROLL];
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j)
+      u[j] = __ldg(reinterpret_cast<const uint4*>(
+          wp + static_cast<long long>(kk + j * RL) * ldc));
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+      float wf[VEC];
+      Vec<T>::unpack(u[j], wf);
+      const float xv = xs[kk + j * RL];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = fmaf(xv, wf[e], acc[e]);
+    }
+  }
+  for (; kk < H; kk += RL) {
+    float wf[VEC];
+    Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(
+                       wp + static_cast<long long>(kk) * ldc)),
+                   wf);
+    const float xv = xs[kk];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = fmaf(xv, wf[e], acc[e]);
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) red[rl * 2 * MOE_STRIP + cv * VEC + e] = acc[e];
+  __syncthreads();
+  if (tid < MOE_STRIP) {
+    float g = 0.f, u = 0.f;
+    for (int l = 0; l < RL; ++l) {
+      g += red[l * 2 * MOE_STRIP + tid];
+      u += red[l * 2 * MOE_STRIP + MOE_STRIP + tid];
+    }
+    const float sig = 1.0f / (1.0f + expf(-g));
+    act[tid] = from_f<T>(__fmul_rn(__fmul_rn(__fmul_rn(g, sig), u), sel_w[k]));
+  }
+}
+
+// Phase 1: tile = (row r, 32-column strip of H). Routes row r again (the
+// same experts as phase 0), stages its top_k x I activations, and sums
+// act[r, k, :] . (the strip of expert e_k's down slab) over k and I in f32,
+// rounded once. Threads split as CV column vectors x RL lanes over I.
+template <typename T>
+__device__ void moe_down_task(const long long* d, int tile, float* sm,
+                              const Params& p) {
+  constexpr int VEC = Vec<T>::N;
+  constexpr int CV = MOE_OUT_TN / VEC;
+  constexpr int RL = NT / CV;
+  const int E = static_cast<int>(d[F_NE]), K = static_cast<int>(d[F_TOPK]);
+  const int I = static_cast<int>(d[F_INTER]), nct = static_cast<int>(d[F_NCT]);
+  const int r = tile / nct, ct = tile % nct;
+  const int tid = threadIdx.x;
+  T* out = mptr<T>(d[F_OUT]) + r * d[F_LDO] + ct * MOE_OUT_TN;
+  if (!moe_live(d, r, p)) {
+    for (int c = tid; c < MOE_OUT_TN; c += NT) out[c] = from_f<T>(0.f);
+    return;
+  }
+  float* xs = sm;
+  float* red = sm + XS_FLOATS;           // [RL][MOE_OUT_TN]
+  float* sel_w = red + RED_FLOATS;
+  int* sel_e = reinterpret_cast<int*>(sel_w + MOE_MAX_TOPK);
+  const T* act = cptr<T>(d[F_E]) + r * d[F_LDE];  // phase 0's: coherent
+  for (int i = tid; i < K * I; i += NT) xs[i] = to_f(act[i]);
+  if (tid < 32)
+    moe_route<T>(cptr<T>(d[F_B]) + r * d[F_LDB], E, K, d[F_NORMK] != 0,
+                 sel_w, sel_e);
+  __syncthreads();
+  const long long ldd = d[F_LDD];
+  const int cv = tid % CV, rl = tid / CV;
+  const T* wd = cptr<T>(d[F_D]) + ct * MOE_OUT_TN + cv * VEC;
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const T* wp = wd + static_cast<long long>(sel_e[k]) * I * ldd;
+    const float* a = xs + k * I;
+    int i = rl;
+    for (; i + (UNROLL - 1) * RL < I; i += UNROLL * RL) {
+      uint4 u[UNROLL];
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j)
+        u[j] = __ldg(reinterpret_cast<const uint4*>(
+            wp + static_cast<long long>(i + j * RL) * ldd));
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j) {
+        float wf[VEC];
+        Vec<T>::unpack(u[j], wf);
+        const float av = a[i + j * RL];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(av, wf[e], acc[e]);
+      }
+    }
+    for (; i < I; i += RL) {
+      float wf[VEC];
+      Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(
+                         wp + static_cast<long long>(i) * ldd)),
+                     wf);
+      const float av = a[i];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = fmaf(av, wf[e], acc[e]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) red[rl * MOE_OUT_TN + cv * VEC + e] = acc[e];
+  __syncthreads();
+  if (tid < MOE_OUT_TN) {
+    float s = 0.f;
+    for (int l = 0; l < RL; ++l) s += red[l * MOE_OUT_TN + tid];
+    out[tid] = from_f<T>(s);
+  }
+}
+
 template <typename T>
 __device__ void linear_task(const long long* d, int tile, float* sm) {
   if (d[F_MODE] == 1) {
@@ -797,6 +1062,11 @@ __device__ bool run_task(const long long* d, int tile, float* sm,
       if (p.lens == nullptr) return false;
       if (d128) kv_append_paged_task<T, 128, false>(d, tile, p);
       else kv_append_paged_task<T, 64, false>(d, tile, p);
+      return true;
+    case OP_GROUPED_GEMM:
+      if (d[F_SROWS] != 0 && p.widths == nullptr) return false;
+      if (d[F_PHASE] == 0) moe_gate_up_task<T>(d, tile, sm, p);
+      else moe_down_task<T>(d, tile, sm, p);
       return true;
     default: return false;
   }
@@ -853,17 +1123,19 @@ int launch(const Params& prm, int n_sm, cudaStream_t st) {
 
 }  // namespace
 
-// desc int64 (n_tasks, 34), deps int32, queues int32 (n_sm, qcap) packed
+// desc int64 (n_tasks, 41), deps int32, queues int32 (n_sm, qcap) packed
 // task << 20 | tile, qlen int32 (n_sm,), counts u32 (n_tasks,) (the
 // scoreboard, never cleared: launch `epoch` waits for epoch x tiles),
 // fault int32 (4,) = (code, task, producer, -); a paged serving program's
-// per-slot lengths lens int32 (b_slots,) and block table btab int32
-// (b_slots, btab_ld), both null for other programs. dtype 0 = float32,
-// 1 = bfloat16. One CTA per SM for n_sm SMs, cooperative.
+// per-slot lengths lens int32 (b_slots,), live widths int32 (b_slots,)
+// and block table btab int32 (b_slots, btab_ld), all null for other
+// programs. dtype 0 = float32, 1 = bfloat16. One CTA per SM for n_sm SMs,
+// cooperative.
 extern "C" int tdt_megakernel(const void* desc, const void* deps,
                               const void* queues, const void* qlen,
                               void* counts, void* fault, const void* lens,
-                              const void* btab, int n_sm, int qcap,
+                              const void* widths, const void* btab,
+                              int n_sm, int qcap,
                               int cache_len, int btab_ld, unsigned epoch,
                               long long budget_ns, int dtype, void* stream) {
   Params p;
@@ -874,6 +1146,7 @@ extern "C" int tdt_megakernel(const void* desc, const void* deps,
   p.counts = static_cast<unsigned*>(counts);
   p.fault = static_cast<int*>(fault);
   p.lens = static_cast<const int*>(lens);
+  p.widths = static_cast<const int*>(widths);
   p.btab = static_cast<const int*>(btab);
   p.btab_ld = btab_ld;
   p.budget_ns = budget_ns;

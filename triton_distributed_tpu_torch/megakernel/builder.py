@@ -10,7 +10,8 @@ executor, the counterpart of JAX "xla") or "kernel" (the persistent CUDA
 megakernel, the counterpart of JAX "pallas"; on a CPU device its plain
 queue walk).
 
-Ops of later slices raise NotImplementedError naming the slice.
+Ops of later slices (the collectives, `verify`) raise
+NotImplementedError naming the slice.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ def later_slice(what: str, slice_: str, detail: str = "") -> NotImplementedError
         f"comes with ROADMAP.md Queue A, slice {slice_}{detail}")
 
 
-_SLICE_MOE = ("3c", " (the megakernel's MoE program)")
 _SLICE_MULTI = ("6", " (the multi-rank layer)")
 
 
@@ -227,10 +227,35 @@ class ModelBuilder:
             part="v", qk_norm=False, **common)
         return k_new, v_new
 
-    # -- ops of later slices -----------------------------------------------
-    def moe_ffn(self, *args, **kwargs):
-        raise later_slice("ModelBuilder.moe_ffn", *_SLICE_MOE)
+    def moe_ffn(self, x: TensorHandle, logits: TensorHandle,
+                w_gate_up: TensorHandle, w_down: TensorHandle, *,
+                num_experts: int, top_k: int,
+                norm_topk: bool = True) -> TensorHandle:
+        """MoE expert FFN over STACKED expert slabs: each row of `x`
+        routes on its `logits` row (an f32 softmax over the experts,
+        top-k with the first-max tie-break of `jax.lax.top_k`, optionally
+        renormalised), then runs SwiGLU through the chosen experts'
+        slabs of `w_gate_up` ((E*H, 2I): expert e owns rows
+        [e*H, (e+1)*H), gate columns [:I], up columns [I:]) and
+        `w_down` ((E*I, H)), combined by the routing weights. In the
+        kernel this is the GROUPED_GEMM body, which reads only the slabs
+        that some live row routes to."""
+        H = x.cols
+        assert logits.rows == x.rows, (logits.shape, x.shape)
+        assert logits.cols == num_experts, (logits.shape, num_experts)
+        assert w_gate_up.cols % 2 == 0, w_gate_up.shape
+        inter = w_gate_up.cols // 2
+        assert w_gate_up.rows == num_experts * H, \
+            (w_gate_up.shape, num_experts, H)
+        assert w_down.shape == (num_experts * inter, H), \
+            (w_down.shape, num_experts, inter, H)
+        assert 1 <= top_k <= num_experts, (top_k, num_experts)
+        return self.graph.add_node(
+            "moe_ffn", (x, logits, w_gate_up, w_down), x.shape,
+            self.dtype, num_experts=num_experts, top_k=top_k,
+            intermediate=inter, norm_topk=norm_topk)
 
+    # -- ops of later slices -----------------------------------------------
     def all_to_all(self, *args, **kwargs):
         raise later_slice("ModelBuilder.all_to_all", *_SLICE_MULTI)
 

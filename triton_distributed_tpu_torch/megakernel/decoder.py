@@ -40,7 +40,10 @@ def dense_weight_map(model, params):
                           " (the multi-rank layer)")
     c = model.config
     if c.is_moe:
-        moe_weight_map(model, params)          # raises, naming its slice
+        raise ValueError(
+            f"{c.name} is a MoE model: MegaDecoder and dense_weight_map "
+            f"take dense models only; a MoE model serves on the megakernel "
+            f"through ServeEngine(mode='megakernel') (moe_weight_map)")
     lay = params["layers"]
     inter = c.intermediate_size
     weights = {"final_norm": params["norm"][None]}
@@ -64,8 +67,41 @@ def dense_weight_map_tp(model, params):
 
 
 def moe_weight_map(model, params):
-    raise later_slice("moe_weight_map", "3c",
-                      " (the megakernel's MoE program)")
+    """Map a single-rank Qwen3MoE's parameters onto the MoE serving
+    program's weight naming. The attention and norm tensors follow
+    `dense_weight_map`; each layer's MLP becomes the router and the
+    stacked expert slabs, `w_moe_gate_up` (E, H, 2I) as (E*H, 2I) and
+    `w_moe_down` (E, I, H) as (E*I, H): VIEWS of the model's tensors,
+    nothing copied. The one copy is the router: the model keeps it in
+    f32, the program runs it as a LINEAR in the model dtype (as the JAX
+    program does), so it is cast, L x H x E elements (24 MiB for
+    Qwen3-30B-A3B in bf16; none in f32). Returns (weights, embed,
+    lm_head)."""
+    if model.n != 1:
+        raise later_slice("moe_weight_map of a multi-rank model", "6",
+                          " (the multi-rank layer)")
+    c = model.config
+    if not c.is_moe:
+        raise ValueError(f"{c.name} is not a MoE model: use "
+                         f"dense_weight_map")
+    lay = params["layers"]
+    E, H, inter = c.num_experts, c.hidden_size, c.moe_intermediate_size
+    weights = {"final_norm": params["norm"][None]}
+    for i in range(c.num_layers):
+        pre = f"l{i}."
+        weights[pre + "ln1"] = lay["ln1"][i][None]
+        weights[pre + "ln2"] = lay["ln2"][i][None]
+        weights[pre + "w_qkv"] = lay["w_qkv"][i]
+        weights[pre + "w_o"] = lay["w_o"][i]
+        weights[pre + "router"] = lay["router"][i].to(model.dtype)
+        weights[pre + "w_moe_gate_up"] = lay["w_moe_gate_up"][i].view(
+            E * H, 2 * inter)
+        weights[pre + "w_moe_down"] = lay["w_moe_down"][i].view(
+            E * inter, H)
+        if c.qk_norm:
+            weights[pre + "q_norm"] = lay["q_norm"][i][None]
+            weights[pre + "k_norm"] = lay["k_norm"][i][None]
+    return weights, params["embed"], params["lm_head"]
 
 
 class MegaDecoder:

@@ -10,7 +10,12 @@ A graph compiles into:
   SILU_MUL, ADD and the cache appends KVA_K / KVA_V in row tiles of
   ceil(S / n_sm) rows; ATTN in (row tile, kv head) tiles whose G q heads
   share every K/V row; the paged serving ops ATTN_P in (slot, kv head)
-  tiles and the paged appends KVA_PK / KVA_PV in one tile per slot;
+  tiles and the paged appends KVA_PK / KVA_PV in one tile per slot; a
+  `moe_ffn` node becomes TWO GROUPED_GEMM tasks: phase 0 (routing and the
+  gate / up dots) in (row, k, 64-column strip of I) tiles, writing the
+  routed activations to an arena scratch of (S, top_k * I), and phase 1
+  (the down projection and the combine, after phase 0) in (row,
+  32-column strip of H) tiles;
 - one descriptor row per task (`desc`, int64 (n_tasks, NF)): op code,
   tile count, the task's slice of the flat dependency list (`deps`: the
   producer tasks of its inputs), device addresses of its operands, their
@@ -25,9 +30,11 @@ A graph compiles into:
 
 The descriptor table is built once per binding of weights and caches;
 the run-time data of a launch is `cache_len`, or for a paged serving
-program the per-slot lengths and the (b_slots, max_pages) block table,
-which one small host-to-device copy per step writes into a persistent
-device buffer (and the scoreboard epoch, below). A program keeps one
+program the per-slot lengths, the per-slot live widths (the rows of the
+slot's tile that decode: a GROUPED_GEMM row past its slot's width routes
+to no expert and reads no slab) and the (b_slots, max_pages) block
+table, which one small host-to-device copy per step writes into a
+persistent device buffer (and the scoreboard epoch, below). A program keeps one
 cache_len or the per-slot vector, never both. On a CUDA device `step`
 launches csrc/megakernel.cu (one cooperative launch, one CTA per SM) and
 counts it in `MEGAKERNEL.launches`; on the CPU it runs the plain
@@ -61,18 +68,19 @@ import torch
 from .. import runtime
 from ..ops._build import CudaKernel, ptr, stream_of
 from ..ops.attention import rope_cos_sin
+from ..ops.moe_utils import route_topk
 from . import scheduler
 from .builder import later_slice
 from .executor_torch import (PAGED_OPS, as_tensor, check_ops,
                              identity_table, matmul_f32, paged_geometry,
                              slot_lengths)
-from .graph import (TASK_ADD, TASK_ATTN, TASK_ATTN_P, TASK_KVA_K,
-                    TASK_KVA_PK, TASK_KVA_PV, TASK_KVA_V, TASK_LINEAR,
-                    TASK_RMS_NORM, TASK_SILU_MUL)
+from .graph import (TASK_ADD, TASK_ATTN, TASK_ATTN_P, TASK_GROUPED_GEMM,
+                    TASK_KVA_K, TASK_KVA_PK, TASK_KVA_PV, TASK_KVA_V,
+                    TASK_LINEAR, TASK_RMS_NORM, TASK_SILU_MUL)
 
 MEGAKERNEL = CudaKernel(
     "megakernel", "tdt_megakernel",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
     + [ctypes.c_uint, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 H100_SMS = 132          # queues for the CPU walk default to the H100's SMs
@@ -81,14 +89,20 @@ SKINNY_TN = 32
 TILED_TM = TILED_TN = 64
 QR_MAX = 64             # ATTN: q rows (G x rows per tile) of one task
 KERNEL_HEAD_DIMS = (64, 128)
+MOE_STRIP = 64          # GROUPED_GEMM phase 0: columns of I per tile
+MOE_OUT_TN = 32         # GROUPED_GEMM phase 1: columns of H per tile
+MOE_MAX_EXPERTS = 256   # the routing warp holds 8 experts a lane
+MOE_MAX_TOPK = 32
+STAGED_FLOATS = 16384   # the kernel stages an x or act row as f32 floats
 WAIT_BUDGET_S = 1.0     # a scoreboard wait longer than this is a fault
 
 # descriptor fields (csrc/megakernel.cu keeps the same numbering)
 (F_OP, F_TILES, F_DEP_LO, F_DEP_HI, F_OUT, F_A, F_B, F_C, F_D, F_E, F_M,
  F_N, F_K, F_LDA, F_LDB, F_LDO, F_TR, F_NCT, F_TN, F_H, F_HKV, F_HD,
  F_QKN, F_CACHED, F_CAUSAL, F_EPS, F_SCALE, F_COS, F_SIN, F_LDC,
- F_MODE, F_BLOCK, F_SROWS, F_MAXP) = range(34)
-NF = 34
+ F_MODE, F_BLOCK, F_SROWS, F_MAXP, F_NE, F_TOPK, F_INTER, F_NORMK,
+ F_PHASE, F_LDD, F_LDE) = range(41)
+NF = 41
 
 _FAULTS = {1: "a scoreboard wait passed its budget",
            2: "a descriptor names an op the kernel does not have"}
@@ -136,11 +150,21 @@ class ExecutorCuda:
         self.wait_budget_ns = int(WAIT_BUDGET_S * 1e9)
         self.eps = float(builder.rms_eps)
 
-        self.tasks = [nd for nd in g.nodes if nd.op not in ("input", "weight")]
+        # one task per compute node, two for a moe_ffn node (its phases;
+        # the node's output is phase 1's, which depends on phase 0)
+        nodes = [nd for nd in g.nodes if nd.op not in ("input", "weight")]
+        self.tasks, self.phases = [], []
+        for nd in nodes:
+            for ph in ((0, 1) if nd.op == "moe_ffn" else (0,)):
+                self.tasks.append(nd)
+                self.phases.append(ph)
         prod = {nd.out.idx: t for t, nd in enumerate(self.tasks)}
-        self.deps = [sorted({prod[h.idx] for h in nd.inputs if h.idx in prod})
-                     for nd in self.tasks]
-        self.tiling = [self._tiling(nd) for nd in self.tasks]
+        self.deps = []
+        for t, nd in enumerate(self.tasks):
+            dep = {prod[h.idx] for h in nd.inputs if h.idx in prod}
+            self.deps.append(sorted(dep | {t - 1} if self.phases[t] else dep))
+        self.tiling = [self._tiling(nd, ph)
+                       for nd, ph in zip(self.tasks, self.phases)]
         self.n_tiles = np.asarray([t["tiles"] for t in self.tiling], np.int32)
         self.queues, self.qlen = scheduler.schedule(self.n_tiles, self.n_sm)
         self._scalar_names = {nd.attrs["cache_len_name"] for nd in self.tasks
@@ -166,16 +190,22 @@ class ExecutorCuda:
         # persistent arena: every activation, and the non-cache inputs
         dt, dev = self.dtype, self.device
         self._views = {}
-        acts = [h for n, h in g.inputs.items() if n not in g.caches]
-        acts += [nd.out for nd in self.tasks if nd.out.idx not in kv_out]
-        offs, total = {}, 0
-        for h in acts:
-            offs[h.idx] = total
-            total += runtime.round_up(h.rows * h.cols, 8)
+        acts = [(h.idx, h.shape) for n, h in g.inputs.items()
+                if n not in g.caches]
+        acts += [(nd.out.idx, nd.out.shape) for nd in nodes
+                 if nd.out.idx not in kv_out]
+        # a moe_ffn node's routed activations, (S, top_k * I): phase 0
+        # writes them, phase 1 reads them
+        acts += [(("moe", nd.out.idx),
+                  (nd.out.rows, nd.attrs["top_k"] * nd.attrs["intermediate"]))
+                 for nd in nodes if nd.op == "moe_ffn"]
+        offs, total = [], 0
+        for key, (r, c) in acts:
+            offs.append(total)
+            total += runtime.round_up(r * c, 8)
         self.arena = torch.zeros(max(total, 8), dtype=dt, device=dev)
-        for h in acts:
-            self._views[h.idx] = self.arena[offs[h.idx]:offs[h.idx]
-                                            + h.rows * h.cols].view(h.shape)
+        for (key, (r, c)), o in zip(acts, offs):
+            self._views[key] = self.arena[o:o + r * c].view(r, c)
         self.inputs = {n: self._views[h.idx] for n, h in g.inputs.items()
                        if n not in g.caches}
 
@@ -200,27 +230,39 @@ class ExecutorCuda:
         self.fault = torch.zeros(4, dtype=torch.int32, device=dev)
         self.epoch = 0
         self._desc = None
-        # a paged program's run-time data: the per-slot lengths, then the
-        # block table, in one device buffer that one asynchronous copy
-        # per step fills from a pinned host buffer; the host rewrites
-        # that buffer once the previous step's copy has left it
+        # a paged program's run-time data: the per-slot lengths and live
+        # widths, then the block table, in one device buffer that one
+        # asynchronous copy per step fills from a pinned host buffer; the
+        # host rewrites that buffer once the previous step's copy has
+        # left it
         self._rt = None
         if self.paged is not None and cuda:
             nb, mp = self.paged.b_slots, self.paged.max_pages
-            self._rt = torch.zeros(nb * (1 + mp), dtype=torch.int32,
+            self._rt = torch.zeros(nb * (2 + mp), dtype=torch.int32,
                                    device=dev)
-            self._rt_host = torch.zeros(nb * (1 + mp), dtype=torch.int32,
+            self._rt_host = torch.zeros(nb * (2 + mp), dtype=torch.int32,
                                         pin_memory=True)
             self._rt_copied = torch.cuda.Event()
 
     # -- decomposition ---------------------------------------------------
-    def _tiling(self, nd) -> dict:
-        """The Hopper task decomposition of one node: rows per tile
-        (tr), and for LINEAR columns per tile (tn), column tiles (nct)
-        and the body's mode (0: <= 8 rows, 32-column tiles; 1: 64x64
-        tiles)."""
+    def _tiling(self, nd, phase: int = 0) -> dict:
+        """The Hopper task decomposition of one node (of one phase of a
+        moe_ffn node): rows per tile (tr), and for LINEAR columns per
+        tile (tn), column tiles (nct) and the body's mode (0: <= 8 rows,
+        32-column tiles; 1: 64x64 tiles). A GROUPED_GEMM tile is one
+        row: in phase 0 a (row, k, strip of I) tile, in phase 1 a (row,
+        strip of H) tile; nct counts the strips."""
         S = nd.inputs[0].rows
         rows_tile = runtime.cdiv(S, self.n_sm)
+        if nd.op == "moe_ffn":
+            at = nd.attrs
+            if phase == 0:
+                nct = runtime.cdiv(at["intermediate"], MOE_STRIP)
+                return dict(op=TASK_GROUPED_GEMM, tr=1, tn=MOE_STRIP,
+                            nct=nct, tiles=S * at["top_k"] * nct)
+            nct = runtime.cdiv(nd.out.cols, MOE_OUT_TN)
+            return dict(op=TASK_GROUPED_GEMM, tr=1, tn=MOE_OUT_TN, nct=nct,
+                        tiles=S * nct)
         if nd.op == "linear":
             N = nd.out.cols
             if S <= SKINNY_ROWS:
@@ -257,9 +299,33 @@ class ExecutorCuda:
 
     def _check_kernel_shapes(self):
         """Refuse, before anything runs, what the CUDA kernel does not
-        take: a head_dim other than 64 or 128, and widths that are not
-        a multiple of 8 (16-byte weight vectors)."""
+        take: a head_dim other than 64 or 128, widths that are not a
+        multiple of 8 (16-byte weight vectors), and a moe_ffn with more
+        experts than the routing warp reaches, a top_k over
+        MOE_MAX_TOPK, an I or H that is not a multiple of its strip, or
+        an x row or act row larger than the staged floats."""
         for nd in self.tasks:
+            if nd.op == "moe_ffn":
+                at = nd.attrs
+                E, k, inter = at["num_experts"], at["top_k"], \
+                    at["intermediate"]
+                H = nd.out.cols
+                for bad, what in (
+                        (E > MOE_MAX_EXPERTS,
+                         f"{E} experts: the routing warp reaches "
+                         f"{MOE_MAX_EXPERTS}"),
+                        (k > MOE_MAX_TOPK,
+                         f"top_k {k}: at most {MOE_MAX_TOPK}"),
+                        (inter % MOE_STRIP,
+                         f"intermediate {inter} is not a multiple of "
+                         f"{MOE_STRIP}"),
+                        (H % MOE_OUT_TN,
+                         f"hidden {H} is not a multiple of {MOE_OUT_TN}"),
+                        (max(H, k * inter) > STAGED_FLOATS,
+                         f"hidden {H} or top_k x intermediate {k * inter} "
+                         f"exceeds the {STAGED_FLOATS} staged floats")):
+                    if bad:
+                        raise ValueError(f"megakernel moe_ffn: {what}")
             if nd.op in ("attention", "attention_kv", "kv_append",
                          *PAGED_OPS) \
                     and nd.attrs["head_dim"] not in KERNEL_HEAD_DIMS:
@@ -357,6 +423,8 @@ class ExecutorCuda:
             else:
                 out = self._views[nd.out.idx]
                 slots = dict(zip("abcde", ins))
+            if nd.op == "moe_ffn":      # e: the routed activations
+                slots["e"] = self._views[("moe", nd.out.idx)]
             v = {"out": out, **slots}
             row[F_OUT] = out.data_ptr()
             for name, t_ in slots.items():
@@ -374,6 +442,20 @@ class ExecutorCuda:
                 row[F_EPS] = _f32_bits(at["eps"])
             elif nd.op in ("silu_mul", "add"):
                 row[F_LDB] = ins[1].stride(0)
+            elif nd.op == "moe_ffn":
+                row[F_K] = nd.inputs[0].cols
+                row[F_LDB], row[F_LDC], row[F_LDD], row[F_LDE] = (
+                    t_.stride(0) for t_ in (ins[1], ins[2], ins[3],
+                                            slots["e"]))
+                row[F_NCT], row[F_TN] = til["nct"], til["tn"]
+                row[F_NE], row[F_TOPK], row[F_INTER] = \
+                    at["num_experts"], at["top_k"], at["intermediate"]
+                row[F_NORMK] = int(at.get("norm_topk", True))
+                row[F_PHASE] = self.phases[t]
+                # a paged program's rows are live up to their slot's
+                # width (F_SROWS rows a slot); another program's all are
+                if self.paged is not None:
+                    row[F_SROWS] = self.paged.slot_rows
             else:  # attention / attention_kv / kv_append, and the paged ops
                 d = at["head_dim"]
                 row[F_H], row[F_HKV], row[F_HD] = at["num_heads"], \
@@ -405,27 +487,31 @@ class ExecutorCuda:
 
     # -- running ---------------------------------------------------------
     def step(self, inputs: dict | None = None, cache_len: int = 0, *,
-             cache_lens=None, block_table=None, plain: bool = False,
-             seed: int = 0):
+             cache_lens=None, block_table=None, widths=None,
+             plain: bool = False, seed: int = 0):
         """Copy `inputs` into the arena, run the program once, and return
         the graph outputs as views of the arena (overwritten by the next
         step; a kv_append output is its cache). A program runs at
         `cache_len`; a paged serving program at the per-slot
         `cache_lens` (b_slots,) through `block_table` (b_slots,
-        max_pages), both host arrays, uploaded to the device together in
-        one copy. On a CUDA device this is one kernel launch, with no
-        host sync; `plain=True` runs the plain walk instead (for
-        comparisons)."""
+        max_pages), with the per-slot live `widths` (b_slots,) in
+        [0, slot_rows] (default 1: each slot's first row; a moe_ffn row
+        at or past its slot's width routes to no expert and gives 0),
+        all host arrays, uploaded to the device together in one copy.
+        On a CUDA device this is one kernel launch, with no host sync;
+        `plain=True` runs the plain walk instead (for comparisons)."""
         cache_len = int(cache_len)
-        lens = btab = None
+        lens = btab = wid = None
         if self.paged is not None:
             if cache_len:
                 raise ValueError("a paged program runs at the per-slot "
                                  "cache_lens, not at one cache_len")
             lens, btab = self._paged_run_data(cache_lens, block_table)
-        elif cache_lens is not None or block_table is not None:
-            raise ValueError("cache_lens / block_table: this program has "
-                             "no paged node")
+            wid = self._slot_widths(widths)
+        elif cache_lens is not None or block_table is not None \
+                or widths is not None:
+            raise ValueError("cache_lens / block_table / widths: this "
+                             "program has no paged node")
         elif not 0 <= cache_len <= self.max_cache_len:
             raise ValueError(f"cache_len {cache_len}: the step's rows must "
                              f"fit the caches (0 <= cache_len <= "
@@ -434,24 +520,28 @@ class ExecutorCuda:
             self.inputs[n].copy_(v)
         desc, deps, views, d_desc, d_deps, d_q, d_qlen = self.descriptors()
         if plain or self.device.type == "cpu":
-            plain_walk(self, cache_len, seed=seed, lens=lens, btab=btab)
+            plain_walk(self, cache_len, seed=seed, lens=lens, btab=btab,
+                       widths=wid)
         else:
-            lens_p = btab_p = ld_btab = 0
+            lens_p = wid_p = btab_p = ld_btab = 0
             if lens is not None:
+                nb = lens.shape[0]
                 self._rt_copied.synchronize()
                 host = self._rt_host.numpy()
-                host[:lens.shape[0]] = lens
-                host[lens.shape[0]:] = btab.reshape(-1)
+                host[:nb] = lens
+                host[nb:2 * nb] = wid
+                host[2 * nb:] = btab.reshape(-1)
                 self._rt.copy_(self._rt_host, non_blocking=True)
                 self._rt_copied.record()
-                lens_p = ptr(self._rt)
-                btab_p = ctypes.c_void_p(self._rt.data_ptr()
-                                         + 4 * lens.shape[0])
+                base = self._rt.data_ptr()
+                lens_p = ctypes.c_void_p(base)
+                wid_p = ctypes.c_void_p(base + 4 * nb)
+                btab_p = ctypes.c_void_p(base + 8 * nb)
                 ld_btab = btab.shape[1]
             self.epoch += 1
             MEGAKERNEL.launch(
                 ptr(d_desc), ptr(d_deps), ptr(d_q), ptr(d_qlen),
-                ptr(self.counts), ptr(self.fault), lens_p, btab_p,
+                ptr(self.counts), ptr(self.fault), lens_p, wid_p, btab_p,
                 self.n_sm, self.queues.shape[1], cache_len, ld_btab,
                 ctypes.c_uint(self.epoch & 0xFFFFFFFF),
                 ctypes.c_longlong(self.wait_budget_ns),
@@ -501,6 +591,20 @@ class ExecutorCuda:
                              "in the same step")
         return lens, btab
 
+    def _slot_widths(self, widths):
+        """A paged step's per-slot live widths as int32 numpy (default:
+        one live row a slot), each in [0, slot_rows]."""
+        nb, R = self.paged.b_slots, self.paged.slot_rows
+        if widths is None:
+            return np.ones(nb, np.int32)
+        if isinstance(widths, torch.Tensor):
+            widths = widths.cpu()
+        wid = np.asarray(widths, np.int32).reshape(-1)
+        if wid.shape != (nb,) or not ((wid >= 0) & (wid <= R)).all():
+            raise ValueError(f"widths {wid.tolist()}: one per slot "
+                             f"({nb}), each in [0, {R}] (slot_rows)")
+        return wid
+
     def outputs(self):
         return tuple(self._tensor(h) for h in self._out_handles)
 
@@ -539,8 +643,9 @@ class ExecutorCuda:
         graph dtype are updated in place), `scalars` carries cache_len
         (or a paged program's `{cache_len_name}{b}`), `block_table` a
         paged program's table (default: slot b owns pages
-        [b*max_pages, (b+1)*max_pages)). Returns the outputs
-        (activations copied out of the arena)."""
+        [b*max_pages, (b+1)*max_pages)); every slot's first row is
+        live. Returns the outputs (activations copied out of the
+        arena)."""
         scalars = dict(scalars or {})
         unknown = set(scalars) - self._scalar_names
         if unknown:
@@ -578,23 +683,74 @@ class ExecutorCuda:
         raise later_slice("profile_tasks", "7", " (tools and verification)")
 
     # -- cost model ------------------------------------------------------
-    def task_costs(self, cache_len: int = 0, cache_lens=None):
+    def live_rows(self, S: int, widths=None) -> np.ndarray:
+        """Which of a moe_ffn node's S rows its tasks compute: a paged
+        program's rows below their slot's width (default: one a slot),
+        every row of another program."""
+        if self.paged is None:
+            return np.arange(S)
+        R = self.paged.slot_rows
+        wid = self._slot_widths(widths)
+        r = np.arange(S)
+        return r[r % R < wid[r // R]]
+
+    def routed_experts(self, widths=None) -> dict:
+        """{moe_ffn output index: the distinct experts its live rows
+        route to} from the router-logit rows in the arena, so after a
+        launch they are that launch's routing (route_topk on the logits
+        the kernel routed; a near-tie may fall the other way there)."""
+        out = {}
+        for nd in self.tasks:
+            if nd.op == "moe_ffn" and nd.out.idx not in out:
+                rows = torch.from_numpy(self.live_rows(
+                    nd.out.rows, widths)).to(self.device)
+                logits = self._views[nd.inputs[1].idx][rows]
+                _, ex = route_topk(logits, nd.attrs["top_k"])
+                out[nd.out.idx] = sorted(set(ex.flatten().tolist()))
+        return out
+
+    def task_costs(self, cache_len: int = 0, cache_lens=None, widths=None,
+                   experts: dict | None = None):
         """(flops, bytes) per task at `cache_len` (a paged program: at the
-        per-slot `cache_lens`): each input read once, each output written
-        once (a LINEAR's weight once, a cache prefix row once per kv
-        head's K and V), as ExecutorPallas.task_costs counts each task.
-        ATTN_P counts the cache_len_b prefix rows each slot reads (the
-        CUDA body reads exactly those; the Pallas body reads whole pages,
-        round_up(cache_len_b, block)), its live row's q, k and v, and
-        its output tile, pad rows included (written as zeros)."""
+        per-slot `cache_lens` and live `widths`): each input read once,
+        each output written once (a LINEAR's weight once, a cache prefix
+        row once per kv head's K and V), as ExecutorPallas.task_costs
+        counts each task. ATTN_P counts the cache_len_b prefix rows each
+        slot reads (the CUDA body reads exactly those; the Pallas body
+        reads whole pages, round_up(cache_len_b, block)), its live row's
+        q, k and v, and its output tile, pad rows included (written as
+        zeros). A moe_ffn counts its live rows (`live_rows`): phase 0
+        their x and logits rows, the gate / up slabs of the distinct
+        experts they route to and the routed activations written; phase
+        1 those activations read, the same experts' down slabs and the
+        whole output tile. `experts` ({moe_ffn output index: distinct
+        expert ids}, from `routed_experts` after the measured launch)
+        gives the routing; without it each live row counts top_k slabs
+        of its own, capped at E: an upper bound."""
         item = torch.finfo(self.dtype).bits // 8
         if self.paged is not None:
             lens = np.asarray(cache_lens if cache_lens is not None
                               else np.zeros(self.paged.b_slots), np.int64)
         costs = []
-        for nd in self.tasks:
+        for nd, phase in zip(self.tasks, self.phases):
             S = nd.inputs[0].rows
-            if nd.op == "linear":
+            if nd.op == "moe_ffn":
+                at = nd.attrs
+                E, k, inter = at["num_experts"], at["top_k"], \
+                    at["intermediate"]
+                H = nd.out.cols
+                live = len(self.live_rows(S, widths))
+                n_e = len(experts[nd.out.idx]) if experts is not None \
+                    else min(E, live * k)
+                act = live * k * inter
+                if phase == 0:
+                    flops = 4 * live * k * H * inter + 8 * act
+                    bytes_ = (live * (H + E) + n_e * H * 2 * inter
+                              + act) * item
+                else:
+                    flops = 2 * live * k * inter * H
+                    bytes_ = (act + n_e * inter * H + S * H) * item
+            elif nd.op == "linear":
                 K, N = nd.inputs[0].cols, nd.out.cols
                 flops = 2 * S * K * N
                 bytes_ = (S * K + K * N + S * N) * item
@@ -675,11 +831,59 @@ def _page_rows(btab_row, n, blk, device):
                             + c % blk).to(device)
 
 
-def _plain_tile(ex, row, v, tile, cache_len, lens=None, btab=None):
+def _moe_live(row, r, widths) -> bool:
+    R = int(row[F_SROWS])
+    return R == 0 or r % R < int(widths[r // R])
+
+
+def _plain_moe(dt, row, v, tile, widths):
+    """One GROUPED_GEMM tile. Phase 0, tile (r, k, strip): route row r
+    on its logits, then act[r, k, strip] = round(silu(g) * u * w_k) from
+    f32 dots of the x row with expert e_k's gate and up columns. Phase
+    1, tile (r, strip of H): out[r, strip] = round(sum over k of
+    act[r, k] @ the strip of expert e_k's down slab, in f32). A dead row
+    (past its slot's width) reads no slab and gives zeros."""
+    E, K, inter = int(row[F_NE]), int(row[F_TOPK]), int(row[F_INTER])
+    H, nct, tn = int(row[F_N]), int(row[F_NCT]), int(row[F_TN])
+    x, logits, act = v["a"], v["b"], v["e"]
+    if row[F_PHASE] == 0:
+        r, rem = divmod(tile, K * nct)
+        k, st = divmod(rem, nct)
+        c0, c1 = st * tn, min(inter, (st + 1) * tn)
+        if not _moe_live(row, r, widths):
+            act[r, k * inter + c0:k * inter + c1] = 0
+            return
+        w, e = route_topk(logits[r:r + 1], K,
+                          renormalize=bool(row[F_NORMK]))
+        slab = v["c"][int(e[0, k]) * H:(int(e[0, k]) + 1) * H]
+        g = matmul_f32(x[r:r + 1], slab[:, c0:c1])
+        u = matmul_f32(x[r:r + 1], slab[:, inter + c0:inter + c1])
+        act[r:r + 1, k * inter + c0:k * inter + c1] = (
+            g * torch.sigmoid(g) * u * w[0, k]).to(dt)
+        return
+    r, ct = divmod(tile, nct)
+    cols = slice(ct * tn, min(H, (ct + 1) * tn))
+    if not _moe_live(row, r, widths):
+        v["out"][r, cols] = 0
+        return
+    _, e = route_topk(logits[r:r + 1], K)
+    acc = 0.0
+    for k in range(K):
+        ek = int(e[0, k])
+        acc = acc + matmul_f32(act[r:r + 1, k * inter:(k + 1) * inter],
+                               v["d"][ek * inter:(ek + 1) * inter, cols])
+    v["out"][r:r + 1, cols] = acc.to(dt)
+
+
+def _plain_tile(ex, row, v, tile, cache_len, lens=None, btab=None,
+                widths=None):
     """Compute one tile of one task from its descriptor row."""
     dt = ex.dtype
     op = int(row[F_OP])
     M, tr = int(row[F_M]), int(row[F_TR])
+    if op == TASK_GROUPED_GEMM:
+        _plain_moe(dt, row, v, tile, widths)
+        return
     if op == TASK_ATTN_P:
         H, Hkv, D = int(row[F_H]), int(row[F_HKV]), int(row[F_HD])
         G, blk = H // Hkv, int(row[F_BLOCK])
@@ -792,13 +996,13 @@ def _plain_tile(ex, row, v, tile, cache_len, lens=None, btab=None):
 
 
 def plain_walk(ex: ExecutorCuda, cache_len: int, *, seed: int = 0,
-               lens=None, btab=None):
+               lens=None, btab=None, widths=None):
     """Run the program's queues with torch ops: at each step the head of
     a queue chosen by `random.Random(seed)` among those whose producer
     tasks have all finished every tile. Raises if no head can run (a
     missing or cyclic dependency), which on the card would be a
-    deadlock. A paged program runs at the per-slot `lens` through
-    `btab` (host int32 arrays)."""
+    deadlock. A paged program runs at the per-slot `lens` and live
+    `widths` through `btab` (host int32 arrays)."""
     desc, _, views, *_ = ex.descriptors()
     queues, qlen = ex.queues, ex.qlen
     rng = random.Random(seed)
@@ -828,7 +1032,8 @@ def plain_walk(ex: ExecutorCuda, cache_len: int, *, seed: int = 0,
                 f"megakernel plain walk: no queue head can run (a "
                 f"dependency is missing or cyclic); heads (sm: task, tile) "
                 f"{stuck}")
-        _plain_tile(ex, desc[task], views[task], tile, cache_len, lens, btab)
+        _plain_tile(ex, desc[task], views[task], tile, cache_len, lens, btab,
+                    widths)
         done[task] += 1
         heads[c] += 1
         if heads[c] == qlen[c]:

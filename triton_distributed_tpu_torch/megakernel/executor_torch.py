@@ -8,7 +8,9 @@ at positions cache_len + i, a partial over the cache prefix
 [0, cache_len), a causal partial over the current rows, and
 `merge_two_partials`; the paged ops do the same per slot, over the
 slot's pages gathered through the block table at its own length, and
-leave the pad rows of each slot's tile exactly 0. The attention
+leave the pad rows of each slot's tile exactly 0. `moe_ffn` routes every
+row, pad rows and idle slots included, as the JAX executor does (a zero
+row's expert output is exactly 0 under any routing). The attention
 partials go through the port's
 `flash_attention_partial` (the prefill kernel on a CUDA tensor, its
 plain version on a CPU one). It is the reference the megakernel
@@ -25,6 +27,7 @@ import torch
 from ..ops.attention import (apply_rope, flash_attention,
                              flash_attention_partial, merge_two_partials,
                              rope_cos_sin)
+from ..ops.moe_utils import route_topk
 from .builder import later_slice
 
 
@@ -51,8 +54,7 @@ def as_tensor(v, dtype, device):
     return v.to(device=device, dtype=dtype)
 
 
-_LATER = {"moe_ffn": ("3c", " (the megakernel's MoE program)"),
-          "all_to_all": ("6", " (the multi-rank layer)"),
+_LATER = {"all_to_all": ("6", " (the multi-rank layer)"),
           "all_reduce": ("6", " (the multi-rank layer)")}
 
 
@@ -274,6 +276,28 @@ class ExecutorTorch:
                     pos = max(int(btab[b, cl // blk]), 0) * blk + cl % blk
                     new[pos] = rows.reshape(hkv * d).to(new.dtype)
                 env[node.out.idx] = new
+            elif node.op == "moe_ffn":
+                # JAX executor_xla's expert loop: f32 gate/up dots,
+                # silu(g) * u * w_e rounded once to dt, the down
+                # projection accumulated in f32 and rounded once. An
+                # expert no row routes to adds w_e = 0 times finite
+                # values, exactly +0, so only the routed experts run.
+                x, logits, w_gu, w_dn = (env[i.idx] for i in node.inputs)
+                E, inter = at["num_experts"], at["intermediate"]
+                H = x.shape[1]
+                rw, ex = route_topk(logits, at["top_k"],
+                                    renormalize=at.get("norm_topk", True))
+                gu = w_gu.reshape(E, H, 2 * inter)
+                dn = w_dn.reshape(E, inter, H)
+                out = torch.zeros((x.shape[0], H), dtype=torch.float32,
+                                  device=x.device)
+                for e in torch.unique(ex).tolist():
+                    w_e = (rw * (ex == e)).sum(dim=-1, keepdim=True)
+                    h2 = matmul_f32(x, gu[e])
+                    gate, up = h2[:, :inter], h2[:, inter:]
+                    act = (gate * torch.sigmoid(gate) * up * w_e).to(dt)
+                    out = out + matmul_f32(act, dn[e])
+                env[node.out.idx] = out.to(dt)
             else:  # pragma: no cover - check_ops refused it
                 raise NotImplementedError(node.op)
         return tuple(env[o.idx] for o in g.outputs)

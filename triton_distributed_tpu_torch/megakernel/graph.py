@@ -10,8 +10,9 @@ emitted in graph (topological) order; the port's executor
 (executor_cuda.py) derives each task's producer list from the handles.
 `OPS` and the `TASK_*` codes are the JAX package's, so task rows keep
 their op codes across the two packages. The port's kernel runs
-LINEAR, RMS_NORM, SILU_MUL, ADD, ATTN, KVA_K and KVA_V; its builder
-raises on the ops of the other families.
+LINEAR, RMS_NORM, SILU_MUL, ADD, ATTN, KVA_K, KVA_V, the paged ATTN_P,
+KVA_PK and KVA_PV, and GROUPED_GEMM; its builder raises on the
+collective ops (AR, A2A).
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 
 Analog of reference mega_triton_kernel/models/qwen3.py:202 — the Qwen3
 forward assembled as one megakernel program. The builders emit the same
-op graph as the JAX package's, node for node. The MoE serving builders
-come with a later slice and raise.
+op graph as the JAX package's, node for node, the MoE serving program
+included. Multi-rank options (`tp_shards`, `mesh`) raise, naming slice 6.
 """
 
 from __future__ import annotations
@@ -266,11 +266,100 @@ def build_qwen3_serve_batched(*, b_slots: int, slot_rows: int,
     return mb
 
 
-def build_qwen3_moe_serve_block(*args, **kwargs):
-    raise later_slice("build_qwen3_moe_serve_block", "3c",
-                      " (the megakernel's MoE program)")
+def build_qwen3_moe_serve_block(mb: ModelBuilder, x, *, layer: int,
+                                hidden: int, moe_intermediate: int,
+                                num_experts: int, top_k: int,
+                                num_heads: int, num_kv_heads: int,
+                                head_dim: int, pool_pages: int,
+                                block: int, max_pages: int,
+                                slot_rows: int,
+                                rope_theta: float = 1e6,
+                                qk_norm: bool = False,
+                                norm_topk: bool = True,
+                                tp_shards: bool = False):
+    """One transformer block of the batched MoE serving decode step: the
+    attention and paged-append structure of `build_qwen3_serve_block`,
+    with the dense SwiGLU replaced by a router LINEAR (`l{i}.router`,
+    (H, E)) into `moe_ffn` over the stacked expert slabs
+    `l{i}.w_moe_gate_up` ((E*H, 2I)) and `l{i}.w_moe_down`
+    ((E*I, H))."""
+    _one_rank(None, tp_shards)
+    pre = f"l{layer}."
+    d = head_dim
+    qkv_cols = (num_heads + 2 * num_kv_heads) * d
+
+    ln1 = mb.weight(pre + "ln1", (1, hidden))
+    w_qkv = mb.weight(pre + "w_qkv", (hidden, qkv_cols))
+    w_o = mb.weight(pre + "w_o", (num_heads * d, hidden))
+    ln2 = mb.weight(pre + "ln2", (1, hidden))
+    router = mb.weight(pre + "router", (hidden, num_experts))
+    w_gu = mb.weight(pre + "w_moe_gate_up",
+                     (num_experts * hidden, 2 * moe_intermediate))
+    w_dn = mb.weight(pre + "w_moe_down",
+                     (num_experts * moe_intermediate, hidden))
+    kp = mb.cache(pre + "k_pool", (pool_pages * block, num_kv_heads * d))
+    vp = mb.cache(pre + "v_pool", (pool_pages * block, num_kv_heads * d))
+    qn = kn = None
+    if qk_norm:
+        qn = mb.weight(pre + "q_norm", (1, d))
+        kn = mb.weight(pre + "k_norm", (1, d))
+
+    h = mb.rms_norm(x, ln1)
+    qkv = mb.linear(h, w_qkv)
+    attn = mb.attention_paged(qkv, kp, vp, num_heads=num_heads,
+                              num_kv_heads=num_kv_heads, head_dim=d,
+                              block=block, max_pages=max_pages,
+                              slot_rows=slot_rows, rope_theta=rope_theta,
+                              q_norm=qn, k_norm=kn)
+    mb.kv_append_paged(qkv, kp, vp, num_heads=num_heads,
+                       num_kv_heads=num_kv_heads, head_dim=d,
+                       block=block, max_pages=max_pages,
+                       slot_rows=slot_rows, rope_theta=rope_theta,
+                       k_norm=kn)
+    o = mb.linear(attn, w_o)
+    x = mb.add(x, o)
+
+    h = mb.rms_norm(x, ln2)
+    logits = mb.linear(h, router)
+    y = mb.moe_ffn(h, logits, w_gu, w_dn, num_experts=num_experts,
+                   top_k=top_k, norm_topk=norm_topk)
+    return mb.add(x, y)
 
 
-def build_qwen3_moe_serve_batched(*args, **kwargs):
-    raise later_slice("build_qwen3_moe_serve_batched", "3c",
-                      " (the megakernel's MoE program)")
+def build_qwen3_moe_serve_batched(*, b_slots: int, slot_rows: int,
+                                  hidden: int, moe_intermediate: int,
+                                  num_experts: int, top_k: int,
+                                  num_layers: int, num_heads: int,
+                                  num_kv_heads: int, head_dim: int,
+                                  num_blocks: int, block: int,
+                                  max_pages: int,
+                                  rope_theta: float = 1e6,
+                                  qk_norm: bool = False,
+                                  norm_topk: bool = True,
+                                  rms_eps: float = 1e-6, mesh=None,
+                                  axis: str = "tp",
+                                  tp_shards: bool = False,
+                                  dtype=None) -> ModelBuilder:
+    """ServeEngine's MoE megakernel decode step: the
+    `build_qwen3_serve_batched` program with every layer's MLP swapped
+    for the router and `moe_ffn`. The same slot-per-tile trunk and paged
+    pool with per-slot trash pages; a slot that does not decode
+    (idle, or deferred by the expert-capacity budget) rides the launch
+    on its trash page at width 0, so its rows route to no expert."""
+    _one_rank(mesh, tp_shards)
+    kwargs = {} if dtype is None else {"dtype": dtype}
+    mb = ModelBuilder(axis=axis, rms_eps=rms_eps, **kwargs)
+    pool_pages = num_blocks + b_slots
+    x = mb.input("x", (b_slots * slot_rows, hidden))
+    for layer in range(num_layers):
+        x = build_qwen3_moe_serve_block(
+            mb, x, layer=layer, hidden=hidden,
+            moe_intermediate=moe_intermediate, num_experts=num_experts,
+            top_k=top_k, num_heads=num_heads,
+            num_kv_heads=num_kv_heads, head_dim=head_dim,
+            pool_pages=pool_pages, block=block, max_pages=max_pages,
+            slot_rows=slot_rows, rope_theta=rope_theta, qk_norm=qk_norm,
+            norm_topk=norm_topk)
+    fn = mb.weight("final_norm", (1, hidden))
+    mb.output(mb.rms_norm(x, fn))
+    return mb

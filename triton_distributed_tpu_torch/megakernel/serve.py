@@ -1,14 +1,16 @@
 """MegaServe: the megakernel as ServeEngine's batched decode step
 (counterpart of triton_distributed_tpu/megakernel/serve.py).
 
-`build_qwen3_serve_batched` gives one program for the whole `b_max`
-batch over a paged KV pool: the per-slot cache lengths and the block
+`build_qwen3_serve_batched` (for a Qwen3MoE,
+`build_qwen3_moe_serve_batched`) gives one program for the whole
+`b_max` batch over a paged KV pool: the per-slot cache lengths and the block
 table are run-time data of each launch, so admission, eviction and
 ragged lengths never rebuild it. `MegaServe` wraps it with what
 ServeEngine (models/serve.py, mode="megakernel") needs:
 
 - the weights as views of the model's parameters (`dense_weight_map`,
-  nothing copied);
+  nothing copied; `moe_weight_map` copies only the router, cast to the
+  model dtype);
 - `decode(...)`: embed into the slots' rows, ONE launch of
   csrc/megakernel.cu for the whole batch (paged attention and the paged
   appends inside it), lm_head on each slot's live row, then the engine
@@ -20,7 +22,10 @@ ServeEngine (models/serve.py, mode="megakernel") needs:
 - `kernel_table(...)`: the table the kernel walks, in which every slot
   that does not decode this tick, and every unassigned column, points at
   the slot's own trash page (pool page num_blocks + b), so an inactive
-  slot rides the launch at length 0 and writes only its trash page.
+  slot rides the launch at length 0 and writes only its trash page. Its
+  live width is 0 (a decoding slot's is 1), so in a MoE program its
+  rows route to no expert and read no expert slab: an idle slot, and
+  one that the expert-capacity budget defers, cost no expert bytes.
 
 Page ids are shared with the engine's allocator, so admission, eviction
 and the free list need to know nothing of the megakernel.
@@ -40,16 +45,16 @@ import torch.nn.functional as F
 from ..models.dense import greedy_token, sample_token
 from ..ops.wire import byte_view
 from .builder import later_slice
-from .decoder import dense_weight_map
+from .decoder import dense_weight_map, moe_weight_map
 from .executor_cuda import indexed
-from .models import build_qwen3_serve_batched
+from .models import build_qwen3_moe_serve_batched, build_qwen3_serve_batched
 
 
 class MegaServe:
     """Batched megakernel decode for ServeEngine(mode="megakernel") on
-    a one-rank dense model. On a model on the CPU its program runs the
-    plain queue walk (the tests); on a CUDA model it launches the
-    kernel."""
+    a one-rank dense model or Qwen3MoE (tensor-parallel experts). On a
+    model on the CPU its program runs the plain queue walk (the tests);
+    on a CUDA model it launches the kernel."""
 
     def __init__(self, model, params, *, b_max: int, max_len: int,
                  block: int, num_blocks: int, slot_rows: int = 1,
@@ -58,22 +63,34 @@ class MegaServe:
             raise later_slice("MegaServe over tp_ranks > 1", "6",
                               " (the multi-rank layer)")
         c = model.config
-        if c.is_moe:
-            raise later_slice("MegaServe of a MoE model", "3c",
-                              " (the megakernel's MoE program)")
         if slot_rows < 1:
             raise ValueError(f"slot_rows must be >= 1, got {slot_rows}")
-        weights, self.embed, self.lm_head = dense_weight_map(model, params)
+        common = dict(
+            b_slots=b_max, slot_rows=slot_rows, hidden=c.hidden_size,
+            num_layers=c.num_layers, num_heads=c.num_heads,
+            num_kv_heads=c.num_kv_heads, head_dim=c.head_dim,
+            num_blocks=num_blocks, block=block,
+            max_pages=-(-max_len // block), rope_theta=c.rope_theta,
+            qk_norm=c.qk_norm, rms_eps=c.rms_norm_eps, dtype=model.dtype)
+        if c.is_moe:
+            if getattr(model, "moe_parallel", "tp") != "tp":
+                raise ValueError(
+                    "MegaServe maps the tensor-parallel expert layout; "
+                    "expert-parallel serving rides the engine path")
+            weights, self.embed, self.lm_head = moe_weight_map(model,
+                                                               params)
+            mb = build_qwen3_moe_serve_batched(
+                moe_intermediate=c.moe_intermediate_size,
+                num_experts=c.num_experts, top_k=c.num_experts_per_tok,
+                norm_topk=c.norm_topk_prob, **common)
+        else:
+            weights, self.embed, self.lm_head = dense_weight_map(model,
+                                                                 params)
+            mb = build_qwen3_serve_batched(
+                intermediate=c.intermediate_size, **common)
         self.device = indexed(model.device)
         self.b_max, self.num_blocks = b_max, num_blocks
         self.slot_rows = slot_rows
-        mb = build_qwen3_serve_batched(
-            b_slots=b_max, slot_rows=slot_rows, hidden=c.hidden_size,
-            intermediate=c.intermediate_size, num_layers=c.num_layers,
-            num_heads=c.num_heads, num_kv_heads=c.num_kv_heads,
-            head_dim=c.head_dim, num_blocks=num_blocks, block=block,
-            max_pages=-(-max_len // block), rope_theta=c.rope_theta,
-            qk_norm=c.qk_norm, rms_eps=c.rms_norm_eps, dtype=model.dtype)
         self.prog = mb.compile("kernel", device=self.device)
         self.prog.bind_weights(weights)
         # the pool of every layer in one tensor per part, so the handoff
@@ -151,7 +168,8 @@ class MegaServe:
         ids = torch.as_tensor(np.asarray(toks, np.int32), device=self.device)
         x = self.prog.inputs["x"]
         x[::self.slot_rows] = F.embedding(ids, self.embed)
-        hid = self.prog.step(cache_lens=lens, block_table=tbl)[0]
+        hid = self.prog.step(cache_lens=lens, block_table=tbl,
+                             widths=mask.astype(np.int32))[0]
         hid = hid[::self.slot_rows]                    # the live rows
         if sampling:
             return sample_token(hid, self.lm_head, generator,

@@ -32,33 +32,35 @@ engine folds the step into its key: a request's sampled stream depends
 on the batch composition, and differs from the JAX engine's by
 construction (another RNG).
 
-`mode="megakernel"` (a one-rank dense model) moves decode onto the
-persistent megakernel (megakernel/serve.py::MegaServe): each decode tick
-is ONE launch of csrc/megakernel.cu for the whole active batch, with
-paged attention and the paged appends reading and writing each slot's
-pages through the block table inside it. Prefill stays on the engine
-path; on a slot's final prefill chunk its pages are handed off into the
-megakernel's pool at the same page ids. The scheduler runs with
-`base_path="megakernel"`, so megakernel slots are admitted without
+`mode="megakernel"` (a one-rank dense model or Qwen3MoE) moves decode
+onto the persistent megakernel (megakernel/serve.py::MegaServe): each
+decode tick is ONE launch of csrc/megakernel.cu for the whole active
+batch, with paged attention and the paged appends reading and writing
+each slot's pages through the block table inside it. Prefill stays on
+the engine path; on a slot's final prefill chunk its pages are handed
+off into the megakernel's pool at the same page ids. The scheduler runs
+with `base_path="megakernel"`, so megakernel slots are admitted without
 prefix sharing and retain only their prefill-written blocks in the
 prefix cache (their decode rows live in the megakernel's pool). On a
 CUDA model the tick launches the kernel or raises (a scoreboard fault
-raises through `check_fault`); on a CPU model the same program runs its
-plain queue walk. `mk_opts` passes MegaServe's options (`slot_rows`).
+raises through `check_fault`); on a CPU model the same program runs
+its plain queue walk. `mk_opts` passes MegaServe's options (`slot_rows`).
 
 A Qwen3MoE model serves unchanged (its steps route rows through the
-experts). `ep_capacity` > 0 arms the per-tick expert-dispatch row
-budget: `serve_state.partition_capacity` defers whole slots past it
-(oldest progress first), so a routing storm becomes an explicit
-deferral, never a silent drop; `stats()` counts the deferred slot-ticks
+experts; in megakernel mode the program's GROUPED_GEMM tasks do).
+`ep_capacity` > 0 arms the per-tick expert-dispatch row budget:
+`serve_state.partition_capacity` defers whole slots past it (oldest
+progress first), so a routing storm becomes an explicit deferral, never
+a silent drop; `stats()` counts the deferred slot-ticks
 (`capacity_drops`), the rows dispatched (`ep_rows`) and the last tick's
-live-occupancy EP plan (`ep_plan`).
+live-occupancy EP plan (`ep_plan`). The partition runs before the
+decode paths split, so a deferred megakernel slot leaves the launch's
+mask and rides it on its trash page at width 0, routing to no expert.
 
 Not in this slice (each raises NotImplementedError): speculative
 decoding, the watchdog (`slo_ticks`) and fault injection (`chaos`), the
-host spill tier (`host_blocks`), the megakernel mode of a MoE model,
-sequence parallel and multi-rank serving, and the plain ("xla")
-attention rung on a CUDA device.
+host spill tier (`host_blocks`), sequence parallel and multi-rank
+serving, and the plain ("xla") attention rung on a CUDA device.
 """
 
 from __future__ import annotations

@@ -22,10 +22,16 @@ import torch
 
 def route_topk(router_logits, top_k: int, *, renormalize: bool = True):
     """Softmax routing + top-k expert choice: full softmax over the
-    experts in f32, then top-k, optionally renormalised. Returns
-    (weights (M, top_k) f32, experts (M, top_k) int32)."""
+    experts in f32, then the top_k largest probabilities with ties to
+    the lowest expert index (the rule of `jax.lax.top_k`, which the
+    megakernel's GROUPED_GEMM replays; `torch.topk` promises no order
+    among ties, so this takes a stable descending sort), optionally
+    renormalised. Returns (weights (M, top_k) f32, experts (M, top_k)
+    int32)."""
     probs = torch.softmax(router_logits.float(), dim=-1)
-    weights, experts = torch.topk(probs, top_k, dim=-1)
+    weights, experts = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+    weights, experts = weights[:, :top_k], experts[:, :top_k]
     if renormalize:
         weights = weights / weights.sum(dim=-1, keepdim=True)
     return weights, experts.to(torch.int32)

@@ -123,10 +123,32 @@ Phases, in order; any failure raises and exits non-zero:
      18 as information; the peak device memory; with --profile, a
      breakdown of the step (every slot idle, rows live at length 0) and
      the device's idle share over a short megakernel serve run;
- 25. one JSON line of per-kernel numbers, then the device JSON line.
-Steps 14-16 run with the other kernel checks, before step 4; steps 19-20
-and 22-23 run after step 10, step 21 after step 13; steps 17, 18 and 24
-run last. Without a GPU it exits non-zero before printing anything.
+ 25. the megakernel's verify-width arms (ATTN_P, KVA_PK / KVA_PV and
+     GROUPED_GEMM at widths > 1) on 2-layer serve graphs at Qwen3-8B and
+     Qwen3-30B-A3B widths, slot_rows 8, widths 0 / 1 / 3 / 8, against
+     the plain walk: f32 (1e-4) and bf16 (2e-2), pad rows exactly 0,
+     every pool row outside the appended windows bitwise unchanged;
+ 26. a small model's speculative ServeEngine on the GPU against the CPU
+     in engine and megakernel mode, bf16, an oracle drafter: every
+     greedy pick and the spec counters equal, spec-on tokens equal to
+     spec-off;
+ 27. the slice-2b main path: Qwen3-8B behind step 9's stream with an
+     oracle drafter (k 4, every third draft wrong), in engine mode and in
+     megakernel mode (slot_rows 8), then `speculative=True` and an int8
+     pool: exact launch counts a verify tick, conservation, accepts and
+     rejects; at the first all-slots verify the teacher-forced check of
+     both verify steps against 4 sequential decode steps (2.5e-2 of the
+     largest logit, greedy differences only at near-ties) and the same
+     check failing a planted fault (the candidate rows roped one position
+     late); the verify step's time against its bound and plain walk, and
+     the perf_model constants;
+ 28. the Qwen3-30B-A3B megakernel spec runs (k 4, then k 2 under
+     ep_capacity=2): GROUPED_GEMM at widths > 1, every request at its
+     length, the verify step against its routed-slab bound;
+ 29. one JSON line of per-kernel numbers, then the device JSON line.
+Steps 14-16 run with the other kernel checks, before step 4; steps 19-20,
+22-23 and 25-26 run after step 10, step 21 after step 13 and step 27
+after step 21; steps 17, 18, 24 and 28 run last. Without a GPU it exits non-zero before printing anything.
 """
 
 from __future__ import annotations
@@ -1606,10 +1628,10 @@ def check_mega_serve_moe(models, attn, gg, model, params, cfg, seed, smi,
     slabs counted from the launch's router logits; then the int8 pool,
     then ep_capacity=2 (slots deferred, every request at its length,
     ep_rows the rows decode routed). Returns (launch totals, the step's
-    numbers)."""
+    numbers, the bf16 run's tokens)."""
     L = cfg.num_layers
     stream = serve_stream(np.random.RandomState(seed), cfg.vocab_size)
-    total, step = {}, None
+    total, step, first = {}, None, None
     torch.cuda.reset_peak_memory_stats()
     for kv, cap in ((None, 0), ("int8", 0), (None, 2)):
         se = models.ServeEngine(model, params, mode="megakernel", b_max=4,
@@ -1683,6 +1705,7 @@ def check_mega_serve_moe(models, attn, gg, model, params, cfg, seed, smi,
                 "gb": moved / 1e9, "flips": flips, "routings": n_routings}
         if profile:
             mk_moe_breakdown(prog, ms, lens)
+        first = out
         del snap
         torch.cuda.empty_cache()
     print(f"mk-moe-serve: peak device memory "
@@ -1691,7 +1714,632 @@ def check_mega_serve_moe(models, attn, gg, model, params, cfg, seed, smi,
     if profile:
         profile_serve(models, model, params, cfg.vocab_size, seed,
                       mode="megakernel")
-    return total, step
+    return total, step, first
+
+
+# -- speculative decoding: the megakernel's verify-width arms and the spec
+#    serving paths -------------------------------------------------------------
+
+SPEC_K = 4                 # verify width of the spec serve cells
+# Teacher forcing, of max |logit|: a verify step's rows against k
+# sequential decode_step_paged calls, bf16 x 36 layers, where M=1 and
+# M=K GEMMs round differently. Each limit sits just above its reading on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6), and the check
+# fails a verify step whose rows are roped one position off (planted in
+# every run, `_planted_rope_fault`).
+SPEC_TF_TOL_MK = 2.5e-2      # MegaServe.verify: read 1.985e-2
+SPEC_TF_TOL_ENGINE = 2.5e-2  # DenseLLM.verify_step_paged: read 2.059e-2
+VERIFY_LENS = np.asarray([0, 128, 381, 1500], np.int32)
+VERIFY_WIDTHS = np.asarray([0, 1, 3, 8], np.int32)
+
+
+def _verify_rows(lens, widths, tbl, blk):
+    """Pool rows a verify launch appends: max(1, width) rows a slot from
+    its length, through its table row."""
+    return np.concatenate([tbl[b, p // blk].astype(np.int64) * blk + p % blk
+                           for b in range(len(lens))
+                           for p in (lens[b] + np.arange(max(1, widths[b])),)])
+
+
+def check_megakernel_verify_graphs(dev):
+    """The verify-width arms (ATTN_P, KVA_PK / KVA_PV, and GROUPED_GEMM at
+    widths > 1) on 2-layer serve graphs at slot_rows 8, at Qwen3-8B
+    widths and (MoE) at Qwen3-30B-A3B widths, on the serve cell's pool:
+    four slots at widths 0 (idle, on its trash page), 1, 3 and 8 and
+    lengths 0, 128, 381 (its three rows are its page's last rows) and
+    1500, on a shuffled table; rows past a slot's width zero. The kernel
+    against its plain walk, f32 (MK_F32_TOL) and bf16 (MK_BF16_2L_TOL),
+    outputs and appended rows; pad rows exactly 0; every pool row outside
+    [cache_len_b, cache_len_b + width) bitwise unchanged. Returns the
+    largest absolute bf16 difference."""
+    from triton_distributed_tpu_torch.megakernel.models import (
+        build_qwen3_moe_serve_batched, build_qwen3_serve_batched)
+    lens, widths, R = VERIFY_LENS, VERIFY_WIDTHS, 8
+    blk, mp, nbk = 128, 16, 64
+    run = np.maximum(widths, 1)
+    last = lens + run - 1
+    perm = iter(np.random.RandomState(9).permutation(nbk))
+    tbl = np.asarray([[next(perm) if widths[b] and c <= last[b] // blk
+                       else nbk + b for c in range(mp)] for b in range(4)],
+                     np.int32)
+    rows = torch.as_tensor(_verify_rows(lens, widths, tbl, blk), device=dev)
+    live = torch.as_tensor(np.arange(4 * R) % R < np.repeat(run, R),
+                           device=dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: MK_F32_TOL, bf16: MK_BF16_2L_TOL}
+    worst = 0.0
+    for moe in (False, True):
+        for dt in (f32, bf16):
+            common = dict(b_slots=4, slot_rows=R, num_layers=2,
+                          num_blocks=nbk, block=blk, max_pages=mp,
+                          rope_theta=1e6, qk_norm=True, dtype=dt)
+            if moe:
+                mb = build_qwen3_moe_serve_batched(**common, **MOE_WIDTHS)
+            else:
+                mb = build_qwen3_serve_batched(
+                    hidden=4096, intermediate=12288, num_heads=32,
+                    num_kv_heads=8, head_dim=128, **common)
+            ins, ws = _device_io(mb, dev, 17)
+            for n in ws:       # N(0, 1 / rows) of one expert's slab
+                if "w_moe" in n:
+                    ws[n] *= MOE_WIDTHS["num_experts"] ** 0.5
+            ins, ws = ({n: t.to(dt) for n, t in d.items()}
+                       for d in (ins, ws))
+            ins["x"][~live] = 0
+            start = {n: ins[n] for n in mb.graph.caches}
+            prog = mb.compile("kernel", device=dev)
+            prog.bind_weights(ws)
+            keep = torch.ones(next(iter(start.values())).shape[0],
+                              dtype=torch.bool, device=dev)
+            keep[rows] = False
+            got = []
+            for plain in (False, True):
+                prog.bind_caches({n: t.clone() for n, t in start.items()})
+                out = prog.step({"x": ins["x"]}, cache_lens=lens,
+                                block_table=tbl, widths=widths,
+                                plain=plain)[0]
+                torch.cuda.synchronize()
+                prog.check_fault()
+                for n, c in prog.caches.items():
+                    assert torch.equal(c[keep], start[n][keep]), (plain, n)
+                got.append((out.float().clone(),
+                            torch.cat([c[rows].float()
+                                       for c in prog.caches.values()])))
+            (ko, kr), (po, pr) = got
+            assert torch.isfinite(ko).all() and (ko[~live] == 0).all()
+            errs = [_rel_err(ko, po), _rel_err(kr, pr)]
+            if dt == bf16:
+                worst = max(worst, (ko - po).abs().max().item(),
+                            (kr - pr).abs().max().item())
+            print(f"megakernel verify {'moe ' if moe else ''}{str(dt)[6:]} "
+                  f"2 layers at "
+                  f"{'Qwen3-30B-A3B' if moe else 'Qwen3-8B'} widths, "
+                  f"slot_rows {R}, lengths {lens.tolist()} widths "
+                  f"{widths.tolist()}: vs plain walk out {errs[0]:.3e}, "
+                  f"appended rows {errs[1]:.3e} (of max |ref|); pad rows 0, "
+                  f"pool rows outside the windows unchanged")
+            assert max(errs) <= tol[dt], (moe, dt, errs)
+            del prog, ins, ws, start, got
+            torch.cuda.empty_cache()
+    return worst
+
+
+def _oracle_spec(models, targets, stream, vocab, k=SPEC_K, wrong_every=3):
+    """SpecConfig with an OracleDrafter over `targets` (a spec-off run's
+    tokens by rid), every `wrong_every`-th draft wrong, no adaptation."""
+    prompts = {r: ids for r, (ids, _) in enumerate(stream)}
+    return models.SpecConfig(drafter=models.OracleDrafter(
+        targets, prompts, wrong_every=wrong_every, vocab=vocab), k=k,
+        adapt=False)
+
+
+def _verify_snapshot(se, widths_seen=None):
+    """Wrap the megakernel's verify to keep, at the first launch where
+    every slot decodes and some slot verifies drafts, its arguments and
+    the megakernel pools before it; `widths_seen` collects every
+    launch's widths."""
+    snap = {}
+    mk = se._mk
+    real = mk.verify
+    step = mk.prog.step
+
+    def spy_step(*a, **kw):
+        if widths_seen is not None:
+            widths_seen.append(np.asarray(kw["widths"]).copy())
+        return step(*a, **kw)
+
+    def verify(cands, counts, lens, table, mask):
+        if not snap and np.all(mask) and np.max(counts) > 1:
+            snap.update(cands=np.array(cands), counts=np.array(counts),
+                        lens=np.array(lens), table=np.array(table),
+                        mask=np.array(mask), kpool=mk.k_pool.clone(),
+                        vpool=mk.v_pool.clone())
+        return real(cands, counts, lens, table, mask)
+
+    mk.verify = verify
+    mk.prog.step = spy_step
+    return snap
+
+
+def _engine_layout(pool, like):
+    """A megakernel pool (L, pages x block, Hkv x D) in the engine pool's
+    (L, nb, Hkv, block, D) layout."""
+    L, nb, hkv, blk, d = like.shape
+    return pool.view(L, -1, blk, hkv, d)[:, :nb].permute(0, 1, 3, 2, 4)
+
+
+def _tf_err(got, want):
+    """The largest logit difference, of the largest |logit|."""
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
+def _near_tie_rule(name, got, want, tol):
+    """Logits within `tol` of the largest; a row whose greedy pick
+    differs must be a near-tie: its top-2 gap no more than the row's
+    largest logit difference plus one bf16 step."""
+    diff = (got - want).abs()
+    err = _tf_err(got, want)
+    flips = 0
+    for r in torch.nonzero(got.argmax(-1) != want.argmax(-1)).flatten():
+        top2 = want[r].topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        slack = diff[r].max().item() + _bf16_ulp(top2[0].abs().item())
+        assert gap <= slack, (name, int(r), gap, slack)
+        flips += 1
+    print(f"spec teacher forcing: {name}: {got.shape[0]} candidate rows, "
+          f"logits {err:.3e} of max |logit| against {SPEC_K} sequential "
+          f"decode_step_paged calls on a copy of the same cache; "
+          f"{flips} greedy picks differ, each a near-tie (limit {tol:.1e})")
+    assert torch.isfinite(got).all() and err <= tol, (name, err)
+
+
+def _planted_rope_fault(mk_verify, engine_verify, mk_rope, want, live,
+                        smi):
+    """The teacher-forced check against a wrong verify arm: each verify
+    again with its candidate rows (q and the appended k) roped one
+    position late, the megakernel's by shifting its RoPE tables one row
+    for the launch (the kernel reads row cache_len + j), the engine's by
+    handing verify_step_paged the cos / sin of position + 1. Both must
+    fail the limits."""
+    from triton_distributed_tpu_torch.models import dense
+    saved = [t.clone() for pair in mk_rope for t in pair]
+    for pair in mk_rope:
+        for t in pair:
+            t[:-1] = t[1:].clone()
+    try:
+        mk = _tf_err(mk_verify(), want)
+    finally:
+        for t, s in zip((t for pair in mk_rope for t in pair), saved):
+            t.copy_(s)
+    real = dense.rope_cos_sin
+    dense.rope_cos_sin = lambda pos, *a, **kw: real(pos + 1, *a, **kw)
+    try:
+        eng = _tf_err(engine_verify()[live.reshape(-1)], want)
+    finally:
+        dense.rope_cos_sin = real
+    print(f"spec teacher forcing, planted fault (the verify rows roped one "
+          f"position late): megakernel verify {mk:.3e}, engine verify "
+          f"{eng:.3e} of max |logit| against limits {SPEC_TF_TOL_MK:.1e} / "
+          f"{SPEC_TF_TOL_ENGINE:.1e}: both fail the check | {smi}")
+    assert mk > SPEC_TF_TOL_MK and eng > SPEC_TF_TOL_ENGINE, (mk, eng)
+
+
+def _stage_latency_s(dev, dt):
+    """The latency of one dependent single-tile megakernel stage: a chain
+    of 73 adds against one add, as megakernel_breakdown measures it."""
+    from triton_distributed_tpu_torch.megakernel.builder import ModelBuilder
+    us = []
+    for n in (1, 73):
+        mb = ModelBuilder(dtype=dt)
+        h0 = h = mb.input("x", (1, 4096))
+        for _ in range(n):
+            h = mb.add(h, h0)
+        mb.output(h)
+        p = mb.compile("kernel", device=dev)
+        p.bind_weights({})
+        xx = torch.randn((1, 4096), device=dev).to(dt)
+        us.append(time_ms([lambda: p.step({"x": xx}, 0)], reps=50) * 1e3)
+        p.check_fault()
+    return (us[1] - us[0]) / 72 * 1e-6
+
+
+def _spec_verify_checks(se, snap, model, params, cfg, smi):
+    """At the snapshot's verify (every slot decoding, drafts to verify):
+    the teacher-forced check of the megakernel's verify and of the
+    engine's verify_step_paged against SPEC_K sequential decode steps on
+    copies of the same state, and against the same verifies with a
+    planted RoPE fault, which it must fail; the verify step's kernel
+    time against its
+    task_costs bound, its plain walk's time and difference; and the
+    perf_model constants (perf_model.py) measured at that state.
+    Returns the megakernel[verify] entry's numbers."""
+    from triton_distributed_tpu_torch import perf_model as pm
+    from triton_distributed_tpu_torch.megakernel import serve as mserve
+    from triton_distributed_tpu_torch.models import dense
+    mk, prog = se._mk, se._mk.prog
+    del mk.verify, prog.step                   # the snapshot's spies
+    cands, counts, lens, table, mask = (snap[k] for k in (
+        "cands", "counts", "lens", "table", "mask"))
+    B, K = cands.shape
+    L, H, Hkv, D = (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.head_dim)
+    live = torch.from_numpy(
+        (np.arange(K)[None] < counts[:, None]) & mask[:, None])
+
+    def ref_cache():
+        c = model.new_paged_kv_cache(B, 2048, block=128, num_blocks=64)
+        c.k_pool.copy_(_engine_layout(snap["kpool"], c.k_pool))
+        c.v_pool.copy_(_engine_layout(snap["vpool"], c.v_pool))
+        c.block_table[:] = snap["table"]
+        c.seq_lens[:] = lens
+        return c
+
+    ref = ref_cache()
+    seen = _spy_logits(model, params)
+    for j in range(K):
+        model.decode_step_paged(params, cands[:, j], ref, mask & (counts > j))
+    del model._next_token
+    want = torch.stack(seen[:K], dim=1)[live]
+    del ref
+    real = dense.greedy_token
+    got = {}
+
+    def spy(where):
+        def pick(x, lm_head):
+            got[where] = (x.float() @ lm_head.float()).cpu()
+            return real(x, lm_head)
+        return pick
+
+    def mk_verify():
+        mk.k_pool.copy_(snap["kpool"])
+        mk.v_pool.copy_(snap["vpool"])
+        mserve.greedy_token = spy("mk")
+        try:
+            mk.verify(cands, counts, lens, table, mask)
+        finally:
+            mserve.greedy_token = real
+        torch.cuda.synchronize()
+        prog.check_fault()
+        return got["mk"]
+
+    def engine_verify():
+        ref = ref_cache()
+        dense.greedy_token = spy("engine")
+        try:
+            model.verify_step_paged(params, cands, ref, mask, counts)
+        finally:
+            dense.greedy_token = real
+        return got["engine"]
+
+    _near_tie_rule("megakernel verify (MegaServe.verify, one launch)",
+                   mk_verify(), want, SPEC_TF_TOL_MK)
+    _near_tie_rule("engine verify (verify_step_paged)",
+                   engine_verify()[live.reshape(-1)], want,
+                   SPEC_TF_TOL_ENGINE)
+    _planted_rope_fault(mk_verify, engine_verify, prog._rope.values(), want,
+                        live, smi)
+    # the verify step: kernel, bound, plain walk
+    wid = np.where(mask, counts, 0).astype(np.int32)
+    ktab = mk.kernel_table(torch.from_numpy(table), torch.from_numpy(mask))
+    ms = time_ms([lambda: prog.step(cache_lens=lens, block_table=ktab,
+                                    widths=wid)])
+    prog.check_fault()
+    costs = prog.task_costs(cache_lens=lens, widths=wid)
+    moved = sum(c["bytes"] for c in costs)
+    flops = sum(c["flops"] for c in costs)
+    bms, by = bound(moved, flops)
+    ko = prog.step(cache_lens=lens, block_table=ktab,
+                   widths=wid)[0].float().clone()
+    torch.cuda.synchronize()
+    prog.check_fault()
+    t0 = time.perf_counter()
+    po = prog.step(cache_lens=lens, block_table=ktab, widths=wid,
+                   plain=True)[0].float().clone()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    abs_err = (ko - po).abs().max().item()
+    print(f"spec verify step (widths {wid.tolist()}, lengths "
+          f"{lens.tolist()}): kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}: "
+          f"{moved / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP), plain walk "
+          f"{plain_ms:.1f} ms (paced by the host), kernel vs plain "
+          f"{_rel_err(ko, po):.3e} of max |ref| ({abs_err:.3e} abs) | {smi}")
+    assert _rel_err(ko, po) <= MK_BF16_TOL
+    # perf_model constants at this state
+    nb, _, blk, mp, _ = prog.paged
+    trash = (prog.graph.caches["l0.k_pool"].rows // blk - nb
+             + np.arange(nb)[:, None] + np.zeros((1, mp), np.int64)
+             ).astype(np.int32)
+    ms0 = time_ms([lambda: prog.step(cache_lens=np.zeros(nb, np.int32),
+                                     block_table=trash, widths=wid)])
+    prog.check_fault()
+    attn_elems = 4 * L * int((wid * lens).sum()) * H * D
+    stage_s = _stage_latency_s(prog.device, prog.dtype)
+    ref = ref_cache()
+
+    def eng_step():
+        ref.seq_lens[:] = lens
+        model.verify_step_paged(params, cands, ref, mask, counts)
+
+    for _ in range(2):
+        eng_step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls)
+    busy_ms = profile_steps("[spec engine verify]", eng_step, 3, wall_ms)
+    with OpCount() as ops:
+        eng_step()
+    torch.cuda.synchronize()
+    del ref
+    param = pm._decode_param_bytes(L, cfg.hidden_size, cfg.intermediate_size,
+                                   H, Hkv, D)
+    kv_s = pm.estimate_decode_step_s(int(lens.sum()), Hkv, D, L)
+    util = min(1.0, B * Hkv / prog.n_sm)
+    w = params["layers"]["w_gate_up"][0]
+    xs = [torch.randn((n, w.shape[0]), device=w.device).to(w.dtype)
+          for n in (B, B * K)]
+    mm = [time_ms([lambda: torch.mm(x, w)], reps=50) for x in xs]
+    extra = 2.0 * B * (K - 1) * w.shape[0] * w.shape[1]
+    consts = {
+        "STAGE_LATENCY_S": stage_s,
+        "MK_BOUND_SHARE": bms / ms,
+        "ATTN_ELEMS_PER_S": attn_elems / ((ms - ms0) * 1e-3),
+        "ENGINE_BOUND_SHARE": (param / PEAK_BYTES + kv_s / util)
+        / (busy_ms * 1e-3),
+        "ENGINE_HOST_S": (wall_ms - busy_ms) * 1e-3,
+        "SKINNY_MM_SHARE": min(1.0, extra / max(mm[1] - mm[0], 1e-6)
+                               / 1e-3 / PEAK_BF16_FLOPS),
+    }
+    print(f"spec engine verify step: {wall_ms:.2f} ms wall, {busy_ms:.3f} ms "
+          f"device-busy, {ops.n} aten ops; megakernel verify step at lengths "
+          f"0 {ms0:.4f} ms (the prefix attention ~{ms - ms0:.4f} ms); "
+          f"torch.mm at {B} / {B * K} rows of w_gate_up {mm[0] * 1e3:.1f} / "
+          f"{mm[1] * 1e3:.1f} us")
+    print("perf_model constants (" + smi + "): " + ", ".join(
+        f"{k}={v:.6g}" for k, v in consts.items()))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "abs_err": abs_err}
+
+
+def _serve_line(tag, st, tick_ms, ops, launches, stream, smi):
+    dec = st["tokens"] - len(stream)
+    print(f"{tag}: {st['tokens']} tokens in {st['wall_s']:.3f} s "
+          f"({st['tokens_per_s']} tokens/s), {st['ticks']} ticks, "
+          f"{st['decode_steps']} decode ticks at "
+          f"{statistics.median(tick_ms):.2f} ms median "
+          f"({min(tick_ms):.2f}-{max(tick_ms):.2f}; {ops} aten ops), "
+          f"{dec / st['decode_steps']:.3f} tokens a decode tick, spec "
+          f"proposed / accepted / rejected {st['spec_proposed']} / "
+          f"{st['spec_accepted']} / {st['spec_rejected']} (acceptance "
+          f"{st['acceptance_rate']}), rollback blocks "
+          f"{st['rollback_blocks']}, fallbacks {st['spec_fallbacks']}, "
+          f"launches {({n: c for n, c in launches.items() if c})} | {smi}")
+
+
+def _check_stream_run(models, se, out, st, stream, vocab):
+    assert sorted(out) == list(range(len(stream)))
+    for rid, (_, gen_len) in enumerate(stream):
+        assert len(out[rid]) == gen_len, (rid, len(out[rid]))
+        assert ((out[rid] >= 0) & (out[rid] < vocab)).all()
+    se._cache.check_conservation(cached=st["cached_free_blocks"])
+    assert st["free_blocks"] + st["cached_free_blocks"] == 64, st
+
+
+def check_spec_serve(models, attn, gg, model, params, cfg, seed, smi):
+    """Slice 2b's main path at full width: the serve cell's stream behind
+    speculative decoding over the Qwen3-8B weights. In engine mode, then
+    in megakernel mode (slot_rows 8): a spec-off run; a spec-on run with
+    an OracleDrafter over its tokens (every third draft wrong, k 4, no
+    adaptation), whose stream may part from the spec-off one at a bf16
+    near-tie (M=1 and M=K GEMMs round differently), after which its
+    drafts miss; then the same oracle over that spec-on run's own tokens,
+    which keeps its dialed acceptance; in megakernel mode then
+    speculative=True (the n-gram drafter, the H100 width chooser) and the
+    second oracle over an int8 pool. Each run: every request at its
+    length, block conservation, exact launch counts (run_serve: a
+    megakernel verify tick is one launch and no flash_decode_paged; an
+    engine verify tick one flash_decode_paged a layer), accepts and
+    rejects for the oracle runs; tokens against the spec-off run as
+    information; the teacher-forced and timing checks of
+    `_spec_verify_checks` at the first all-slots verify of the first
+    megakernel oracle run. Returns (launch totals of the spec-on runs,
+    megakernel verify launches, the verify entry's numbers)."""
+    L, V = cfg.num_layers, cfg.vocab_size
+    stream = serve_stream(np.random.RandomState(seed), V)
+    kw = dict(b_max=4, max_len=2048, block=128, prefill_chunk=256,
+              num_blocks=64)
+    total, mk_launches, entry = {}, 0, None
+    runs = [("engine", "off"), ("engine", "oracle"), ("engine", "again"),
+            ("megakernel", "off"), ("megakernel", "oracle"),
+            ("megakernel", "again"), ("megakernel", "ngram"),
+            ("megakernel", "int8")]
+    for mode, kind in runs:
+        if kind == "off":
+            se = models.ServeEngine(model, params, mode=mode, **kw)
+            off, st0, _, tick0, _ = run_serve(models, attn, se, stream, L, gg)
+            _check_stream_run(models, se, off, st0, stream, V)
+            print(f"spec serve[{mode}, spec-off]: {st0['tokens_per_s']} "
+                  f"tokens/s, median decode tick "
+                  f"{statistics.median(tick0):.2f} ms | {smi}")
+            targets = off
+            continue
+        spec = True if kind == "ngram" else _oracle_spec(models, targets,
+                                                         stream, V)
+        se = models.ServeEngine(
+            model, params, mode=mode, **kw, speculative=spec,
+            kv_dtype="int8" if kind == "int8" else None,
+            mk_opts={"slot_rows": 8} if mode == "megakernel" else None)
+        snap = _verify_snapshot(se) if (mode, kind) == ("megakernel",
+                                                        "oracle") else None
+        out, st, launches, tick_ms, ops = run_serve(models, attn, se, stream,
+                                                    L, gg)
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+        tag = f"spec serve[{mode}, " + {
+            "oracle": "oracle over spec-off", "again": "oracle over spec-on",
+            "ngram": "speculative=True",
+            "int8": "oracle over spec-on, int8"}[kind] + "]"
+        _serve_line(tag, st, tick_ms, ops, launches, stream, smi)
+        _check_stream_run(models, se, out, st, stream, V)
+        if mode == "megakernel":
+            assert launches["megakernel"] == st["decode_steps"] > 0
+            mk_launches += launches["megakernel"]
+        else:
+            assert launches["flash_decode_paged[bfloat16]"] \
+                == L * st["decode_steps"] > 0
+        if kind != "ngram":
+            assert st["spec_accepted"] > 0 and st["spec_rejected"] > 0, st
+        rep = models.serve.banded_token_identity(off, out, band=1.0)
+        print(f"{tag} vs spec-off (information only, bf16 random weights): "
+              f"agreed {rep['agreed_steps']}/{rep['total_steps']} steps "
+              f"({rep['agreed_frac']}); tokens/s spec-on "
+              f"{st['tokens_per_s']} vs spec-off {st0['tokens_per_s']}; "
+              f"median decode tick {statistics.median(tick_ms):.2f} vs "
+              f"{statistics.median(tick0):.2f} ms")
+        if kind == "oracle":
+            targets = out
+        if snap is not None:
+            assert snap, "no all-slots verify tick"
+            entry = _spec_verify_checks(se, snap, model, params, cfg, smi)
+        del se
+        torch.cuda.empty_cache()
+    return total, mk_launches, entry
+
+
+def check_spec_serve_moe(models, attn, gg, model, params, cfg, seed, smi,
+                         targets):
+    """Speculative megakernel serving over the Qwen3-30B-A3B weights: the
+    serve cell's stream with an OracleDrafter over the megakernel
+    spec-off tokens (`targets`), k 4, then over that run's tokens with k 2
+    under ep_capacity=2 (the budget must be at least k). The GROUPED_GEMM tasks run at widths
+    > 1, every request gets its full length, one launch a verify tick;
+    the verify step at the first all-slots verify against its bound
+    with the launch's routed slabs. Returns (launch totals, megakernel
+    launches)."""
+    L, V = cfg.num_layers, cfg.vocab_size
+    stream = serve_stream(np.random.RandomState(seed), V)
+    total, mk_launches = {}, 0
+    for cap, k in ((0, SPEC_K), (2, 2)):
+        se = models.ServeEngine(
+            model, params, mode="megakernel", b_max=4, max_len=2048,
+            block=128, prefill_chunk=256, num_blocks=64, ep_capacity=cap,
+            speculative=_oracle_spec(models, targets, stream, V, k=k))
+        widths = []
+        snap = _verify_snapshot(se, widths)
+        out, st, launches, tick_ms, ops = run_serve(models, attn, se, stream,
+                                                    L, gg)
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+        mk_launches += launches["megakernel"]
+        tag = f"spec mk-moe-serve[k {k}" + (f", ep_capacity={cap}]" if cap
+                                             else "]")
+        _serve_line(tag, st, tick_ms, ops, launches, stream, smi)
+        _check_stream_run(models, se, out, st, stream, V)
+        assert launches["megakernel"] == st["decode_steps"] == len(widths)
+        assert st["spec_accepted"] > 0 and st["spec_rejected"] > 0, st
+        wmax = max(int(w.max()) for w in widths)
+        print(f"{tag}: GROUPED_GEMM widths up to {wmax}, "
+              f"{sum(int((w > 1).sum()) for w in widths)} slot-launches at "
+              f"width > 1, capacity_drops {st['capacity_drops']}")
+        assert wmax > 1
+        if cap:
+            assert st["capacity_drops"] > 0 and all(
+                int(w.sum()) <= cap for w in widths), st
+        else:
+            assert snap, "no all-slots verify tick"
+            targets = out         # the capacity run drafts from these
+            mk, prog = se._mk, se._mk.prog
+            del mk.verify, prog.step
+            lens, mask = snap["lens"], snap["mask"]
+            wid = np.where(mask, snap["counts"], 0).astype(np.int32)
+            ktab = mk.kernel_table(torch.from_numpy(snap["table"]),
+                                   torch.from_numpy(mask))
+            ms = time_ms([lambda: prog.step(cache_lens=lens, block_table=ktab,
+                                            widths=wid)])
+            prog.check_fault()
+            routed = prog.routed_experts(wid)
+            costs = prog.task_costs(cache_lens=lens, widths=wid,
+                                    experts=routed)
+            moved = sum(c["bytes"] for c in costs)
+            bms, by = bound(moved, sum(c["flops"] for c in costs))
+            per_layer = [len(v) for v in routed.values()]
+            print(f"spec mk-moe-serve verify step (widths {wid.tolist()}, "
+                  f"lengths {lens.tolist()}): kernel {ms:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by}: {moved / 1e9:.3f} GB with "
+                  f"{min(per_layer)}-{max(per_layer)} routed slabs a layer, "
+                  f"mean {statistics.mean(per_layer):.1f}) | {smi}")
+        del se, snap
+        torch.cuda.empty_cache()
+    return total, mk_launches
+
+
+def check_spec_small(models, seed):
+    """A small model's speculative serving on the GPU against the same
+    engine on the CPU, in engine and in megakernel mode (bf16: the
+    engine path's prefill and paged decode kernels take bf16 only), with
+    an OracleDrafter over the CPU's spec-off tokens: every greedy call's
+    logits within 5e-2 of the largest, every greedy pick equal (the
+    streams do not part at this seed), the spec counters equal to the
+    CPU run's, and the GPU's spec-on tokens equal to its spec-off
+    tokens."""
+    from triton_distributed_tpu_torch.megakernel import serve as mserve
+    from triton_distributed_tpu_torch.models import dense
+    cfg = models.get_config("Qwen/Qwen3-8B").tiny(
+        hidden_size=256, num_heads=8, num_kv_heads=2, head_dim=128,
+        intermediate_size=512, vocab_size=512, num_layers=2)
+    cpu = models.DenseLLM(cfg, dtype="bfloat16", device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(seed))
+    gpu = models.DenseLLM(cfg, dtype="bfloat16", device="cuda")
+    gparams = _to_device(params, "cuda")
+    rng = np.random.RandomState(seed)
+    stream = [(rng.randint(0, 512, n).astype(np.int32), g)
+              for n, g in ((37, 9), (5, 12), (20, 6), (16, 8))]
+    kw = dict(b_max=2, max_len=64, block=32, prefill_chunk=8)
+    real = dense.greedy_token
+    for mode in ("engine", "megakernel"):
+        off = models.ServeEngine(cpu, params, mode=mode, **kw).serve(
+            [r for r, _ in stream], [g for _, g in stream])
+        gpu_off = models.ServeEngine(gpu, gparams, mode=mode, **kw).serve(
+            [r for r, _ in stream], [g for _, g in stream])
+        runs, stats, toks = [], [], []
+        for m, p in ((cpu, params), (gpu, gparams)):
+            seen = []
+
+            def spy(x, lm_head):
+                seen.append((x.float() @ lm_head.float()).cpu())
+                return real(x, lm_head)
+
+            dense.greedy_token = mserve.greedy_token = spy
+            try:
+                se = models.ServeEngine(m, p, mode=mode, **kw,
+                                        speculative=_oracle_spec(
+                                            models, dict(enumerate(off)),
+                                            stream, 512))
+                toks.append(se.serve([r for r, _ in stream],
+                                     [g for _, g in stream]))
+            finally:
+                dense.greedy_token = mserve.greedy_token = real
+            runs.append(seen)
+            stats.append(se.stats())
+        assert len(runs[0]) == len(runs[1]), (len(runs[0]), len(runs[1]))
+        for k, (c, g) in enumerate(zip(*runs)):
+            assert c.shape == g.shape, k
+            err = (g - c).abs().max().item()
+            assert err <= 5e-2 * max(1.0, c.abs().max().item()), (k, err)
+            assert torch.equal(g.argmax(-1), c.argmax(-1)), k
+        keys = ("spec_proposed", "spec_accepted", "spec_rejected",
+                "rollback_blocks", "decode_steps")
+        assert all(stats[0][k] == stats[1][k] for k in keys), stats
+        assert stats[1]["spec_accepted"] > 0 and stats[1]["spec_rejected"] > 0
+        assert all(np.array_equal(a, b) for a, b in zip(toks[1], toks[0]))
+        assert all(np.array_equal(a, b) for a, b in zip(toks[1], gpu_off))
+        print(f"small spec ServeEngine[{mode}] bf16 GPU vs CPU: "
+              f"{len(runs[1])} greedy calls, streams equal, spec counters "
+              f"equal { {k: stats[1][k] for k in keys} }; GPU spec-on "
+              f"tokens equal GPU spec-off in all {len(stream)} requests")
 
 
 def check_attention_group8(attn, dev, gen, entries):
@@ -2067,9 +2715,11 @@ def main():
     check_megakernel_graphs(dev)
     check_megakernel_paged_graphs(dev)
     moe_graph_step = check_megakernel_moe_graphs(dev)
+    verify_err = check_megakernel_verify_graphs(dev)
     check_megadecoder_small(models, args.seed)
     check_mega_serve_small(models, args.seed)
     check_mega_serve_small(models, args.seed, moe=True)
+    check_spec_small(models, args.seed)
     md, _, mk_launches = check_megadecoder(attn, model, params, cfg, ids[0],
                                            toks[0], smi, args.profile)
     mk = check_megakernel_main(md, cfg, ids[0], smi, args.profile)
@@ -2079,6 +2729,8 @@ def main():
     assert all(c == 0 for n, c in mk_serve.items()
                if n.startswith("flash_decode_paged")), mk_serve
     mk["launches"] = mk_launches + mk_serve["megakernel"]
+    spec_serve, verify_launches, verify = check_spec_serve(
+        models, attn, gg, model, params, cfg, args.seed, smi)
 
     # the slice-4 main path needs the card to itself: release every
     # Qwen3-8B weight, cache, pool and program first
@@ -2093,24 +2745,41 @@ def main():
     moe_serve, moe_engine_out = check_moe_serve(models, attn, gg, moe,
                                                 moe_params, moe.config,
                                                 args.seed, smi)
-    mk_moe, mk_moe_step = check_mega_serve_moe(
+    mk_moe, mk_moe_step, mk_moe_out = check_mega_serve_moe(
         models, attn, gg, moe, moe_params, moe.config, args.seed, smi,
         args.profile, moe_engine_out)
     assert mk_moe["gmm"] > 0 and all(
         c == 0 for n, c in mk_moe.items()
         if n.startswith("flash_decode_paged")), mk_moe
+    spec_moe, moe_verify_launches = check_spec_serve_moe(
+        models, attn, gg, moe, moe_params, moe.config, args.seed, smi,
+        mk_moe_out)
 
     counts = (launches, serve_launches, mk_serve, moe_launches, moe_serve,
-              mk_moe)
+              mk_moe, spec_serve, spec_moe)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in counts)
         assert k["launches"] > 0, k["name"]
     gmm_entry["launches"] = (moe_launches["gmm"] + moe_serve["gmm"]
-                             + mk_moe["gmm"])
-    mk["launches"] += mk_moe["megakernel"]
+                             + mk_moe["gmm"] + spec_moe["gmm"])
+    mk["launches"] += mk_moe["megakernel"] + verify_launches \
+        + moe_verify_launches
+    mk_verify = {
+        "name": "megakernel[verify]", "route": "cuda",
+        "source": "triton_distributed_tpu_torch/csrc/megakernel.cu",
+        "replaces": "triton_distributed_tpu/megakernel/executor_pallas.py:1192",
+        "launches": verify_launches + moe_verify_launches,
+        "max_abs_err": max(verify_err, verify["abs_err"]),
+        "ms": verify["ms"], "plain_ms": verify["plain_ms"],
+        "bound_ms": verify["bound_ms"], "bound_by": verify["bound_by"],
+        "library_ms": None}
     print(f"megakernel launches: {mk_launches} (MegaDecoder) + "
           f"{mk_serve['megakernel']} (ServeEngine mode='megakernel') + "
-          f"{mk_moe['megakernel']} (the same, Qwen3MoE); the batched serve "
+          f"{mk_moe['megakernel']} (the same, Qwen3MoE) + {verify_launches} "
+          f"+ {moe_verify_launches} (speculative verify, Qwen3-8B and "
+          f"Qwen3MoE); the Qwen3-8B verify step {verify['ms']:.4f} ms "
+          f"against {verify['bound_ms']:.4f} ms ({verify['bound_by']}); "
+          f"the batched serve "
           f"step {mk_step['ms']:.4f} ms against {mk_step['bound_ms']:.4f} "
           f"ms ({mk_step['bound_by']}), plain walk "
           f"{mk_step['plain_ms']:.1f} ms; the MoE batched step "
@@ -2119,7 +2788,7 @@ def main():
           f"{moe_graph_step['ms']:.4f} ms against "
           f"{moe_graph_step['bound_ms']:.4f} ms, plain walk "
           f"{moe_graph_step['plain_ms']:.1f} ms")
-    kernels += [mk, gmm_entry]
+    kernels += [mk, mk_verify, gmm_entry]
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

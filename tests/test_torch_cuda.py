@@ -168,6 +168,31 @@ def test_flash_decode_paged_kernel_matches_plain(cuda, arm, G, D, blk):
     assert torch.all(out[3] == 0) and torch.all(lse[3] < -1e29)
 
 
+@pytest.mark.parametrize("arm", ["bfloat16", "int8", "float8_e4m3fn"])
+def test_flash_decode_paged_zero_length_reads_no_page(cuda, arm):
+    """A verify step's dead rows run at kv_len 0 over a table repeated K
+    times: with every page (or, int8, every scale) NaN, such a row must
+    still give exactly 0 and lse ~ -1e30, so no page was read; the live
+    rows beside them see the NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, table, _, kw = _paged_case(
+        gen, cuda, 4, 128, None if arm == "bfloat16" else arm, 64)
+    if arm == "int8":
+        kw = {n: torch.full_like(t, float("nan")) for n, t in kw.items()}
+    else:
+        k = torch.full_like(k.float(), float("nan")).to(k.dtype)
+        v = k.clone()
+    K = 3
+    table = table.repeat_interleave(K, dim=0)
+    kv_len = torch.zeros(table.shape[0], dtype=torch.int32, device=cuda)
+    kv_len[0] = 5
+    out, lse = attn.flash_decode_paged_partial(
+        q.repeat_interleave(K, dim=0), k, v, table, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[0].float()).any()
+    assert torch.all(out[1:] == 0) and torch.all(lse[1:] < -1e29)
+
+
 def test_flash_decode_paged_refuses_what_it_does_not_take(cuda):
     gen = torch.Generator(device=cuda).manual_seed(4)
     q, k, v, table, kv_len, _ = _paged_case(gen, cuda, 4, 128, None)
@@ -183,7 +208,7 @@ def test_flash_decode_paged_refuses_what_it_does_not_take(cuda):
         attn.flash_decode_paged_partial(q.float(), k, v, table, kv_len)
     with pytest.raises(TypeError):               # an fp16 pool
         attn.flash_decode_paged_partial(q, k.half(), v.half(), table, kv_len)
-    with pytest.raises(NotImplementedError, match="slice 2b"):
+    with pytest.raises(NotImplementedError, match="slice 2c"):
         attn.flash_decode_paged(q, k, v, table, kv_len, method="xla")
 
 
@@ -737,3 +762,280 @@ def test_moe_layer_decode_forward_never_waits_on_the_host(cuda):
     assert gg.GMM.launches == before + 2
     ref = layer.reference_forward(params, x)
     assert _gmm_err(out, ref) <= GMM_TOL
+
+
+# -- speculative decoding: the verify-width arms and the verify steps ---------
+
+VERIFY_LENS = np.asarray([0, 20, 13, 44], np.int32)
+VERIFY_WIDTHS = np.asarray([0, 1, 3, 8], np.int32)
+
+
+def _mk_verify_case(device, dtype, moe=False, seed=0):
+    """A 2-layer serve program (dense at hidden 256, or MoE with 16
+    experts, top-4, its router logits exposed as outputs; unit-gain
+    weights as chip_smoke.py draws them) at slot_rows 8
+    over four slots at the verify widths {0, 1, 3, 8}: slot 0 idle on its
+    trash page, slot 2's three rows the last rows of its page (block
+    16), slot 3's eight rows crossing into its next page; rows past a
+    slot's width zero. Returns the program, inputs, table, the live-row
+    mask, the appended pool rows and the slot of each."""
+    R, blk, mp, num_blocks = 8, 16, 4, 12
+    nb = len(VERIFY_LENS)
+    common = dict(b_slots=nb, slot_rows=R, hidden=256, num_layers=2,
+                  num_heads=8, num_kv_heads=2, head_dim=128,
+                  num_blocks=num_blocks, block=blk, max_pages=mp,
+                  qk_norm=True, dtype=dtype)
+    if moe:
+        mb = build_qwen3_moe_serve_batched(moe_intermediate=128,
+                                           num_experts=16, top_k=4, **common)
+        mb.graph.outputs.extend(nd.inputs[1] for nd in mb.graph.nodes
+                                if nd.op == "moe_ffn")
+    else:
+        mb = build_qwen3_serve_batched(intermediate=384, **common)
+    rng = np.random.default_rng(seed)
+    ins, ws = init_random_io(mb, rng)
+    # unit-gain projections, N(0, 1 / fan-in) (an expert slab's fan-in is
+    # its own rows), so activations and router logits keep the scale of
+    # a model's at both layers
+    for n, h in mb.graph.weights.items():
+        if "ln" not in n and "norm" not in n:
+            fan_in = h.rows // (16 if "w_moe" in n else 1)
+            ws[n] = ws[n] * (fan_in ** -0.5 / 0.2)
+    run = np.maximum(VERIFY_WIDTHS, 1)
+    live = np.arange(nb * R) % R < np.repeat(run, R)
+    ins["x"][~live] = 0.0
+    perm = iter(rng.permutation(num_blocks))
+    last = VERIFY_LENS + run - 1
+    tbl = np.asarray([[next(perm) if VERIFY_WIDTHS[b] and c <= last[b] // blk
+                       else num_blocks + b for c in range(mp)]
+                      for b in range(nb)], np.int32)
+    pos = [VERIFY_LENS[b] + np.arange(run[b]) for b in range(nb)]
+    rows = np.concatenate([tbl[b, p // blk].astype(np.int64) * blk + p % blk
+                           for b, p in enumerate(pos)])
+    slot_of = np.concatenate([np.full(len(p), b) for b, p in enumerate(pos)])
+    prog = mb.compile("kernel", device=device)
+    prog.bind_weights({n: torch.as_tensor(w).to(device, dtype)
+                       for n, w in ws.items()})
+    return prog, ins, tbl, live, rows, slot_of
+
+
+def _routing_divergence(logits_k, logits_p, top_k, R, tol):
+    """Slots in which some row routes differently in the kernel and in
+    the plain walk (any layer), from each side's own router logits: its
+    top-k expert set differs, or a routing weight differs by more than
+    one bf16 step at 1.0 (the softmax turns a bf16 difference of the
+    logits into a larger one of the weights). The logits must agree
+    within `tol` of the largest everywhere, and a set that differs must
+    be a near-tie: its k-th and (k+1)-th plain logits no further apart
+    than the row's largest logit difference plus one bf16 step."""
+    bf16_step = torch.finfo(torch.bfloat16).eps
+    diverged = set()
+    for lk, lp in zip(logits_k, logits_p):
+        assert (lk - lp).abs().max().item() <= tol * lp.abs().max().item()
+        wk, ek = moe_utils.route_topk(lk, top_k)
+        wp, ep = moe_utils.route_topk(lp, top_k)
+        for r in range(lk.shape[0]):
+            same = set(ek[r].tolist()) == set(ep[r].tolist())
+            if same:
+                order = ek[r].argsort()
+                if (wk[r][order] - wp[r][ep[r].argsort()]).abs().max() \
+                        <= bf16_step:
+                    continue
+            else:
+                srt = lp[r].sort(descending=True).values
+                gap = (srt[top_k - 1] - srt[top_k]).item()
+                ulp = bf16_step * 2.0 ** np.floor(
+                    np.log2(srt[top_k - 1].abs().item()))
+                assert gap <= (lk[r] - lp[r]).abs().max().item() + ulp, \
+                    (r, gap)
+            diverged.add(r // R)
+    return diverged
+
+
+@pytest.mark.parametrize("moe", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_megakernel_verify_widths_match_plain(cuda, dtype, moe):
+    """The ATTN_P / KVA_PK / KVA_PV verify arms (and GROUPED_GEMM at
+    width > 1): one launch against the plain walk, pad rows exactly 0,
+    the appended rows within tolerance and every other pool row bitwise
+    unchanged. A MoE row whose routing differs between the two (a
+    near-tie, or routing weights that the softmax moved by more than a
+    bf16 step) has its slot left out of the comparison, its router
+    logits held within tolerance; at most one slot goes, so a slot of
+    width > 1 is always compared."""
+    prog, ins, tbl, live, rows, slot_of = _mk_verify_case(cuda, dtype, moe)
+    dt, R = prog.dtype, 8
+    start = {n: torch.as_tensor(ins[n]).to(cuda, dt)
+             for n in prog.graph.caches}
+    x = torch.as_tensor(ins["x"]).to(cuda, dt)
+    runs = []
+    for plain in (False, True):
+        prog.bind_caches({n: t.clone() for n, t in start.items()})
+        before = mkx.MEGAKERNEL.launches
+        outs = prog.step({"x": x}, cache_lens=VERIFY_LENS, block_table=tbl,
+                         widths=VERIFY_WIDTHS, plain=plain)
+        torch.cuda.synchronize()
+        prog.check_fault()
+        assert mkx.MEGAKERNEL.launches == before + (0 if plain else 1)
+        runs.append(([o.float().clone() for o in outs],
+                     {n: t.float().clone() for n, t in prog.caches.items()}))
+    (ko, kc), (po, pc) = runs
+    tol = MK_TOL[dtype]
+    flipped = _routing_divergence(ko[1:], po[1:], 4, R, tol) if moe \
+        else set()
+    assert len(flipped) <= 1, flipped
+    keep_slots = [b for b in range(len(VERIFY_LENS)) if b not in flipped]
+    assert any(VERIFY_WIDTHS[b] > 1 for b in keep_slots), keep_slots
+    trunk = torch.from_numpy(np.isin(np.arange(len(live)) // R,
+                                     keep_slots)).to(cuda)
+    for k, p in zip(ko, po):
+        assert torch.isfinite(k).all()
+        assert (k[trunk] - p[trunk]).abs().max().item() \
+            <= tol * p[trunk].abs().max().item()
+    assert (ko[0][torch.from_numpy(~live).to(cuda)] == 0).all()
+    idx = torch.from_numpy(rows).to(cuda)
+    cmp = torch.from_numpy(rows[np.isin(slot_of, keep_slots)]).to(cuda)
+    keep = torch.ones(next(iter(kc.values())).shape[0], dtype=torch.bool,
+                      device=cuda)
+    keep[idx] = False
+    for n in kc:
+        a, b = kc[n][cmp], pc[n][cmp]
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item(), n
+        assert torch.equal(kc[n][keep], start[n].float()[keep]), n
+
+
+def _small_pair(cuda, moe):
+    from triton_distributed_tpu_torch import models
+    if moe:
+        cfg = models.get_config("Qwen/Qwen3-30B-A3B").tiny(
+            hidden_size=256, num_heads=8, num_kv_heads=1, head_dim=128,
+            vocab_size=512, num_layers=2, num_experts=8,
+            num_experts_per_tok=2, moe_intermediate_size=256)
+        cls = models.Qwen3MoE
+    else:
+        cfg = models.get_config("Qwen/Qwen3-8B").tiny(
+            hidden_size=256, num_heads=8, num_kv_heads=2, head_dim=128,
+            intermediate_size=512, vocab_size=512, num_layers=2)
+        cls = models.DenseLLM
+    cpu = cls(cfg, dtype="bfloat16", device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = cls(cfg, dtype="bfloat16", device=cuda)
+    gparams = {"embed": params["embed"].to(cuda),
+               "norm": params["norm"].to(cuda),
+               "lm_head": params["lm_head"].to(cuda),
+               "layers": {k: t.to(cuda) for k, t in params["layers"].items()}}
+    return (cpu, params), (gpu, gparams)
+
+
+def _compare_picks(runs, at_least):
+    """Every greedy call's logits within 5e-2 of the largest, the picks
+    equal wherever the CPU's top-2 gap exceeds twice that call's error,
+    up to the first call whose picks differ (the streams part there)."""
+    compared = 0
+    for c, g in zip(*runs):
+        assert c.shape == g.shape
+        err = (g - c).abs().max().item()
+        assert err <= 5e-2 * max(1.0, c.abs().max().item()), err
+        top2 = c.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+        assert torch.equal(g.argmax(-1)[sure], c.argmax(-1)[sure])
+        compared += 1
+        if not torch.equal(g.argmax(-1), c.argmax(-1)):
+            break
+    assert compared >= at_least, compared
+
+
+def test_engine_verify_step_gpu_matches_cpu(cuda):
+    """DenseLLM.verify_step_paged on the GPU (the paged decode kernel over
+    B x K queries, once a layer) against the CPU on equal caches, bf16:
+    counts mixing 1..4, an idle slot, a window crossing a page."""
+    from triton_distributed_tpu_torch.models import dense
+    from triton_distributed_tpu_torch.models.paged_kv_cache import \
+        PagedKVCache
+    (cpu, params), (gpu, gparams) = _small_pair(cuda, moe=False)
+    c = cpu.config
+    lens = np.asarray([30, 12, 0, 62], np.int32)
+    counts = np.asarray([4, 2, 1, 3], np.int32)
+    active = np.asarray([True, True, False, True])
+    cands = np.random.default_rng(2).integers(0, 512, (4, 4)).astype(
+        np.int32)
+    gen = torch.Generator().manual_seed(3)
+    pools = [torch.randn((c.num_layers, 12, c.num_kv_heads, 32, c.head_dim),
+                         generator=gen).to(torch.bfloat16) for _ in range(2)]
+    real = dense.greedy_token
+    runs, lens_after = [], []
+    for m, p, dev in ((cpu, params, "cpu"), (gpu, gparams, cuda)):
+        cache = PagedKVCache.create(c.num_layers, 4, 128, c.num_kv_heads,
+                                    c.head_dim, block=32, num_blocks=12,
+                                    dtype=torch.bfloat16, device=dev)
+        for b in range(4):
+            cache.assign_slot(b, 3)
+            cache.seq_lens[b] = lens[b]
+        cache.k_pool.copy_(pools[0])
+        cache.v_pool.copy_(pools[1])
+        seen = []
+
+        def spy(x, lm_head):
+            seen.append((x.float() @ lm_head.float()).cpu())
+            return real(x, lm_head)
+
+        dense.greedy_token = spy
+        before = attn.FLASH_DECODE_PAGED["bfloat16"].launches
+        try:
+            m.verify_step_paged(p, cands, cache, active, counts)
+        finally:
+            dense.greedy_token = real
+        torch.cuda.synchronize()
+        if dev != "cpu":
+            assert attn.FLASH_DECODE_PAGED["bfloat16"].launches \
+                == before + c.num_layers
+        live = (np.arange(4)[None] < counts[:, None]) & active[:, None]
+        runs.append([seen[0][torch.from_numpy(live.reshape(-1))]])
+        lens_after.append(cache.seq_lens.copy())
+    np.testing.assert_array_equal(*lens_after)
+    _compare_picks(runs, 1)
+
+
+@pytest.mark.parametrize("moe", [False, True])
+def test_mega_serve_spec_gpu_matches_cpu(cuda, moe):
+    """ServeEngine(mode="megakernel", speculative=...) of a small model
+    on the GPU (one verify launch a tick) against the same engine on the
+    CPU (the plain walk), bf16, with an oracle drafter from the CPU's
+    spec-off run (every third draft wrong)."""
+    from triton_distributed_tpu_torch import models
+    from triton_distributed_tpu_torch.megakernel import serve as mserve
+    from triton_distributed_tpu_torch.models import dense
+    (cpu, params), (gpu, gparams) = _small_pair(cuda, moe)
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, 512, n).astype(np.int32), g)
+            for n, g in ((37, 9), (5, 12), (20, 6), (16, 8))]
+    kw = dict(mode="megakernel", b_max=2, max_len=64, block=16,
+              prefill_chunk=8)
+    off = models.ServeEngine(cpu, params, **kw).serve(
+        [r for r, _ in reqs], [g for _, g in reqs])
+    real = dense.greedy_token
+    runs = []
+    for m, p in ((cpu, params), (gpu, gparams)):
+        seen = []
+
+        def spy(x, lm_head):
+            seen.append((x.float() @ lm_head.float()).cpu())
+            return real(x, lm_head)
+
+        oracle = models.OracleDrafter(
+            dict(enumerate(off)), {r: q for r, (q, _) in enumerate(reqs)},
+            wrong_every=3, vocab=512)
+        dense.greedy_token = mserve.greedy_token = spy
+        try:
+            se = models.ServeEngine(m, p, **kw, speculative=models.SpecConfig(
+                drafter=oracle, k=4, adapt=False))
+            before = mkx.MEGAKERNEL.launches
+            se.serve([r for r, _ in reqs], [g for _, g in reqs])
+        finally:
+            dense.greedy_token = mserve.greedy_token = real
+        st = se.stats()
+        assert st["megakernel_steps"] == st["decode_steps"] > 0
+        assert st["spec_accepted"] > 0
+        runs.append(seen)
+    assert mkx.MEGAKERNEL.launches - before == st["decode_steps"]
+    _compare_picks(runs, 4)

@@ -336,11 +336,6 @@ def _tiny_moe():
         num_layers=2), dtype="float32", device="cpu")
 
 
-def _tiny_moe_pair():
-    m = _tiny_moe()
-    return m, m.init_params(torch.Generator().manual_seed(0))
-
-
 _MOE_SERVE = dict(b_slots=1, slot_rows=1, hidden=64, moe_intermediate=64,
                   num_experts=4, top_k=2, num_layers=1, num_heads=4,
                   num_kv_heads=2, head_dim=16, num_blocks=2, block=8,
@@ -348,12 +343,6 @@ _MOE_SERVE = dict(b_slots=1, slot_rows=1, hidden=64, moe_intermediate=64,
 
 
 @pytest.mark.parametrize("call,slice_", [
-    (lambda mb, h: mk.MegaServe(*_tiny_dense(), **_MS).verify(), "2b"),
-    (lambda mb, h: models.ServeEngine(*_tiny_dense(), mode="megakernel",
-                                      speculative=object()), "2b"),
-    (lambda mb, h: mk.MegaServe(*_tiny_moe_pair(), **_MS).verify(), "2b"),
-    (lambda mb, h: models.ServeEngine(*_tiny_moe_pair(), mode="megakernel",
-                                      speculative=object()), "2b"),
     (lambda mb, h: mk.MegaServe(_tiny_moe(), None, **_MS, tp_ranks=2), "6"),
     (lambda mb, h: models.ServeEngine(_tiny_moe(), None, mode="megakernel",
                                       tp_ranks=2), "6"),

@@ -165,14 +165,12 @@ def test_sampled_stream_reproducible_and_in_top_k(port_model):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"speculative": True}, "slice 2b"),
-    ({"slo_ticks": 8}, "slice 2b"),
-    ({"chaos": object()}, "slice 2b"),
-    ({"max_faults": 5}, "slice 2b"),
-    ({"backoff_ticks": 1}, "slice 2b"),
-    ({"backoff_cap": 32}, "slice 2b"),
-    ({"host_blocks": 4}, "slice 2b"),
-    ({"mode": "megakernel", "speculative": True}, "slice 2b"),
+    ({"slo_ticks": 8}, "slice 2c"),
+    ({"chaos": object()}, "slice 2c"),
+    ({"max_faults": 5}, "slice 2c"),
+    ({"backoff_ticks": 1}, "slice 2c"),
+    ({"backoff_cap": 32}, "slice 2c"),
+    ({"host_blocks": 4}, "slice 2c"),
     ({"mode": "megakernel", "tp_ranks": 2}, "slice 6"),
     ({"attn_parallelism": "sp"}, "slice 6"),
     ({"sp_combine": "ll"}, "slice 6"),

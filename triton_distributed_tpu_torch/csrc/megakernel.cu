@@ -7,7 +7,8 @@
 // SILU_MUL and ADD (:640), ATTN (:885; with rope_cs :797, head_prep :819,
 // attn_step :834, head_rms :879), KVA_K / KVA_V (:1512 / :1559), the
 // paged serving bodies ATTN_P (:1189) and KVA_PK / KVA_PV (:1351), and the
-// MoE expert FFN GROUPED_GEMM (:673-766). The verify-width arms, the fused
+// MoE expert FFN GROUPED_GEMM (:673-766), each at the run-time verify width
+// of queue column 10 (1..slot_rows candidate rows a slot). The fused
 // variants and the collective bodies (AR, A2A, GEMM_AR) come with later
 // slices.
 //
@@ -54,21 +55,25 @@
 // cache appends of a launch write rows [cache_len, cache_len + S), which no
 // task of the same launch reads from the cache.
 //
-// Paged serving (ATTN_P, KVA_PK, KVA_PV). Slot b's lengths and block-table
-// row are run-time data, copied to the device before the launch (stream-
-// ordered) and read through __ldg. Its append writes one row: row
-// cache_len_b of the slot, at page btab[b][cache_len_b / block], row
-// cache_len_b % block. No task of the same launch reads that row from the
-// pool: ATTN_P of slot b reads rows [0, cache_len_b) and takes its own
-// current row from the qkv activation, and the host refuses a table in which
-// another slot reads or appends that pool row
+// Paged serving (ATTN_P, KVA_PK, KVA_PV). Slot b's length, live width w and
+// block-table row are run-time data, copied to the device before the launch
+// (stream-ordered) and read through __ldg. A decode step has w = 1; a
+// speculative verify step w = 1 + drafts (up to slot_rows), its candidate
+// rows taken causally in one sweep of the prefix. Its append writes w rows:
+// positions cache_len_b + i of the slot, each at page
+// btab[b][(cache_len_b + i) / block], row (cache_len_b + i) % block. No task
+// of the same launch reads those rows from the pool: ATTN_P of slot b reads
+// rows [0, cache_len_b) and takes its own current rows from the qkv
+// activation, and the host refuses a table in which any slot reads, or
+// another append writes, one of those pool rows
 // (ExecutorCuda._paged_run_data). The prefix rows a slot reads were written
 // by earlier launches or by MegaServe.handoff's copy, stream-ordered before
 // the launch. So the __ldg rule above holds for the pool too. An inactive
-// slot arrives with length 0 and a table row of its own trash page, so it
-// writes only row 0 of that page. Unlike the TPU body, which moves an
-// aligned tile of rows through a read-modify-write because its DMAs move
-// whole tiles, the CUDA append writes the one row and nothing else.
+// slot arrives with length 0, width 0 (run as 1) and a table row of its own
+// trash page, so it writes only row 0 of that page. Unlike the TPU body,
+// which moves an aligned tile of rows through a read-modify-write because
+// its DMAs move whole tiles, the CUDA append writes its w rows and nothing
+// else, so a window may cross a page.
 //
 // GROUPED_GEMM (the MoE expert FFN over stacked expert slabs). The TPU body
 // is one task per row tile that loops statically over ALL E experts, so its
@@ -714,17 +719,26 @@ __device__ void attn_rows_task(const long long* d, int tile, float* sm,
   attn_task<T, D>(d, j, g, sm);
 }
 
-// ATTN_P: tile = (slot b, kv head). The slot's one live row (trunk row
-// b * slot_rows) at position cache_len_b attends the slot's pages up to
-// cache_len_b, then itself; its slot_rows - 1 pad rows get zeros.
+// The rows ATTN_P and KVA_PK / KVA_PV run for slot b: its run-time width
+// (1 when decoding, 1 + drafts when verifying), at least one, so an idle
+// slot (width 0) runs its first row against its own trash page.
+__device__ __forceinline__ int slot_width(const Params& p, int b) {
+  return max(1, __ldg(p.widths + b));
+}
+
+// ATTN_P: tile = (slot b, kv head). The slot's w live rows (trunk rows
+// b * slot_rows + i, i < w, at positions cache_len_b + i) attend the slot's
+// pages up to cache_len_b, then its candidate rows 0..i (causal inside the
+// tile: the verify arm, executor_pallas.py:1189-1335 with queue column 10);
+// its slot_rows - w pad rows get zeros. w = 1 is the decode step.
 template <typename T, int D>
 __device__ void attn_paged_task(const long long* d, int tile, float* sm,
                                 const Params& p) {
   const int Hkv = static_cast<int>(d[F_HKV]);
   const int R = static_cast<int>(d[F_SROWS]), blk = static_cast<int>(d[F_BLOCK]);
   const int b = tile / Hkv, j = tile % Hkv;
-  const int cl = __ldg(p.lens + b);
-  const AttnRows g{b * R, 1, cl, b * R, 1, cl, cl, blk, R - 1, true,
+  const int cl = __ldg(p.lens + b), w = slot_width(p, b);
+  const AttnRows g{b * R, w, cl, b * R, w, cl, cl, blk, R - w, true,
                    p.btab + static_cast<long long>(b) * p.btab_ld};
   attn_task<T, D>(d, j, g, sm);
 }
@@ -771,21 +785,23 @@ __device__ void kv_append_task(const long long* d, int tile, int cache_len) {
   }
 }
 
-// KVA_PK / KVA_PV: tile = slot b. Its live row lands at row
-// cache_len_b % block of page btab[b][cache_len_b / block]: that one row,
-// one warp per kv head, and nothing else of the page.
+// KVA_PK / KVA_PV: tile = slot b. Its w live rows land at positions
+// cache_len_b + i, i < w: row (cache_len_b + i) % block of page
+// btab[b][(cache_len_b + i) / block], one warp per (row, kv head), and
+// nothing else of the pool (the verify arm, executor_pallas.py:1340-1430).
 template <typename T, int D, bool K_PART>
 __device__ void kv_append_paged_task(const long long* d, int tile,
                                      const Params& p) {
   const int Hkv = static_cast<int>(d[F_HKV]);
   const int R = static_cast<int>(d[F_SROWS]), blk = static_cast<int>(d[F_BLOCK]);
-  const int cl = __ldg(p.lens + tile);
-  const long long dst_row =
-      static_cast<long long>(
-          __ldg(p.btab + static_cast<long long>(tile) * p.btab_ld + cl / blk)) *
-          blk + cl % blk;
-  for (int j = threadIdx.x >> 5; j < Hkv; j += NW)
-    kv_append_row<T, D, K_PART>(d, tile * R, j, cl, dst_row);
+  const int cl = __ldg(p.lens + tile), w = slot_width(p, tile);
+  const int* trow = p.btab + static_cast<long long>(tile) * p.btab_ld;
+  for (int item = threadIdx.x >> 5; item < w * Hkv; item += NW) {
+    const int i = item / Hkv, pos = cl + i;
+    const long long dst_row =
+        static_cast<long long>(__ldg(trow + pos / blk)) * blk + pos % blk;
+    kv_append_row<T, D, K_PART>(d, tile * R + i, item % Hkv, pos, dst_row);
+  }
 }
 
 // -- GROUPED_GEMM: the MoE expert FFN, in two tasks -------------------------
@@ -1049,17 +1065,17 @@ __device__ bool run_task(const long long* d, int tile, float* sm,
       else kv_append_task<T, 64, false>(d, tile, cl);
       return true;
     case OP_ATTN_P:
-      if (p.lens == nullptr) return false;
+      if (p.lens == nullptr || p.widths == nullptr) return false;
       if (d128) attn_paged_task<T, 128>(d, tile, sm, p);
       else attn_paged_task<T, 64>(d, tile, sm, p);
       return true;
     case OP_KVA_PK:
-      if (p.lens == nullptr) return false;
+      if (p.lens == nullptr || p.widths == nullptr) return false;
       if (d128) kv_append_paged_task<T, 128, true>(d, tile, p);
       else kv_append_paged_task<T, 64, true>(d, tile, p);
       return true;
     case OP_KVA_PV:
-      if (p.lens == nullptr) return false;
+      if (p.lens == nullptr || p.widths == nullptr) return false;
       if (d128) kv_append_paged_task<T, 128, false>(d, tile, p);
       else kv_append_paged_task<T, 64, false>(d, tile, p);
       return true;

@@ -158,6 +158,40 @@ class TPAttn(nn.Module):
         return row_parallel_out(out.reshape(B, -1), w_o, mode=self.mode,
                                 num_ranks=self.n)
 
+    def _verify_shard_paged(self, params, x, w_qkv, w_o, k_pool, v_pool,
+                            table, kv_len, rope, at, *, attn_method=None,
+                            k_scales=None, v_scales=None):
+        """One speculative verify step over ONE layer's paged pool, in
+        place: slot b feeds K candidate rows (x: (B, K, hidden); rows
+        past its count are pad). Row j ropes and appends at position
+        seq_lens[b] + j (rope: the (B, K, D/2) cos / sin of those
+        positions; at: where the live rows land, PagedKVCache.verify_at)
+        and attends the slot's prefix plus candidates 0..j: every (b, j)
+        is its own paged-decode query over the slot's table row (table:
+        (B * K, max_blocks), each row repeated K times) with kv_len[b * K
+        + j] = seq_lens[b] + j + 1 when live, else 0 (a dead row reads no
+        page and gives zeros). counts == 1 everywhere is the decode
+        step. Returns y (B, K, hidden)."""
+        from ..models.paged_kv_cache import scatter_rows
+
+        B, K, _ = x.shape
+        qkv = x.reshape(B * K, self.hidden) @ w_qkv
+        q, k, v = self._split_qkv(qkv, (B, K))
+        q, k = self._maybe_qk_norm(params, q, k)
+        q = apply_rope(q, *rope)                          # (B, K, Hl, D)
+        k = apply_rope(k, *rope)
+        scatter_rows(k_pool, k.reshape(B * K, self.hkv_loc, -1), at,
+                     scales=k_scales)
+        scatter_rows(v_pool, v.reshape(B * K, self.hkv_loc, -1), at,
+                     scales=v_scales)
+        out = flash_decode_paged(q.reshape(B * K, self.h_loc, self.head_dim),
+                                 k_pool, v_pool, table, kv_len,
+                                 method=attn_method, k_scales=k_scales,
+                                 v_scales=v_scales)
+        y = row_parallel_out(out.reshape(B * K, -1), w_o, mode=self.mode,
+                             num_ranks=self.n)
+        return y.reshape(B, K, self.hidden)
+
     def _prefill_chunk_shard(self, params, x, w_qkv, w_o, k_pool, v_pool,
                              rope, at, prefix, off: int, valid_len: int, *,
                              k_scales=None, v_scales=None):

@@ -10,7 +10,9 @@ A graph compiles into:
   SILU_MUL, ADD and the cache appends KVA_K / KVA_V in row tiles of
   ceil(S / n_sm) rows; ATTN in (row tile, kv head) tiles whose G q heads
   share every K/V row; the paged serving ops ATTN_P in (slot, kv head)
-  tiles and the paged appends KVA_PK / KVA_PV in one tile per slot; a
+  tiles and the paged appends KVA_PK / KVA_PV in one tile per slot, each
+  over the slot's run-time width of rows (one when decoding, the
+  candidates of a speculative verify step); a
   `moe_ffn` node becomes TWO GROUPED_GEMM tasks: phase 0 (routing and the
   gate / up dots) in (row, k, 64-column strip of I) tiles, writing the
   routed activations to an arena scratch of (S, top_k * I), and phase 1
@@ -300,8 +302,9 @@ class ExecutorCuda:
     def _check_kernel_shapes(self):
         """Refuse, before anything runs, what the CUDA kernel does not
         take: a head_dim other than 64 or 128, widths that are not a
-        multiple of 8 (16-byte weight vectors), and a moe_ffn with more
-        experts than the routing warp reaches, a top_k over
+        multiple of 8 (16-byte weight vectors), a paged attention whose
+        group x slot_rows q rows exceed one tile's QR_MAX, and a moe_ffn
+        with more experts than the routing warp reaches, a top_k over
         MOE_MAX_TOPK, an I or H that is not a multiple of its strip, or
         an x row or act row larger than the staged floats."""
         for nd in self.tasks:
@@ -326,6 +329,15 @@ class ExecutorCuda:
                          f"exceeds the {STAGED_FLOATS} staged floats")):
                     if bad:
                         raise ValueError(f"megakernel moe_ffn: {what}")
+            if nd.op == "attention_paged":
+                at = nd.attrs
+                G = at["num_heads"] // at["num_kv_heads"]
+                if G * at["slot_rows"] > QR_MAX:
+                    raise ValueError(
+                        f"megakernel attention_paged: {G} q heads a kv head "
+                        f"x slot_rows {at['slot_rows']} exceeds the "
+                        f"{QR_MAX} q rows of one ATTN_P tile (a verify step "
+                        f"runs up to slot_rows rows a slot)")
             if nd.op in ("attention", "attention_kv", "kv_append",
                          *PAGED_OPS) \
                     and nd.attrs["head_dim"] not in KERNEL_HEAD_DIMS:
@@ -495,9 +507,13 @@ class ExecutorCuda:
         `cache_len`; a paged serving program at the per-slot
         `cache_lens` (b_slots,) through `block_table` (b_slots,
         max_pages), with the per-slot live `widths` (b_slots,) in
-        [0, slot_rows] (default 1: each slot's first row; a moe_ffn row
-        at or past its slot's width routes to no expert and gives 0),
-        all host arrays, uploaded to the device together in one copy.
+        [0, slot_rows] (default 1: each slot's first row), all host
+        arrays, uploaded to the device together in one copy. A slot of
+        width w > 1 is a verify step: its rows 0..w-1 sit at positions
+        cache_len_b + j, attend the prefix and rows 0..j, and append all
+        w rows; width 0 (an idle slot) still runs its first row against
+        its own pages, as width 1, while a moe_ffn row at or past its
+        slot's width routes to no expert and gives 0.
         On a CUDA device this is one kernel launch, with no host sync;
         `plain=True` runs the plain walk instead (for comparisons)."""
         cache_len = int(cache_len)
@@ -506,8 +522,8 @@ class ExecutorCuda:
             if cache_len:
                 raise ValueError("a paged program runs at the per-slot "
                                  "cache_lens, not at one cache_len")
-            lens, btab = self._paged_run_data(cache_lens, block_table)
             wid = self._slot_widths(widths)
+            lens, btab = self._paged_run_data(cache_lens, block_table, wid)
         elif cache_lens is not None or block_table is not None \
                 or widths is not None:
             raise ValueError("cache_lens / block_table / widths: this "
@@ -548,14 +564,15 @@ class ExecutorCuda:
                 int(self.dtype == torch.bfloat16), stream_of(self.arena))
         return self.outputs()
 
-    def _paged_run_data(self, cache_lens, block_table):
+    def _paged_run_data(self, cache_lens, block_table, widths=None):
         """Check a paged step's lengths and table on the host and return
-        them as int32 numpy arrays. Refused: a length whose append row
-        lies past the slot's max_pages pages, a page id outside the pool
-        among the pages a slot reads or appends to, and a table whose
-        appends would land on one row twice or on a row another slot of
-        the same launch reads (the kernel reads the pool through the
-        read-only cache; see csrc/megakernel.cu)."""
+        them as int32 numpy arrays. Slot b appends max(1, widths[b]) rows
+        (default one) at positions [cache_lens[b], + that). Refused: an
+        append row past the slot's max_pages pages, a page id outside the
+        pool among the pages a slot reads or appends to, and a table
+        whose appends would land on one pool row twice or on a row that
+        a slot of the same launch reads (the kernel reads the pool
+        through the read-only cache; see csrc/megakernel.cu)."""
         nb, _, blk, mp, _ = self.paged
         if cache_lens is None or block_table is None:
             raise ValueError("a paged program needs cache_lens and "
@@ -568,24 +585,32 @@ class ExecutorCuda:
             raise ValueError(f"cache_lens {lens.shape} / block_table "
                              f"{btab.shape}: the program takes ({nb},) / "
                              f"{(nb, mp)}")
-        if not ((lens >= 0) & (lens < mp * blk)).all():
-            raise ValueError(f"cache_lens {lens.tolist()}: each must lie in "
-                             f"[0, {mp * blk}) (max_pages x block)")
+        w = np.maximum(np.ones(nb, np.int64) if widths is None
+                       else np.asarray(widths, np.int64), 1)
+        if not ((lens >= 0) & (lens + w <= mp * blk)).all():
+            raise ValueError(f"cache_lens {lens.tolist()} with widths "
+                             f"{w.tolist()}: each slot's appended rows must "
+                             f"lie in [0, {mp * blk}) (max_pages x block)")
         pool_pages = self.graph.caches[next(iter(self.graph.caches))].rows \
             // blk
         cols = np.arange(mp)[None, :]
-        used = cols <= (lens // blk)[:, None]      # pages read or appended
+        used = cols <= ((lens + w - 1) // blk)[:, None]   # read or appended
         if ((btab < 0) | (btab >= pool_pages))[used].any():
             raise ValueError(f"block_table names a page outside the pool "
                              f"[0, {pool_pages}) among the pages a slot "
                              f"uses")
-        # rows of each column a slot reads, and where each slot appends
-        read = np.clip(lens[:, None] - cols * blk, 0, blk)
-        ap, ar = btab[np.arange(nb), lens // blk], lens % blk
-        clash = (btab[None] == ap[:, None, None]) \
-            & (ar[:, None, None] < read[None])
-        dest = ap.astype(np.int64) * blk + ar
-        if clash.any() or len(set(dest.tolist())) < nb:
+        # rows of each column a slot reads, and where each appended row
+        # of each slot lands
+        read = np.clip(lens[:, None] - cols * blk, 0, blk)        # (nb, mp)
+        pos = lens[:, None] + np.arange(int(w.max()))[None, :]   # (nb, W)
+        live = pos < (lens + w)[:, None]
+        ap = btab[np.arange(nb)[:, None], np.minimum(pos // blk, mp - 1)]
+        ar = pos % blk
+        clash = (btab[None, None] == ap[:, :, None, None]) \
+            & (ar[:, :, None, None] < read[None, None]) \
+            & live[:, :, None, None]
+        dest = (ap.astype(np.int64) * blk + ar)[live]
+        if clash.any() or np.unique(dest).size < dest.size:
             raise ValueError("block_table: a slot's append lands on a pool "
                              "row that another slot reads or appends to "
                              "in the same step")
@@ -717,9 +742,12 @@ class ExecutorCuda:
         row once per kv head's K and V), as ExecutorPallas.task_costs
         counts each task. ATTN_P counts the cache_len_b prefix rows each
         slot reads (the CUDA body reads exactly those; the Pallas body
-        reads whole pages, round_up(cache_len_b, block)), its live row's
-        q, k and v, and its output tile, pad rows included (written as
-        zeros). A moe_ffn counts its live rows (`live_rows`): phase 0
+        reads whole pages, round_up(cache_len_b, block)) once for all of
+        the slot's w = max(1, width) rows, those rows' q, k and v, and
+        its output tile, pad rows included (written as zeros); its
+        operations are the w rows' scores and PV products over the
+        prefix and the causal candidates before them. KVA_P* counts the
+        w rows a slot appends. A moe_ffn counts its live rows (`live_rows`): phase 0
         their x and logits rows, the gate / up slabs of the distinct
         experts they route to and the routed activations written; phase
         1 those activations read, the same experts' down slabs and the
@@ -731,6 +759,8 @@ class ExecutorCuda:
         if self.paged is not None:
             lens = np.asarray(cache_lens if cache_lens is not None
                               else np.zeros(self.paged.b_slots), np.int64)
+            # the rows ATTN_P and KVA_P* run a slot (at least one)
+            wq = np.maximum(self._slot_widths(widths), 1).astype(np.int64)
         costs = []
         for nd, phase in zip(self.tasks, self.phases):
             S = nd.inputs[0].rows
@@ -773,14 +803,14 @@ class ExecutorCuda:
             elif nd.op == "attention_paged":
                 at = nd.attrs
                 H, Hkv, D = at["num_heads"], at["num_kv_heads"], at["head_dim"]
-                nb = len(lens)
-                flops = 4 * int((lens + 1).sum()) * H * D
-                bytes_ = (nb * nd.inputs[0].cols + 2 * int(lens.sum()) * Hkv
-                          * D + S * H * D) * item
+                pairs = int((wq * lens + wq * (wq + 1) // 2).sum())
+                flops = 4 * pairs * H * D
+                bytes_ = (int(wq.sum()) * nd.inputs[0].cols
+                          + 2 * int(lens.sum()) * Hkv * D + S * H * D) * item
             else:   # kv_append(_paged): read the part, write the rows
                 at = nd.attrs
                 w = at["num_kv_heads"] * at["head_dim"]
-                rows = S // at["slot_rows"] if nd.op in PAGED_OPS else S
+                rows = int(wq.sum()) if nd.op in PAGED_OPS else S
                 flops = 10 * rows * w if at["part"] == "k" else 0
                 bytes_ = 2 * rows * w * item
             costs.append({"flops": int(flops), "bytes": int(bytes_)})
@@ -829,6 +859,12 @@ def _page_rows(btab_row, n, blk, device):
     c = np.arange(n)
     return torch.from_numpy(btab_row[c // blk].astype(np.int64) * blk
                             + c % blk).to(device)
+
+
+def _slot_width(widths, b) -> int:
+    """The rows ATTN_P and KVA_P* run for slot b: its width, at least one
+    (an idle slot's first row runs against its own pages)."""
+    return max(1, int(widths[b]))
 
 
 def _moe_live(row, r, widths) -> bool:
@@ -888,41 +924,44 @@ def _plain_tile(ex, row, v, tile, cache_len, lens=None, btab=None,
         H, Hkv, D = int(row[F_H]), int(row[F_HKV]), int(row[F_HD])
         G, blk = H // Hkv, int(row[F_BLOCK])
         b, j = divmod(tile, Hkv)
-        r0, cl = b * tr, int(lens[b])
+        r0, cl, w = b * tr, int(lens[b]), _slot_width(widths, b)
         eps, scale = _bits_f32(row[F_EPS]), _bits_f32(row[F_SCALE])
         qkv, dev = v["a"], v["a"].device
-        pos = torch.tensor([cl], device=dev)
-        q = prep_rows(qkv[r0:r0 + 1, j * G * D:(j + 1) * G * D].reshape(
-            1, G, D), v.get("d") if row[F_QKN] else None, pos, v["cos"],
-            v["sin"], eps, dt)                                # (1, G, D)
-        kcur = prep_rows(qkv[r0:r0 + 1, (H + j) * D:(H + j + 1) * D]
-                         .reshape(1, 1, D), v.get("e") if row[F_QKN]
+        pos = cl + torch.arange(w, device=dev)
+        q = prep_rows(qkv[r0:r0 + w, j * G * D:(j + 1) * G * D].reshape(
+            w, G, D), v.get("d") if row[F_QKN] else None, pos, v["cos"],
+            v["sin"], eps, dt)                                # (w, G, D)
+        kcur = prep_rows(qkv[r0:r0 + w, (H + j) * D:(H + j + 1) * D]
+                         .reshape(w, 1, D), v.get("e") if row[F_QKN]
                          else None, pos, v["cos"], v["sin"], eps, dt)[:, 0]
-        vcur = qkv[r0:r0 + 1, (H + Hkv + j) * D:(H + Hkv + j + 1) * D]
+        vcur = qkv[r0:r0 + w, (H + Hkv + j) * D:(H + Hkv + j + 1) * D]
         rows = _page_rows(btab[b], cl, blk, dev)
         keys = torch.cat([v["b"][rows, j * D:(j + 1) * D].float(), kcur])
         vals = torch.cat([v["c"][rows, j * D:(j + 1) * D].float(),
                           vcur.float()])
-        seen = torch.ones((1, cl + 1), dtype=torch.bool, device=dev)
+        # candidate i sees the prefix and candidates 0..i
+        cols = torch.arange(cl + w, device=dev)[None, :]
+        seen = cols <= cl + torch.arange(w, device=dev)[:, None]
         o = _softmax_pv(q, keys, vals, seen, scale, dt)
         cols = slice(j * G * D, (j + 1) * G * D)
-        v["out"][r0, cols] = o.reshape(G * D).to(dt)
-        v["out"][r0 + 1:r0 + tr, cols] = 0      # pad rows are exactly 0
+        v["out"][r0:r0 + w, cols] = o.reshape(w, G * D).to(dt)
+        v["out"][r0 + w:r0 + tr, cols] = 0      # pad rows are exactly 0
         return
     if op in (TASK_KVA_PK, TASK_KVA_PV):
         H, Hkv, D = int(row[F_H]), int(row[F_HKV]), int(row[F_HD])
         blk, b = int(row[F_BLOCK]), tile
-        r0, cl = b * tr, int(lens[b])
+        r0, cl, w = b * tr, int(lens[b]), _slot_width(widths, b)
         lo = H if op == TASK_KVA_PK else H + Hkv
-        part = v["a"][r0:r0 + 1, lo * D:(lo + Hkv) * D]
+        part = v["a"][r0:r0 + w, lo * D:(lo + Hkv) * D]
+        pos = cl + np.arange(w)
         if op == TASK_KVA_PK:
-            part = prep_rows(part.reshape(1, Hkv, D),
+            part = prep_rows(part.reshape(w, Hkv, D),
                              v.get("e") if row[F_QKN] else None,
-                             torch.tensor([cl], device=part.device),
+                             torch.from_numpy(pos).to(part.device),
                              v["cos"], v["sin"], _bits_f32(row[F_EPS]), dt)
-            part = part.reshape(1, Hkv * D)
-        dest = int(btab[b, cl // blk]) * blk + cl % blk
-        v["out"][dest] = part[0].to(dt)
+            part = part.reshape(w, Hkv * D)
+        dest = btab[b, pos // blk].astype(np.int64) * blk + pos % blk
+        v["out"][torch.from_numpy(dest).to(part.device)] = part.to(dt)
         return
     if op == TASK_LINEAR:
         nct, tn = int(row[F_NCT]), int(row[F_TN])

@@ -7,8 +7,9 @@ cast to the graph dtype; `linear` accumulates in f32; `rms_norm`,
 at positions cache_len + i, a partial over the cache prefix
 [0, cache_len), a causal partial over the current rows, and
 `merge_two_partials`; the paged ops do the same per slot, over the
-slot's pages gathered through the block table at its own length, and
-leave the pad rows of each slot's tile exactly 0. `moe_ffn` routes every
+slot's pages gathered through the block table at its own length, for
+the slot's live rows (one, or a verify step's candidates, causally),
+and leave the pad rows of each slot's tile exactly 0. `moe_ffn` routes every
 row, pad rows and idle slots included, as the JAX executor does (a zero
 row's expert output is exactly 0 under any routing). The attention
 partials go through the port's
@@ -124,7 +125,8 @@ class ExecutorTorch:
             self._scalar_names |= {f"{self.paged.cache_len_name}{b}"
                                    for b in range(self.paged.b_slots)}
 
-    def _eval_graph(self, env_inputs, env_weights, scalars, btab=None):
+    def _eval_graph(self, env_inputs, env_weights, scalars, btab=None,
+                    widths=None):
         g = self.graph
         eps_h = self.builder.rms_eps
         env = {}
@@ -222,17 +224,18 @@ class ExecutorTorch:
                                   device=qkv.device)
                 lens = slot_lengths(self.paged, scalars)
                 for b, cl in enumerate(lens.tolist()):
-                    row = qkv[b * R:b * R + 1]       # the slot's token
-                    q = row[:, :h * d].reshape(1, 1, h, d)
-                    k = row[:, h * d:(h + hkv) * d].reshape(1, 1, hkv, d)
-                    v = row[:, (h + hkv) * d:].reshape(1, 1, hkv, d)
+                    w = int(widths[b])
+                    row = qkv[b * R:b * R + w]     # the slot's candidates
+                    q = row[:, :h * d].reshape(1, w, h, d)
+                    k = row[:, h * d:(h + hkv) * d].reshape(1, w, hkv, d)
+                    v = row[:, (h + hkv) * d:].reshape(1, w, hkv, d)
                     if at.get("qk_norm", False):
                         q = head_rms(q, env[node.inputs[3].idx].float()[0],
                                      eps_h)
                         k = head_rms(k, env[node.inputs[4].idx].float()[0],
                                      eps_h)
                     cos, sin = rope_cos_sin(
-                        torch.tensor([cl], device=qkv.device), d,
+                        cl + torch.arange(w, device=qkv.device), d,
                         at["rope_theta"])
                     q = apply_rope(q, cos, sin).contiguous()
                     k = apply_rope(k, cos, sin).contiguous()
@@ -252,7 +255,7 @@ class ExecutorTorch:
                         q, k, v.contiguous(), q_offset=0, kv_offset=0,
                         causal=True)
                     o, _ = merge_two_partials(o1, l1, o2, l2)
-                    out[b * R] = o.reshape(h * d).float()
+                    out[b * R:b * R + w] = o.reshape(w, h * d).float()
                 env[node.out.idx] = out.to(dt)
             elif node.op == "kv_append_paged":
                 h, hkv, d = at["num_heads"], at["num_kv_heads"], at["head_dim"]
@@ -261,20 +264,23 @@ class ExecutorTorch:
                 new = cache.clone()
                 lens = slot_lengths(self.paged, scalars)
                 for b, cl in enumerate(lens.tolist()):
-                    row = qkv[b * R:b * R + 1]
+                    w = int(widths[b])
+                    row = qkv[b * R:b * R + w]
                     if at["part"] == "k":
-                        rows = row[:, h * d:(h + hkv) * d].reshape(1, hkv, d)
+                        rows = row[:, h * d:(h + hkv) * d].reshape(w, hkv, d)
                         if at.get("qk_norm", False):
                             kn = env[node.inputs[2].idx].float()[0]
                             rows = head_rms(rows, kn, eps_h)
                         cos, sin = rope_cos_sin(
-                            torch.tensor([cl], device=qkv.device), d,
+                            cl + torch.arange(w, device=qkv.device), d,
                             at["rope_theta"])
                         rows = apply_rope(rows[None], cos, sin)[0]
                     else:
-                        rows = row[:, (h + hkv) * d:].reshape(1, hkv, d)
-                    pos = max(int(btab[b, cl // blk]), 0) * blk + cl % blk
-                    new[pos] = rows.reshape(hkv * d).to(new.dtype)
+                        rows = row[:, (h + hkv) * d:].reshape(w, hkv, d)
+                    p = cl + np.arange(w)
+                    pos = np.maximum(btab[b, p // blk], 0) * blk + p % blk
+                    new[torch.from_numpy(pos.astype(np.int64)).to(
+                        new.device)] = rows.reshape(w, hkv * d).to(new.dtype)
                 env[node.out.idx] = new
             elif node.op == "moe_ffn":
                 # JAX executor_xla's expert loop: f32 gate/up dots,
@@ -303,13 +309,17 @@ class ExecutorTorch:
         return tuple(env[o.idx] for o in g.outputs)
 
     def run(self, inputs: dict, weights: dict, scalars: dict | None = None,
-            block_table=None):
+            block_table=None, widths=None):
         """Evaluate the graph. `inputs` carries activations and cache
         values (tensors or arrays); `scalars` the run-time cache
         lengths (`cache_len`, or a paged program's per-slot
         `{cache_len_name}{b}`); `block_table` a paged program's
         (b_slots, max_pages) table (default: slot b owns pages
-        [b*max_pages, (b+1)*max_pages)). Returns the graph outputs as
+        [b*max_pages, (b+1)*max_pages)); `widths` a paged program's
+        per-slot rows (b_slots,) in [1, slot_rows] (default one a slot:
+        a slot of width w > 1 verifies w candidate rows at positions
+        cache_len_b + i, causally, and appends all of them). Returns the
+        graph outputs as
         torch tensors (a `kv_append` / `kv_append_paged` output is a new
         cache tensor: the inputs are not changed). Tensors land on the
         device of `inputs["x"]` when it is a tensor, else on the CPU."""
@@ -335,17 +345,25 @@ class ExecutorTorch:
             if btab.shape != (nb, mp):
                 raise ValueError(f"block_table {btab.shape}, the program "
                                  f"takes {(nb, mp)}")
-            if not ((lens >= 0) & (lens < mp * blk)).all():
-                raise ValueError(f"per-slot lengths {lens.tolist()} outside "
+            widths = (np.ones(nb, np.int64) if widths is None
+                      else np.asarray(widths, np.int64).reshape(-1))
+            if widths.shape != (nb,) or not (
+                    (widths >= 1) & (widths <= self.paged.slot_rows)).all():
+                raise ValueError(f"widths {widths.tolist()}: one per slot, "
+                                 f"each in [1, {self.paged.slot_rows}]")
+            if not ((lens >= 0) & (lens + widths <= mp * blk)).all():
+                raise ValueError(f"per-slot lengths {lens.tolist()} with "
+                                 f"widths {widths.tolist()} outside "
                                  f"[0, {mp * blk})")
-        elif block_table is not None:
-            raise ValueError("block_table: this program has no paged node")
+        elif block_table is not None or widths is not None:
+            raise ValueError("block_table / widths: this program has no "
+                             "paged node")
         x0 = next(iter(inputs.values()))
         dev = x0.device if isinstance(x0, torch.Tensor) else \
             torch.device("cpu")
         ins = {k: as_tensor(v, self.dtype, dev) for k, v in inputs.items()}
         ws = {k: as_tensor(v, self.dtype, dev) for k, v in weights.items()}
-        return self._eval_graph(ins, ws, scalars, btab)
+        return self._eval_graph(ins, ws, scalars, btab, widths)
 
     def run_sharded(self, *args, **kwargs):
         raise later_slice("run_sharded", "6", " (the multi-rank layer)")

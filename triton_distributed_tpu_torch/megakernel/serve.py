@@ -30,10 +30,18 @@ ServeEngine (models/serve.py, mode="megakernel") needs:
 Page ids are shared with the engine's allocator, so admission, eviction
 and the free list need to know nothing of the megakernel.
 
-The slot's trunk tile is `slot_rows` rows (its token in the first, zero
-pad in the rest). The JAX package uses the TPU's 8 / 16-row sublane
-tile; here the default is 1, which keeps a b_max <= 8 trunk on the
-kernel's skinny LINEAR body (each weight read once per step).
+- `verify(...)`: the speculative verify step, the same program at
+  per-slot widths up to `slot_rows`: a slot's candidate rows fill the
+  first rows of its tile, ONE launch scores them all (ATTN_P causal over
+  the candidates, the paged append of every candidate row, GROUPED_GEMM
+  on every live row), then lm_head and argmax on the live rows.
+
+The slot's trunk tile is `slot_rows` rows (its token, or its verify
+candidates, in the first, zero pad in the rest). The JAX package uses
+the TPU's 8 / 16-row sublane tile; here the default is 1, which keeps a
+b_max <= 8 trunk on the kernel's skinny LINEAR body (each weight read
+once per step); a verify step takes at most slot_rows candidates a
+slot (ServeEngine picks 8 under speculation when it is given none).
 """
 
 from __future__ import annotations
@@ -176,6 +184,63 @@ class MegaServe:
                                 temperature=temperature, top_k=top_k)
         return greedy_token(hid, self.lm_head)
 
-    def verify(self, *args, **kwargs):
-        raise later_slice("MegaServe.verify", "2b",
-                          " (speculative decoding)")
+    # -- the batched speculative verify step -------------------------------
+    def page_room(self, cache_len: int) -> int:
+        """The verify-width budget of a slot at `cache_len`: at most
+        slot_rows - cache_len % slot_rows candidate rows this tick (the
+        JAX rule, tile_m - cache_len % tile_m, with slot_rows as the
+        tile, so the port's ticks equal the JAX engine's when the tiles
+        match; the port's row-wise append itself would need no clamp)."""
+        return self.slot_rows - int(cache_len) % self.slot_rows
+
+    def verify(self, cands, counts, cache_lens, block_table, decode_mask):
+        """Score every decoding slot's candidate rows in ONE megakernel
+        launch: cands (b_max, K) ints, row 0 the slot's last real token
+        and rows 1..counts[b]-1 its drafts; counts, cache_lens,
+        decode_mask (b_max,) and the allocator's block table, host
+        arrays. Candidate j of slot b rides trunk row b * slot_rows + j
+        at position cache_lens[b] + j; rows past the count are zero and
+        the slot's width is counts[b] (0 for a slot that does not
+        decode), so ATTN_P attends the prefix plus candidates 0..j, the
+        paged append writes the counts[b] rows and a MoE layer routes
+        only them. Then lm_head and argmax on the live rows. Returns
+        (b_max, K) int32 greedy predictions on the host (pred[b, j] is
+        the model's next token after candidate j; 0 where no row ran).
+        Refused: K > slot_rows, and a count past the slot's page room
+        (`page_room`)."""
+        cands = np.asarray(cands, np.int32)
+        B, K = cands.shape
+        R = self.slot_rows
+        if K > R:
+            raise ValueError(
+                f"verify width {K} exceeds the slot tile (slot_rows={R}): "
+                f"candidate rows live in the slot's own trunk rows")
+        cnt = np.asarray(counts, np.int32).reshape(-1)
+        lens = np.asarray(cache_lens, np.int32).reshape(-1)
+        mask = np.asarray(decode_mask, bool).reshape(-1)
+        bad = [int(b) for b in np.flatnonzero(mask)
+               if cnt[b] > self.page_room(lens[b])]
+        if bad:
+            raise ValueError(
+                f"verify width exceeds the page-room budget for slot(s) "
+                f"{bad}: counts {cnt[bad].tolist()} at cache_lens "
+                f"{lens[bad].tolist()} (slot_rows={R}) — clamp with "
+                f"serve_state.spec_clamp(room=slot_rows - cache_len % "
+                f"slot_rows)")
+        wid = np.where(mask, cnt, 0).astype(np.int32)
+        live = np.arange(K)[None, :] < wid[:, None]              # (B, K)
+        tbl = self.kernel_table(torch.from_numpy(
+            np.asarray(block_table, np.int32)), torch.from_numpy(mask))
+        ids = torch.from_numpy(np.where(live, cands, 0)).to(self.device)
+        emb = F.embedding(ids, self.embed)                     # (B, K, H)
+        x = self.prog.inputs["x"].view(B, R, -1)
+        x[:, :K] = torch.where(torch.from_numpy(live).to(self.device)[
+            ..., None], emb, 0)
+        hid = self.prog.step(cache_lens=np.where(mask, lens, 0),
+                             block_table=tbl, widths=wid)[0]
+        rows = torch.from_numpy((np.arange(B)[:, None] * R
+                                 + np.arange(K)[None, :])[live]).to(
+                                     self.device)
+        pred = np.zeros((B, K), np.int32)
+        pred[live] = greedy_token(hid[rows], self.lm_head).cpu().numpy()
+        return pred

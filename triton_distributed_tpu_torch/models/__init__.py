@@ -1,7 +1,7 @@
 """Model zoo + AutoLLM registry (counterpart of
 triton_distributed_tpu/models/__init__.py): dense models and Qwen3-MoE,
 with the per-request `Engine` and the continuous-batching
-`ServeEngine`."""
+`ServeEngine` and its speculative-decode drafters."""
 
 from __future__ import annotations
 
@@ -14,11 +14,13 @@ from .paged_kv_cache import PagedKVCache
 from .qwen_moe import Qwen3MoE
 from .serve import ServeEngine
 from .serve_state import BlockAlloc, Request, SchedCfg, SchedulerState
+from .spec import NGramDrafter, OracleDrafter, SpecConfig
 
 __all__ = ["AutoLLM", "BlockAlloc", "DenseLLM", "Engine", "KVCache",
-           "ModelConfig", "MODEL_CONFIGS", "PagedKVCache", "Qwen3MoE",
-           "Request", "SchedCfg", "SchedulerState", "ServeEngine",
-           "get_config", "params_from_jax"]
+           "ModelConfig", "MODEL_CONFIGS", "NGramDrafter", "OracleDrafter",
+           "PagedKVCache", "Qwen3MoE", "Request", "SchedCfg",
+           "SchedulerState", "ServeEngine", "SpecConfig", "get_config",
+           "params_from_jax"]
 
 
 class AutoLLM:

@@ -7,7 +7,8 @@ Parameters are a plain dict with the JAX package's layout and names:
 layers. The forward is an eager Python loop over the layers in place of
 the JAX `lax.scan`; the KV cache is written in place, the contiguous
 one (`prefill`, `decode_step`) and the paged pool of continuous
-batching (`prefill_chunk_paged`, `decode_step_paged`) alike.
+batching (`prefill_chunk_paged`, `decode_step_paged` and the
+speculative `verify_step_paged`) alike.
 """
 
 from __future__ import annotations
@@ -326,6 +327,53 @@ class DenseLLM(nn.Module):
         cache.advance(slice(None), act.astype(np.int32))
         mask = torch.from_numpy(act).to(dev)
         return torch.where(mask, nxt, tok), cache
+
+    def verify_step_paged(self, params, cand_toks, cache: PagedKVCache,
+                          active, counts, *, attn_method: str | None = None):
+        """One speculative-decode VERIFY step over the paged cache: slot b
+        feeds `counts[b]` candidate tokens (cand_toks: (B, K) ints, row
+        0 its last real token, rows 1..counts-1 the drafts, the rest
+        pad) through ONE walk of the trunk; candidate j ropes and appends
+        at position seq_lens[b] + j and attends the slot's prefix plus
+        the candidates before it (TPAttn._verify_shard_paged). Returns
+        (pred (B, K) int32 — the greedy next token after each candidate
+        row: pred[b, j] verifies draft j + 1 and pred[b, accepted] is the
+        bonus token — and the cache with counts[b] rows appended and
+        seq_lens advanced by counts * active). The caller rolls rejected
+        rows back with `PagedKVCache.truncate_slot`. counts == 1
+        everywhere is exactly the greedy decode step. Greedy only: the
+        accept rule is argmax == draft. The pool is updated in place;
+        active / counts are host arrays."""
+        ids = torch.as_tensor(np.asarray(cand_toks), dtype=torch.int32,
+                              device=self.device)
+        B, K = ids.shape
+        act = np.asarray(active, bool).reshape(-1)
+        cnt = np.asarray(counts, np.int32).reshape(-1)
+        lens = cache.seq_lens.astype(np.int64)
+        dev = self.device
+        pos = lens[:, None] + np.arange(K)[None, :]               # (B, K)
+        live = (np.arange(K)[None, :] < cnt[:, None]) & act[:, None]
+        kv_len = torch.from_numpy(
+            np.where(live, pos + 1, 0).reshape(-1).astype(np.int32)).to(dev)
+        rope = rope_cos_sin(torch.from_numpy(pos).to(dev),
+                            self.config.head_dim,
+                            theta=self.config.rope_theta)     # (B, K, D/2)
+        at = cache.verify_at(cnt, act, K)
+        table = cache.device_table.repeat_interleave(K, dim=0)
+        eps = self.config.rms_norm_eps
+        x = F.embedding(ids, params["embed"])              # (B, K, H)
+        for i, p in self._layers(params):
+            h = rms_norm(x, p["ln1"], eps)
+            x = x + self.attn._verify_shard_paged(
+                self._attn_layer_params(p), h, p["w_qkv"], p["w_o"],
+                cache.k_pool[i], cache.v_pool[i], table, kv_len, rope, at,
+                attn_method=attn_method, **self._pool_layer(cache, i))
+            h = rms_norm(x, p["ln2"], eps)
+            x = x + self._mlp_rows(h, p, mode=self._decode_mlp_mode)
+        x = rms_norm(x, params["norm"], eps)
+        pred = greedy_token(x.reshape(B * K, -1), params["lm_head"])
+        cache.advance(slice(None), np.where(act, cnt, 0).astype(np.int32))
+        return pred.reshape(B, K), cache
 
     def prefill_chunk_paged(self, params, chunk_ids, cache: PagedKVCache,
                             slot: int, off: int, valid_len: int, *,

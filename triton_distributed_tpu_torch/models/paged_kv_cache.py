@@ -21,8 +21,10 @@ and the step's lengths, which the model uploads with the step. Grants
 follow the JAX order exactly: the lowest free block ids first.
 
 Writes that the JAX helpers drop with `mode="drop"` (inactive slot,
-unassigned page, pad row past the valid length) are filtered on the
-host (`append_at`, `chunk_at`), so no index ever leaves the pool.
+unassigned page, pad row past the valid length, a verify row past its
+slot's count) are filtered on the host (`append_at`, `verify_at`,
+`chunk_at`), so no index ever leaves the pool. A speculative rollback
+is a block-table edit (`truncate_slot`).
 """
 
 from __future__ import annotations
@@ -91,6 +93,24 @@ def append_rows_at(block_table, seq_lens, active, block: int,
                      lens[keep], block, device)
 
 
+def verify_rows_at(block_table, seq_lens, counts, active, block: int,
+                   device, width: int | None = None) -> RowsAt:
+    """Destinations of one verify step's rows: slot b's `counts[b]`
+    candidate rows land at positions [seq_lens[b], seq_lens[b] +
+    counts[b]) when `active[b]` (None: every slot); source row
+    b * width + j is candidate j of slot b (`width` defaults to the
+    largest count). Rows past a slot's count, inactive slots and
+    unassigned pages are not listed. Host arrays in."""
+    lens = np.asarray(seq_lens, np.int64)
+    cnt = np.asarray(counts, np.int64).reshape(-1)
+    keep = (np.ones(len(lens), bool) if active is None
+            else np.asarray(active, bool))
+    K = max(1, int(cnt.max(initial=1))) if width is None else int(width)
+    b, j = np.nonzero((np.arange(K)[None, :] < cnt[:, None]) & keep[:, None])
+    return RowsAt.of(b * K + j, np.asarray(block_table)[b], lens[b] + j,
+                     block, device)
+
+
 def chunk_rows_at(block_table, slot: int, off: int, valid_len: int,
                   block: int, device) -> RowsAt:
     """Destinations of a prefill chunk's rows: positions [off, off +
@@ -130,6 +150,29 @@ def append_step_shard(k_pool, v_pool, k_new, v_new, block_table, seq_lens,
                         k_pool.device)
     scatter_rows(k_pool, k_new, at, scales=k_scales)
     scatter_rows(v_pool, v_new, at, scales=v_scales)
+    if k_scales is not None:
+        return k_pool, v_pool, k_scales, v_scales
+    return k_pool, v_pool
+
+
+def append_rows_shard(k_pool, v_pool, k_new, v_new, block_table, seq_lens,
+                      counts, active=None, *, k_scales=None, v_scales=None):
+    """Write one verify step's K/V rows, in place: slot b's `counts[b]`
+    candidate rows land at positions [seq_lens[b], seq_lens[b] +
+    counts[b]); counts == 1 writes exactly `append_step_shard`'s row.
+    k_pool/v_pool: (nb, Hkv, block, D) ONE layer's pool; k_new/v_new:
+    (B, K, Hkv, D); block_table (B, max_blocks) and seq_lens / counts
+    (B,) on the host. Rows past counts[b], inactive slots and unassigned
+    pages are not written. The caller advances seq_lens and rolls
+    rejected rows back (`PagedKVCache.truncate_slot`). Returns (k_pool,
+    v_pool), or with the scale sidecars of a quantized pool the
+    4-tuple."""
+    B, K = k_new.shape[:2]
+    at = verify_rows_at(block_table, seq_lens, counts, active,
+                        k_pool.shape[2], k_pool.device, width=K)
+    kf, vf = (t.reshape(B * K, *t.shape[2:]) for t in (k_new, v_new))
+    scatter_rows(k_pool, kf, at, scales=k_scales)
+    scatter_rows(v_pool, vf, at, scales=v_scales)
     if k_scales is not None:
         return k_pool, v_pool, k_scales, v_scales
     return k_pool, v_pool
@@ -271,6 +314,12 @@ class PagedKVCache:
         """`append_rows_at` over this cache's table and lengths."""
         return append_rows_at(self.block_table, self.seq_lens, active,
                               self.block, self.k_pool.device)
+
+    def verify_at(self, counts, active=None, width: int | None = None
+                  ) -> RowsAt:
+        """`verify_rows_at` over this cache's table and lengths."""
+        return verify_rows_at(self.block_table, self.seq_lens, counts,
+                              active, self.block, self.k_pool.device, width)
 
     def chunk_at(self, slot: int, off: int, valid_len: int) -> RowsAt:
         """`chunk_rows_at` over this cache's table."""
@@ -417,6 +466,63 @@ class PagedKVCache:
         self.block_table[b] = -1
         self.seq_lens[b] = 0
         self._touch()
+
+    def truncate_slot(self, b: int, new_len: int, *, cached=(),
+                      min_blocks: int = 0, sp_ranks: int = 1) -> tuple:
+        """Speculative-decode rollback as a block-table edit: trim slot
+        `b`'s cached length to `new_len` tokens (rows past it become
+        garbage that every reader bounds off by seq_lens and later
+        appends rewrite) and free the now-empty TAIL table columns,
+        those at or past max(ceil(new_len / block), min_blocks), through
+        the refcount path of `free_slot`: a block leaves `in_use` only at
+        its last reference unless the radix cache retains it (`cached`).
+        `min_blocks` keeps a serving slot's upfront grant. Raises
+        ValueError on a slot that holds no blocks, on growing a slot, and
+        on an append boundary left inside a copy-on-write-shared or
+        radix-cached block (future appends would rewrite storage that
+        other readers map). Returns the freed block ids. `sp_ranks > 1`
+        (the sequence-sharded layout) comes with slice 6."""
+        if int(sp_ranks) > 1:
+            raise NotImplementedError(
+                "truncate_slot(sp_ranks > 1) is not ported yet: it comes "
+                "with slice 6 (ROADMAP.md, Queue A)")
+        b, new_len, blk = int(b), int(new_len), self.block
+        row = self.block_table[b]
+        held = [int(x) for x in row if x >= 0]
+        if not held:
+            raise ValueError(
+                f"truncate_slot({b}): slot holds no blocks — rollback of "
+                f"an unassigned/evicted slot")
+        cur = int(self.seq_lens[b])
+        if new_len < 0 or new_len > cur:
+            raise ValueError(
+                f"truncate_slot({b}): new_len {new_len} outside "
+                f"[0, {cur}] — rollback can only trim cached tokens")
+        keep_cols = min(max(-(-new_len // blk), int(min_blocks)), len(held))
+        cached = {int(c) for c in cached}
+        for col in range(new_len // blk, keep_cols):
+            blk_id = held[col]
+            if self.ref_counts[blk_id] >= 2 or blk_id in cached:
+                raise ValueError(
+                    f"truncate_slot({b}): new_len {new_len} leaves the "
+                    f"append boundary inside block {blk_id} (column {col}) "
+                    f"which is "
+                    f"{'CoW-shared' if self.ref_counts[blk_id] >= 2 else 'radix-cached'}"
+                    f" — rolling back below the shared prefix boundary "
+                    f"would rewrite storage other readers still map")
+        tail = held[keep_cols:]
+        self.block_table[b] = -1
+        self.block_table[b, :keep_cols] = held[:keep_cols]
+        self.seq_lens[b] = new_len
+        freed = []
+        if tail:
+            self.ref_counts[tail] = np.maximum(self.ref_counts[tail] - 1, 0)
+            freed = [x for x in tail
+                     if self.ref_counts[x] == 0 and x not in cached]
+            self.in_use[freed] = False
+            self._zero_scales(freed)
+        self._touch()
+        return tuple(freed)
 
     def check_conservation(self, *, external: int = 0, cached: int = 0):
         """Refcount conservation: every block's refcount equals its

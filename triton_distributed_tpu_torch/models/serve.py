@@ -57,10 +57,27 @@ live-occupancy EP plan (`ep_plan`). The partition runs before the
 decode paths split, so a deferred megakernel slot leaves the launch's
 mask and rides it on its trash page at width 0, routing to no expert.
 
-Not in this slice (each raises NotImplementedError): speculative
-decoding, the watchdog (`slo_ticks`) and fault injection (`chaos`), the
-host spill tier (`host_blocks`), sequence parallel and multi-rank
-serving, and the plain ("xla") attention rung on a CUDA device.
+`speculative=True | dict | SpecConfig(...)` (greedy only) turns each
+decode tick into draft-verify-rollback: a drafter (models/spec.py)
+proposes up to k-1 tokens a slot, ONE verify step scores every slot's
+candidates (DenseLLM.verify_step_paged: the paged decode kernel over
+B x K queries; in megakernel mode MegaServe.verify: one launch at
+per-slot widths), the host keeps the greedy-accepted prefix plus the
+bonus token, and `serve_state.rollback_spec` trims the rejected rows
+through `PagedKVCache.truncate_slot`, a block-table edit. Width 1 is the
+decode step, so spec-on tokens equal spec-off tokens. `adapt=True` picks
+each slot's width per tick with perf_model.choose_spec_k. In megakernel
+mode the width is also clamped to the page room, slot_rows - cache_len %
+slot_rows (the JAX rule), and MegaServe gets slot_rows 8 unless mk_opts
+names it. There every tick runs b_max x slot_rows trunk rows whatever
+the widths, on the SIMT LINEAR tiles, so megakernel-mode speculation is
+at present 3 to 4 times slower than spec-off on Qwen3-8B (NVIDIA H100
+80GB HBM3, 700 W; PERF.md §5, ROADMAP Queue A 7), k=1 ticks included.
+
+Not in this slice (each raises NotImplementedError): the watchdog
+(`slo_ticks`) and fault injection (`chaos`), the host spill tier
+(`host_blocks`) and the plain ("xla") attention rung on a CUDA device
+(slice 2c), sequence parallel and multi-rank serving (slice 6).
 """
 
 from __future__ import annotations
@@ -76,6 +93,12 @@ from . import serve_state
 from .engine import pow2_bucket
 from .paged_kv_cache import PagedKVCache
 from .serve_state import SLO_CLASSES, Request, SchedCfg, SchedulerState
+from .spec import SpecConfig
+
+# MegaServe's slot_rows under speculation when mk_opts names none: the
+# JAX package's f32 tile (megakernel/serve.py:100), so the page-room
+# clamp, slot_rows - cache_len % slot_rows, gives the JAX engine's widths
+SPEC_SLOT_ROWS = 8
 
 
 class _CachePool:
@@ -94,12 +117,26 @@ class _CachePool:
         return new if ok else None     # None: the request stays queued
 
     def release(self, i, quarantining=False, cached=()):
-        # nothing quarantines without the watchdog (slice 2b), which
+        # nothing quarantines without the watchdog (slice 2c), which
         # brings back the JAX engine's conservation check on that path
         self._e._cache.free_slot(i, cached=cached)
 
     def reclaim(self, ids):
         self._e._cache.reclaim_blocks(ids)
+
+    def truncate(self, i, new_len):
+        """The speculative rollback: trim slot i's cached length to
+        new_len as a block-table edit. The slot keeps its upfront grant
+        (min_blocks: the request still owes tokens into those columns),
+        and the radix cache's membership rides along as in free_slot."""
+        e = self._e
+        s = e.sched.slots[i]
+        keep = (serve_state.blocks_for(e.sched.cfg, s.req)
+                if s.req is not None else 0)
+        pfx = e.sched.prefix
+        cached = tuple(pfx.blocks) if pfx is not None else ()
+        return e._cache.truncate_slot(i, new_len, cached=cached,
+                                      min_blocks=keep)
 
     def refcnts(self):
         return self._e._cache.ref_counts.copy()
@@ -209,15 +246,13 @@ class ServeEngine:
                  kv_dtype: str | None = None,
                  host_blocks: int = 0,
                  tp_ranks: int = 1):
-        if speculative is not None:
-            _not_in_slice("speculative decoding", "slice 2b")
         if chaos is not None or slo_ticks is not None \
                 or (max_faults, backoff_ticks, backoff_cap) != (3, 2, 16):
             _not_in_slice("the serving watchdog (slo_ticks, chaos, "
                           "max_faults, backoff_ticks, backoff_cap)",
-                          "slice 2b")
+                          "slice 2c")
         if host_blocks:
-            _not_in_slice("the host spill tier (host_blocks)", "slice 2b")
+            _not_in_slice("the host spill tier (host_blocks)", "slice 2c")
         if mode not in (None, "engine", "megakernel"):
             raise ValueError(f"mode={mode!r}: choose 'engine' or "
                              f"'megakernel'")
@@ -243,7 +278,7 @@ class ServeEngine:
                              f"'kernel' or 'xla'")
         if attn_method == "xla" and model.device.type != "cpu":
             _not_in_slice("attn_method='xla' on a CUDA device (the "
-                          "watchdog's plain-attention rung)", "slice 2b")
+                          "watchdog's plain-attention rung)", "slice 2c")
         for t, w in (tenant_weights or {}).items():
             if not isinstance(t, str) or not t:
                 raise ValueError(
@@ -266,6 +301,27 @@ class ServeEngine:
         self.top_k = int(top_k)
         self.seed = seed
         self.kv_dtype = wire.resolve_wire_dtype(kv_dtype)
+        # speculative decoding: every decode tick feeds each slot's last
+        # token plus up to k-1 drafts through ONE verify step
+        # (DenseLLM.verify_step_paged, or MegaServe.verify), emits the
+        # greedy-accepted prefix plus the bonus token and rolls rejected
+        # rows back as a block-table edit; greedy only
+        if speculative is True:
+            speculative = SpecConfig()
+        elif isinstance(speculative, dict):
+            speculative = SpecConfig(**speculative)
+        elif speculative is not None \
+                and not isinstance(speculative, SpecConfig):
+            raise ValueError(
+                f"speculative must be None/True/dict/SpecConfig, got "
+                f"{type(speculative).__name__}")
+        if speculative is not None and self.temperature > 0.0:
+            raise ValueError(
+                "speculative decoding is greedy-only (the accept rule "
+                "is argmax == draft); set temperature=0")
+        self.spec = speculative
+        self._spec_ewma: dict = {}      # rid -> acceptance EWMA
+        self._spec_ctx: dict = {}       # rid -> (context buffer, filled)
         # MoE continuous batching: ep_capacity > 0 arms the per-tick
         # expert-dispatch row budget; the model's guard refuses at
         # construction what one engine step could route past an explicit
@@ -278,7 +334,8 @@ class ServeEngine:
                 f"defer slots for nothing")
         cap_guard = getattr(model, "check_serving_capacity", None)
         if cap_guard is not None:
-            cap_guard(b_max, prefill_chunk=prefill_chunk, spec_k=0,
+            cap_guard(b_max, prefill_chunk=prefill_chunk,
+                      spec_k=(self.spec.k if self.spec is not None else 0),
                       ep_capacity=int(ep_capacity))
         self._cap_ledger = (serve_state.CapacityLedger(int(ep_capacity))
                             if ep_capacity else None)
@@ -289,7 +346,9 @@ class ServeEngine:
             prefix_caching=True if prefix_cache is None
             else bool(prefix_cache),
             tenant_weights=tuple(sorted((tenant_weights or {}).items())),
-            preemption=bool(preemption), ep_capacity=int(ep_capacity)))
+            preemption=bool(preemption),
+            spec_k=(self.spec.k if self.spec is not None else 0),
+            ep_capacity=int(ep_capacity)))
         self._pool = _CachePool(self)
         self._cache: PagedKVCache | None = None
         self._running = False
@@ -303,15 +362,21 @@ class ServeEngine:
         self._mk = None
         if self.mode == "megakernel":
             from ..megakernel.serve import MegaServe
+            mk_opts = dict(mk_opts or {})
+            if self.spec is not None:
+                # the verify candidates ride the slot's own trunk rows
+                mk_opts.setdefault("slot_rows", SPEC_SLOT_ROWS)
             self._mk = MegaServe(model, params, b_max=b_max,
                                  max_len=max_len, block=block,
                                  num_blocks=self._pool_blocks,
-                                 tp_ranks=tp_ranks, **(mk_opts or {}))
+                                 tp_ranks=tp_ranks, **mk_opts)
         # programs built per role (the JAX engine's jit traces): the
-        # megakernel decode program once per engine; the engine path
-        # builds none
-        self.trace_counts = {"decode": int(self._mk is not None),
-                             "prefill": 0, "verify": 0}
+        # megakernel program once per engine, for decode or, with
+        # speculation, for verify; the engine path builds none
+        mk = self._mk is not None
+        self.trace_counts = {"decode": int(mk and self.spec is None),
+                             "prefill": 0,
+                             "verify": int(mk and self.spec is not None)}
 
     # -- control-plane views (the SchedulerState is the truth) -----------
     @property
@@ -462,6 +527,8 @@ class ServeEngine:
                 rows, hidden=c.hidden_size,
                 moe_intermediate=c.moe_intermediate_size,
                 top_k=c.num_experts_per_tok, num_ranks=1)
+        if self.spec is not None:
+            return self._spec_decode_tick(live, stream_cb)
         # slots on the megakernel path take its one launch, the others
         # (none without the watchdog's demotions) the engine's step
         mk_live, eng_live = serve_state.partition_decode(
@@ -492,11 +559,131 @@ class ServeEngine:
             self._emit(i, int(got[i]), stream_cb)
             self._maybe_finish(i, stream_cb)
 
+    # -- speculative decode tick ---------------------------------------------
+    def _choose_k(self, i: int, room: int | None, cache_len: int) -> int:
+        """Slot i's verify width this tick: serve_state.spec_clamp (the
+        tokens the request still owes, the megakernel page room), then,
+        with `adapt`, perf_model.choose_spec_k over the request's
+        acceptance EWMA. Returns >= 1; a modeled 1 where more was
+        possible counts in `spec_fallbacks` (the JAX counter). In engine
+        mode such a slot verifies one row, as the decode step does; in
+        megakernel mode the launch still runs every slot_rows row."""
+        s = self._slots[i]
+        cap = serve_state.spec_clamp(self.sched, i, self.spec.k, room)
+        if cap <= 1 or not self.spec.adapt:
+            return cap
+        c = self.model.config
+        k = perf_model.choose_spec_k(
+            self._spec_ewma.get(s.req.rid, self.spec.ewma_init),
+            int(cache_len), max(1, self.sched.occupancy()),
+            k_max=cap, draft_cost_s=self.spec.draft_cost_s,
+            path=s.path if s.path in ("megakernel", "engine")
+            else "engine",
+            num_layers=c.num_layers, hidden=c.hidden_size,
+            intermediate=c.intermediate_size, num_heads=c.num_heads,
+            num_kv_heads=c.num_kv_heads, head_dim=c.head_dim)
+        if k < cap and k <= 1:
+            self.sched.counters["spec_fallbacks"] += 1
+        return max(1, k)
+
+    def _slot_context(self, i: int):
+        """The request's visible stream (prompt + emitted tokens), the
+        drafter's `context`, as a view into a per-request buffer that
+        grows by the new tokens only (so drafting costs no concatenate
+        of the whole stream a tick); kept across eviction and
+        re-admission, dropped at finish."""
+        s = self._slots[i]
+        rid = s.req.rid
+        ids = np.asarray(s.req.ids, np.int64).reshape(-1)
+        need = ids.size + len(s.out)
+        buf, filled = self._spec_ctx.get(rid, (None, 0))
+        if buf is None:
+            buf = np.empty(need + s.gen_left, np.int64)
+            buf[:ids.size] = ids
+            filled = ids.size
+        if filled < need:
+            buf[filled:need] = s.out[filled - ids.size:]
+            filled = need
+        self._spec_ctx[rid] = (buf, filled)
+        return buf[:filled]
+
+    def _spec_decode_tick(self, live, stream_cb):
+        """One draft-verify-rollback tick: ONE verify step per decode path
+        (the engine's `verify_step_paged`, or the megakernel's one
+        launch), the greedy accept on the host, then the rollback as a
+        block-table edit (serve_state.rollback_spec -> _CachePool.truncate
+        -> PagedKVCache.truncate_slot). A slot of width 1 rides the same
+        step: width 1 is the decode step, so spec-on tokens equal
+        spec-off tokens."""
+        mk_live, eng_live = serve_state.partition_decode(
+            self.sched, live, self._mk is not None)
+        # the candidate array's width: a megakernel slot's candidates
+        # ride its own slot_rows trunk rows
+        K = self.spec.k if self._mk is None \
+            else min(self.spec.k, self._mk.slot_rows)
+        cands = np.zeros((self.b_max, K), np.int32)
+        counts = np.ones((self.b_max,), np.int32)
+        lens0 = self._cache.seq_lens.astype(np.int64)
+        for i in live:
+            s = self._slots[i]
+            room = (self._mk.page_room(lens0[i]) if i in mk_live
+                    else None)
+            k_i = min(self._choose_k(i, room, lens0[i]), K)
+            drafts = []
+            if k_i > 1:
+                drafts = list(self.spec.drafter.propose(
+                    s.req.rid, self._slot_context(i), k_i - 1))[:k_i - 1]
+            serve_state.propose_spec(self.sched, i, drafts)
+            cands[i, 0] = s.last_tok
+            cands[i, 1:1 + len(drafts)] = drafts
+            counts[i] = 1 + len(drafts)
+        pred = np.zeros((self.b_max, K), np.int64)
+        if eng_live:
+            active = [i in eng_live for i in range(self.b_max)]
+            got, self._cache = self.model.verify_step_paged(
+                self.params, cands, self._cache, active, counts,
+                attn_method=self.attn_method)
+            pred[eng_live] = got.cpu().numpy()[eng_live]
+        if mk_live:
+            mask = np.asarray([i in mk_live for i in range(self.b_max)])
+            got = self._mk.verify(cands, counts, lens0,
+                                  self._cache.block_table, mask)
+            self._mk.prog.check_fault()
+            self._cache.advance(slice(None),
+                                np.where(mask, counts, 0).astype(np.int32))
+            pred[mk_live] = got[mk_live]
+            self._steps["megakernel"] += 1
+        self._steps["decode"] += 1
+        for i in live:
+            s = self._slots[i]
+            c = int(counts[i])
+            drafts = cands[i, 1:c]
+            accepted = 0
+            while accepted < c - 1 \
+                    and int(drafts[accepted]) == int(pred[i, accepted]):
+                accepted += 1
+            n_emit = serve_state.verify_outcome(self.sched, i, accepted)
+            toks = [int(t) for t in drafts[:accepted]] \
+                + [int(pred[i, accepted])]
+            rid = s.req.rid
+            for tok in toks[:n_emit]:
+                self._emit(i, tok, stream_cb)
+            serve_state.rollback_spec(self.sched, i, int(lens0[i]),
+                                      n_emit, c, self._pool)
+            if c > 1:   # acceptance EWMA: only ticks that drafted
+                a = self.spec.ewma_alpha
+                prev = self._spec_ewma.get(rid, self.spec.ewma_init)
+                self._spec_ewma[rid] = \
+                    (1 - a) * prev + a * (accepted / (c - 1))
+            self._maybe_finish(i, stream_cb)
+
     def _maybe_finish(self, i: int, stream_cb):
         if not serve_state.finish_ready(self.sched, i):
             return
         s = self._slots[i]
         self._results[s.req.rid] = np.asarray(s.out, np.int64)
+        self._spec_ewma.pop(s.req.rid, None)   # bound at b_max entries
+        self._spec_ctx.pop(s.req.rid, None)
         serve_state.finish(self.sched, i, self._pool)
 
     def _tick(self, stream_cb=None):
@@ -547,6 +734,18 @@ class ServeEngine:
             "reclaimed_blocks": c["reclaimed_blocks"],
             "preemptions": c["preempted"],
             "grant_refusals": c["grant_refusals"],
+            # speculative decoding: drafts proposed / accepted / rejected,
+            # the realised acceptance rate, tail blocks rollbacks emptied
+            # and the ticks where the adaptive width chose 1 (a one-row
+            # verify in engine mode, a full launch in megakernel mode)
+            "spec_proposed": c["spec_proposed"],
+            "spec_accepted": c["spec_accepted"],
+            "spec_rejected": c["spec_rejected"],
+            "acceptance_rate": round(
+                c["spec_accepted"] / c["spec_proposed"], 4)
+            if c["spec_proposed"] else 0.0,
+            "rollback_blocks": c["rollback_blocks"],
+            "spec_fallbacks": c["spec_fallbacks"],
             "kv_dtype": self.kv_dtype,
             "quant_kv_bytes_saved": self._quant_kv_bytes_saved(),
             "decode_steps": self._steps["decode"],
@@ -589,6 +788,7 @@ class ServeEngine:
         if self._mk is not None:
             self._mk.reset()
         self.sched.reset_run()
+        self._spec_ewma, self._spec_ctx = {}, {}
         if self._cap_ledger is not None:
             # fresh run, fresh budget clock (reset_run rewound the tick)
             self._cap_ledger = serve_state.CapacityLedger(

@@ -372,14 +372,14 @@ def flash_decode_paged(q, k_pool, v_pool, block_table, kv_lens, *,
     "kernel" reads pages in place (the kernel on CUDA, its plain version
     on the CPU); "xla", the JAX package's gather path, is the plain
     version, which the port runs on the CPU only (on the card it is the
-    watchdog's demotion rung, ROADMAP Queue A slice 2b)."""
+    watchdog's demotion rung, ROADMAP Queue A slice 2c)."""
     if method not in (None, "kernel", "xla"):
         raise ValueError(f"method {method!r}: choose 'kernel' or 'xla'")
     if method == "xla" and not _on_cpu(q):
         raise NotImplementedError(
             "flash_decode_paged(method='xla') on a CUDA device is the "
             "demotion rung of the serving watchdog (ROADMAP Queue A, "
-            "slice 2b)")
+            "slice 2c)")
     return flash_decode_paged_partial(
         q, k_pool, v_pool, block_table, kv_lens, scale=scale,
         k_scales=k_scales, v_scales=v_scales)[0]

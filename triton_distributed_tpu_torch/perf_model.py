@@ -1,18 +1,76 @@
-"""The decode-path health ladder the serving control plane reads
-(counterpart of triton_distributed_tpu/perf_model.py:811-852), and the
-one-rank form of the per-tick EP plan the MoE serving loop records
-(`ep_tick_plan`, JAX perf_model.py:989).
+"""Analytic serving models of the port on an NVIDIA H100: the decode
+step's roofline, the megakernel and engine verify-step estimators and
+the speculative-width chooser `choose_spec_k` that
+`ServeEngine(speculative=SpecConfig(adapt=True))` runs every tick
+(counterparts of triton_distributed_tpu/perf_model.py:24-677); the
+decode-path health ladder the serving control plane reads (JAX :811-852)
+and the one-rank per-tick EP plan (`ep_tick_plan`, JAX :989).
 
-Only these are here: `DECODE_PATH_LADDER` and `DecodePathHealth` are
-what models/serve_state.py imports, `ep_tick_plan` what
-models/serve.py reads. The JAX module's cost models and choosers are
-built on TPU figures (`CHIP_SPECS`); their H100 counterparts wait for a
-slice that measures the card's own.
+The formulas are the JAX package's, set to the work the port's kernels
+do; none of its TPU figures is here. `CHIP_SPECS` holds the H100 alone
+(bf16 989 TFLOP/s and 3.35 TB/s from NVIDIA's data sheet; the SM count
+read from the card when one is present), and every other default below
+is a figure that chip_smoke.py measured on an NVIDIA H100 80GB HBM3 at a
+700 W power limit (PERF.md lists each with its run). Where the port's
+kernels differ from the TPU kernels the model follows the port: the
+megakernel's ATTN_P reads exactly a slot's cached rows (the TPU body
+reads whole pages), its program is node-level, `MK_STAGES_PER_LAYER`
+dependent stages a layer whatever the occupancy (the TPU walk's task
+count grows with it), and the paged decode kernel splits no slot across
+CTAs (the TPU kernel chooses a split-KV count), so only the KV stream
+runs on its B x Hkv CTAs while cuBLAS streams the weights on every SM.
+Multi-rank arms (`tp_ranks > 1`) come with slice 6; the other choosers
+(`choose_kv_tier`, `choose_admission`, `choose_decode_path`,
+`choose_moe_decode_path`) with slice 2c.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import torch
+
 from .layers.common import check_one_rank
+from .ops import wire
+
+
+@dataclasses.dataclass(frozen=True)
+class ChipSpec:
+    """Per-card capability figures for the models below."""
+    name: str
+    bf16_flops: float          # peak dense bf16 tensor-core FLOP/s
+    hbm_bw: float              # device-memory bytes/s
+    num_sms: int               # streaming multiprocessors
+
+
+# NVIDIA's data sheet, H100 SXM (dense rates, 700 W)
+CHIP_SPECS = {"h100": ChipSpec("h100", 989e12, 3.35e12, 132)}
+
+# Measured by chip_smoke.py (its "perf_model constants" line) on an NVIDIA
+# H100 80GB HBM3 at 700 W, at the Qwen3-8B serve cell's first all-slots
+# verify tick (PERF.md §6 names the run)
+STAGE_LATENCY_S = 4.32629e-06  # one dependent megakernel stage
+MK_BOUND_SHARE = 0.0294609     # megakernel verify step: bound / measured
+ATTN_ELEMS_PER_S = 5.43763e+11  # megakernel attention: 4 x q rows x keys x
+                               # H x D per second, all CTAs
+ENGINE_BOUND_SHARE = 0.386198  # engine verify step: bound / device-busy
+ENGINE_HOST_S = 0.0394677      # engine verify step: wall - device-busy
+SKINNY_MM_SHARE = 1.0          # torch.mm: 12 extra rows cost no time (0.8
+                               # us of 67 us), so the share clamps at peak
+# the port's serving megakernel program (build_qwen3_serve_batched): 13
+# dependent stages a layer, one more for the final norm
+MK_STAGES_PER_LAYER = 13
+
+
+def chip_spec(name: str | None = None) -> ChipSpec:
+    """The H100's figures, with the SM count of the card in use when one
+    is present."""
+    spec = CHIP_SPECS[name or "h100"]
+    if name is None and torch.cuda.is_available():
+        spec = dataclasses.replace(
+            spec, num_sms=torch.cuda.get_device_properties(
+                torch.cuda.current_device()).multi_processor_count)
+    return spec
 
 # The serving decode ladder, fastest-but-most-fragile first: one
 # persistent megakernel -> the per-op engine step (paged decode kernel)
@@ -70,3 +128,154 @@ def ep_tick_plan(occupancy: int, *, hidden: int, moe_intermediate: int,
     check_one_rank(num_ranks)
     return {"occupancy": max(1, int(occupancy)), "transport": "flat",
             "num_chunks": 1, "a2a_round_s": 0.0}
+
+
+# ---------------------------------------------------------------------------
+# Serving decode model: decode is bytes-bound, the step time is the KV
+# stream plus the weight read
+# ---------------------------------------------------------------------------
+
+def decode_kv_token_bytes(num_kv_heads: int, head_dim: int,
+                          num_layers: int, *, itemsize: int = 2,
+                          kv_dtype: str | None = None) -> int:
+    """Device bytes ONE cached token costs a decode step: K + V across
+    layers at the pool dtype; a quantized pool streams byte-wide rows
+    plus one f32 scale per row (PagedKVCache's sidecar layout)."""
+    if kv_dtype is not None:
+        wire.resolve_wire_dtype(kv_dtype)       # loud on typos
+        per_row = head_dim + 4
+    else:
+        per_row = head_dim * itemsize
+    return 2 * num_layers * num_kv_heads * per_row
+
+
+def estimate_decode_step_s(total_kv_tokens: int, num_kv_heads: int,
+                           head_dim: int, num_layers: int, *,
+                           param_bytes: int = 0, itemsize: int = 2,
+                           kv_dtype: str | None = None,
+                           spec: ChipSpec | None = None) -> float:
+    """Bytes-bound decode step: K + V of every cached token once (the
+    paged decode kernel reads exactly sum(seq_len) rows) plus the
+    per-step parameter read, over the card's memory rate."""
+    spec = spec or chip_spec()
+    kv_bytes = total_kv_tokens * decode_kv_token_bytes(
+        num_kv_heads, head_dim, num_layers, itemsize=itemsize,
+        kv_dtype=kv_dtype)
+    return (kv_bytes + param_bytes) / spec.hbm_bw
+
+
+def _decode_param_bytes(num_layers: int, hidden: int, intermediate: int,
+                        num_heads: int, num_kv_heads: int, head_dim: int,
+                        itemsize: int = 2) -> int:
+    """Per-step trunk weight read (qkv, o, gate, up, down)."""
+    qkvd = (num_heads + 2 * num_kv_heads) * head_dim
+    per_layer = (hidden * qkvd + num_heads * head_dim * hidden
+                 + 2 * hidden * intermediate + intermediate * hidden)
+    return num_layers * per_layer * itemsize
+
+
+def estimate_mk_step_s(occupancy: int, cache_len: int, *,
+                       num_layers: int, hidden: int, intermediate: int,
+                       num_heads: int, num_kv_heads: int, head_dim: int,
+                       itemsize: int = 2, verify_tokens: int = 1,
+                       tp_ranks: int = 1,
+                       task_overhead_s: float = STAGE_LATENCY_S,
+                       mk_hbm_frac: float = MK_BOUND_SHARE,
+                       vpu_elems_per_s: float = ATTN_ELEMS_PER_S,
+                       spec: ChipSpec | None = None) -> float:
+    """Modeled batched megakernel step: one launch advancing `occupancy`
+    slots, each `cache_len` deep, by `verify_tokens` (k) candidate rows.
+    The larger of (a) the weight + KV stream (the `cache_len` rows ATTN_P
+    reads) at `mk_hbm_frac` of the memory rate and (b) the attention
+    arithmetic, 4 x L x occupancy x k x (cache + k) x H x D at
+    `vpu_elems_per_s`; plus `task_overhead_s` for each of the program's
+    L x MK_STAGES_PER_LAYER + 1 dependent stages. A verify step of width
+    k reads the weights and the cache once, so only (b) grows with k.
+    `tp_ranks > 1` comes with slice 6."""
+    check_one_rank(tp_ranks)
+    spec = spec or chip_spec()
+    k = max(1, int(verify_tokens))
+    param = _decode_param_bytes(num_layers, hidden, intermediate,
+                                num_heads, num_kv_heads, head_dim,
+                                itemsize)
+    kv_ctx = max(cache_len, 0)
+    kv_bytes = (2 * num_layers * occupancy * kv_ctx * num_kv_heads
+                * head_dim * itemsize)
+    stream_s = (param + kv_bytes) / (spec.hbm_bw * mk_hbm_frac)
+    attn_s = (4.0 * num_layers * occupancy * k * (kv_ctx + k) * num_heads
+              * head_dim) / vpu_elems_per_s
+    n_stages = num_layers * MK_STAGES_PER_LAYER + 1
+    return max(stream_s, attn_s) + n_stages * task_overhead_s
+
+
+def estimate_engine_decode_step_s(occupancy: int, cache_len: int, *,
+                                  num_layers: int, hidden: int,
+                                  intermediate: int, num_heads: int,
+                                  num_kv_heads: int, head_dim: int,
+                                  itemsize: int = 2,
+                                  verify_tokens: int = 1,
+                                  engine_hbm_frac: float = ENGINE_BOUND_SHARE,
+                                  engine_dispatch_s: float = ENGINE_HOST_S,
+                                  num_cores: int | None = None,
+                                  mxu_efficiency: float = SKINNY_MM_SHARE,
+                                  spec: ChipSpec | None = None) -> float:
+    """Modeled engine-mode verify (or decode) step: the weight read at the
+    memory rate, plus the KV stream of `estimate_decode_step_s` over the
+    paged decode kernel's SM utilisation (B x Hkv CTAs, one a slot and KV
+    head, over `num_cores` SMs), together at `engine_hbm_frac`; plus the
+    eager step's host time `engine_dispatch_s` and the k - 1 extra
+    candidate rows' GEMM operations at `mxu_efficiency` of the bf16
+    peak."""
+    spec = spec or chip_spec()
+    num_cores = spec.num_sms if num_cores is None else num_cores
+    k = max(1, int(verify_tokens))
+    param = _decode_param_bytes(num_layers, hidden, intermediate,
+                                num_heads, num_kv_heads, head_dim,
+                                itemsize)
+    util = min(1.0, max(occupancy, 1) * num_kv_heads / num_cores)
+    kv_s = estimate_decode_step_s(occupancy * cache_len, num_kv_heads,
+                                  head_dim, num_layers, itemsize=itemsize,
+                                  spec=spec)
+    device_s = (param / spec.hbm_bw + kv_s / util) / engine_hbm_frac
+    extra_rows_s = (2.0 * (k - 1) * max(occupancy, 1) * (param / itemsize)
+                    / (spec.bf16_flops * mxu_efficiency))
+    return device_s + engine_dispatch_s + extra_rows_s
+
+
+def expected_spec_tokens(acceptance_rate: float, k: int) -> float:
+    """Expected tokens ONE verify step of width k emits when each draft
+    matches with probability `acceptance_rate`: sum_{j<k} alpha^j (the
+    accepted prefix plus the always-emitted bonus token)."""
+    a = min(max(float(acceptance_rate), 0.0), 1.0)
+    return float(sum(a ** j for j in range(max(1, int(k)))))
+
+
+def choose_spec_k(acceptance_rate: float, cache_len: int,
+                  occupancy: int, *, k_max: int = 8,
+                  draft_cost_s: float = 0.0, path: str = "megakernel",
+                  num_layers: int, hidden: int, intermediate: int,
+                  num_heads: int, num_kv_heads: int, head_dim: int,
+                  itemsize: int = 2, spec: ChipSpec | None = None) -> int:
+    """The acceptance-aware verify width: the k in [1, k_max] with the
+    most expected tokens per second, expected_spec_tokens(alpha, k) over
+    the modeled step (`estimate_mk_step_s` on the megakernel path,
+    `estimate_engine_decode_step_s` otherwise, at verify_tokens=k) plus
+    k - 1 drafts at `draft_cost_s`; ties go to the smaller k, and 1 is
+    plain decode."""
+    kw = dict(num_layers=num_layers, hidden=hidden,
+              intermediate=intermediate, num_heads=num_heads,
+              num_kv_heads=num_kv_heads, head_dim=head_dim,
+              itemsize=itemsize, spec=spec)
+    best_k, best_rate = 1, 0.0
+    for k in range(1, max(1, int(k_max)) + 1):
+        if path == "megakernel":
+            step = estimate_mk_step_s(occupancy, cache_len,
+                                      verify_tokens=k, **kw)
+        else:
+            step = estimate_engine_decode_step_s(
+                occupancy, cache_len, verify_tokens=k, **kw)
+        rate = expected_spec_tokens(acceptance_rate, k) \
+            / (step + (k - 1) * max(0.0, draft_cost_s))
+        if rate > best_rate * (1.0 + 1e-9):   # ties -> smaller k
+            best_k, best_rate = k, rate
+    return best_k

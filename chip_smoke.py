@@ -145,10 +145,27 @@ Phases, in order; any failure raises and exits non-zero:
  28. the Qwen3-30B-A3B megakernel spec runs (k 4, then k 2 under
      ep_capacity=2): GROUPED_GEMM at widths > 1, every request at its
      length, the verify step against its routed-slab bound;
- 29. one JSON line of per-kernel numbers, then the device JSON line.
-Steps 14-16 run with the other kernel checks, before step 4; steps 19-20,
-22-23 and 25-26 run after step 10, step 21 after step 13 and step 27
-after step 21; steps 17, 18, 24 and 28 run last. Without a GPU it exits non-zero before printing anything.
+ 29. the megakernel's fused decode arms (both fusion flags: LINEAR with
+     an RMS_NORM or SILU_MUL prologue and a residual epilogue, ATTN that
+     appends its K / V) on 2-layer decode graphs of one row, at hidden
+     256 (f32, bf16, qk_norm on and off) and at Qwen3-8B widths (f32,
+     bf16): against the plain walk (1e-4 / 2e-2 of the largest value)
+     and bit for bit against the unfused kernel, outputs and appended
+     rows;
+ 30. the slice-3d main path: MegaDecoder.from_dense(..., fuse_elementwise=
+     True, fuse_kv_append=True) over step 12's weights and prompt, 32
+     greedy tokens: exactly 2 + 31 megakernel launches, 217 tasks a
+     decode launch against 469, tokens and teacher-forced hidden rows bit
+     for bit equal to step 12's decoder (the largest logit difference and
+     the smallest top-2 margin printed); the decode step at cache_len 500
+     against its plain walk and bit for bit against the unfused kernel;
+     the fused and unfused steps by CUDA events in turns, each flag
+     alone, the fused step's bound and the latency of a dependent stage;
+     the fused decoder's caches are then freed;
+ 31. one JSON line of per-kernel numbers, then the device JSON line.
+Steps 14-16 run with the other kernel checks, before step 4; steps 29,
+19-20, 22-23 and 25-26 run after step 10, steps 30 and 21 after step 13
+and step 27 after step 21; steps 17, 18, 24 and 28 run last. Without a GPU it exits non-zero before printing anything.
 """
 
 from __future__ import annotations
@@ -1050,6 +1067,189 @@ def check_megakernel_main(md, cfg, prompt, smi, profile):
             "replaces": "triton_distributed_tpu/megakernel/executor_pallas.py:106",
             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+def check_megakernel_fused_graphs(dev):
+    """The fused decode arms (both fusion flags) on 2-layer decode graphs
+    of one row: at hidden 256, cache_len 37, f32 and bf16, qk_norm on and
+    off; at Qwen3-8B widths, cache_len 500, f32 and bf16. The fused kernel
+    against its plain walk (MK_F32_TOL / MK_BF16_2L_TOL of the largest
+    value) and against the unfused kernel bit for bit, outputs and
+    appended rows, from the same caches. Returns the largest absolute
+    difference from the plain walk."""
+    from triton_distributed_tpu_torch.megakernel.models import (
+        build_qwen3_decode)
+    small = dict(hidden=256, intermediate=512, num_heads=8, num_kv_heads=2,
+                 max_cache=128)
+    wide = dict(hidden=4096, intermediate=12288, num_heads=32,
+                num_kv_heads=8, max_cache=1024, rope_theta=1e6)
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: MK_F32_TOL, bf16: MK_BF16_2L_TOL}
+    abs_err = 0.0
+    for dims, cl, qk, dt in ((small, 37, True, f32), (small, 37, False, f32),
+                             (small, 37, True, bf16), (small, 37, False, bf16),
+                             (wide, 500, True, f32), (wide, 500, True, bf16)):
+        mb = build_qwen3_decode(seq_len=1, num_layers=2, head_dim=128,
+                                qk_norm=qk, kv_append=True, dtype=dt, **dims)
+        ins, ws = ({n: t.to(dt) for n, t in d.items()}
+                   for d in _device_io(mb, dev, 3))
+        start = {n: ins[n] for n in mb.graph.caches}
+        runs, tasks = {}, {}
+        for fused in (False, True):
+            prog = mb.compile("kernel", device=dev, fuse_elementwise=fused,
+                              fuse_kv_append=fused)
+            prog.bind_weights(ws)
+            runs[fused] = _mk_kernel_vs_plain(prog, ins["x"], cl, start)
+            tasks[fused] = len(prog.tasks)
+            del prog
+        (ko, po), (kr, pr) = runs[True]
+        (uo, _), (ur, _) = runs[False]
+        e, er = _rel_err(ko, po), _rel_err(kr, pr)
+        abs_err = max(abs_err, (ko - po).abs().max().item(),
+                      (kr - pr).abs().max().item())
+        same = torch.equal(ko, uo) and torch.equal(kr, ur)
+        print(f"megakernel fused {str(dt)[6:]} 2 layers, hidden "
+              f"{dims['hidden']}, qk_norm {qk}, cache_len {cl}: "
+              f"{tasks[True]} tasks (unfused {tasks[False]}); vs plain walk "
+              f"out {e:.3e}, appended rows {er:.3e} of max |plain|; vs the "
+              f"unfused kernel: {'bit for bit' if same else 'DIFFERENT'} "
+              f"(max abs {(ko - uo).abs().max().item():.3e} out, "
+              f"{(kr - ur).abs().max().item():.3e} rows)")
+        assert tasks == {False: 27, True: 13}, tasks
+        assert e <= tol[dt] and er <= tol[dt], (dt, qk, e, er)
+        assert same, (dt, qk, dims["hidden"])
+        del ins, ws, start, runs
+        torch.cuda.empty_cache()
+    return abs_err
+
+
+def check_megadecoder_fused(attn, md, toks, model, params, cfg, prompt, smi):
+    """The slice-3d main path: MegaDecoder.from_dense(..., fuse_elementwise=
+    True, fuse_kv_append=True) over the megadecoder cell's weights (views:
+    nothing copied) and prompt, 32 greedy tokens: exactly 2 + 31
+    megakernel launches, 6 tasks a layer, the unfused decoder's tokens and
+    teacher-forced hidden rows bit for bit; the decode step at cache_len
+    500 from copies of the unfused decoder's caches against its plain walk
+    and bit for bit against the unfused kernel; the fused, unfused,
+    elementwise-only and append-only steps by CUDA events in turns, the
+    fused step's bound, and the latency of a dependent stage. The fused
+    decoder's caches are freed on return. Returns the kernels-line entry."""
+    from triton_distributed_tpu_torch.megakernel import MegaDecoder
+    from triton_distributed_tpu_torch.megakernel import executor_cuda as mkx
+    P, GEN, L = len(prompt), toks.shape[0], cfg.num_layers
+    mf = MegaDecoder.from_dense(model, params, max_cache=1024, prompt_len=P,
+                                fuse_elementwise=True, fuse_kv_append=True)
+    pu, pf = md._prog_decode, mf._prog_decode
+    assert all(pf.weights[n].data_ptr() == pu.weights[n].data_ptr()
+               for n in pu.weights)
+    assert (len(pf.tasks), len(pu.tasks)) == (6 * L + 1, 13 * L + 1), \
+        (len(pf.tasks), len(pu.tasks))
+    assert mf._prog_prefill.fusion == {} and \
+        len(mf._prog_prefill.tasks) == 13 * L + 1
+    others = [attn.FLASH_ATTENTION, attn.FLASH_DECODE,
+              *attn.FLASH_DECODE_PAGED.values()]
+    for k in [mkx.MEGAKERNEL, *others]:
+        k.launches = 0
+    got = mf.serve(prompt, GEN)
+    launches = mkx.MEGAKERNEL.launches
+    print(f"megadecoder fused: {got.shape[0]} tokens, megakernel launches "
+          f"{launches} ({mf._n_prefill_chunks} prefill chunks + {GEN - 1} "
+          f"decode steps); decode program {len(pf.tasks)} tasks in "
+          f"{int(pf.n_tiles.sum())} tiles (unfused {len(pu.tasks)} in "
+          f"{int(pu.n_tiles.sum())}); greedy tokens equal to the unfused "
+          f"decoder's: {int((got == toks).sum())}/{GEN}")
+    assert launches == mf._n_prefill_chunks + GEN - 1 == 2 + 31, launches
+    assert all(k.launches == 0 for k in others), [k.launches for k in others]
+    # host-clock decode ms per step, as check_megadecoder times it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mf.serve(prompt, 1)
+    t1 = time.perf_counter()
+    mf.serve(prompt, GEN)
+    t2 = time.perf_counter()
+    step_ms = ((t2 - t1) - (t1 - t0)) / (GEN - 1) * 1e3
+    print(f"megadecoder fused prefill ms {(t1 - t0) * 1e3:.2f} | decode "
+          f"{step_ms:.3f} ms/step, tokens/s {1e3 / step_ms:.1f} (batch 1, "
+          f"{GEN - 1} steps) | {smi}")
+    forced = [d.teacher_forced(prompt, toks[:-1]) for d in (md, mf)]
+    logits = [f @ params["lm_head"].float() for f in forced]
+    dlog = (logits[0] - logits[1]).abs().max().item()
+    top2 = logits[0].topk(2, dim=-1).values
+    print(f"megadecoder fused teacher-forced hidden rows vs unfused: "
+          f"{'bit for bit' if torch.equal(*forced) else 'DIFFERENT'}; "
+          f"largest logit difference {dlog:.3e}; smallest top-2 margin of "
+          f"the unfused logits {(top2[:, 0] - top2[:, 1]).min().item():.3e}")
+    assert np.array_equal(got, toks), (got, toks)
+    assert torch.equal(*forced)
+    # the decode step at cache_len 500, from copies of the unfused
+    # decoder's caches (its serve and teacher forcing filled them)
+    gen = torch.Generator(device=md.device).manual_seed(5)
+    x = md.embed[torch.randint(0, cfg.vocab_size, (1,), generator=gen,
+                               device=md.device)]
+    cl, start = P, md._prog_decode.caches
+    (ko, po), (kr, pr) = _mk_kernel_vs_plain(pf, x, cl, start)
+    pu.bind_caches({n: t.clone() for n, t in start.items()})
+    uo = pu.step({"x": x}, cl)[0].float()
+    ur = torch.cat([c[cl:cl + 1].float() for c in pu.caches.values()])
+    pu.bind_caches(start)
+    torch.cuda.synchronize()
+    pu.check_fault()
+    abs_err = max((ko - po).abs().max().item(), (kr - pr).abs().max().item())
+    same = torch.equal(ko, uo) and torch.equal(kr, ur)
+    print(f"megakernel fused Qwen3-8B decode step, cache_len {cl}: vs plain "
+          f"walk out {_rel_err(ko, po):.3e}, appended rows "
+          f"{_rel_err(kr, pr):.3e} of max |plain| (max abs {abs_err:.3e}); "
+          f"vs the unfused kernel {'bit for bit' if same else 'DIFFERENT'}")
+    assert torch.isfinite(ko).all() and torch.isfinite(kr).all()
+    assert max(_rel_err(ko, po), _rel_err(kr, pr)) <= MK_BF16_TOL
+    assert same
+    # the steps in turns (unfused, fused, fused, unfused), then each flag
+    # alone, all on the same weights and the fused decoder's caches
+    progs = {"unfused": pu, "fused": pf}
+    for ew, kv in ((True, False), (False, True)):
+        p = mf._mb_decode.compile("kernel", device=md.device,
+                                  fuse_elementwise=ew, fuse_kv_append=kv)
+        p.bind_weights(mf.weights)
+        p.bind_caches(pf.caches)
+        progs["elementwise only" if ew else "append only"] = p
+    ms = {}
+    for name in ("unfused", "fused", "fused", "unfused", "elementwise only",
+                 "append only"):
+        prog = progs[name]
+        ms.setdefault(name, []).append(
+            time_ms([lambda: prog.step({"x": x}, cl)]))
+        prog.check_fault()
+    plain_ms = time_ms([lambda: pf.step({"x": x}, cl, plain=True)], reps=1,
+                       rounds=1)
+    costs = pf.task_costs(cl)
+    moved = sum(c["bytes"] for c in costs)
+    flops = sum(c["flops"] for c in costs)
+    bms, by = bound(moved, flops)
+    ubms, _ = bound(sum(c["bytes"] for c in pu.task_costs(cl)),
+                    sum(c["flops"] for c in pu.task_costs(cl)))
+    stage_s = _stage_latency_s(md.device, md.dtype)
+    # the dependent single-tile stages gone: RMS_NORM, SILU_MUL and ADD
+    # (the appends waited only on the qkv LINEAR and ran beside ATTN)
+    removed = sum(nd.op in ("rms_norm", "silu_mul", "add")
+                  for nd in pf.fused_away)
+    f_ms, u_ms = statistics.mean(ms["fused"]), statistics.mean(ms["unfused"])
+    turns = {k: " / ".join(f"{t:.4f}" for t in v) for k, v in ms.items()}
+    print(f"megakernel fused decode step {turns['fused']} ms, unfused "
+          f"{turns['unfused']} ms (in turns), elementwise only {ms['elementwise only'][0]:.4f}, "
+          f"append only {ms['append only'][0]:.4f}; plain walk "
+          f"{plain_ms:.1f} ms; bound {bms:.4f} ms ({by}: {moved / 1e9:.3f} "
+          f"GB, {flops / 1e9:.2f} GFLOP; unfused {ubms:.4f}); "
+          f"{len(pu.tasks) - len(pf.tasks)} tasks fewer, of them {removed} "
+          f"dependent stages x the stage latency "
+          f"{stage_s * 1e6:.3f} us = {removed * stage_s * 1e3:.4f} ms "
+          f"against {u_ms - f_ms:.4f} ms measured | {smi}")
+    return {"name": "megakernel[fused]", "route": "cuda",
+            "source": "triton_distributed_tpu_torch/csrc/megakernel.cu",
+            "replaces": "triton_distributed_tpu/megakernel/"
+                        "executor_pallas.py:2488, :2214",
+            "launches": launches, "max_abs_err": abs_err, "ms": f_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
 
 
 def _slot_table(lens, blk, mp, num_blocks, seed):
@@ -2713,6 +2913,7 @@ def main():
                                              cfg, args.seed, smi, args.profile)
 
     check_megakernel_graphs(dev)
+    fused_graph_err = check_megakernel_fused_graphs(dev)
     check_megakernel_paged_graphs(dev)
     moe_graph_step = check_megakernel_moe_graphs(dev)
     verify_err = check_megakernel_verify_graphs(dev)
@@ -2720,9 +2921,15 @@ def main():
     check_mega_serve_small(models, args.seed)
     check_mega_serve_small(models, args.seed, moe=True)
     check_spec_small(models, args.seed)
-    md, _, mk_launches = check_megadecoder(attn, model, params, cfg, ids[0],
-                                           toks[0], smi, args.profile)
+    md, md_toks, mk_launches = check_megadecoder(attn, model, params, cfg,
+                                                 ids[0], toks[0], smi,
+                                                 args.profile)
     mk = check_megakernel_main(md, cfg, ids[0], smi, args.profile)
+    mk_fused = check_megadecoder_fused(attn, md, md_toks, model, params, cfg,
+                                       ids[0], smi)
+    mk_fused["max_abs_err"] = max(mk_fused["max_abs_err"], fused_graph_err)
+    gc.collect()
+    torch.cuda.empty_cache()
     mk_serve, mk_step = check_mega_serve(models, attn, gg, model, params, cfg,
                                          args.seed, smi, args.profile,
                                          engine_out)
@@ -2788,7 +2995,7 @@ def main():
           f"{moe_graph_step['ms']:.4f} ms against "
           f"{moe_graph_step['bound_ms']:.4f} ms, plain walk "
           f"{moe_graph_step['plain_ms']:.1f} ms")
-    kernels += [mk, mk_verify, gmm_entry]
+    kernels += [mk, mk_verify, mk_fused, gmm_entry]
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

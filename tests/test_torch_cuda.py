@@ -345,6 +345,81 @@ def test_megakernel_refuses_what_it_does_not_take(cuda):
     assert mb.compile("kernel", device=cuda).n_sm == sms
 
 
+# -- the megakernel's fused decode arms ----------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,cache_len,qk_norm,D", [
+    (1, 0, True, 128), (1, 37, True, 128), (1, 101, False, 64),
+    (8, 13, True, 128),
+])
+def test_megakernel_fused_matches_plain_and_unfused(cuda, dtype, S,
+                                                    cache_len, qk_norm, D):
+    """Both fusion flags: the fused kernel against its plain walk (MK_TOL),
+    and against the unfused kernel bit for bit, outputs and every cache
+    (the fused arms keep the unfused tasks' reduction orders and rounding
+    points)."""
+    mb, unfused, ins, ws = _mk_case(cuda, dtype, S, qk_norm, D)
+    fused = mb.compile("kernel", device=cuda, fuse_elementwise=True,
+                       fuse_kv_append=True)
+    assert len(fused.tasks) == 6 * 2 + 1 and len(unfused.tasks) == 13 * 2 + 1
+    w = {n: torch.as_tensor(v).to(cuda, dtype) for n, v in ws.items()}
+    runs = {}
+    for name, prog in (("unfused", unfused), ("fused", fused)):
+        prog.bind_weights(w)
+        runs[name] = _mk_kernel_and_plain(prog, ins, cache_len)
+    (ko, kc), (po, pc) = runs["fused"]
+    tol = MK_TOL[dtype]
+    for a, b in zip(ko, po):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item()
+    rows = slice(cache_len, cache_len + S)
+    for n in kc:
+        a, b = kc[n][rows], pc[n][rows]
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item(), n
+    uo, uc = runs["unfused"][0]
+    for a, b in zip(ko, uo):
+        assert torch.equal(a, b)
+    for n in kc:
+        assert torch.equal(kc[n], uc[n]), n
+
+
+def test_megakernel_fused_refusals(cuda):
+    """A fused program past the skinny LINEAR's rows, and a fused RMS
+    prologue wider than the staged floats, are refused on the host; a
+    fused field on a tiled LINEAR's descriptor is an op the kernel does
+    not have: the launch records the fault and the host names the task."""
+    mb = build_qwen3_decode(seq_len=24, hidden=256, intermediate=384,
+                            num_layers=1, num_heads=8, num_kv_heads=2,
+                            head_dim=128, max_cache=64, kv_append=True)
+    for kw in ({"fuse_elementwise": True}, {"fuse_kv_append": True}):
+        with pytest.raises(ValueError, match="at most 8 rows"):
+            mb.compile("kernel", device=cuda, **kw)
+    wide = build_qwen3_decode(seq_len=8, hidden=2056, intermediate=384,
+                              num_layers=1, num_heads=8, num_kv_heads=2,
+                              head_dim=128, max_cache=64, kv_append=True)
+    with pytest.raises(ValueError, match="staged floats"):
+        wide.compile("kernel", device=cuda, fuse_elementwise=True)
+    ins, ws = init_random_io(mb, np.random.default_rng(0))
+    prog = mb.compile("kernel", device=cuda)
+    prog.wait_budget_ns = int(0.05e9)
+    prog.bind_weights({n: torch.as_tensor(v).to(cuda) for n, v in ws.items()})
+    prog.bind_caches({n: torch.as_tensor(ins[n]).to(cuda)
+                      for n in mb.graph.caches})
+    x = torch.as_tensor(ins["x"]).to(cuda)
+    t = next(i for i, nd in enumerate(prog.tasks) if nd.op == "linear")
+    d_desc = prog.descriptors()[3]
+    d_desc[t, mkx.F_R] = x.data_ptr()
+    prog.step({"x": x}, 3)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match=f"op the kernel does not have: "
+                                           f"task {t} "):
+        prog.check_fault()
+    prog._desc = None
+    prog.step({"x": x}, 3)
+    torch.cuda.synchronize()
+    prog.check_fault()
+
+
 # -- the megakernel's paged serving bodies (ATTN_P, KVA_PK, KVA_PV) ------------
 
 def _mk_paged_case(device, dtype, R, D, blk, seed=0):

@@ -258,10 +258,12 @@ def test_megadecoder_greedy_matches_engine_and_jax(mesh1, name):
     eng = models.Engine(pm, pp, max_len=MAX_CACHE).serve(prompt[None],
                                                           GEN)[0]
     np.testing.assert_array_equal(eng, ref)
-    for backend in ("kernel", "graph"):
+    for backend, fuse in (("kernel", False), ("graph", False),
+                          ("kernel", True)):
         md = port.MegaDecoder.from_dense(
             pm, pp, max_cache=MAX_CACHE, prompt_len=P,
-            prefill_chunk=CHUNK, backend=backend, device="cpu")
+            prefill_chunk=CHUNK, backend=backend, device="cpu",
+            fuse_elementwise=fuse, fuse_kv_append=fuse)
         assert md._n_prefill_chunks == 2 and md.prefill_chunk == CHUNK
         got = md.serve(prompt, GEN)
         assert got.dtype == np.int32
@@ -388,12 +390,15 @@ def test_refusals_and_devices():
     for bad in ({"tile_m": 8}, {"tile_n": 128}, {"n_cores": 2}):
         with pytest.raises(TypeError):
             port.MegaDecoder.from_dense(pm, pp, device="cpu", **kw, **bad)
-    with pytest.raises(NotImplementedError, match="performance"):
-        port.MegaDecoder(**{**dict(hidden=64, intermediate=128,
-                                   num_layers=2, num_heads=4,
-                                   num_kv_heads=2, head_dim=16,
-                                   max_cache=32, prompt_len=13),
-                            "fuse_elementwise": True})
+    # the fusion flags build a fused decode program (the prefill program
+    # stays unfused), and from_dense passes them on
+    md = port.MegaDecoder.from_dense(pm, pp, device="cpu", **kw,
+                                     fuse_elementwise=True)
+    assert md.fuse_elementwise and not md.fuse_kv_append
+    assert {nd.op for nd in md._prog_decode.fused_away} == \
+        {"rms_norm", "silu_mul", "add"}
+    assert md._prog_prefill.fused_away == []
+    assert len(md._prog_decode.tasks) == 8 * cfg.num_layers + 1
     with pytest.raises(ValueError, match="'kernel'"):
         port.MegaDecoder.from_dense(pm, pp, device="cpu", backend="pallas",
                                     **kw)

@@ -8,9 +8,9 @@
 // attn_step :834, head_rms :879), KVA_K / KVA_V (:1512 / :1559), the
 // paged serving bodies ATTN_P (:1189) and KVA_PK / KVA_PV (:1351), and the
 // MoE expert FFN GROUPED_GEMM (:673-766), each at the run-time verify width
-// of queue column 10 (1..slot_rows candidate rows a slot). The fused
-// variants and the collective bodies (AR, A2A, GEMM_AR) come with later
-// slices.
+// of queue column 10 (1..slot_rows candidate rows a slot), and the fused
+// arms of a decode program (below). The collective bodies (AR, A2A,
+// GEMM_AR) come with a later slice.
 //
 // The host side is megakernel/executor_cuda.py: one descriptor row per
 // task (a graph node cut into tiles), a flat list of each task's producer
@@ -107,6 +107,29 @@
 // prefix then of the current rows (causal); p is rounded to T for the PV
 // product and summed in f32 for the denominator.
 //
+// Fused decode arms (ExecutorPallas fuse_elementwise :2488, with the rms
+// fold :2470, and fuse_kv_append :2214; the host's plan is
+// ExecutorCuda._fusion_plan). A fused-away node has no task; the fused
+// task's dependency list names the producers of every row it reads.
+//   - The skinny LINEAR's A prologue: PRO_RMS stages the norm's input rows
+//     (the whole row: the host refuses a width past the staged floats),
+//     sums each row's squares in rms_norm_task's order (a thread's strided
+//     FMAs, then block_sum), and normalises the staged row in place,
+//     rounded to T as RMS_NORM writes it. Every tile of the LINEAR redoes
+//     this for its rows (8-48 KB of reads a tile). PRO_SILU stages
+//     round_T(silu(g) * u) from the two source rows, as SILU_MUL does.
+//   - Its epilogue: with a residual, the output column is
+//     round_T(resid + round_T(acc)), written to the ADD's rows: the ADD's
+//     own rounding points, and rows of their own in the arena, so no
+//     reader of the old residual can see the new one.
+//   - ATTN with F_APPEND: after the tile's attention, one warp per (row,
+//     part) writes the tile's rows of its kv head at cache_len + row
+//     through kv_append_row, K normed and roped as KVA_K writes it, V raw.
+//     No task of the launch reads those cache rows (the prefix reads stop
+//     at cache_len), so the __ldg rule below holds as for KVA_K.
+// The tiled LINEAR has no fused arm: a fused descriptor in mode 1 is an op
+// the kernel does not have (a fault); the host refuses such a program.
+//
 // What bounds it on the H100: bytes. A decode step (S = 1) reads every
 // trunk weight once: 13.9 GB for Qwen3-8B (36 layers), 4.15 ms at
 // 3.35 TB/s, plus the cache rows up to cache_len and a few MB of
@@ -127,11 +150,11 @@
 // 32-column tile (128-384 tiles per projection at Qwen3-8B) and keeps eight
 // 16-byte weight loads per thread in flight; ATTN reads the cache prefix in
 // 16-byte vectors, 64 rows per chunk; the whole trunk is one launch, so no
-// host dispatch sits between its ~470 tasks. It is the simple form:
-// node-level dependencies stall each SM at every layer's stage boundary,
-// the elementwise tasks are not fused into their neighbours, a decode
-// step's ATTN runs on only Hkv CTAs per layer, and nothing uses TMA or the
-// tensor cores. Those are later work (PERF.md §7).
+// host dispatch sits between its ~470 tasks (217 fused). It is the simple
+// form: node-level dependencies stall each SM at every layer's stage
+// boundary (5 of the 13 a layer go with fuse_elementwise), a decode step's
+// ATTN runs on only Hkv CTAs per layer, and nothing uses TMA or the tensor
+// cores. Those are later work (PERF.md §7).
 
 #include "tdt_common.cuh"
 
@@ -139,14 +162,16 @@ namespace {
 
 constexpr int NT = 256;           // threads per CTA
 constexpr int NW = NT / 32;
-constexpr int NF = 41;            // descriptor fields (executor_cuda.NF)
+constexpr int NF = 47;            // descriptor fields (executor_cuda.NF)
 enum : int {
   F_OP = 0, F_TILES, F_DEP_LO, F_DEP_HI, F_OUT, F_A, F_B, F_C, F_D, F_E,
   F_M, F_N, F_K, F_LDA, F_LDB, F_LDO, F_TR, F_NCT, F_TN, F_H, F_HKV, F_HD,
   F_QKN, F_CACHED, F_CAUSAL, F_EPS, F_SCALE, F_COS, F_SIN, F_LDC, F_MODE,
   F_BLOCK, F_SROWS, F_MAXP, F_NE, F_TOPK, F_INTER, F_NORMK, F_PHASE, F_LDD,
-  F_LDE
+  F_LDE, F_PRO, F_P, F_LDP, F_R, F_LDR, F_APPEND
 };
+// a fused LINEAR's A prologue (executor_cuda.PRO_*)
+enum : int { PRO_NONE = 0, PRO_RMS = 1, PRO_SILU = 2 };
 // op codes of megakernel/graph.py
 enum : int {
   OP_LINEAR = 0, OP_RMS_NORM = 1, OP_SILU_MUL = 2, OP_ADD = 3, OP_ATTN = 4,
@@ -267,6 +292,19 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   return s;
 }
 
+// The elementwise arithmetic of RMS_NORM, SILU_MUL and ADD, shared by their
+// tasks and the fused LINEAR arms so both round at the same points.
+__device__ __forceinline__ float rms_inv(float ss, int n, float eps) {
+  return 1.0f / sqrtf(ss / n + eps);
+}
+__device__ __forceinline__ float rms_elem(float x, float inv, float w) {
+  return __fmul_rn(__fmul_rn(x, inv), w);
+}
+__device__ __forceinline__ float silu_mul_elem(float a, float b) {
+  const float sig = 1.0f / (1.0f + expf(-a));
+  return __fmul_rn(__fmul_rn(a, sig), b);
+}
+
 // -- scoreboard ----------------------------------------------------------------
 // Thread 0 only. Returns false (after recording a fault, or on finding one)
 // when the CTA must stop.
@@ -299,9 +337,28 @@ __device__ bool wait_deps(const Params& p, const long long* d, int task) {
 }
 
 // -- LINEAR, decode form: rows <= 8, 32-column tiles -------------------------
+// The fused RMS_NORM prologue: normalise the nr staged rows of K floats in
+// place, each rounded to T, with rms_norm_task's arithmetic in its order.
+// `red` holds NW floats. Ends with a barrier.
+template <typename T>
+__device__ void rms_prologue(float* xs, int nr, int K, const T* w, float eps,
+                             float* red) {
+  for (int r = 0; r < nr; ++r) {
+    float* xr = xs + r * K;
+    float ss = 0.f;
+    for (int c = threadIdx.x; c < K; c += NT) ss = fmaf(xr[c], xr[c], ss);
+    ss = block_sum(ss, red);
+    const float inv = rms_inv(ss, K, eps);
+    for (int c = threadIdx.x; c < K; c += NT)
+      xr[c] = round_t<T>(rms_elem(xr[c], inv, to_f(__ldg(w + c))));
+  }
+  __syncthreads();
+}
+
 // Threads split as CV column vectors (16 bytes) x RL row lanes over K; x rows
-// are staged in shared memory as f32; the RL partial sums of each output meet
-// in shared memory at the end.
+// are staged in shared memory as f32 (through a fused prologue: the normed
+// row, or silu(g) * u); the RL partial sums of each output meet in shared
+// memory at the end, where a fused residual is added.
 template <typename T, int R>
 __device__ void linear_skinny(const long long* d, int tile, float* sm) {
   constexpr int VEC = Vec<T>::N;
@@ -316,6 +373,10 @@ __device__ void linear_skinny(const long long* d, int tile, float* sm) {
   const T* x = cptr<T>(d[F_A]);           // activation: coherent loads
   const T* w = cptr<T>(d[F_B]);
   T* out = mptr<T>(d[F_OUT]);
+  const int pro = static_cast<int>(d[F_PRO]);
+  const T* up = cptr<T>(d[F_P]);          // PRO_SILU: activation rows
+  const long long ldp = d[F_LDP], ldr = d[F_LDR];
+  const T* res = d[F_R] ? cptr<T>(d[F_R]) : nullptr;   // activation rows
   const int tid = threadIdx.x, cv = tid % CV, rl = tid / CV;
   const int col = ct * SKINNY_TN + cv * VEC;
   const bool live = col < N;
@@ -331,9 +392,17 @@ __device__ void linear_skinny(const long long* d, int tile, float* sm) {
     __syncthreads();
     for (int i = tid; i < nr * kc; i += NT) {
       const int r = i / kc, k = i - r * kc;
-      xs[r * kc + k] = to_f(x[(r0 + r) * lda + k0 + k]);
+      const float a = to_f(x[(r0 + r) * lda + k0 + k]);
+      xs[r * kc + k] =
+          pro == PRO_SILU
+              ? round_t<T>(silu_mul_elem(a, to_f(up[(r0 + r) * ldp + k0 + k])))
+              : a;
     }
     __syncthreads();
+    if (pro == PRO_RMS)   // kc == K: the host stages whole rows
+      rms_prologue<T>(xs, nr, kc, cptr<T>(d[F_P]),
+                      __int_as_float(static_cast<int>(d[F_EPS])),
+                      sm + XS_FLOATS);
     if (!live) continue;
     const T* wp = w + static_cast<long long>(k0) * ldb + col;
     int k = rl;
@@ -384,7 +453,11 @@ __device__ void linear_skinny(const long long* d, int tile, float* sm) {
       float s = 0.f;
       for (int l = 0; l < RL; ++l) s += red[l * SKINNY_TN + tid];
       const int c = ct * SKINNY_TN + tid;
-      if (c < N) out[(r0 + r) * ldo + c] = from_f<T>(s);
+      if (c < N)
+        out[(r0 + r) * ldo + c] = from_f<T>(
+            res == nullptr ? s
+                           : __fadd_rn(to_f(res[(r0 + r) * ldr + c]),
+                                       round_t<T>(s)));
     }
   }
 }
@@ -466,10 +539,10 @@ __device__ void rms_norm_task(const long long* d, int tile, float* sm) {
       ss = fmaf(v, v, ss);
     }
     ss = block_sum(ss, sm);
-    const float inv = 1.0f / sqrtf(ss / N + eps);
+    const float inv = rms_inv(ss, N, eps);
     for (int c = threadIdx.x; c < N; c += NT)
       out[r * ldo + c] =
-          from_f<T>(__fmul_rn(__fmul_rn(to_f(xr[c]), inv), to_f(__ldg(w + c))));
+          from_f<T>(rms_elem(to_f(xr[c]), inv, to_f(__ldg(w + c))));
   }
 }
 
@@ -485,14 +558,8 @@ __device__ void elementwise_task(const long long* d, int tile) {
   for (int r = r0; r < r1; ++r)
     for (int c = threadIdx.x; c < N; c += NT) {
       const float av = to_f(a[r * lda + c]), bv = to_f(b[r * ldb + c]);
-      float y;
-      if (SILU) {
-        const float sig = 1.0f / (1.0f + expf(-av));
-        y = __fmul_rn(__fmul_rn(av, sig), bv);
-      } else {
-        y = __fadd_rn(av, bv);
-      }
-      out[r * ldo + c] = from_f<T>(y);
+      out[r * ldo + c] =
+          from_f<T>(SILU ? silu_mul_elem(av, bv) : __fadd_rn(av, bv));
     }
 }
 
@@ -527,6 +594,37 @@ __device__ __forceinline__ void prep_row(const T* src, const T* nw, float eps,
     const float a = x[u], b = x[u + P / 2];
     x[u] = round_t<T>(__fsub_rn(__fmul_rn(a, c), __fmul_rn(b, s)));
     x[u + P / 2] = round_t<T>(__fadd_rn(__fmul_rn(b, c), __fmul_rn(a, s)));
+  }
+}
+
+// -- KVA_K / KVA_V / KVA_PK / KVA_PV: one head row of a step's K or V --------
+// K rows are normed (with k_norm) and roped at their position; V rows copied.
+// `cache`: the destination (an append task's output; a fused ATTN's caches).
+template <typename T, int D, bool K_PART>
+__device__ __forceinline__ void kv_append_row(const long long* d, T* cache,
+                                              int r, int j, int pos,
+                                              long long dst_row) {
+  constexpr int P = D / 32;
+  const int H = static_cast<int>(d[F_H]), Hkv = static_cast<int>(d[F_HKV]);
+  const long long lda = d[F_LDA], ldc = d[F_LDC];
+  const T* qkv = cptr<T>(d[F_A]);
+  T* dst = cache + dst_row * ldc + j * D;
+  const int lane = threadIdx.x & 31;
+  if (K_PART) {
+    const T* kn = d[F_QKN] ? cptr<T>(d[F_E]) : nullptr;
+    const float eps = __int_as_float(static_cast<int>(d[F_EPS]));
+    const float* cos_t = cptr<float>(d[F_COS]);
+    const float* sin_t = cptr<float>(d[F_SIN]);
+    float x[P];
+    prep_row<T, D>(qkv + r * lda + (H + j) * D, kn, eps,
+                   cos_t + static_cast<long long>(pos) * (D / 2),
+                   sin_t + static_cast<long long>(pos) * (D / 2), x);
+#pragma unroll
+    for (int u = 0; u < P; ++u) dst[lane + 32 * u] = from_f<T>(x[u]);
+  } else {
+    const T* src = qkv + r * lda + (H + Hkv + j) * D;
+#pragma unroll
+    for (int u = 0; u < P; ++u) dst[lane + 32 * u] = src[lane + 32 * u];
   }
 }
 
@@ -704,7 +802,9 @@ __device__ void attn_task(const long long* d, int j, const AttnRows& g_,
 }
 
 // ATTN: tile = (row tile, kv head) of the step's rows against the cache
-// prefix [0, cache_len) and the causal current rows.
+// prefix [0, cache_len) and the causal current rows. With F_APPEND (the
+// fused KVA_K / KVA_V) it then writes its rows' K and V of head j to the
+// caches at cache_len + row, one warp per (row, part).
 template <typename T, int D>
 __device__ void attn_rows_task(const long long* d, int tile, float* sm,
                                int cache_len) {
@@ -717,6 +817,14 @@ __device__ void attn_rows_task(const long long* d, int tile, float* sm,
   const AttnRows g{r0, nr, cl + r0, 0, causal ? r0 + nr : M, cl, cl, 0, 0,
                    causal, nullptr};
   attn_task<T, D>(d, j, g, sm);
+  if (d[F_APPEND] == 0) return;
+  for (int item = threadIdx.x >> 5; item < 2 * nr; item += NW) {
+    const int r = r0 + item / 2, pos = cl + r;
+    if (item % 2 == 0)
+      kv_append_row<T, D, true>(d, mptr<T>(d[F_B]), r, j, pos, pos);
+    else
+      kv_append_row<T, D, false>(d, mptr<T>(d[F_C]), r, j, pos, pos);
+  }
 }
 
 // The rows ATTN_P and KVA_PK / KVA_PV run for slot b: its run-time width
@@ -743,35 +851,6 @@ __device__ void attn_paged_task(const long long* d, int tile, float* sm,
   attn_task<T, D>(d, j, g, sm);
 }
 
-// -- KVA_K / KVA_V / KVA_PK / KVA_PV: one head row of a step's K or V --------
-// K rows are normed (with k_norm) and roped at their position; V rows copied.
-template <typename T, int D, bool K_PART>
-__device__ __forceinline__ void kv_append_row(const long long* d, int r, int j,
-                                              int pos, long long dst_row) {
-  constexpr int P = D / 32;
-  const int H = static_cast<int>(d[F_H]), Hkv = static_cast<int>(d[F_HKV]);
-  const long long lda = d[F_LDA], ldc = d[F_LDC];
-  const T* qkv = cptr<T>(d[F_A]);
-  T* dst = mptr<T>(d[F_OUT]) + dst_row * ldc + j * D;
-  const int lane = threadIdx.x & 31;
-  if (K_PART) {
-    const T* kn = d[F_QKN] ? cptr<T>(d[F_E]) : nullptr;
-    const float eps = __int_as_float(static_cast<int>(d[F_EPS]));
-    const float* cos_t = cptr<float>(d[F_COS]);
-    const float* sin_t = cptr<float>(d[F_SIN]);
-    float x[P];
-    prep_row<T, D>(qkv + r * lda + (H + j) * D, kn, eps,
-                   cos_t + static_cast<long long>(pos) * (D / 2),
-                   sin_t + static_cast<long long>(pos) * (D / 2), x);
-#pragma unroll
-    for (int u = 0; u < P; ++u) dst[lane + 32 * u] = from_f<T>(x[u]);
-  } else {
-    const T* src = qkv + r * lda + (H + Hkv + j) * D;
-#pragma unroll
-    for (int u = 0; u < P; ++u) dst[lane + 32 * u] = src[lane + 32 * u];
-  }
-}
-
 // KVA_K / KVA_V: the step's rows into cache rows [cache_len, +S), one warp
 // per (row, kv head) of the tile's rows.
 template <typename T, int D, bool K_PART>
@@ -781,7 +860,8 @@ __device__ void kv_append_task(const long long* d, int tile, int cache_len) {
   const int r0 = tile * tr, r1 = min(M, r0 + tr);
   for (int item = threadIdx.x >> 5; item < (r1 - r0) * Hkv; item += NW) {
     const int r = r0 + item / Hkv, pos = cache_len + r;
-    kv_append_row<T, D, K_PART>(d, r, item % Hkv, pos, pos);
+    kv_append_row<T, D, K_PART>(d, mptr<T>(d[F_OUT]), r, item % Hkv, pos,
+                                pos);
   }
 }
 
@@ -800,7 +880,8 @@ __device__ void kv_append_paged_task(const long long* d, int tile,
     const int i = item / Hkv, pos = cl + i;
     const long long dst_row =
         static_cast<long long>(__ldg(trow + pos / blk)) * blk + pos % blk;
-    kv_append_row<T, D, K_PART>(d, tile * R + i, item % Hkv, pos, dst_row);
+    kv_append_row<T, D, K_PART>(d, mptr<T>(d[F_OUT]), tile * R + i,
+                                item % Hkv, pos, dst_row);
   }
 }
 
@@ -1028,17 +1109,24 @@ __device__ void moe_down_task(const long long* d, int tile, float* sm,
   }
 }
 
+// Returns false on a fused descriptor it cannot run: any fused arm in the
+// tiled form, or an RMS prologue whose rows exceed the staged floats.
 template <typename T>
-__device__ void linear_task(const long long* d, int tile, float* sm) {
+__device__ bool linear_task(const long long* d, int tile, float* sm) {
+  const bool fused = d[F_PRO] != PRO_NONE || d[F_R] != 0;
   if (d[F_MODE] == 1) {
+    if (fused) return false;
     linear_tiled<T>(d, tile, sm);
-    return;
+    return true;
   }
   const int tr = static_cast<int>(d[F_TR]);
-  if (tr <= 1) linear_skinny<T, 1>(d, tile, sm);
-  else if (tr <= 2) linear_skinny<T, 2>(d, tile, sm);
-  else if (tr <= 4) linear_skinny<T, 4>(d, tile, sm);
+  const int R = tr <= 1 ? 1 : tr <= 2 ? 2 : tr <= 4 ? 4 : 8;
+  if (d[F_PRO] == PRO_RMS && d[F_K] > XS_FLOATS / R) return false;
+  if (R == 1) linear_skinny<T, 1>(d, tile, sm);
+  else if (R == 2) linear_skinny<T, 2>(d, tile, sm);
+  else if (R == 4) linear_skinny<T, 4>(d, tile, sm);
   else linear_skinny<T, 8>(d, tile, sm);
+  return true;
 }
 
 // returns false on an op the kernel does not have
@@ -1048,7 +1136,7 @@ __device__ bool run_task(const long long* d, int tile, float* sm,
   const bool d128 = d[F_HD] == 128;
   const int cl = p.cache_len;
   switch (static_cast<int>(d[F_OP])) {
-    case OP_LINEAR: linear_task<T>(d, tile, sm); return true;
+    case OP_LINEAR: return linear_task<T>(d, tile, sm);
     case OP_RMS_NORM: rms_norm_task<T>(d, tile, sm); return true;
     case OP_SILU_MUL: elementwise_task<T, true>(d, tile); return true;
     case OP_ADD: elementwise_task<T, false>(d, tile); return true;
@@ -1139,7 +1227,7 @@ int launch(const Params& prm, int n_sm, cudaStream_t st) {
 
 }  // namespace
 
-// desc int64 (n_tasks, 41), deps int32, queues int32 (n_sm, qcap) packed
+// desc int64 (n_tasks, 47), deps int32, queues int32 (n_sm, qcap) packed
 // task << 20 | tile, qlen int32 (n_sm,), counts u32 (n_tasks,) (the
 // scoreboard, never cleared: launch `epoch` waits for epoch x tiles),
 // fault int32 (4,) = (code, task, producer, -); a paged serving program's

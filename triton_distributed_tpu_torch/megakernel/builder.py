@@ -280,7 +280,10 @@ class ModelBuilder:
         (default: the GPU; on device="cpu" its plain queue walk).
         On device="cpu", "kernel" also takes `n_sm` (the number of
         queues the plain walk interleaves; default 132); on a GPU the
-        queues are the card's SMs and `n_sm` is refused."""
+        queues are the card's SMs and `n_sm` is refused. "kernel" takes
+        `fuse_elementwise` / `fuse_kv_append` (default False, as in
+        JAX) for a decode-depth program: the fused program of
+        ExecutorCuda._fusion_plan."""
         if backend == "graph":
             if kwargs:
                 raise TypeError(f"backend 'graph' takes no options, got "

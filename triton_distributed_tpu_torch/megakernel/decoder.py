@@ -7,7 +7,10 @@ ceil(P / C) times at cache_len = i*C, and a decode program (seq_len = 1)
 run once per token. Both share one set of weights (views of the
 DenseLLM params, never copied) and one set of per-layer caches, which
 the kernel's kv_append tasks update in place, so K/V never leave the
-device. Between launches the host does only the embed lookup, the
+device. `fuse_elementwise` / `fuse_kv_append` build the decode program
+fused (with both, 6 tasks a layer instead of 13: the norms, SiLU and
+residual adds folded into the LINEARs, the appends into attention); the
+prefill program stays node-level. Between launches the host does only the embed lookup, the
 lm_head matmul and argmax (or Gumbel top-k sampling); the token stays on
 the device and `serve` reads the tokens once, at the end.
 
@@ -113,11 +116,6 @@ class MegaDecoder:
                  backend="kernel", dtype=None, prefill_chunk=None,
                  device=None, fuse_elementwise=False,
                  fuse_kv_append=False):
-        if fuse_elementwise or fuse_kv_append:
-            raise NotImplementedError(
-                "fuse_elementwise / fuse_kv_append fold the TPU kernel's "
-                "panel walk; whether Hopper wants them is left to a later "
-                "performance PR")
         if backend not in ("kernel", "graph"):
             raise ValueError(f"backend {backend!r}: choose 'kernel' (the "
                              f"CUDA megakernel) or 'graph' (the golden "
@@ -133,6 +131,8 @@ class MegaDecoder:
                         qk_norm=qk_norm)
         self.rms_eps = rms_eps
         self.backend = backend
+        self.fuse_elementwise = bool(fuse_elementwise)
+        self.fuse_kv_append = bool(fuse_kv_append)
         self.dtype = embed.dtype if dtype is None else \
             runtime.resolve_dtype(dtype)
         self.embed = embed
@@ -151,7 +151,7 @@ class MegaDecoder:
                 f"max_cache")
         self.prefill_chunk, self._n_prefill_chunks = C, nc
 
-        def build(seq_len):
+        def build(seq_len, **fuse):
             mb = build_qwen3_decode(
                 seq_len=seq_len, hidden=hidden, intermediate=intermediate,
                 num_layers=num_layers, num_heads=num_heads,
@@ -165,10 +165,15 @@ class MegaDecoder:
                     if nd.op == "kv_append":
                         mb.graph.outputs.append(nd.out)
                 return mb, mb.compile(backend="graph")
-            return mb, mb.compile(backend="kernel", device=self.device)
+            return mb, mb.compile(backend="kernel", device=self.device,
+                                  **fuse)
 
+        # the fusion options shape the decode program alone: a prefill
+        # chunk has more rows than the skinny LINEAR that carries them
         self._mb_prefill, self._prog_prefill = build(C)
-        self._mb_decode, self._prog_decode = build(1)
+        self._mb_decode, self._prog_decode = build(
+            1, fuse_elementwise=self.fuse_elementwise,
+            fuse_kv_append=self.fuse_kv_append)
         self._cache_names = list(self._mb_decode.graph.caches)
         if backend == "kernel":
             # one weight set and one cache set serve both programs
@@ -184,9 +189,13 @@ class MegaDecoder:
     # ------------------------------------------------------------------
     @classmethod
     def from_dense(cls, model, params, *, max_cache, prompt_len,
-                   backend="kernel", prefill_chunk=None, device=None):
+                   backend="kernel", prefill_chunk=None, device=None,
+                   fuse_elementwise=False, fuse_kv_append=False):
         """A decoder over a single-rank DenseLLM's parameters
-        (dense_weight_map: views, nothing copied)."""
+        (dense_weight_map: views, nothing copied). The fusion options
+        fold the decode program's elementwise tasks and cache appends
+        into their neighbours (ExecutorCuda); the kernel backend alone
+        reads them, as the JAX decoder's Pallas backend alone does."""
         c = model.config
         weights, embed, lm_head = dense_weight_map(model, params)
         return cls(hidden=c.hidden_size, intermediate=c.intermediate_size,
@@ -196,7 +205,9 @@ class MegaDecoder:
                    rope_theta=c.rope_theta, qk_norm=c.qk_norm,
                    rms_eps=c.rms_norm_eps, embed=embed, lm_head=lm_head,
                    weights=weights, backend=backend,
-                   prefill_chunk=prefill_chunk, device=device)
+                   prefill_chunk=prefill_chunk, device=device,
+                   fuse_elementwise=fuse_elementwise,
+                   fuse_kv_append=fuse_kv_append)
 
     # ------------------------------------------------------------------
     def _pick(self, hidden_row, generator, temperature, *, sampling, top_k):

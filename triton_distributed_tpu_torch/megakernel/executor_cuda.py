@@ -22,6 +22,13 @@ A graph compiles into:
   tile count, the task's slice of the flat dependency list (`deps`: the
   producer tasks of its inputs), device addresses of its operands, their
   leading dimensions, its tile geometry and the attention constants;
+- with `fuse_elementwise` / `fuse_kv_append` (a decode-depth program of
+  at most SKINNY_ROWS rows), the fused program of `_fusion_plan`: an
+  RMS_NORM or SILU_MUL feeding only LINEAR A operands becomes that
+  LINEAR's prologue, an ADD of a LINEAR's sole output and an earlier
+  residual becomes its epilogue, and an attention_kv's two kv_append
+  nodes become its append. A fused-away node has no task; its readers
+  wait on the task that writes its rows;
 - per-SM queues from `scheduler.schedule` over `n_sm` cores (the
   card's SM count; on the CPU, where only the plain walk runs, `n_sm`
   may be given and defaults to the H100's 132) and a scoreboard of one
@@ -98,13 +105,19 @@ MOE_MAX_TOPK = 32
 STAGED_FLOATS = 16384   # the kernel stages an x or act row as f32 floats
 WAIT_BUDGET_S = 1.0     # a scoreboard wait longer than this is a fault
 
-# descriptor fields (csrc/megakernel.cu keeps the same numbering)
+# descriptor fields (csrc/megakernel.cu keeps the same numbering). The
+# fused LINEAR's prologue (F_PRO: PRO_NONE, PRO_RMS with the norm weight
+# at F_P and its eps at F_EPS, PRO_SILU with the up rows at F_P, F_LDP)
+# and epilogue residual (F_R, F_LDR; 0: none); F_APPEND: an ATTN that
+# appends its rows' K / V to its caches.
 (F_OP, F_TILES, F_DEP_LO, F_DEP_HI, F_OUT, F_A, F_B, F_C, F_D, F_E, F_M,
  F_N, F_K, F_LDA, F_LDB, F_LDO, F_TR, F_NCT, F_TN, F_H, F_HKV, F_HD,
  F_QKN, F_CACHED, F_CAUSAL, F_EPS, F_SCALE, F_COS, F_SIN, F_LDC,
  F_MODE, F_BLOCK, F_SROWS, F_MAXP, F_NE, F_TOPK, F_INTER, F_NORMK,
- F_PHASE, F_LDD, F_LDE) = range(41)
-NF = 41
+ F_PHASE, F_LDD, F_LDE, F_PRO, F_P, F_LDP, F_R, F_LDR,
+ F_APPEND) = range(47)
+NF = 47
+PRO_NONE, PRO_RMS, PRO_SILU = 0, 1, 2
 
 _FAULTS = {1: "a scoreboard wait passed its budget",
            2: "a descriptor names an op the kernel does not have"}
@@ -130,7 +143,9 @@ def _bits_f32(b: int) -> float:
 class ExecutorCuda:
     """Compile a builder graph into the persistent CUDA megakernel."""
 
-    def __init__(self, builder, *, device=None, n_sm: int | None = None):
+    def __init__(self, builder, *, device=None, n_sm: int | None = None,
+                 fuse_elementwise: bool = False,
+                 fuse_kv_append: bool = False):
         g = builder.graph
         check_ops(g)
         self.builder = builder
@@ -152,24 +167,37 @@ class ExecutorCuda:
         self.wait_budget_ns = int(WAIT_BUDGET_S * 1e9)
         self.eps = float(builder.rms_eps)
 
-        # one task per compute node, two for a moe_ffn node (its phases;
-        # the node's output is phase 1's, which depends on phase 0)
+        # one task per compute node that is not fused away, two for a
+        # moe_ffn node (its phases; the node's output is phase 1's, which
+        # depends on phase 0)
         nodes = [nd for nd in g.nodes if nd.op not in ("input", "weight")]
+        self.fusion, away = self._fusion_plan(nodes, fuse_elementwise,
+                                              fuse_kv_append)
+        self.fused_away = [nd for nd in nodes if nd.out.idx in away]
         self.tasks, self.phases = [], []
         for nd in nodes:
+            if nd.out.idx in away:
+                continue
             for ph in ((0, 1) if nd.op == "moe_ffn" else (0,)):
                 self.tasks.append(nd)
                 self.phases.append(ph)
-        prod = {nd.out.idx: t for t, nd in enumerate(self.tasks)}
+        # the task that writes each tensor's rows: its own output, and a
+        # fused task's also the ADD's output or the appended caches'
+        writer = {}
+        for t, nd in enumerate(self.tasks):
+            fz = self.fusion.get(nd.out.idx, {})
+            for h in (nd.out, *(x.out for x in (fz.get("add"),
+                                               *fz.get("kv", ())) if x)):
+                writer[h.idx] = t
         self.deps = []
         for t, nd in enumerate(self.tasks):
-            dep = {prod[h.idx] for h in nd.inputs if h.idx in prod}
+            dep = {writer[i] for i in self._reads(nd) if i in writer}
             self.deps.append(sorted(dep | {t - 1} if self.phases[t] else dep))
         self.tiling = [self._tiling(nd, ph)
                        for nd, ph in zip(self.tasks, self.phases)]
         self.n_tiles = np.asarray([t["tiles"] for t in self.tiling], np.int32)
         self.queues, self.qlen = scheduler.schedule(self.n_tiles, self.n_sm)
-        self._scalar_names = {nd.attrs["cache_len_name"] for nd in self.tasks
+        self._scalar_names = {nd.attrs["cache_len_name"] for nd in nodes
                               if nd.op in ("attention_kv", "kv_append")}
         if len(self._scalar_names) > 1:
             raise ValueError(f"one cache_len per program, got "
@@ -180,10 +208,10 @@ class ExecutorCuda:
                                   for b in range(self.paged.b_slots)}
         # the largest cache_len whose S appended rows fit every cache
         self.max_cache_len = min(
-            (nd.inputs[1].rows - nd.inputs[0].rows for nd in self.tasks
+            (nd.inputs[1].rows - nd.inputs[0].rows for nd in nodes
              if nd.op in ("attention_kv", "kv_append")), default=0)
         # a kv_append output is its cache: return the cache handle
-        kv_out = {nd.out.idx: nd.inputs[1] for nd in self.tasks
+        kv_out = {nd.out.idx: nd.inputs[1] for nd in nodes
                   if nd.op in ("kv_append", "kv_append_paged")}
         self._out_handles = [kv_out.get(h.idx, h) for h in g.outputs]
         if cuda:
@@ -246,6 +274,112 @@ class ExecutorCuda:
                                         pin_memory=True)
             self._rt_copied = torch.cuda.Event()
 
+    # -- fusion ----------------------------------------------------------
+    def _fusion_plan(self, nodes, fuse_elementwise, fuse_kv_append):
+        """The fused decode program (ExecutorPallas's selection rules at
+        one core, executor_pallas.py:2214-2245, :2470-2545). Returns
+        ({linear / attention_kv output index: {"rms": norm node, "silu":
+        silu node, "add": add node, "kv": (k node, v node)}}, the output
+        indices of the nodes fused away).
+
+        fuse_elementwise: an rms_norm that is not a graph output and
+        whose consumers are all LINEARs reading it as A (JAX folds these
+        at one core whatever the flag; the port only under it, so its
+        default program stays node-level); a silu_mul likewise, both of
+        its sources activations; an add(linear_out, resid) whose linear
+        is not a graph output and has the add as its sole consumer, the
+        resid an input or the output of a node before the linear.
+        fuse_kv_append: an attention_kv with exactly one kv_append of
+        each part on its qkv and caches (and its k_norm and RoPE).
+        Either flag needs a decode-depth program: every row block within
+        one skinny LINEAR tile (SKINNY_ROWS rows); the 64x64 LINEAR and
+        a multi-chunk prefill have no fused arm."""
+        if not (fuse_elementwise or fuse_kv_append):
+            return {}, set()
+        rows = max((nd.inputs[0].rows for nd in nodes), default=0)
+        if rows > SKINNY_ROWS:
+            raise ValueError(
+                f"fuse_elementwise / fuse_kv_append: a program of {rows} "
+                f"rows; the fused LINEAR arms are the skinny decode form "
+                f"(at most {SKINNY_ROWS} rows)")
+        g = self.graph
+        consumers = g.consumers()
+        out_ids = {h.idx for h in g.outputs}
+        order = {nd.out.idx: i for i, nd in enumerate(nodes)}
+        arena = {h.idx for n, h in g.inputs.items() if n not in g.caches} \
+            | {nd.out.idx for nd in nodes}
+        plan, away = {}, set()
+
+        def only_linear_a(nd):
+            cons = consumers.get(nd.out.idx, [])
+            return nd.out.idx not in out_ids and bool(cons) and all(
+                c.op == "linear" and c.inputs[0].idx == nd.out.idx
+                for c in cons)
+
+        if fuse_elementwise:
+            for nd in nodes:
+                pro = None
+                if nd.op == "rms_norm" and only_linear_a(nd):
+                    pro = "rms"
+                elif nd.op == "silu_mul" and only_linear_a(nd) and all(
+                        h.idx in arena for h in nd.inputs):
+                    pro = "silu"
+                if pro:
+                    for c in consumers[nd.out.idx]:
+                        plan.setdefault(c.out.idx, {})[pro] = nd
+                    away.add(nd.out.idx)
+                elif nd.op == "add":
+                    for lin_h, other in (nd.inputs, nd.inputs[::-1]):
+                        prod = g.producer(lin_h)
+                        if (prod is None or prod.op != "linear"
+                                or other.idx not in arena
+                                or prod.out.idx in out_ids
+                                or "add" in plan.get(prod.out.idx, {})
+                                or len(consumers.get(lin_h.idx, [])) != 1
+                                or order.get(other.idx, -1)
+                                >= order[prod.out.idx]):
+                            continue
+                        plan.setdefault(prod.out.idx, {})["add"] = nd
+                        plan[prod.out.idx]["resid"] = other
+                        away.add(nd.out.idx)
+                        break
+        if fuse_kv_append:
+            for nd in nodes:
+                if nd.op != "attention_kv":
+                    continue
+                qkv, kc, vc = nd.inputs[:3]
+                kn = nd.inputs[4].idx if len(nd.inputs) > 4 else None
+                parts = {}
+                for a in nodes:
+                    if a.op == "kv_append" and a.inputs[0].idx == qkv.idx \
+                            and a.inputs[1].idx in (kc.idx, vc.idx):
+                        parts.setdefault(a.attrs["part"], []).append(a)
+                ks, vs = parts.get("k", []), parts.get("v", [])
+                if not (len(ks) == 1 and len(vs) == 1
+                        and ks[0].inputs[1].idx == kc.idx
+                        and vs[0].inputs[1].idx == vc.idx
+                        and (ks[0].inputs[2].idx if len(ks[0].inputs) > 2
+                             else None) == kn
+                        and all(a.attrs["rope_theta"] == nd.attrs["rope_theta"]
+                                for a in (ks[0], vs[0]))):
+                    continue
+                plan.setdefault(nd.out.idx, {})["kv"] = (ks[0], vs[0])
+                away |= {ks[0].out.idx, vs[0].out.idx}
+        return plan, away
+
+    def _reads(self, nd):
+        """The tensor indices a task of node `nd` reads: its inputs, with
+        a fused prologue's source in place of the norm / silu output and
+        a fused epilogue's residual."""
+        fz = self.fusion.get(nd.out.idx, {})
+        ins = list(nd.inputs)
+        pro = fz.get("rms") or fz.get("silu")
+        if pro is not None:
+            ins[0:1] = pro.inputs
+        if "resid" in fz:
+            ins.append(fz["resid"])
+        return [h.idx for h in ins]
+
     # -- decomposition ---------------------------------------------------
     def _tiling(self, nd, phase: int = 0) -> dict:
         """The Hopper task decomposition of one node (of one phase of a
@@ -306,8 +440,20 @@ class ExecutorCuda:
         group x slot_rows q rows exceed one tile's QR_MAX, and a moe_ffn
         with more experts than the routing warp reaches, a top_k over
         MOE_MAX_TOPK, an I or H that is not a multiple of its strip, or
-        an x row or act row larger than the staged floats."""
-        for nd in self.tasks:
+        an x row or act row larger than the staged floats; and a LINEAR
+        with a fused RMS prologue whose rows do not fit the staged x
+        rows at once (the norm needs each whole row; the kernel stages
+        XS_FLOATS / R floats a row for R = tr rounded up to 1, 2, 4, 8)."""
+        for t, nd in enumerate(self.tasks):
+            if "rms" in self.fusion.get(nd.out.idx, {}):
+                tr = self.tiling[t]["tr"]
+                cap = STAGED_FLOATS // next(r for r in (1, 2, 4, 8)
+                                            if tr <= r or r == 8)
+                if nd.inputs[0].cols > cap:
+                    raise ValueError(
+                        f"megakernel: a LINEAR with a fused RMS_NORM of "
+                        f"width {nd.inputs[0].cols} at {tr} rows exceeds "
+                        f"the {cap} staged floats a row")
             if nd.op == "moe_ffn":
                 at = nd.attrs
                 E, k, inter = at["num_experts"], at["top_k"], \
@@ -437,6 +583,12 @@ class ExecutorCuda:
                 slots = dict(zip("abcde", ins))
             if nd.op == "moe_ffn":      # e: the routed activations
                 slots["e"] = self._views[("moe", nd.out.idx)]
+            fz = self.fusion.get(nd.out.idx, {})
+            pro = fz.get("rms") or fz.get("silu")
+            if pro is not None:         # a: the prologue's first source
+                slots["a"] = ins[0] = self._tensor(pro.inputs[0])
+            if "add" in fz:             # out: the ADD's rows
+                out = self._views[fz["add"].out.idx]
             v = {"out": out, **slots}
             row[F_OUT] = out.data_ptr()
             for name, t_ in slots.items():
@@ -450,6 +602,17 @@ class ExecutorCuda:
                 row[F_LDB] = ins[1].stride(0)
                 row[F_NCT], row[F_TN], row[F_MODE] = til["nct"], til["tn"], \
                     til["mode"]
+                if pro is not None:     # p: the norm weight / the up rows
+                    v["p"] = self._tensor(pro.inputs[1])
+                    row[F_P], row[F_LDP] = v["p"].data_ptr(), \
+                        v["p"].stride(0)
+                    row[F_PRO] = PRO_RMS if "rms" in fz else PRO_SILU
+                    if "rms" in fz:
+                        row[F_EPS] = _f32_bits(pro.attrs["eps"])
+                if "resid" in fz:       # r: the residual rows
+                    v["r"] = self._tensor(fz["resid"])
+                    row[F_R], row[F_LDR] = v["r"].data_ptr(), \
+                        v["r"].stride(0)
             elif nd.op == "rms_norm":
                 row[F_EPS] = _f32_bits(at["eps"])
             elif nd.op in ("silu_mul", "add"):
@@ -484,6 +647,11 @@ class ExecutorCuda:
                     else ins[1] if nd.op != "attention" else None
                 if cache is not None:
                     row[F_LDC] = cache.stride(0)
+                if nd.op in ("attention_kv", "attention_paged") \
+                        and ins[2].stride(0) != ins[1].stride(0):
+                    raise ValueError(f"{nd.op}: the K and V caches must "
+                                     f"share a row stride")
+                row[F_APPEND] = int("kv" in fz)
                 if nd.op in PAGED_OPS:
                     row[F_BLOCK], row[F_SROWS], row[F_MAXP] = \
                         at["block"], at["slot_rows"], at["max_pages"]
@@ -754,7 +922,10 @@ class ExecutorCuda:
         whole output tile. `experts` ({moe_ffn output index: distinct
         expert ids}, from `routed_experts` after the measured launch)
         gives the routing; without it each live row counts top_k slabs
-        of its own, capped at E: an upper bound."""
+        of its own, capped at E: an upper bound. A fused task counts
+        what it absorbed once: a LINEAR's norm weight or up rows and its
+        residual, the norm's operations once per consumer; an ATTN's
+        appended rows."""
         item = torch.finfo(self.dtype).bits // 8
         if self.paged is not None:
             lens = np.asarray(cache_lens if cache_lens is not None
@@ -782,8 +953,17 @@ class ExecutorCuda:
                     bytes_ = (act + n_e * inter * H + S * H) * item
             elif nd.op == "linear":
                 K, N = nd.inputs[0].cols, nd.out.cols
-                flops = 2 * S * K * N
-                bytes_ = (S * K + K * N + S * N) * item
+                fz = self.fusion.get(nd.out.idx, {})
+                # a fused prologue reads the norm weight / the up rows
+                # once, an epilogue the residual: each operand once,
+                # however many tiles recompute the norm
+                flops = 2 * S * K * N + (4 * S * K if "rms" in fz else
+                                         8 * S * K if "silu" in fz else 0) \
+                    + (S * N if "add" in fz else 0)
+                bytes_ = (S * K + K * N + S * N
+                          + (K if "rms" in fz else S * K if "silu" in fz
+                             else 0)
+                          + (S * N if "add" in fz else 0)) * item
             elif nd.op == "rms_norm":
                 N = nd.out.cols
                 flops = 4 * S * N
@@ -800,6 +980,11 @@ class ExecutorCuda:
                 flops = 4 * pairs * H * D
                 bytes_ = (S * nd.inputs[0].cols + 2 * cl * Hkv * D
                           + S * H * D) * item
+                if "kv" in self.fusion.get(nd.out.idx, {}):
+                    # the appended K / V rows, written (their qkv rows
+                    # are read above), and the K rows' norm and RoPE
+                    flops += 10 * S * Hkv * D
+                    bytes_ += 2 * S * Hkv * D * item
             elif nd.op == "attention_paged":
                 at = nd.attrs
                 H, Hkv, D = at["num_heads"], at["num_kv_heads"], at["head_dim"]
@@ -823,6 +1008,21 @@ class ExecutorCuda:
 
 def _round(x, dt):
     return x.to(dt).float()
+
+
+def _rms_rows(x, w, eps, dt):
+    """RMS_NORM of whole rows in f32 with the (1, cols) weight, rounded
+    to dt (the task's, and a fused LINEAR prologue's)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()[0]).to(dt)
+
+
+def _silu_mul_rows(a, b, dt):
+    """silu(a) * b in f32, rounded to dt (SILU_MUL, and a fused LINEAR
+    prologue)."""
+    af = a.float()
+    return (af * torch.sigmoid(af) * b.float()).to(dt)
 
 
 def prep_rows(x, norm_w, pos, cos, sin, eps, dt):
@@ -967,8 +1167,15 @@ def _plain_tile(ex, row, v, tile, cache_len, lens=None, btab=None,
         nct, tn = int(row[F_NCT]), int(row[F_TN])
         rt, ct = divmod(tile, nct)
         r0, c0 = rt * tr, ct * tn
-        x, w = v["a"][r0:r0 + tr], v["b"][:, c0:c0 + tn]
-        v["out"][r0:r0 + tr, c0:c0 + tn] = matmul_f32(x, w).to(dt)
+        x = v["a"][r0:r0 + tr]
+        if row[F_PRO] == PRO_RMS:        # the fused RMS_NORM, whole rows
+            x = _rms_rows(x, v["p"], _bits_f32(row[F_EPS]), dt)
+        elif row[F_PRO] == PRO_SILU:     # the fused SILU_MUL
+            x = _silu_mul_rows(x, v["p"][r0:r0 + tr], dt)
+        y = matmul_f32(x, v["b"][:, c0:c0 + tn]).to(dt)
+        if row[F_R]:                     # the fused ADD, after rounding
+            y = v["r"][r0:r0 + tr, c0:c0 + tn] + y
+        v["out"][r0:r0 + tr, c0:c0 + tn] = y
         return
     if op == TASK_ATTN:
         H, Hkv, D = int(row[F_H]), int(row[F_HKV]), int(row[F_HD])
@@ -1003,18 +1210,18 @@ def _plain_tile(ex, row, v, tile, cache_len, lens=None, btab=None,
         o = _softmax_pv(q, keys, vals, seen, scale, dt)
         v["out"][r0:r1, j * G * D:(j + 1) * G * D] = \
             o.reshape(r1 - r0, G * D).to(dt)
+        if row[F_APPEND]:   # the fused KVA_K / KVA_V of the tile's rows
+            heads = slice(j * D, (j + 1) * D)
+            v["b"][cl + r0:cl + r1, heads] = kcur[r0:r1].to(dt)
+            v["c"][cl + r0:cl + r1, heads] = vcur[r0:r1].to(dt)
         return
     r0 = tile * tr
     r1 = min(M, r0 + tr)
     if op == TASK_RMS_NORM:
-        xf = v["a"][r0:r1].float()
-        var = (xf * xf).mean(dim=-1, keepdim=True)
-        v["out"][r0:r1] = (xf * torch.rsqrt(var + _bits_f32(row[F_EPS]))
-                           * v["b"].float()[0]).to(dt)
+        v["out"][r0:r1] = _rms_rows(v["a"][r0:r1], v["b"],
+                                    _bits_f32(row[F_EPS]), dt)
     elif op == TASK_SILU_MUL:
-        af = v["a"][r0:r1].float()
-        v["out"][r0:r1] = (af * torch.sigmoid(af)
-                           * v["b"][r0:r1].float()).to(dt)
+        v["out"][r0:r1] = _silu_mul_rows(v["a"][r0:r1], v["b"][r0:r1], dt)
     elif op == TASK_ADD:
         v["out"][r0:r1] = v["a"][r0:r1] + v["b"][r0:r1]
     elif op in (TASK_KVA_K, TASK_KVA_V):

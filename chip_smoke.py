@@ -162,10 +162,40 @@ Phases, in order; any failure raises and exits non-zero:
      the fused and unfused steps by CUDA events in turns, each flag
      alone, the fused step's bound and the latency of a dependent stage;
      the fused decoder's caches are then freed;
- 31. one JSON line of per-kernel numbers, then the device JSON line.
-Steps 14-16 run with the other kernel checks, before step 4; steps 29,
-19-20, 22-23 and 25-26 run after step 10, steps 30 and 21 after step 13
-and step 27 after step 21; steps 17, 18, 24 and 28 run last. Without a GPU it exits non-zero before printing anything.
+ 31. the tensor-parallel kernels (csrc/ag_gemm.cu, gemm_rs.cu, gemm_ar.cu)
+     against their plain versions at the tp-engine cell's shapes (Qwen3-8B,
+     4 x 512 rows: qkv and gate_up through ag_gemm, o and down through
+     gemm_rs, gemm_ar at decode M 1 and 4 and at prefill M 2048), at n = 2
+     and 4 ranks, bf16 (2e-2 of the largest value) and f32 (1e-5): two
+     calls back to back with new data, gemm_ar's replicas bit for bit
+     equal, every call logged "kernel"; at n = 4 in bf16 the times of the
+     kernel, its plain version and the library call (one torch.matmul of
+     the gathered A for ag_gemm, one einsum over the ranks for gemm_rs /
+     gemm_ar) against the bound; then, at n = 4 in bf16, one call each at
+     Qwen3-14B's widths (K 1280 and 4352, no multiple of the JAX op's
+     512-deep tile, and gemm_ar at 192 rows), which the kernels take too;
+ 32. a planted fault in each: the C entry called with a signal target one
+     epoch ahead sets the fault word within the wait budget, the check
+     raises naming the rank, and the next call runs clean;
+ 33. a small model at n = 2 ranks on the GPU against the CPU in all four
+     modes, bf16 (as step 4, with the fused modes' launches counted); then
+     a fault planted in its "gemm_ar" decode step's workspace makes
+     Engine.step raise before a token leaves, and start + step run clean;
+ 34. the slice-6a main path, the tp-engine cell: step 5's weights re-laid
+     into 4 rank shards behind Engine(max_len=1024), step 5's prompts, in
+     the modes "fused", "gemm_ar" and "xla": step 5's checks with exact
+     launch counts (ag_gemm and gemm_rs 72 a prefill in "fused", gemm_ar
+     72 a prefill and 72 a decode step in "gemm_ar"), every fused-op call
+     logged "kernel", the teacher-forced logits of the prefill and 8
+     decode steps within TP_LOGIT_TOL of the largest against the one-rank
+     engine's and the "xla" mode's, greedy tokens printed; the rank-stacked
+     weights are then freed;
+ 35. one JSON line of per-kernel numbers, then the device JSON line.
+Steps 14-16 and 31-32 run with the other kernel checks, before step 4,
+step 33 after step 16 and step 34 right after step 5; steps 29, 19-20,
+22-23 and 25-26 run after step 10, steps 30 and 21 after step 13 and step
+27 after step 21; steps 17, 18, 24 and 28 run last. Without a GPU it exits
+non-zero before printing anything.
 """
 
 from __future__ import annotations
@@ -196,6 +226,13 @@ LSE_TOL = 1e-3             # f32 lse from f32 scores: summation order, exp2
 GMM_TOL = 2e-2             # gmm bf16, of max |plain|: the same f32 sums in
                            # other orders, each rounded once to bf16
 COLD_COPIES = 4            # input copies rotated so each launch finds L2 cold
+TP_TOL = {torch.bfloat16: 2e-2,    # tensor-parallel kernels vs plain, of the
+          torch.float32: 1e-5}     # largest value: the same f32 sums in other
+                                   # orders, rounded at the same points
+TP_LOGIT_TOL = 5e-2                # tp-engine vs one-rank engine, of the
+                                   # largest logit: bf16 partials of n ranks
+                                   # rounded and summed over 36 layers
+TP_RANKS = 4                       # the tp-engine cell
 
 
 class OpCount(TorchDispatchMode):
@@ -2849,6 +2886,366 @@ def check_moe_serve(models, attn, gg, model, params, cfg, seed, smi):
     return total, first
 
 
+def _tp_shapes(n):
+    """The tp-engine cell's calls at n ranks (Qwen3-8B, 4 prompts bucketed
+    to 512 tokens: 2048 rows): (op, name, M, K, N) with M the rows of the
+    product (ag_gemm: all ranks' rows), K and N per rank where sharded."""
+    rows, H, qkv, inter = 2048, 4096, (32 + 2 * 8) * 128, 12288
+    return [("ag_gemm", "qkv", rows, H, qkv // n),
+            ("ag_gemm", "gate_up", rows, H, 2 * inter // n),
+            ("gemm_rs", "o", rows, 32 * 128 // n, H),
+            ("gemm_rs", "down", rows, inter // n, H),
+            ("gemm_ar", "o decode M 1", 1, 32 * 128 // n, H),
+            ("gemm_ar", "o decode M 4", 4, 32 * 128 // n, H),
+            ("gemm_ar", "down decode M 4", 4, inter // n, H),
+            ("gemm_ar", "down prefill", rows, inter // n, H)]
+
+
+def _tp_shapes_14b(n):
+    """Qwen3-14B's calls at n ranks (hidden 5120, 40 q / 8 kv heads,
+    intermediate 17408), whose K (1280 and 4352 at n = 4) is no multiple of
+    the JAX op's 512-deep tile, and gemm_ar at 192 rows, no multiple of its
+    128-row tile: the CUDA kernels mask ragged tiles and take them all."""
+    rows, H, qkv, inter = 2048, 5120, (40 + 2 * 8) * 128, 17408
+    return [("ag_gemm", "14B qkv", rows, H, qkv // n),
+            ("gemm_rs", "14B o", rows, 40 * 128 // n, H),
+            ("gemm_rs", "14B down", rows, inter // n, H),
+            ("gemm_ar", "14B down decode M 4", 4, inter // n, H),
+            ("gemm_ar", "14B o M 192", 192, 40 * 128 // n, H)]
+
+
+def _tp_operands(op, n, M, K, N, dtype, gen, dev):
+    rows = M // n if op == "ag_gemm" else M
+    a = torch.randn((n, rows, K), generator=gen, device=dev).div_(K ** 0.5)
+    b = torch.randn((n, K, N), generator=gen, device=dev)
+    return a.to(dtype), b.to(dtype)
+
+
+def _tp_bound(op, n, M, K, N, itemsize):
+    """(bytes, flops) the call needs: each input read once, each output
+    written once, the landing writes and reads counted once each."""
+    if op == "ag_gemm":
+        m = M // n
+        moved = (n * m * K + n * K * N + n * M * N
+                 + 2 * n * (n - 1) * m * K)
+        return moved * itemsize, 2 * n * M * K * N
+    out = M * N if op == "gemm_rs" else n * M * N
+    land = n * M * N if op == "gemm_rs" else n * n * M * N
+    return (n * M * K + n * K * N + out + 2 * land) * itemsize, \
+        2 * n * M * K * N
+
+
+def _tp_library_ms(op, a, b):
+    """One PyTorch call computing the same function (a yardstick only)."""
+    if op == "ag_gemm":
+        full = a.reshape(-1, a.shape[-1])
+        return time_ms([lambda: torch.matmul(full, b)])
+    return time_ms([lambda: torch.einsum("rmk,rkn->mn", a, b)])
+
+
+def check_tp_kernels(dev, gen):
+    """The tensor-parallel kernels (csrc/ag_gemm.cu, gemm_rs.cu,
+    gemm_ar.cu) against their plain versions at the tp-engine cell's
+    shapes, at n = 2 and 4, bf16 and f32: two calls back to back with
+    different data (the second must not pass on stale signals), gemm_ar's
+    replicas bit for bit equal, every call logged "kernel"; at n = 4 in
+    bf16 the kernel's, the plain version's and the library call's times
+    against the bound; then one call each at Qwen3-14B's widths
+    (_tp_shapes_14b). Returns the kernels-line entries (timed on the call
+    each kernel makes most on the main path's cell: gate_up, down, and the
+    decode down projection at M 4)."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _common
+    from triton_distributed_tpu_torch.ops import ag_gemm as ag
+    from triton_distributed_tpu_torch.ops import gemm_ar as ar
+    from triton_distributed_tpu_torch.ops import gemm_rs as rs
+    ops = {"ag_gemm": (ag.ag_gemm_shard, ag._ag_gemm_plain, ag.AG_GEMM,
+                       "triton_distributed_tpu/ops/ag_gemm.py:65"),
+           "gemm_rs": (rs.gemm_rs_shard, rs._gemm_rs_plain, rs.GEMM_RS,
+                       "triton_distributed_tpu/ops/gemm_rs.py:68"),
+           "gemm_ar": (ar.gemm_ar_shard, ar._gemm_ar_plain, ar.GEMM_AR,
+                       "triton_distributed_tpu/ops/gemm_ar.py:60")}
+    timed = {"ag_gemm": "gate_up", "gemm_rs": "down",
+             "gemm_ar": "down decode M 4"}
+    entries = {op: {"name": op, "route": "cuda",
+                    "source": f"triton_distributed_tpu_torch/csrc/{op}.cu",
+                    "replaces": ops[op][3], "max_abs_err": 0.0}
+               for op in ops}
+    t0 = time.perf_counter()
+
+    def call(op, name, n, M, K, N, dtype):
+        """One call of the op on new data, held against its plain version:
+        launched once, logged "kernel", within TP_TOL."""
+        fn, plain, kern, _ = ops[op]
+        a, b = _tp_operands(op, n, M, K, N, dtype, gen, dev)
+        _common.reset_dispatch()
+        before = kern.launches
+        got = fn(a, b, num_ranks=n)
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert kern.launches == before + 1, (op, name)
+        assert _common.dispatch_counts() == {
+            (op, "kernel", ""): 1}, _common.dispatch_counts()
+        want = plain(a, b)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        assert torch.isfinite(got.float()).all(), (op, name)
+        assert rel <= TP_TOL[dtype], (op, name, n, dtype, rel)
+        if op == "gemm_ar":
+            assert all(torch.equal(got[r], got[0])
+                       for r in range(n)), (name, n)
+        if dtype == torch.bfloat16:
+            entries[op]["max_abs_err"] = max(entries[op]["max_abs_err"], err)
+        return a, b, got, want, err, rel
+
+    for n in (2, TP_RANKS):
+        for dtype in (torch.bfloat16, torch.float32):
+            for op, name, M, K, N in _tp_shapes(n):
+                fn, plain, kern, _ = ops[op]
+                for _ in range(2):          # new data each call
+                    a, b, got, want, err, rel = call(op, name, n, M, K, N,
+                                                     dtype)
+                print(f"tp {op} {name} n {n} {str(dtype)[6:]} (M {M}, K {K}, "
+                      f"N {N}): kernel vs plain {err:.3e} ({rel:.3e} of the "
+                      f"largest), two calls back to back")
+                if n != TP_RANKS or dtype != torch.bfloat16:
+                    continue
+                ms = time_ms([lambda: fn(a, b, num_ranks=n)])
+                plain_ms = time_ms([lambda: plain(a, b)], reps=3, rounds=3)
+                lib_ms = _tp_library_ms(op, a, b)
+                if op == "ag_gemm":      # information: the tile's k order
+                    same = torch.equal(got, torch.matmul(
+                        a.reshape(-1, K), b))
+                    print(f"tp {op} {name}: kernel bit for bit equal to "
+                          f"torch.matmul of the gathered A: {same}")
+                nb, fl = _tp_bound(op, n, M, K, N, 2)
+                bms, by = bound(nb, fl)
+                print(f"tp {op} {name} n {n} bf16: kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                      f"{bms:.4f} ms ({by}: {nb / 1e9:.3f} GB, "
+                      f"{fl / 1e9:.1f} GFLOP; {fl / ms / 1e9:.1f} TFLOP/s)")
+                if name == timed[op]:
+                    entries[op].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                       bound_by=by, library_ms=lib_ms)
+                del got, want
+    for op, name, M, K, N in _tp_shapes_14b(TP_RANKS):
+        *_, err, rel = call(op, name, TP_RANKS, M, K, N, torch.bfloat16)
+        print(f"tp {op} {name} n {TP_RANKS} bf16 (M {M}, K {K}, N {N}): "
+              f"kernel vs plain {err:.3e} ({rel:.3e} of the largest)")
+    print(f"tp kernels: phase {time.perf_counter() - t0:.1f} s")
+    return [entries[op] for op in ops]
+
+
+def check_tp_fault(dev, gen):
+    """A planted fault in each tensor-parallel kernel: its C entry called
+    with a signal target one epoch ahead. The fault word must be set
+    within the wait budget (plus launch and copy time), the check must
+    raise naming the rank, and the next normal call must run clean."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import ag_gemm as ag
+    from triton_distributed_tpu_torch.ops import gemm_ar as ar
+    from triton_distributed_tpu_torch.ops import gemm_rs as rs
+    n = TP_RANKS
+    for op, mod, fn, plain in (
+            ("ag_gemm", ag, ag.ag_gemm_shard, ag._ag_gemm_plain),
+            ("gemm_rs", rs, rs.gemm_rs_shard, rs._gemm_rs_plain),
+            ("gemm_ar", ar, ar.gemm_ar_shard, ar._gemm_ar_plain)):
+        a, b = _tp_operands(op, n, 512, 1024, 512, torch.bfloat16, gen, dev)
+        fn(a, b, num_ranks=n)
+        ws, _ = mod._workspace(a, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod._launch(a, b, epoch=ws.epoch + 2)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        assert int(ws.fault[0]) == shmem.FAULT_TIMEOUT, op
+        assert took < shmem.WAIT_BUDGET_S + 2.0, (op, took)
+        try:
+            shmem.check_faults()
+            raise AssertionError(f"{op}: the planted fault did not raise")
+        except RuntimeError as e:
+            msg = str(e)
+        assert msg.startswith(f"{op}: rank ") and "timed out" in msg, msg
+        got = fn(a, b, num_ranks=n)
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert _rel_err(got.float(), plain(a, b).float()) <= \
+            TP_TOL[torch.bfloat16], op
+        print(f"tp {op} planted fault: raised after {took:.3f} s (budget "
+              f"{shmem.WAIT_BUDGET_S} s): {msg}; the next call ran clean")
+
+
+def check_small_tp_model(models, seed):
+    """A small Qwen3-shaped model at n = 2 (head_dim 128, 8 q / 2 kv heads:
+    4 / 1 a rank) on the GPU through the kernels against the same weights
+    on the CPU through the plain versions, in every mode, bf16 (the
+    engine path's attention kernels take bf16 only): prefill logits and
+    one decode step's logits (from the CPU's greedy tokens) within 5e-2 of
+    the largest, greedy tokens equal wherever the margin allows; the fused
+    modes launch their kernels."""
+    from triton_distributed_tpu_torch.ops import ag_gemm as ag
+    from triton_distributed_tpu_torch.ops import gemm_ar as ar
+    from triton_distributed_tpu_torch.ops import gemm_rs as rs
+    cfg = models.get_config("Qwen/Qwen3-8B").tiny(
+        hidden_size=256, num_heads=8, num_kv_heads=2, head_dim=128,
+        intermediate_size=512, vocab_size=512, num_layers=2)
+    one = models.DenseLLM(cfg, dtype="bfloat16", device="cpu")
+    base = one.init_params(torch.Generator().manual_seed(seed))
+    ids = np.random.RandomState(seed).randint(0, cfg.vocab_size, (2, 37))
+    kernels = (ag.AG_GEMM, rs.GEMM_RS, ar.GEMM_AR)
+    for mode in ("xla", "fused", "ar", "gemm_ar"):
+        cpu = models.DenseLLM(cfg, mode=mode, dtype="bfloat16", device="cpu",
+                              num_ranks=2)
+        gpu = models.DenseLLM(cfg, mode=mode, dtype="bfloat16", device="cuda",
+                              num_ranks=2)
+        params = cpu.shard_params(base)
+        before = [k.launches for k in kernels]
+        logits, tok = [], None
+        for m in (cpu, gpu):
+            p = params if m is cpu else _to_device_tree(params, "cuda")
+            last, cache = m._prefill_hidden(p, ids, m.new_kv_cache(2, 64))
+            pre = _full_logits(last, p["lm_head"]).cpu()
+            tok = pre.argmax(-1) if tok is None else tok
+            x, _ = m._decode_hidden(p, tok.to(m.device), cache)
+            logits.append((pre, _full_logits(x, p["lm_head"]).cpu()))
+        torch.cuda.synchronize()
+        ran = [k.launches - b for k, b in zip(kernels, before)]
+        want = {"fused": [4, 4, 0], "gemm_ar": [0, 0, 8]}.get(mode, [0, 0, 0])
+        assert ran == want, (mode, ran)
+        for which, ref, got in zip(("prefill", "decode"), logits[0],
+                                   logits[1]):
+            _agree(f"small TP model n 2 {mode} {which}", ref, got)
+    # a fault in the "gemm_ar" decode step's workspace: Engine.step raises
+    # before a token leaves; start + step run clean after the reset
+    from triton_distributed_tpu_torch import shmem
+    eng = models.Engine(gpu, _to_device_tree(params, "cuda"), max_len=128)
+    tok, cache = eng.start(ids)
+    shmem.release_workspaces()
+    tok, cache = eng.step(tok, cache)        # allocates the decode workspace
+    (ws,) = shmem.primitives._WORKSPACES.values()
+    ws.fault[0] = shmem.FAULT_TIMEOUT
+    try:
+        eng.step(tok, cache)
+        raise AssertionError("Engine.step handed back a token after a fault")
+    except RuntimeError as e:
+        msg = str(e)
+    assert msg.startswith("gemm_ar: rank ") and "timed out" in msg, msg
+    tok, cache = eng.start(ids)
+    tok, _ = eng.step(tok, cache)
+    assert tok.shape == (2,) and int(tok.max()) < cfg.vocab_size
+    print(f"small TP model n 2 gemm_ar: Engine.step raised on a fault planted "
+          f"in its decode workspace ({msg}); start + step then ran clean")
+
+
+def _to_device_tree(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device_tree(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _full_logits(x, lm_head):
+    """f32 logits (B, V) from the last hidden rows, against a one-rank
+    (H, V) or a rank-stacked (n, H, V / n) lm_head."""
+    if lm_head.dim() == 3:
+        lm_head = torch.cat(list(lm_head), dim=1)
+    return x.float() @ lm_head.float()
+
+
+def _forced_logits(model, params, ids, toks, steps):
+    """Prefill logits of the last real row, then `steps` decode steps fed
+    the given tokens (teacher forcing): a list of (B, V) f32 on the CPU."""
+    from triton_distributed_tpu_torch.models.engine import prompt_bucket
+    B, S = ids.shape
+    padded = np.pad(ids, ((0, 0), (0, prompt_bucket(S, 1024) - S)))
+    last, cache = model._prefill_hidden(params, padded,
+                                        model.new_kv_cache(B, 1024), S)
+    out = [_full_logits(last, params["lm_head"]).cpu()]
+    for i in range(steps):
+        tok = torch.as_tensor(toks[:, i], device=model.device)
+        x, cache = model._decode_hidden(params, tok, cache)
+        out.append(_full_logits(x, params["lm_head"]).cpu())
+    return out
+
+
+def check_tp_engine(models, attn, model, params, cfg, ids, engine_toks, smi,
+                    profile):
+    """The tp-engine cell: the Qwen3-8B weights re-laid into n = 4 rank
+    shards behind Engine(max_len=1024), 4 prompts of 500 tokens, 32 out, in
+    the modes "fused", "gemm_ar" and "xla" (the plain-collective golden on
+    the card): exact launch counts, every fused-op call logged "kernel",
+    start + step reproducing serve, prefill ms, decode tokens/s, aten ops
+    per decode step (and with --profile the idle share); then the
+    teacher-forced logits of the prefill and 8 decode steps (fed the
+    one-rank engine's tokens) against the one-rank engine's and the "xla"
+    mode's, within TP_LOGIT_TOL of the largest. Returns each kernel's
+    launches over the cell's serve runs."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _common
+    from triton_distributed_tpu_torch.ops import ag_gemm as ag
+    from triton_distributed_tpu_torch.ops import gemm_ar as ar
+    from triton_distributed_tpu_torch.ops import gemm_rs as rs
+    n, L, GEN, FORCED = TP_RANKS, cfg.num_layers, engine_toks.shape[1], 8
+    t0 = time.perf_counter()
+    tp = models.DenseLLM(cfg, mode="fused", dtype="bfloat16", device="cuda",
+                         num_ranks=n)
+    tparams = tp.shard_params(params)
+    torch.cuda.synchronize()
+    print(f"tp-engine: Qwen3-8B re-laid into {n} rank shards in "
+          f"{time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    kernels = {"flash_attention": attn.FLASH_ATTENTION,
+               "flash_decode": attn.FLASH_DECODE, "ag_gemm": ag.AG_GEMM,
+               "gemm_rs": rs.GEMM_RS, "gemm_ar": ar.GEMM_AR}
+    want = {"fused": {"ag_gemm": 2 * L, "gemm_rs": 2 * L, "gemm_ar": 0},
+            "gemm_ar": {"ag_gemm": 0, "gemm_rs": 0, "gemm_ar": 2 * L * GEN},
+            "xla": {"ag_gemm": 0, "gemm_rs": 0, "gemm_ar": 0}}
+    totals = {k: 0 for k in kernels}
+    ref = _forced_logits(model, params, ids, engine_toks, FORCED)
+    forced, toks = {}, {}
+    for mode in ("fused", "gemm_ar", "xla"):
+        m = models.DenseLLM(cfg, mode=mode, dtype="bfloat16", device="cuda",
+                            num_ranks=n)
+        _common.reset_dispatch()
+        _, toks[mode], launches = run_engine(
+            models, kernels, m, tparams, cfg, ids, GEN, smi, profile,
+            f"tp-engine {mode}")
+        shmem.check_faults()
+        assert launches == {"flash_attention": L,
+                            "flash_decode": L * (GEN - 1), **want[mode]}, \
+            (mode, launches)
+        log = _common.dispatch_counts()
+        assert all(path == "kernel" for _, path, _ in log), log
+        print(f"tp-engine {mode}: dispatch log of the serve run and the "
+              f"start + step rerun {log}")
+        for k in totals:
+            totals[k] += launches[k]
+        forced[mode] = _forced_logits(m, tparams, ids, engine_toks, FORCED)
+        shmem.check_faults()
+        print(f"tp-engine {mode} greedy tokens (prompt 0): "
+              f"{toks[mode][0].tolist()}")
+    print(f"one-rank engine greedy tokens (prompt 0): "
+          f"{engine_toks[0].tolist()}")
+    for mode in ("fused", "gemm_ar", "xla"):
+        errs = [_rel_err(g, r) for g, r in zip(forced[mode], ref)]
+        vs_xla = [_rel_err(g, r) for g, r in zip(forced[mode], forced["xla"])]
+        same = float((toks[mode] == engine_toks).mean())
+        print(f"tp-engine {mode}: teacher-forced logits (prefill + {FORCED} "
+              f"steps) vs the one-rank engine max {max(errs):.3e} of the "
+              f"largest (per step {', '.join(f'{e:.2e}' for e in errs)}); vs "
+              f"xla {max(vs_xla):.3e}; greedy tokens equal to the one-rank "
+              f"engine's {same:.3f} (free-running, information)")
+        assert max(errs) <= TP_LOGIT_TOL and max(vs_xla) <= TP_LOGIT_TOL, mode
+        top2 = ref[0].topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * max(errs) * ref[0].abs().max()
+        assert torch.equal(forced[mode][0].argmax(-1)[sure],
+                           ref[0].argmax(-1)[sure]), mode
+    del tp, tparams, m, forced
+    shmem.release_workspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2886,9 +3283,13 @@ def main():
     torch.cuda.empty_cache()
     gmm_entry = check_gmm(dev, gen)
     torch.cuda.empty_cache()
+    tp_entries = check_tp_kernels(dev, gen)
+    check_tp_fault(dev, gen)
+    torch.cuda.empty_cache()
     check_small_model(models, args.seed)
     check_small_model_paged(models, args.seed)
     check_small_moe(models, gg, args.seed)
+    check_small_tp_model(models, args.seed)
 
     cfg = models.get_config("Qwen/Qwen3-8B")
     model = models.DenseLLM(cfg, dtype="bfloat16", device=dev)
@@ -2908,6 +3309,8 @@ def main():
                                         "Qwen3-8B")
     assert launches == {"flash_attention": L, "flash_decode": L * (GEN - 1),
                         "gmm": 0}, launches
+    tp_launches = check_tp_engine(models, attn, model, params, cfg, ids, toks,
+                                  smi, args.profile)
 
     serve_launches, engine_out = check_serve(models, attn, gg, model, params,
                                              cfg, args.seed, smi, args.profile)
@@ -2962,8 +3365,8 @@ def main():
         models, attn, gg, moe, moe_params, moe.config, args.seed, smi,
         mk_moe_out)
 
-    counts = (launches, serve_launches, mk_serve, moe_launches, moe_serve,
-              mk_moe, spec_serve, spec_moe)
+    counts = (launches, tp_launches, serve_launches, mk_serve, moe_launches,
+              moe_serve, mk_moe, spec_serve, spec_moe)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in counts)
         assert k["launches"] > 0, k["name"]
@@ -2995,7 +3398,10 @@ def main():
           f"{moe_graph_step['ms']:.4f} ms against "
           f"{moe_graph_step['bound_ms']:.4f} ms, plain walk "
           f"{moe_graph_step['plain_ms']:.1f} ms")
-    kernels += [mk, mk_verify, mk_fused, gmm_entry]
+    for e in tp_entries:
+        e["launches"] = tp_launches[e["name"]]
+        assert e["launches"] > 0, e["name"]
+    kernels += [mk, mk_verify, mk_fused, gmm_entry] + tp_entries
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

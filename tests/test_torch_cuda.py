@@ -1114,3 +1114,143 @@ def test_mega_serve_spec_gpu_matches_cpu(cuda, moe):
         runs.append(seen)
     assert mkx.MEGAKERNEL.launches - before == st["decode_steps"]
     _compare_picks(runs, 4)
+
+
+# -- tensor-parallel kernels: ag_gemm, gemm_rs, gemm_ar at n ranks ----------
+
+TP_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}   # of the largest value
+
+
+def _tp_ops():
+    from triton_distributed_tpu_torch.ops import ag_gemm, gemm_ar, gemm_rs
+    return {"ag_gemm": (ag_gemm, ag_gemm.ag_gemm_shard,
+                        ag_gemm._ag_gemm_plain, ag_gemm.AG_GEMM),
+            "gemm_rs": (gemm_rs, gemm_rs.gemm_rs_shard,
+                        gemm_rs._gemm_rs_plain, gemm_rs.GEMM_RS),
+            "gemm_ar": (gemm_ar, gemm_ar.gemm_ar_shard,
+                        gemm_ar._gemm_ar_plain, gemm_ar.GEMM_AR)}
+
+
+def _tp_case(op, n, dtype, M, K, N, dev, seed):
+    """Rank-stacked operands: ag_gemm's a holds M / n rows a rank."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = M // n if op == "ag_gemm" else M
+    a = torch.randn((n, rows, K), generator=gen, device=dev) / K ** 0.5
+    b = torch.randn((n, K, N), generator=gen, device=dev)
+    return a.to(dtype), b.to(dtype)
+
+
+def _tp_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("op", ["ag_gemm", "gemm_rs", "gemm_ar"])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", [(192, 512, 200), (8, 256, 1024)])
+def test_tp_kernel_matches_plain(cuda, op, n, dtype, M, K, N):
+    """Each kernel against its plain version, two calls back to back with
+    different data (the second must not pass on the first's signals);
+    ragged row and column tiles (96 / 48 rows a rank or chunk, 192 rows of
+    gemm_ar, N 200); gemm_ar's n replicas bit for bit equal."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _common
+    _, fn, plain, kern = _tp_ops()[op]
+    for seed in (0, 1):
+        a, b = _tp_case(op, n, dtype, M, K, N, cuda, seed)
+        before = kern.launches
+        _common.reset_dispatch()
+        got = fn(a, b, num_ranks=n)
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert kern.launches == before + 1
+        assert _common.dispatch_counts() == {(op, "kernel", ""): 1}
+        assert _tp_err(got, plain(a, b)) <= TP_TOL[dtype]
+        if op == "gemm_ar":
+            assert all(torch.equal(got[r], got[0]) for r in range(n))
+
+
+@pytest.mark.parametrize("op", ["ag_gemm", "gemm_rs", "gemm_ar"])
+def test_tp_kernel_planted_fault_raises_and_the_next_call_is_clean(cuda, op):
+    """A signal target one epoch ahead, then a rank that never arrives at
+    barrier_all (so no rank's pushes start, and whichever wait times out
+    first is named): the fault word is set within the budget (50 ms), the
+    check raises naming the rank and the signal, and the next normal call
+    runs clean."""
+    import time
+    from triton_distributed_tpu_torch import shmem
+    mod, fn, plain, _ = _tp_ops()[op]
+    n = 4
+    a, b = _tp_case(op, n, torch.bfloat16, 256, 512, 384, cuda, 0)
+    fn(a, b, num_ranks=n)
+    ws, _ = mod._workspace(a, b)
+    for planted, what in (({"epoch": ws.epoch + 2}, "signal"),
+                          ({"rank_cnt": n - 1}, "signal")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod._launch(a, b, budget_s=0.05, **planted)
+        torch.cuda.synchronize()
+        assert time.perf_counter() - t0 < 5.0
+        assert int(ws.fault[0]) == shmem.FAULT_TIMEOUT
+        with pytest.raises(RuntimeError,
+                           match=rf"{op}: rank [0-3] timed out .*({what})"):
+            shmem.check_faults()
+        assert ws.epoch == 0 and int(ws.pads.abs().sum()) == 0
+        got = fn(a, b, num_ranks=n)
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert _tp_err(got, plain(a, b)) <= TP_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("op", ["ag_gemm", "gemm_rs", "gemm_ar"])
+def test_tp_kernel_refuses_a_grid_that_cannot_be_resident(cuda, op):
+    """One CTA more than can be resident is refused before launch (and the
+    workspace keeps its epoch); one CTA alone walks every item in the
+    global order and finishes."""
+    import ctypes
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _build
+    mod, fn, plain, _ = _tp_ops()[op]
+    n = 2
+    a, b = _tp_case(op, n, torch.bfloat16, 256, 512, 384, cuda, 0)
+    resident = getattr(_build.load_library(op), f"tdt_{op}_resident")
+    resident.argtypes = [ctypes.c_int, ctypes.c_int]
+    resident.restype = ctypes.c_int
+    ws, bm = mod._workspace(a, b)
+    most = resident(0, bm)
+    assert most >= torch.cuda.get_device_properties(0).multi_processor_count
+    epoch = ws.epoch
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        mod._launch(a, b, grid=most + 1)
+    assert ws.epoch == epoch
+    got = mod._launch(a, b, grid=1)
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    assert _tp_err(got, plain(a, b)) <= TP_TOL[torch.bfloat16]
+
+
+def test_tp_engine_step_raises_on_a_planted_fault(cuda):
+    """The fault word of the gemm_ar workspace a decode step uses, set:
+    the step's launches return at once without writing their outputs,
+    and Engine.step raises before it hands a token back; start and the
+    next step after the reset run clean."""
+    from triton_distributed_tpu_torch import models, shmem
+    cfg = models.get_config("Qwen/Qwen3-8B").tiny(
+        hidden_size=256, num_heads=8, num_kv_heads=2, head_dim=128,
+        intermediate_size=512, vocab_size=512, num_layers=2)
+    m = models.DenseLLM(cfg, mode="gemm_ar", dtype="bfloat16", device=cuda,
+                        num_ranks=2)
+    eng = models.Engine(m, m.init_params(
+        torch.Generator(device=cuda).manual_seed(0)), max_len=64)
+    ids = np.random.RandomState(0).randint(0, 512, (2, 16))
+    tok, cache = eng.start(ids)
+    shmem.release_workspaces()
+    tok, cache = eng.step(tok, cache)      # allocates the decode workspace
+    (ws,) = shmem.primitives._WORKSPACES.values()
+    ws.fault[0] = shmem.FAULT_TIMEOUT
+    with pytest.raises(RuntimeError, match="gemm_ar: rank .* timed out"):
+        eng.step(tok, cache)
+    tok, cache = eng.start(ids)
+    got, _ = eng.step(tok, cache)
+    assert got.shape == (2,) and int(got.max()) < 512

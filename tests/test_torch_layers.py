@@ -124,8 +124,44 @@ def test_tp_attn_prefill_and_decode_match_jax(mesh1, qk_norm, dtype):
 
 
 def test_layers_refuse_more_than_one_rank():
+    """What stays one-rank refuses n = 2 (the MoE layer, the quantized
+    wire); the dense layers build at n = 2 and give the one-rank layer's
+    output on the same weights, in every mode (layer-level prefill and
+    decode; the model-level checks are tests/test_torch_tp_models.py)."""
+    from triton_distributed_tpu_torch.layers.tp_moe import TPMoE
     with pytest.raises(NotImplementedError, match="Queue A"):
-        ttp_mlp.TPMLP(32, 64, num_ranks=2)
+        TPMoE(8, 8, 4, 2, num_ranks=2)
+    with pytest.raises(NotImplementedError, match="quant"):
+        tcommon.row_parallel_out(torch.zeros(2, 4, 8), torch.zeros(2, 8, 4),
+                                 mode="fused", num_ranks=2, wire_dtype="int8")
     with pytest.raises(ValueError):
         tcommon.check_mode("nccl")
     assert tcommon.MODES == ("xla", "fused", "ar", "gemm_ar")
+    g = torch.Generator().manual_seed(0)
+    wg, wu, wd = (torch.randn(s, generator=g) / 8
+                  for s in ((32, 64), (32, 64), (64, 32)))
+    x = torch.randn(6, 32, generator=g)
+    one = ttp_mlp.TPMLP(32, 64)
+    want = one(one.shard_params(wg, wu, wd), x)
+    for mode in tcommon.MODES:
+        two = ttp_mlp.TPMLP(32, 64, num_ranks=2, mode=mode)
+        xin = x.reshape(2, 3, 32) if mode in ("xla", "fused") else x
+        got = two(two.shard_params(wg, wu, wd), xin)
+        torch.testing.assert_close(got.reshape(6, 32), want, rtol=1e-5,
+                                   atol=1e-5)
+    H, D = 32, 8
+    wq, wk, wv, wo = (torch.randn(s, generator=g) / 6 for s in
+                      ((H, 4 * D), (H, 2 * D), (H, 2 * D), (4 * D, H)))
+    xs = torch.randn(2, 4, H, generator=g)
+    ref = ttp_attn.TPAttn(H, 4, 2, D, qk_norm=True)
+    rp = ref.shard_params(wq, wk, wv, wo)
+    y1, c1 = ref.prefill(rp, xs, max_len=5)
+    d1, _ = ref.decode(rp, xs[:, 0], c1, 4)
+    for mode in tcommon.MODES:
+        tl = ttp_attn.TPAttn(H, 4, 2, D, qk_norm=True, mode=mode, num_ranks=2)
+        tp = tl.shard_params(wq, wk, wv, wo)
+        y2, c2 = tl.prefill(tp, xs, max_len=5)
+        d2, c2 = tl.decode(tp, xs[:, 0], c2, 4)
+        torch.testing.assert_close(y2, y1, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(d2, d1, rtol=1e-5, atol=1e-5)
+        assert c2[0].shape == (2, 2, 5, 1, D)

@@ -5,10 +5,12 @@ The layout mirrors the JAX package (`ops/`, `layers/`, `models/`,
 `runtime.py`) so each module's counterpart is easy to find. Plain tensor
 code is PyTorch; every Pallas kernel on a ported path is a CUDA C++
 kernel under `csrc/`, built with `nvcc` at first use and loaded with
-ctypes (`ops/_build.py`). One rank only so far: dense Qwen3 / Llama and
-Qwen3-MoE generation through `models.Engine`, continuous batching
-through `models.ServeEngine`, and the megakernel decode path through
-`MegaDecoder` (megakernel/).
+ctypes (`ops/_build.py`). Dense Qwen3 / Llama and Qwen3-MoE generation
+through `models.Engine`, continuous batching through
+`models.ServeEngine`, and the megakernel decode path through
+`MegaDecoder` (megakernel/), at one rank; dense generation through
+`Engine` also tensor-parallel over n ranks in one process on one card
+(`DenseLLM(num_ranks=n)`, `parallel/`, `shmem/`).
 """
 
 __version__ = "0.1.0"

@@ -34,77 +34,22 @@
 // owns one (64-row block, 128-column block) output tile and loops over K
 // itself, so nothing carries over between CTAs. The grid's x is the row
 // block, so consecutive CTAs of one column block work on the same
-// expert's weight panel and find it in L2. Four warps, 16 rows x 128
-// columns each (fewer rows and more column warps when block_m is 16 or
-// 32), run bf16 mma.sync m16n8k16 with f32 accumulators; A and B tiles
-// stream through a 3-stage cp.async ring in shared memory (32-deep K
-// steps, rows padded by 8 elements so the ldmatrix loads, plain for A and
-// transposed for B, are free of bank conflicts). Pad rows are zero-filled
-// by cp.async without a global read and warps with no live row skip their
-// products. Not done yet (later work): wgmma/TMA, split-K for the few-row
-// decode tiles, persistent tiles, and fusing the row gather into the
-// A-tile load.
+// expert's weight panel and find it in L2. The tile is tdt_mma.cuh's
+// gemm_tile, which the tensor-parallel kernels share: four warps of bf16
+// mma.sync m16n8k16 with f32 accumulators (fewer rows and more column
+// warps when block_m is 16 or 32), fed by a 3-stage cp.async ring; pad
+// rows are zero-filled without a global read and warps with no live row
+// skip their products. Not done yet (later work): wgmma/TMA, split-K for
+// the few-row decode tiles, persistent tiles, and fusing the row gather
+// into the A-tile load.
 
-#include "tdt_common.cuh"
+#include "tdt_mma.cuh"
 
 namespace {
 
-constexpr int BN = 128;      // output columns per CTA
-constexpr int BK = 32;       // K step
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int STAGES = 3;    // cp.async ring depth
-constexpr int LDA = BK + 8;  // padded shared-memory rows, in elements
-constexpr int LDB = BN + 8;
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// 16 bytes global -> shared, asynchronously; zero-fills without reading
-// when !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(a), "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using tdt_mma::BN;
+using tdt_mma::NTHREADS;
+using tdt_mma::NWARPS;
 
 // Sum of v over the CTA (every thread gets it). `red` holds NWARPS ints.
 __device__ __forceinline__ int block_sum(int v, int* red) {
@@ -119,8 +64,7 @@ __device__ __forceinline__ int block_sum(int v, int* red) {
   return s;
 }
 
-// BM rows per CTA (64, 32 or 16): WM = BM / 16 warps down the rows and
-// WN = NWARPS / WM across the columns, each warp 16 rows x BN / WN columns.
+// BM rows per CTA (64, 32 or 16), one tdt_mma::gemm_tile each.
 template <int BM>
 __global__ void __launch_bounds__(NTHREADS)
 gmm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
@@ -129,13 +73,7 @@ gmm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
                 const int* __restrict__ group_sizes,
                 __nv_bfloat16* __restrict__ out, int K, int N, int E,
                 int block_m) {
-  constexpr int WM = BM / 16;
-  constexpr int WN = NWARPS / WM;
-  constexpr int WNT = BN / WN;     // columns per warp
-  constexpr int NT = WNT / 8;      // n8 tiles per warp
-  static_assert(NT % 2 == 0, "two n8 tiles per transposed ldmatrix");
-  __shared__ __align__(16) __nv_bfloat16 As[STAGES][BM * LDA];
-  __shared__ __align__(16) __nv_bfloat16 Bs[STAGES][BK * LDB];
+  __shared__ __align__(16) tdt_mma::SmemBf16<BM> sm;
   __shared__ int red[NWARPS];
 
   const int m0 = blockIdx.x * BM;           // x varies fastest: row blocks
@@ -155,96 +93,25 @@ gmm_bf16_kernel(const __nv_bfloat16* __restrict__ lhs,
   const int tile_rows = min(max(mine - (t - before) * block_m, 0), block_m);
   const int live = min(max(tile_rows - (m0 - t * block_m), 0), BM);
 
-  const int tid = threadIdx.x;
-  if (live == 0) {
-    // an all-pad block: zeros, no weight read
-    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-    for (int i = tid; i < BM * (BN / 8); i += NTHREADS) {
-      const int r = i / (BN / 8), c = n0 + (i % (BN / 8)) * 8;
-      if (c < N)
-        *reinterpret_cast<uint4*>(out + static_cast<size_t>(m0 + r) * N + c) = z;
-    }
-    return;
+  // pad rows [live, BM): zeros, no weight read (the whole block when it
+  // is all pad)
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = live * (BN / 8) + threadIdx.x; i < BM * (BN / 8);
+       i += NTHREADS) {
+    const int r = i / (BN / 8), c = n0 + (i % (BN / 8)) * 8;
+    if (c < N)
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(m0 + r) * N + c) = z;
   }
+  if (live == 0) return;
 
-  const __nv_bfloat16* a_base = lhs + static_cast<size_t>(m0) * K;
-  const __nv_bfloat16* b_base = rhs + static_cast<size_t>(e) * K * N;
-  const int k_tiles = (K + BK - 1) / BK;
-
-  auto load_tile = [&](int kt, int stage) {
-    const int k0 = kt * BK;
-    for (int i = tid; i < BM * (BK / 8); i += NTHREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const bool ok = r < live && k0 + c < K;
-      cp_async16(&As[stage][r * LDA + c],
-                 a_base + (ok ? static_cast<size_t>(r) * K + k0 + c : 0), ok);
-    }
-    for (int i = tid; i < BK * (BN / 8); i += NTHREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      const bool ok = k0 + r < K && n0 + c < N;
-      cp_async16(&Bs[stage][r * LDB + c],
-                 b_base + (ok ? static_cast<size_t>(k0 + r) * N + n0 + c : 0),
-                 ok);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < k_tiles) load_tile(s, s);
-    cp_async_commit();
-  }
-
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp % WM, wn = warp / WM;
-  const int g = lane >> 2, t4 = lane & 3;          // mma fragment coordinates
-  const int lm_row = lane & 7, lm_mat = lane >> 3; // ldmatrix addressing
-  const bool warp_live = wm * 16 < live;
-
-  float acc[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<STAGES - 2>();   // tile kt has landed
-    __syncthreads();               // ... for every thread; stage kt-1 is free
-    const int pre = kt + STAGES - 1;
-    if (pre < k_tiles) load_tile(pre, pre % STAGES);
-    cp_async_commit();
-    if (!warp_live) continue;
-    const __nv_bfloat16* as = As[kt % STAGES];
-    const __nv_bfloat16* bs = Bs[kt % STAGES];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, &as[(wm * 16 + (lm_mat & 1) * 8 + lm_row) * LDA + kk * 16 +
-                     (lm_mat >> 1) * 8]);
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, &bs[(kk * 16 + (lm_mat & 1) * 8 + lm_row) * LDB +
-                             wn * WNT + (nt + (lm_mat >> 1)) * 8]);
-        mma_16816(acc[nt], a, b);
-        mma_16816(acc[nt + 1], a, b + 2);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wm * 16 + g + r * 8;      // inside the block
-    __nv_bfloat16* orow = out + static_cast<size_t>(m0 + row) * N;
-    const bool row_live = row < live;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = n0 + wn * WNT + nt * 8 + t4 * 2;
-      if (col < N)
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            row_live ? __floats2bfloat162_rn(acc[nt][r * 2], acc[nt][r * 2 + 1])
-                     : __floats2bfloat162_rn(0.f, 0.f);
-    }
-  }
+  __nv_bfloat16* o = out + static_cast<size_t>(m0) * N;
+  tdt_mma::gemm_tile<BM>(
+      lhs + static_cast<size_t>(m0) * K, K, live,
+      rhs + static_cast<size_t>(e) * K * N, N, K, N, n0, sm,
+      [&](int row, int col, float v0, float v1) {
+        *reinterpret_cast<__nv_bfloat162*>(o + static_cast<size_t>(row) * N +
+                                           col) = __floats2bfloat162_rn(v0, v1);
+      });
 }
 
 template <int BM>

@@ -1,11 +1,21 @@
-"""Tensor-parallel attention at one rank: fused qkv projection, optional
-Qwen3 qk-norm, RoPE, flash attention (prefill) or one-query decode
-against the KV cache, o projection (counterpart of
+"""Tensor-parallel attention: fused qkv projection, optional Qwen3
+qk-norm, RoPE, flash attention (prefill) or one-query decode against the
+KV cache, o projection (counterpart of
 triton_distributed_tpu/layers/tp_attn.py).
 
 The cache buffers passed in — contiguous (B, Smax, Hkv, D) or one
 layer's paged pool (num_blocks, Hkv, block, D) — are written in place:
 JAX returns updated copies, PyTorch need not hold two caches.
+
+At n ranks (`_prefill_ranks`, `_decode_ranks`) the heads are sharded: rank
+r holds H / n query and Hkv / n kv heads, its weights rank-stacked
+(parallel/mesh.py: w_qkv (n, hidden, (H + 2 Hkv) D / n), w_o (n, H D / n,
+hidden)) and its cache slice ck[r] of a (n, B, Smax, Hkv / n, D) buffer.
+Prefill activations are sequence-major, as in the JAX layer, so the
+AllGather and ReduceScatter row chunks are sequence chunks. The n ranks'
+attention runs as one call of the attention kernels over n * B
+sequences. The paged, verify and chunked-prefill shards stay one-rank
+(slice 6b).
 """
 
 from __future__ import annotations
@@ -17,7 +27,9 @@ from ..ops.attention import (apply_rope, flash_attention,
                              flash_attention_partial, flash_decode,
                              flash_decode_paged, merge_two_partials,
                              paged_rows, rope_cos_sin)
-from .common import check_mode, check_one_rank, row_parallel_out
+from ..ops.ag_gemm import ag_gemm_shard
+from ..parallel.mesh import RankGroup, shard
+from .common import check_mode, row_parallel_out
 from .norm import rms_norm
 from .tp_mlp import fuse_column_parallel
 
@@ -38,15 +50,22 @@ class TPAttn(nn.Module):
         self.mode = check_mode(mode)
         self.rope_theta = rope_theta
         self.qk_norm = qk_norm
-        self.n = check_one_rank(num_ranks)
+        self.n = RankGroup(num_ranks).n
+        if num_heads % self.n or num_kv_heads % self.n:
+            raise ValueError(f"{num_heads} q / {num_kv_heads} kv heads do not "
+                             f"split into {self.n} ranks (replicate kv heads "
+                             f"first, as the JAX layer asks)")
         self.h_loc = num_heads // self.n
         self.hkv_loc = num_kv_heads // self.n
 
     # -- parameters --------------------------------------------------------
     def shard_params(self, wq, wk, wv, wo, q_norm=None, k_norm=None):
-        """The fused param dict from plain (in, out) projection matrices."""
-        params = {"w_qkv": fuse_column_parallel([wq, wk, wv], self.n),
-                  "w_o": wo}
+        """The fused param dict from plain (in, out) projection matrices,
+        rank-stacked at n ranks."""
+        qkv = fuse_column_parallel([wq, wk, wv], self.n)
+        if self.n > 1:
+            qkv, wo = shard(qkv, 1, self.n), shard(wo, 0, self.n)
+        params = {"w_qkv": qkv, "w_o": wo}
         if self.qk_norm:
             ones = torch.ones(self.head_dim, dtype=wq.dtype, device=wq.device)
             params["q_norm"] = ones if q_norm is None else q_norm
@@ -55,6 +74,8 @@ class TPAttn(nn.Module):
 
     def new_kv_cache(self, batch: int, max_len: int, *, dtype, device):
         shape = (batch, max_len, self.num_kv_heads, self.head_dim)
+        if self.n > 1:
+            shape = (self.n, batch, max_len, self.hkv_loc, self.head_dim)
         return (torch.zeros(shape, dtype=dtype, device=device),
                 torch.zeros(shape, dtype=dtype, device=device))
 
@@ -75,19 +96,64 @@ class TPAttn(nn.Module):
 
     # -- prefill -----------------------------------------------------------
     def prefill(self, params, x, kv_cache=None, *, max_len: int | None = None):
-        """x: (B, S, hidden). Returns (y (B, S, hidden), (k_cache,
-        v_cache)) with positions [0, S) filled; the cache is created at
-        `max_len` (default S) when not supplied."""
+        """x: (B, S, hidden), the global activations (at n ranks in the
+        "xla" / "fused" modes S % n == 0: rank r takes sequence chunk r).
+        Returns (y (B, S, hidden), (k_cache, v_cache)) with positions [0,
+        S) filled; the cache is created at `max_len` (default S) when not
+        supplied."""
         B, S, _ = x.shape
         if kv_cache is None:
             kv_cache = self.new_kv_cache(B, max_len or S, dtype=x.dtype,
                                          device=x.device)
-        if kv_cache[0].shape[1] < S:
-            raise ValueError(f"KV cache length {kv_cache[0].shape[1]} < "
+        if kv_cache[0].shape[-3] < S:
+            raise ValueError(f"KV cache length {kv_cache[0].shape[-3]} < "
                              f"prefill length {S}")
-        y, ck, cv = self._prefill_shard(params, x, params["w_qkv"],
+        if self.n == 1:
+            y, ck, cv = self._prefill_shard(params, x, params["w_qkv"],
+                                            params["w_o"], *kv_cache,
+                                            seq_len=S)
+            return y, (ck, cv)
+        xs = x.transpose(0, 1)                            # (S, B, hidden)
+        seq = self.mode in ("xla", "fused")
+        if seq:
+            xs = shard(xs, 0, self.n)                     # (n, S / n, B, .)
+        y, ck, cv = self._prefill_ranks(params, xs, params["w_qkv"],
                                         params["w_o"], *kv_cache, seq_len=S)
-        return y, (ck, cv)
+        if seq:
+            y = y.reshape(S, B, self.hidden)
+        return y.transpose(0, 1), (ck, cv)
+
+    def _prefill_ranks(self, params, x, w_qkv, w_o, ck, cv, *, seq_len):
+        """The n-rank prefill (JAX _prefill_shard :154), sequence-major: x
+        is (n, S / n, B, hidden), rank r holding positions [r S / n, (r +
+        1) S / n), in the "xla" / "fused" modes, and the replicated (S, B,
+        hidden) in "ar" / "gemm_ar"; y comes back in the same layout. ck /
+        cv: (n, B, Smax, Hkv / n, D), positions [0, S) written in place."""
+        n, D, S, mode = self.n, self.head_dim, seq_len, self.mode
+        B = x.shape[-2]
+        if mode == "fused":
+            qkv = ag_gemm_shard(x.reshape(n, -1, self.hidden), w_qkv,
+                                num_ranks=n)
+        elif mode == "xla":
+            qkv = RankGroup(n).all_gather(x.reshape(n, -1, self.hidden),
+                                          tiled=True) @ w_qkv
+        else:  # replicated rows
+            qkv = x.reshape(-1, self.hidden) @ w_qkv     # (n, S * B, C)
+        q, k, v = self._split_qkv(qkv.view(n, S, B, -1), (n, S, B))
+        q, k = self._maybe_qk_norm(params, q, k)
+        # batch-major (n * B, S, heads, D): the n ranks' sequences in one call
+        q, k, v = (t.transpose(1, 2).reshape(n * B, S, -1, D)
+                   for t in (q, k, v))
+        cos, sin = rope_cos_sin(torch.arange(S, device=x.device), D,
+                                theta=self.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        out = flash_attention(q, k, v, causal=True)      # (n * B, S, Hl, D)
+        ck[:, :, :S] = k.view(n, B, S, self.hkv_loc, D)
+        cv[:, :, :S] = v.view(n, B, S, self.hkv_loc, D)
+        om = out.view(n, B, S, -1).transpose(1, 2).reshape(n, S * B, -1)
+        y = row_parallel_out(om, w_o, mode=mode, num_ranks=n)
+        return y.view(x.shape), ck, cv
 
     def _prefill_shard(self, params, x, w_qkv, w_o, ck, cv, *, seq_len):
         B, S = x.shape[0], seq_len
@@ -109,11 +175,37 @@ class TPAttn(nn.Module):
     # -- decode ------------------------------------------------------------
     def decode(self, params, x, kv_cache, kv_len: int):
         """One decode step. x: (B, hidden); kv_cache: pair of
-        (B, Smax, Hkv, D) buffers; kv_len: tokens already in the cache.
-        Returns (y (B, hidden), cache with row kv_len written)."""
-        y, ck, cv = self._decode_shard(params, x, params["w_qkv"],
-                                       params["w_o"], *kv_cache, kv_len)
+        (B, Smax, Hkv, D) buffers ((n, B, Smax, Hkv / n, D) at n ranks);
+        kv_len: tokens already in the cache. Returns (y (B, hidden), cache
+        with row kv_len written)."""
+        fwd = self._decode_shard if self.n == 1 else self._decode_ranks
+        y, ck, cv = fwd(params, x, params["w_qkv"], params["w_o"], *kv_cache,
+                        kv_len)
         return y, (ck, cv)
+
+    def _decode_ranks(self, params, x, w_qkv, w_o, ck, cv, kv_len: int):
+        """The n-rank decode step (JAX _decode_shard :214): x (B, hidden)
+        replicated; ck / cv (n, B, Smax, Hkv / n, D), row kv_len written in
+        place; the o projection ends in psum, or gemm_ar in that mode."""
+        n, D = self.n, self.head_dim
+        B = x.shape[0]
+        qkv = x @ w_qkv                                   # (n, B, C)
+        q, k, v = self._split_qkv(qkv, (n, B))
+        q, k = self._maybe_qk_norm(params, q, k)
+        pos = torch.full((1,), kv_len, device=x.device)   # position = kv_len
+        cos, sin = rope_cos_sin(pos, D, theta=self.rope_theta)
+        q = apply_rope(q[:, :, None], cos, sin)[:, :, 0]  # (n, B, Hl, D)
+        k = apply_rope(k[:, :, None], cos, sin)[:, :, 0]
+        ck[:, :, kv_len] = k
+        cv[:, :, kv_len] = v
+        smax = ck.shape[2]
+        out = flash_decode(q.reshape(n * B, self.h_loc, D),
+                           ck.view(n * B, smax, self.hkv_loc, D),
+                           cv.view(n * B, smax, self.hkv_loc, D), kv_len + 1)
+        y = row_parallel_out(
+            out.view(n, B, -1), w_o,
+            mode="gemm_ar" if self.mode == "gemm_ar" else "ar", num_ranks=n)
+        return y, ck, cv
 
     def _decode_shard(self, params, x, w_qkv, w_o, ck, cv, kv_len: int):
         B = x.shape[0]

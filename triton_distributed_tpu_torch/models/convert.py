@@ -6,6 +6,13 @@ returns the port's params dict with the same names and layout. A bf16
 JAX array arrives as an `ml_dtypes.bfloat16` numpy array, which
 `torch.from_numpy` rejects: every leaf goes through float32, which is
 exact for bf16 and f16, and is cast back to its own width.
+
+The JAX params of an n-rank DenseLLM are global arrays already in the
+n-rank fused layout (its `init_params` / `load_state_dict` lay the [q|k|v]
+and [gate|up] column groups out for n). `params_from_jax(tree,
+num_ranks=n)` splits them into the port's rank-stacked shards by
+`dense.PARAM_SPECS`: w_qkv / w_gate_up / lm_head by columns, w_o / w_down
+by rows, the rest replicated.
 """
 
 from __future__ import annotations
@@ -27,12 +34,15 @@ def _leaf(a, device):
     return t.to(device=device, dtype=_TORCH_FLOATS[a.dtype.name])
 
 
-def params_from_jax(tree, *, device=None):
+def params_from_jax(tree, *, device=None, num_ranks: int = 1):
     """JAX params pytree of numpy arrays -> the port's params dict
     ({"embed", "layers": {ln1, ln2, w_qkv, w_o, w_gate_up, w_down,
     q_norm, k_norm}, "norm", "lm_head"}; a Qwen3MoE tree has router
     (f32), w_moe_gate_up and w_moe_down in place of the MLP) on
-    `device`, each leaf at its own dtype."""
+    `device`, each leaf at its own dtype; rank-stacked for a dense model of
+    `num_ranks` ranks."""
+    from .dense import PARAM_SPECS, place_params
+
     device = runtime.resolve_device(device)
 
     def conv(node):
@@ -40,4 +50,12 @@ def params_from_jax(tree, *, device=None):
             return {k: conv(v) for k, v in node.items()}
         return _leaf(node, device)
 
-    return conv(tree)
+    params = conv(tree)
+    if num_ranks > 1:
+        extra = set(params["layers"]) - set(PARAM_SPECS["layers"])
+        if extra:
+            raise NotImplementedError(
+                f"params_from_jax(num_ranks={num_ranks}): the layer "
+                f"parameters {sorted(extra)} belong to the multi-rank MoE, "
+                f"a later part of slice 6 (ROADMAP.md, Queue A)")
+    return place_params(params, num_ranks)

@@ -1,5 +1,6 @@
-"""Dense transformer LLM (Qwen3 / Llama / Seed-OSS family) at one rank
-(counterpart of triton_distributed_tpu/models/dense.py).
+"""Dense transformer LLM (Qwen3 / Llama / Seed-OSS family), at one rank or
+tensor-parallel over n ranks in one process (counterpart of
+triton_distributed_tpu/models/dense.py).
 
 Parameters are a plain dict with the JAX package's layout and names:
 {"embed": (V, H), "layers": {name: (L, ...)}, "norm": (H,),
@@ -9,6 +10,19 @@ the JAX `lax.scan`; the KV cache is written in place, the contiguous
 one (`prefill`, `decode_step`) and the paged pool of continuous
 batching (`prefill_chunk_paged`, `decode_step_paged` and the
 speculative `verify_step_paged`) alike.
+
+At n ranks (`num_ranks=n`) each sharded parameter is rank-stacked
+(parallel/mesh.py) by `PARAM_SPECS`, the JAX `param_specs`: w_qkv /
+w_gate_up / lm_head split by columns, w_o / w_down by rows, with the rank
+dimension after the layer dimension (lm_head: first); the rest is
+replicated and kept once. The fused column groups are laid out for n
+(`refuse_column_groups`), so the same draw of `init_params` is the same
+logical model at every n. The contiguous cache is head-sharded, (L, n,
+B, Smax, Hkv / n, D). Prefill runs sequence-sharded ("xla" / "fused",
+padding the prompt to a multiple of n) or replicated ("ar" / "gemm_ar");
+decode steps are replicated and end each projection in psum, or gemm_ar
+in that mode; tokens come back as (B,), not per rank. The paged paths are
+one-rank (slice 6b).
 """
 
 from __future__ import annotations
@@ -20,10 +34,11 @@ from torch import nn
 
 from .. import runtime
 from ..ops.attention import rope_cos_sin
-from ..layers.common import check_mode, check_one_rank
+from ..layers.common import check_mode
 from ..layers.norm import rms_norm
 from ..layers.tp_attn import TPAttn
 from ..layers.tp_mlp import TPMLP, fuse_column_parallel
+from ..parallel.mesh import RankGroup, shard
 from .config import ModelConfig
 from .kv_cache import KVCache
 from .paged_kv_cache import PagedKVCache
@@ -31,7 +46,10 @@ from .paged_kv_cache import PagedKVCache
 
 def _logits(x, lm_head):
     """x (B, hidden) @ lm_head (hidden, V), accumulated and returned in
-    f32 without a rounding to x's dtype (JAX: preferred_element_type)."""
+    f32 without a rounding to x's dtype (JAX: preferred_element_type). A
+    rank-stacked lm_head (n, hidden, V / n) gives (n, B, V / n)."""
+    if lm_head.dim() == 3:
+        return torch.stack([_logits(x, w) for w in lm_head])
     if x.device.type == "cuda" and x.dtype != torch.float32:
         return torch.mm(x, lm_head, out_dtype=torch.float32)
     return x.float() @ lm_head.float()
@@ -39,17 +57,37 @@ def _logits(x, lm_head):
 
 def greedy_token(x, lm_head):
     """Greedy next token. x: (B, hidden). Returns (B,) int32; on ties the
-    first maximum, as jnp.argmax."""
-    return torch.argmax(_logits(x, lm_head), dim=-1).to(torch.int32)
+    first maximum, as jnp.argmax. With a rank-stacked lm_head (n, hidden,
+    V / n): the global argmax from the ranks' (max, argmax) pairs, the
+    lowest rank winning ties (JAX greedy_token :68)."""
+    logits = _logits(x, lm_head)
+    if lm_head.dim() == 2:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    n, _, v_loc = logits.shape
+    mx = logits.amax(dim=-1)                                  # (n, B)
+    ix = logits.argmax(dim=-1) + torch.arange(
+        n, device=x.device)[:, None] * v_loc
+    best = torch.argmax(mx, dim=0)                            # first max
+    return ix.gather(0, best[None])[0].to(torch.int32)
 
 
 def sample_token(x, lm_head, generator: torch.Generator, *,
                  temperature: float, top_k: int):
     """Top-k temperature sampling by the Gumbel-max trick over the top-k
     logits (the JAX function's method; the noise comes from `generator`,
-    so the draws differ from jax.random's). Returns (B,) int32."""
+    so the draws differ from jax.random's). With a rank-stacked lm_head,
+    each rank's top-k first, then the top-k of the gathered candidates
+    (JAX sample_token :44). Returns (B,) int32."""
     logits = _logits(x, lm_head) / temperature
-    vals, idx = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1)
+    if lm_head.dim() == 3:
+        n, _, v_loc = logits.shape
+        vals, idx = torch.topk(logits, min(top_k, v_loc), dim=-1)
+        idx = idx + torch.arange(n, device=x.device)[:, None, None] * v_loc
+        group = RankGroup(n)
+        logits = group.all_gather(vals, axis=1, tiled=True)  # (B, n * k)
+        idx_all = group.all_gather(idx, axis=1, tiled=True)
+    vals, pos = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1)
+    idx = pos if lm_head.dim() == 2 else idx_all.gather(-1, pos)
     u = torch.rand(vals.shape, generator=generator, device=vals.device)
     gumbel = -torch.log(-torch.log(
         u.clamp_min(torch.finfo(torch.float32).tiny)))
@@ -57,21 +95,60 @@ def sample_token(x, lm_head, generator: torch.Generator, *,
     return idx.gather(-1, choice)[:, 0].to(torch.int32)
 
 
+def refuse_column_groups(w, widths, n: int):
+    """Re-pack a globally fused column-parallel tensor (last-axis column
+    groups of the given widths, e.g. [q|k|v]) into the n-rank layout of
+    `fuse_column_parallel`: [g0_0|g1_0|..|g0_1|g1_1|..]. Identity at n ==
+    1 (JAX refuse_column_groups :84)."""
+    if n == 1:
+        return w
+    parts = [p.chunk(n, dim=-1) for p in torch.split(w, list(widths), -1)]
+    return torch.cat([p[r] for r in range(n) for p in parts], dim=-1)
+
+
+# The global dimension each parameter is split along at n ranks (JAX
+# DenseLLM.param_specs :145); None is replicated. The rank dimension goes
+# right after the layer dimension for layer parameters, first for lm_head.
+PARAM_SPECS = {"embed": None, "norm": None, "lm_head": 1,
+               "layers": {"ln1": None, "ln2": None, "q_norm": None,
+                          "k_norm": None, "w_qkv": 2, "w_o": 1,
+                          "w_gate_up": 2, "w_down": 1}}
+
+
+def place_params(params, n: int):
+    """Global parameters, laid out for n ranks (the JAX arrays' layout),
+    to the port's rank-stacked dict. Identity at n == 1."""
+    if n == 1:
+        return params
+
+    def place(t, dim, at):
+        return t if dim is None else shard(t, dim, n, at=at)
+
+    return {"embed": params["embed"], "norm": params["norm"],
+            "lm_head": place(params["lm_head"], PARAM_SPECS["lm_head"], 0),
+            "layers": {k: place(t, PARAM_SPECS["layers"][k], 1)
+                       for k, t in params["layers"].items()}}
+
+
 class DenseLLM(nn.Module):
-    """One-rank dense LLM. `mode` takes the JAX package's names
-    ("xla" | "fused" | "ar" | "gemm_ar"); at one rank they are the same
-    math. Runs on `device` (default: the GPU, see runtime.default_device)
-    in `dtype` ("bfloat16" | "float32" or a torch dtype)."""
+    """Dense LLM at `num_ranks` tensor-parallel ranks (default one). `mode`
+    takes the JAX package's names ("xla" | "fused" | "ar" | "gemm_ar");
+    at one rank they are the same math. Runs on `device` (default: the
+    GPU, see runtime.default_device) in `dtype` ("bfloat16" | "float32" or
+    a torch dtype)."""
 
     def __init__(self, config: ModelConfig, *, mode: str = "fused",
                  dtype=torch.bfloat16, device=None, num_ranks: int = 1):
         super().__init__()
         self.config = config
         self.mode = check_mode(mode)
-        self.n = check_one_rank(num_ranks)
         self.dtype = runtime.resolve_dtype(dtype)
         self.device = runtime.resolve_device(device)
+        self.n = RankGroup(num_ranks).n
         c = config
+        if c.vocab_size % self.n:
+            raise ValueError(f"vocab {c.vocab_size} does not split into "
+                             f"{self.n} ranks")
         self.attn = TPAttn(c.hidden_size, c.num_heads, c.num_kv_heads,
                            c.head_dim, mode=mode, rope_theta=c.rope_theta,
                            qk_norm=c.qk_norm, num_ranks=num_ranks)
@@ -111,9 +188,26 @@ class DenseLLM(nn.Module):
         embed = normal((c.vocab_size, H), s)
         lm = embed.t() if c.tie_word_embeddings else normal((H, c.vocab_size),
                                                             s)
-        return {"embed": embed, "layers": layers,
-                "norm": torch.ones((H,), dtype=dt, device=dev),
-                "lm_head": lm}
+        return self.shard_params({"embed": embed, "layers": layers,
+                                  "norm": torch.ones((H,), dtype=dt,
+                                                     device=dev),
+                                  "lm_head": lm})
+
+    def shard_params(self, params):
+        """One-rank parameters (the layout `init_params` and
+        `load_state_dict` give at n = 1) re-laid for this model's n ranks:
+        the fused column groups re-packed (`refuse_column_groups`), then
+        rank-stacked (`place_params`). Identity at one rank."""
+        if self.n == 1:
+            return params
+        c, D = self.config, self.config.head_dim
+        kvw = c.num_kv_heads * D
+        widths = {"w_qkv": (c.num_heads * D, kvw, kvw),
+                  "w_gate_up": (c.intermediate_size, c.intermediate_size)}
+        layers = {k: refuse_column_groups(t, widths[k], self.n)
+                  if k in widths else t
+                  for k, t in params["layers"].items()}
+        return place_params({**params, "layers": layers}, self.n)
 
     def load_state_dict(self, sd):
         """Parameters from an HF-style name -> array mapping (torch
@@ -153,9 +247,10 @@ class DenseLLM(nn.Module):
                 layers["k_norm"].append(get(pre + "self_attn.k_norm.weight"))
         embed = get("model.embed_tokens.weight")
         lm = embed.t() if c.tie_word_embeddings else lin("lm_head.weight")
-        return {"embed": embed,
-                "layers": {k: torch.stack(v) for k, v in layers.items()},
-                "norm": get("model.norm.weight"), "lm_head": lm}
+        return place_params(
+            {"embed": embed,
+             "layers": {k: torch.stack(v) for k, v in layers.items()},
+             "norm": get("model.norm.weight"), "lm_head": lm}, self.n)
 
     # ------------------------------------------------------------------
     # Cache
@@ -164,7 +259,14 @@ class DenseLLM(nn.Module):
         c = self.config
         return KVCache.create(c.num_layers, batch, max_len, c.num_kv_heads,
                               c.head_dim, dtype=self.dtype,
-                              device=self.device)
+                              device=self.device, num_ranks=self.n)
+
+    def _one_rank_only(self, what: str):
+        if self.n > 1:
+            raise NotImplementedError(
+                f"{what} at num_ranks={self.n}: the paged tensor-parallel "
+                f"paths (ServeEngine(tp_ranks=) in engine mode) are slice "
+                f"6b (ROADMAP.md, Queue A)")
 
     def new_paged_kv_cache(self, batch: int, max_len: int, *,
                            block: int = 128, num_blocks: int | None = None,
@@ -173,6 +275,7 @@ class DenseLLM(nn.Module):
         `batch` slots of at most `max_len` tokens, blocks from a shared
         free-list pool. kv_dtype="int8" | "float8_e4m3fn" stores the pool
         at wire width with per-row f32 scale sidecars."""
+        self._one_rank_only("new_paged_kv_cache")
         c = self.config
         return PagedKVCache.create(
             c.num_layers, batch, max_len, c.num_kv_heads, c.head_dim,
@@ -190,8 +293,16 @@ class DenseLLM(nn.Module):
     def _mlp_rows(self, h, p, *, mode):
         """The MLP of one layer on (B, S, H) or (B, H) rows: the hook a
         subclass swaps (Qwen3MoE routes rows through its experts). At one
-        rank every mode is the same dense math."""
-        return self.mlp._shard_fwd(h, p["w_gate_up"], p["w_down"])
+        rank every mode is the same dense math. At n ranks h is rank-
+        stacked (n, ..., H) in "xla" / "fused" and replicated in "ar" /
+        "gemm_ar"; the rows keep their order (sequence-major at prefill)."""
+        if self.n == 1:
+            return self.mlp._shard_fwd(h, p["w_gate_up"], p["w_down"])
+        H = h.shape[-1]
+        rows = (h.reshape(self.n, -1, H) if mode in ("xla", "fused")
+                else h.reshape(-1, H))
+        y = self.mlp._shard_fwd(rows, p["w_gate_up"], p["w_down"], mode=mode)
+        return y.view(h.shape)
 
     def _layers(self, params):
         lp = params["layers"]
@@ -219,6 +330,8 @@ class DenseLLM(nn.Module):
             raise ValueError(f"prefill length {S} exceeds cache max_len "
                              f"{cache.max_len}")
         true_len = S if true_len is None else int(true_len)
+        if self.n > 1:
+            return self._prefill_hidden_ranks(params, ids, cache, true_len)
         eps = self.config.rms_norm_eps
         x = F.embedding(ids, params["embed"])              # (B, S, H)
         for i, p in self._layers(params):
@@ -230,6 +343,39 @@ class DenseLLM(nn.Module):
             h = rms_norm(x, p["ln2"], eps)
             x = x + self._mlp_rows(h, p, mode=self.mode)
         last = rms_norm(x[:, true_len - 1], params["norm"], eps)
+        return last, KVCache(k=cache.k, v=cache.v, offset=true_len)
+
+    def _prefill_hidden_ranks(self, params, ids, cache: KVCache,
+                              true_len: int):
+        """The n-rank prefill (JAX prefill :332) up to the final norm. In
+        "xla" / "fused" the prompt is padded to a multiple of n (pad rows
+        only fill cache positions >= true_len, which decode masks and
+        overwrites) and rank r takes sequence chunk r; the last real row
+        comes from the rank that holds position true_len - 1."""
+        n, eps = self.n, self.config.rms_norm_eps
+        B, S = ids.shape
+        seq = self.mode in ("xla", "fused")
+        s_pad = runtime.round_up(S, n) if seq else S
+        if s_pad > cache.max_len:
+            raise ValueError(f"padded prefill length {s_pad} exceeds cache "
+                             f"max_len {cache.max_len}")
+        if s_pad != S:
+            ids = F.pad(ids, (0, s_pad - S))
+        rows = ids.t()                                     # (S, B) seq-major
+        if seq:
+            rows = rows.reshape(n, s_pad // n, B)          # sequence chunks
+        x = F.embedding(rows, params["embed"])
+        for i, p in self._layers(params):
+            h = rms_norm(x, p["ln1"], eps)
+            a, _, _ = self.attn._prefill_ranks(
+                self._attn_layer_params(p), h, p["w_qkv"], p["w_o"],
+                cache.k[i], cache.v[i], seq_len=s_pad)
+            x = x + a
+            h = rms_norm(x, p["ln2"], eps)
+            x = x + self._mlp_rows(h, p, mode=self.mode)
+        t = true_len - 1
+        last = x[t // (s_pad // n), t % (s_pad // n)] if seq else x[t]
+        last = rms_norm(last, params["norm"], eps)
         return last, KVCache(k=cache.k, v=cache.v, offset=true_len)
 
     def decode_step(self, params, tok, cache: KVCache,
@@ -259,9 +405,11 @@ class DenseLLM(nn.Module):
         tok = torch.as_tensor(tok, dtype=torch.int32, device=self.device)
         eps = self.config.rms_norm_eps
         x = F.embedding(tok, params["embed"])              # (B, H)
+        attn = self.attn._decode_shard if self.n == 1 \
+            else self.attn._decode_ranks
         for i, p in self._layers(params):
             h = rms_norm(x, p["ln1"], eps)
-            a, _, _ = self.attn._decode_shard(
+            a, _, _ = attn(
                 self._attn_layer_params(p), h, p["w_qkv"], p["w_o"],
                 cache.k[i], cache.v[i], cache.offset)
             x = x + a
@@ -299,6 +447,7 @@ class DenseLLM(nn.Module):
         as in the JAX step. tok: (B,) ints; active: (B,) bools (host).
         The pool is updated in place. Returns (next_token (B,) int32,
         cache advanced by `active`)."""
+        self._one_rank_only("decode_step_paged")
         if sampling is None:
             sampling = temperature > 0.0
         tok = torch.as_tensor(tok, dtype=torch.int32, device=self.device)
@@ -344,6 +493,7 @@ class DenseLLM(nn.Module):
         everywhere is exactly the greedy decode step. Greedy only: the
         accept rule is argmax == draft. The pool is updated in place;
         active / counts are host arrays."""
+        self._one_rank_only("verify_step_paged")
         ids = torch.as_tensor(np.asarray(cand_toks), dtype=torch.int32,
                               device=self.device)
         B, K = ids.shape
@@ -387,6 +537,7 @@ class DenseLLM(nn.Module):
         pages holding the cached prefix. Returns (next_token () int32 —
         meaningful when this is the prompt's final chunk, cache with
         seq_lens[slot] advanced by valid_len)."""
+        self._one_rank_only("prefill_chunk_paged")
         slot, off, valid_len = int(slot), int(off), int(valid_len)
         ids = torch.as_tensor(chunk_ids, dtype=torch.int32,
                               device=self.device).reshape(-1)

@@ -6,12 +6,19 @@ program; eager PyTorch runs the same steps one by one. Prompt lengths
 are bucketed exactly as there (`prompt_bucket`): the prompt is padded to
 the bucket and the real length is threaded through `prefill(true_len=)`,
 which the paged serving engine of a later slice relies on.
+
+The model may run n tensor-parallel ranks (`DenseLLM(num_ranks=n)`):
+`serve`, `start` and `step` are unchanged for the caller, tokens come back
+as (B,), and each of them checks the fault words of the communication
+kernels (shmem.check_faults) before it hands tokens back, so no token
+computed from a faulted kernel's unwritten output leaves the engine.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..shmem import check_faults
 from .kv_cache import KVCache
 
 _BUCKET_FLOOR = 8
@@ -77,7 +84,14 @@ class Engine:
                 self.params, tok, cache, gen, sampling=sampling,
                 temperature=max(temperature, 1e-6), top_k=int(top_k))
             toks.append(tok)
-        return torch.stack(toks, dim=1).cpu().numpy()
+        return self._checked(torch.stack(toks, dim=1).cpu().numpy())
+
+    def _checked(self, out):
+        """`out`, once no tensor-parallel kernel has recorded a fault (a
+        fault raises here; synchronises at n > 1 ranks)."""
+        if getattr(self.model, "n", 1) > 1:
+            check_faults()
+        return out
 
     # -- stepwise API (token streaming) -----------------------------------
     def start(self, input_ids):
@@ -85,7 +99,8 @@ class Engine:
         ids, true_len = self._pad_to_bucket(self._ids(input_ids),
                                             self.max_len)
         cache = self.model.new_kv_cache(ids.shape[0], self.max_len)
-        return self.model.prefill(self.params, ids, cache, true_len)
+        return self._checked(
+            self.model.prefill(self.params, ids, cache, true_len))
 
     def step(self, tok, cache: KVCache, generator=None, *,
              temperature: float = 0.0, top_k: int = 50):
@@ -94,6 +109,6 @@ class Engine:
         sampling = temperature > 0.0
         if sampling and generator is None:
             raise ValueError("sampling requires a torch.Generator")
-        return self.model.decode_step(
+        return self._checked(self.model.decode_step(
             self.params, tok, cache, generator, sampling=sampling,
-            temperature=max(temperature, 1e-6), top_k=int(top_k))
+            temperature=max(temperature, 1e-6), top_k=int(top_k)))

@@ -271,8 +271,9 @@ class ServeEngine:
                 or tp_ranks < 1:
             raise ValueError(f"tp_ranks must be a positive integer, got "
                              f"{tp_ranks!r}")
-        if tp_ranks > 1:
-            _not_in_slice("tp_ranks > 1", "slice 6")
+        if tp_ranks > 1 or model.n > 1:
+            _not_in_slice("ServeEngine over tp_ranks > 1 (the paged "
+                          "tensor-parallel attention)", "slice 6b")
         if attn_method not in (None, "kernel", "xla"):
             raise ValueError(f"attn_method={attn_method!r}: choose "
                              f"'kernel' or 'xla'")

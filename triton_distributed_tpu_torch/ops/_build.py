@@ -92,6 +92,18 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+_LIBS: dict = {}
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """The ctypes library of `csrc/<source>.cu`, built (with every other
+    source) and loaded on first use."""
+    if source not in _LIBS:
+        build_all()
+        _LIBS[source] = ctypes.CDLL(str(build_dir() / f"{source}.so"))
+    return _LIBS[source]
+
+
 class CudaKernel:
     """One C entry point of one `csrc/<source>.cu` library.
 
@@ -110,8 +122,7 @@ class CudaKernel:
 
     def _load(self):
         if self._fn is None:
-            build_all()
-            lib = ctypes.CDLL(str(build_dir() / f"{self.source}.so"))
+            lib = load_library(self.source)
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int

@@ -125,7 +125,7 @@ def ep_tick_plan(occupancy: int, *, hidden: int, moe_intermediate: int,
     weight term c >= 0 gives S * t(m / S) >= t(m), so the JAX chooser's
     first candidate, 1, is its least. `num_ranks > 1` raises (slice
     6)."""
-    check_one_rank(num_ranks)
+    check_one_rank(num_ranks, "the EP tick plan")
     return {"occupancy": max(1, int(occupancy)), "transport": "flat",
             "num_chunks": 1, "a2a_round_s": 0.0}
 
@@ -192,7 +192,7 @@ def estimate_mk_step_s(occupancy: int, cache_len: int, *,
     L x MK_STAGES_PER_LAYER + 1 dependent stages. A verify step of width
     k reads the weights and the cache once, so only (b) grows with k.
     `tp_ranks > 1` comes with slice 6."""
-    check_one_rank(tp_ranks)
+    check_one_rank(tp_ranks, "the step estimators")
     spec = spec or chip_spec()
     k = max(1, int(verify_tokens))
     param = _decode_param_bytes(num_layers, hidden, intermediate,

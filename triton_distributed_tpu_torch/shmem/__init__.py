@@ -1,0 +1,13 @@
+"""The port's one-sided transport, host side (counterpart of
+triton_distributed_tpu/shmem; the device side is csrc/tdt_shmem.cuh)."""
+
+from .primitives import (  # noqa: F401
+    FAULT_NONE,
+    FAULT_TIMEOUT,
+    WAIT_BUDGET_S,
+    Workspace,
+    check_faults,
+    launch_tp,
+    release_workspaces,
+    workspace,
+)

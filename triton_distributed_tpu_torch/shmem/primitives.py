@@ -1,0 +1,160 @@
+"""Host side of the port's one-sided transport (counterpart of
+triton_distributed_tpu/shmem/primitives.py; the device side is
+csrc/tdt_shmem.cuh, which maps each JAX primitive to its device helper).
+
+A fused communication op at one shape owns a `Workspace`, its symmetric
+heap: n landing regions (one per rank, rank-stacked like every per-rank
+tensor of the port, parallel/mesh.py), n signal pads of u32 counters, and
+a fault word. It is allocated once per (op, device, ranks, region shape,
+dtype, pad length) and kept: its signals are counters compared against a
+per-call epoch, so nothing is cleared between calls. The kernels get the
+regions and pads as device arrays of n addresses, the form symmetric
+memory hands out on a multi-GPU box.
+
+Faults. A kernel's wait that outlasts its budget (`WAIT_BUDGET_S` of the
+device's %globaltimer) sets the fault word, naming the waiting rank, the
+signal and the value it saw, and the launch gives up; later launches that
+find the word set return at once. The host never blocks on the word in
+the middle of a step: after each launch it queues a copy of the word to
+pinned memory, and the next call reads that copy once it has landed.
+`check_faults()` reads every workspace's word at once (synchronising);
+the Engine calls it before `serve`, `start` or `step` hands tokens back,
+so a fault seen only by a later call's poll never lets a token computed
+from a faulted launch's unwritten output out. On a fault the workspace's
+pads, word and epoch are reset, so the next call runs clean, and a
+RuntimeError names the op, the rank and the signal.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..ops._build import ptr, stream_of
+
+WAIT_BUDGET_S = 1.0     # a wait longer than this (device clock) is a fault
+FAULT_NONE = 0
+FAULT_TIMEOUT = 1
+
+# the C entry points of csrc/ag_gemm.cu, gemm_rs.cu and gemm_ar.cu share
+# one signature: dtype, bm, a, b, out, land, pads, fault, epoch, budget_ns,
+# rank_lo, rank_cnt, n, m, K, N, grid, stream
+TP_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+               + [ctypes.c_uint, ctypes.c_longlong] + [ctypes.c_int] * 7
+               + [ctypes.c_void_p])
+DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+class Workspace:
+    """One fused op's symmetric heap at one shape on one device.
+
+    land: (n, *region) — rank r's landing region is land[r]. pads: (n,
+    pad_len) int32 used as u32 counters, slot 0 of each the barrier's.
+    `describe(sig)` names a pad slot for fault messages."""
+
+    def __init__(self, op: str, n: int, region, dtype, pad_len: int, device,
+                 describe=None):
+        self.op = op
+        self.n = n
+        self.land = torch.empty((n, *region), dtype=dtype, device=device)
+        self.pads = torch.zeros((n, pad_len), dtype=torch.int32, device=device)
+        self.fault = torch.zeros(4, dtype=torch.int32, device=device)
+        self.land_ptrs = torch.tensor(
+            [self.land[r].data_ptr() for r in range(n)], dtype=torch.int64,
+            device=device)
+        self.pad_ptrs = torch.tensor(
+            [self.pads[r].data_ptr() for r in range(n)], dtype=torch.int64,
+            device=device)
+        self.epoch = 0
+        self.describe = describe or (lambda sig: f"pad slot {sig}")
+        self._seen = None
+        self._event = None
+
+    def launched(self) -> None:
+        """After a launch: queue a copy of the fault word to pinned memory
+        (read by the next call's `poll`, without waiting)."""
+        if self._seen is None:
+            self._seen = torch.zeros(4, dtype=torch.int32, pin_memory=True)
+            self._event = torch.cuda.Event()
+        self._seen.copy_(self.fault, non_blocking=True)
+        self._event.record()
+
+    def poll(self) -> None:
+        """Raise if the copy of the fault word from an earlier call has
+        landed and shows a fault (never waits)."""
+        if self._event is not None and self._event.query() \
+                and int(self._seen[0]) != FAULT_NONE:
+            self.check()
+
+    def check(self) -> None:
+        """Read the fault word (synchronises) and raise on a fault, after
+        resetting the pads, the word and the epoch."""
+        code, rank, sig, seen = self.fault.cpu().tolist()
+        if code == FAULT_NONE:
+            return
+        epoch = self.epoch
+        self.reset()
+        what = "timed out" if code == FAULT_TIMEOUT else f"fault {code}"
+        raise RuntimeError(
+            f"{self.op}: rank {rank} {what} waiting on signal {sig} "
+            f"({self.describe(sig)}) of its pad (the counter read "
+            f"{seen & 0xFFFFFFFF}; calls up to epoch {epoch}); the workspace "
+            f"was reset")
+
+    def reset(self) -> None:
+        self.pads.zero_()
+        self.fault.zero_()
+        self.epoch = 0
+        if self._seen is not None:
+            self._seen.zero_()
+
+
+_WORKSPACES: dict = {}
+
+
+def workspace(op: str, device, n: int, region, dtype, pad_len: int,
+              describe=None) -> Workspace:
+    """The op's workspace at this shape, allocated on first use."""
+    key = (op, str(device), n, tuple(region), dtype, pad_len)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        ws = _WORKSPACES[key] = Workspace(op, n, region, dtype, pad_len,
+                                          device, describe)
+    return ws
+
+
+def check_faults() -> None:
+    """Raise if any workspace's kernel recorded a fault (synchronises)."""
+    for ws in list(_WORKSPACES.values()):
+        if ws.fault.device.type == "cuda":
+            ws.check()
+
+
+def release_workspaces() -> None:
+    """Drop every workspace (their device memory goes back to the
+    allocator); the next call of an op allocates its own again."""
+    _WORKSPACES.clear()
+
+
+def launch_tp(kernel, ws: Workspace, a, b, out, m: int, K: int, N: int,
+              bm: int, *, budget_s: float = WAIT_BUDGET_S, epoch=None,
+              grid: int = 0, rank_lo: int = 0, rank_cnt=None) -> None:
+    """Launch one of the tensor-parallel kernels (CudaKernel over
+    TP_ARGTYPES) on rank-stacked a, b, out through `ws`. `epoch` defaults
+    to the workspace's next (u32, from 1 after a reset), taken only once
+    the launch went in; an explicit epoch leaves the workspace's alone.
+    `grid` 0 lets the kernel size its persistent grid; ranks [rank_lo,
+    rank_lo + rank_cnt) run (default all)."""
+    nxt = epoch is None
+    if nxt:
+        ws.poll()
+        epoch = (ws.epoch + 1) & 0xFFFFFFFF
+    rank_cnt = ws.n - rank_lo if rank_cnt is None else rank_cnt
+    kernel.launch(DTYPE_CODES[a.dtype], bm, ptr(a), ptr(b), ptr(out),
+                  ptr(ws.land_ptrs), ptr(ws.pad_ptrs), ptr(ws.fault),
+                  epoch & 0xFFFFFFFF, int(budget_s * 1e9), rank_lo, rank_cnt,
+                  ws.n, m, K, N, grid, stream_of(a))
+    if nxt:            # a refused launch moved no signal: keep the epoch
+        ws.epoch = epoch
+    ws.launched()

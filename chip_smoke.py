@@ -190,12 +190,37 @@ Phases, in order; any failure raises and exits non-zero:
      decode steps within TP_LOGIT_TOL of the largest against the one-rank
      engine's and the "xla" mode's, greedy tokens printed; the rank-stacked
      weights are then freed;
- 35. one JSON line of per-kernel numbers, then the device JSON line.
-Steps 14-16 and 31-32 run with the other kernel checks, before step 4,
-step 33 after step 16 and step 34 right after step 5; steps 29, 19-20,
-22-23 and 25-26 run after step 10, steps 30 and 21 after step 13 and step
-27 after step 21; steps 17, 18, 24 and 28 run last. Without a GPU it exits
-non-zero before printing anything.
+ 35. the ragged all-to-all of expert parallelism (csrc/ep_a2a.cu) against
+     its plain version, bit for bit on the valid rows, at the ep-engine
+     cell's dispatch (n = 4, 500 rows a rank routed top-8 over 128
+     experts, C 4096, 2048-wide bf16 rows) twice, then its packed int8
+     and fp8 wire rows, then at n = 2 with a zero-count and a full pair;
+     the kernel, its plain version and the library transpose of the
+     padded buffer timed against the bound of the real rows;
+ 36. a planted lost signal (one notification taken out of a receiver's
+     pad): the check raises within the wait budget naming the rank and
+     the source, and the next call runs clean;
+ 37. a small Qwen3MoE at n = 2 and 4 in mode "fused", EP over both
+     transports and TP experts, GPU vs CPU in bf16 (as step 33), the
+     ragged runs launching the a2a twice a prefill layer;
+ 38. the slice-6c main path, the ep-engine cell: step 17's weights with
+     the experts as views and the attention re-laid for n = 4 ranks,
+     Engine(max_len=1024), step 17's prompts, mode "fused" with ep_method
+     "ragged", "xla" and "ragged" at ep_pipeline=2: step 5's checks with
+     exact launch counts, tokens equal across the three, peak device
+     memory, teacher-forced logits with the one-rank engine's routing
+     forced within TP_LOGIT_TOL of its logits and every routing the model
+     would choose equal to it but at near-ties, one EP layer's prefill
+     forward under set_sync_debug_mode("error"), then the same forward
+     with NaN planted in every a2a landing row (the rows past the counts
+     must change no output bit); then TP experts at n = 4 on the first 8
+     layers, checked the same way;
+ 39. one JSON line of per-kernel numbers, then the device JSON line.
+Steps 14-16, 31-32 and 35-36 run with the other kernel checks, before
+step 4, steps 33 and 37 after step 16 and step 34 right after step 5;
+steps 29, 19-20, 22-23 and 25-26 run after step 10, steps 30 and 21 after
+step 13 and step 27 after step 21; steps 17, 18, 24, 28 and 38 run last.
+Without a GPU it exits non-zero before printing anything.
 """
 
 from __future__ import annotations
@@ -233,6 +258,7 @@ TP_LOGIT_TOL = 5e-2                # tp-engine vs one-rank engine, of the
                                    # largest logit: bf16 partials of n ranks
                                    # rounded and summed over 36 layers
 TP_RANKS = 4                       # the tp-engine cell
+EP_RANKS = 4                       # the ep-engine cell
 
 
 class OpCount(TorchDispatchMode):
@@ -2832,7 +2858,7 @@ def check_moe_engine(models, kernels, seed, smi, profile):
     assert torch.isfinite(y.float()).all()
     print("moe: one MoE layer decode forward ran under "
           "set_sync_debug_mode('error'): no host synchronisation")
-    return model, params, launches
+    return model, params, launches, ids, toks
 
 
 def check_moe_serve(models, attn, gg, model, params, cfg, seed, smi):
@@ -3246,6 +3272,441 @@ def check_tp_engine(models, attn, model, params, cfg, ids, engine_toks, smi,
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Slice 6c: expert-parallel Qwen3-MoE at n ranks (csrc/ep_a2a.cu)
+# ---------------------------------------------------------------------------
+
+def _ep_send(n, m, gen, dev, H=2048, E=128, k=8, chunk=128):
+    """The ep-engine cell's dispatch at n ranks of m rows: random bf16
+    tokens routed top-k over E experts by a seeded router, packed into the
+    (n, n, C, H) send buffers. Returns (send, counts (n, n) int32)."""
+    from triton_distributed_tpu_torch.ops import ep_a2a as tep
+    from triton_distributed_tpu_torch.ops import moe_utils as mu
+    x = torch.randn((n, m, H), generator=gen, device=dev).bfloat16()
+    router = torch.randn((H, E), generator=gen, device=dev) * H ** -0.5
+    _, experts = mu.route_topk(x.reshape(-1, H).float() @ router, k)
+    c = tep.default_capacity(m, k, chunk)
+    plan = tep.ep_dispatch_plan(experts.reshape(n, m, k), E, n, c)
+    x_pad = torch.cat([x, x.new_zeros((n, 1, H))], dim=1)
+    send = tep._per_rank_rows(x_pad, plan.send_gather).reshape(n, n, c, H)
+    return send, plan.counts
+
+
+def _a2a_check(tep, send, counts, chunk, name):
+    """One kernel call against the plain version, bit for bit on the
+    valid rows. Returns (the kernel's output, max abs difference)."""
+    got = tep._ragged_a2a(send, counts, num_ranks=send.shape[0], chunk=chunk)
+    want = tep._ragged_a2a_plain(send, counts)
+    torch.cuda.synchronize()
+    live = (torch.arange(send.shape[2], device=counts.device)
+            < counts.t()[..., None])             # slab (d, s): counts[s, d]
+    same = torch.equal(got[live], want[live])
+    err = ((got[live].float() - want[live].float()).abs().max().item()
+           if send.dtype != torch.uint8 else float(not same))
+    print(f"ep_a2a {name}: {int(counts.sum())} rows of {tuple(send.shape)} "
+          f"{str(send.dtype)[6:]}, kernel vs plain bit for bit on the valid "
+          f"rows: {same}")
+    assert same, name
+    return got, err
+
+
+def check_ep_a2a_kernel(dev, gen):
+    """The ragged all-to-all kernel (csrc/ep_a2a.cu) against its plain
+    version, bit for bit on the valid rows, at the ep-engine cell's
+    dispatch (n = 4, 500 rows a rank, C 4096, H 2048, the counts of a
+    seeded top-8 routing over 128 experts): bf16 twice (new data), then
+    the packed int8 and fp8 wire rows (H + 128 bytes); at n = 2 with a
+    pair of count 0 and a pair at full capacity. Timed on the bf16 call:
+    the kernel, its plain version and one torch call moving the padded
+    buffer (`transpose(0, 1).contiguous()`), against the bound of the
+    real rows read once and written once. Returns the kernels-line
+    entry."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import ep_a2a as tep
+    from triton_distributed_tpu_torch.ops import wire
+    t0 = time.perf_counter()
+    n, chunk = EP_RANKS, 128
+    before = tep.EP_A2A.launches
+    err = 0.0
+    for i in range(2):
+        send, counts = _ep_send(n, 500, gen, dev)
+        _, e = _a2a_check(tep, send, counts, chunk, f"bf16 n {n} call {i}")
+        err = max(err, e)
+    for wd in ("int8", "float8_e4m3fn"):
+        q, s = wire.wire_quant(send, wd)
+        _a2a_check(tep, tep._pack_scale(q, s), counts, chunk,
+                   f"{wd} packed wire rows n {n}")
+    c = send.shape[2]
+    edge = torch.tensor([[0, c], [1234, 77]], dtype=torch.int32, device=dev)
+    x2 = torch.randn((2, 2, c, 2048), generator=gen, device=dev).bfloat16()
+    _a2a_check(tep, x2, edge, chunk, "bf16 n 2, counts [[0, C], [1234, 77]]")
+    shmem.check_faults()
+    assert tep.EP_A2A.launches == before + 5
+    del x2
+    rows = int(counts.sum())
+    nb = 2 * rows * send.shape[-1] * send.element_size()
+    bms, by = bound(nb, 0)
+    ms = time_ms([lambda: tep._ragged_a2a(send, counts, num_ranks=n,
+                                          chunk=chunk)])
+    plain_ms = time_ms([lambda: tep._ragged_a2a_plain(send, counts)],
+                       reps=3, rounds=3)
+    lib_ms = time_ms([lambda: send.transpose(0, 1).contiguous()])
+    shmem.check_faults()
+    print(f"ep_a2a bf16 n {n} (C {c}, {rows} real rows of {n * n * c}): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"(transpose of the padded buffer) {lib_ms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}: {nb / 2**20:.1f} MiB; "
+          f"{nb / ms / 1e9:.2f} TB/s); phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"name": "ep_a2a", "route": "cuda",
+            "source": "triton_distributed_tpu_torch/csrc/ep_a2a.cu",
+            "replaces": "triton_distributed_tpu/ops/ep_a2a.py:137",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
+def check_ep_fault(dev, gen):
+    """A planted lost signal: one notification of the pair 1 -> 2 taken
+    out of rank 2's pad. The wait must time out within the budget (plus
+    launch and copy time), the check must raise naming rank 2 and source
+    rank 1, and the next call must run clean."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import ep_a2a as tep
+    n = EP_RANKS
+    send, counts = _ep_send(n, 64, gen, dev, chunk=64)
+    tep._ragged_a2a(send, counts, num_ranks=n, chunk=64, collective_id=90)
+    torch.cuda.synchronize()
+    ws = next(w for w in shmem.primitives._WORKSPACES.values()
+              if w.op == "ep_a2a[90]")
+    ws.pads[2, 1 + 1] -= 1
+    t0 = time.perf_counter()
+    tep._ragged_a2a(send, counts, num_ranks=n, chunk=64, collective_id=90)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    assert int(ws.fault[0]) == shmem.FAULT_TIMEOUT
+    assert took < shmem.WAIT_BUDGET_S + 2.0, took
+    try:
+        shmem.check_faults()
+        raise AssertionError("ep_a2a: the planted fault did not raise")
+    except RuntimeError as e:
+        msg = str(e)
+    assert msg.startswith("ep_a2a[90]: rank 2 timed out") \
+        and "source rank 1" in msg, msg
+    _a2a_check(tep, send, counts, 64, "the call after the fault")
+    shmem.check_faults()
+    print(f"ep_a2a planted lost signal: raised after {took:.3f} s (budget "
+          f"{shmem.WAIT_BUDGET_S} s): {msg}; the next call ran clean")
+
+
+def check_small_ep_model(models, seed):
+    """A small Qwen3MoE (hidden 256, 8 q over 4 kv heads, head_dim 128, 8
+    experts top-2, block_m 16) at n = 2 and 4 ranks in mode "fused", EP
+    over the ragged and the xla transports and TP experts, on the GPU
+    through the kernels against the same weights on the CPU through the
+    plain versions, bf16: prefill logits and one decode step's logits
+    within 5e-2 of the largest, greedy tokens equal wherever the margin
+    allows; the ragged runs launch the a2a twice a prefill layer."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import ep_a2a as tep
+    from triton_distributed_tpu_torch.ops.grouped_gemm import (
+        GroupedGemmConfig)
+    from triton_distributed_tpu_torch.ops.moe_parallel import (
+        MoEParallelConfig)
+    cfg = models.get_config("Qwen/Qwen3-30B-A3B").tiny(
+        hidden_size=256, num_heads=8, num_kv_heads=4, head_dim=128,
+        vocab_size=512, num_layers=2, num_experts=8, num_experts_per_tok=2,
+        moe_intermediate_size=256)
+    mc = MoEParallelConfig(gemm=GroupedGemmConfig(block_m=16))
+    one = models.Qwen3MoE(cfg, dtype="bfloat16", device="cpu", moe_config=mc)
+    base = one.init_params(torch.Generator().manual_seed(seed))
+    ids = np.random.RandomState(seed).randint(0, cfg.vocab_size, (2, 37))
+    for n in (2, EP_RANKS):
+        for par, kw in (("ep", {"ep_method": "ragged"}),
+                        ("ep", {"ep_method": "xla"}), ("tp", {})):
+            cpu, gpu = (models.Qwen3MoE(
+                cfg, mode="fused", dtype="bfloat16", device=d, num_ranks=n,
+                moe_parallel=par, moe_config=mc, **kw) for d in ("cpu",
+                                                                "cuda"))
+            params = cpu.shard_params(base)
+            before = tep.EP_A2A.launches
+            logits, tok = [], None
+            for m in (cpu, gpu):
+                p = params if m is cpu else _to_device_tree(params, "cuda")
+                last, cache = m._prefill_hidden(p, ids,
+                                                m.new_kv_cache(2, 64))
+                pre = _full_logits(last, p["lm_head"]).cpu()
+                tok = pre.argmax(-1) if tok is None else tok
+                x, _ = m._decode_hidden(p, tok.to(m.device), cache)
+                logits.append((pre, _full_logits(x, p["lm_head"]).cpu()))
+            torch.cuda.synchronize()
+            shmem.check_faults()
+            ran = tep.EP_A2A.launches - before
+            want = 2 * cfg.num_layers if kw.get("ep_method") == "ragged" \
+                else 0
+            assert ran == want, (n, par, kw, ran)
+            for which, ref, got in zip(("prefill", "decode"), logits[0],
+                                       logits[1]):
+                _agree(f"small Qwen3MoE n {n} {par} {kw} {which}", ref, got)
+    shmem.release_workspaces()
+
+
+def _forced_routes(model, params, ids, toks, steps, routes=None):
+    """_forced_logits with every routing of the model's MoE layers
+    recorded: (logits, [(router logits (rows, E) f32 on the CPU, weights,
+    experts)] in call order). Given `routes`, another model's record over
+    the same calls and rows (the MoE layers route seq-major (S, B) rows at
+    prefill and (B,) at decode at every rank count), each call returns that
+    record's choice in place of its own: teacher forcing of the routing
+    as well as of the tokens. Its own router logits are still recorded."""
+    from triton_distributed_tpu_torch.ops import moe_utils
+    real = moe_utils.route_topk
+    seen = []
+
+    def spy(logits, top_k, *, renormalize=True):
+        w, e = real(logits, top_k, renormalize=renormalize)
+        seen.append((logits.float().cpu(), w, e))
+        if routes is not None:
+            _, w, e = routes[len(seen) - 1]
+        return w, e
+
+    moe_utils.route_topk = spy
+    try:
+        out = _forced_logits(model, params, ids, toks, steps)
+    finally:
+        moe_utils.route_topk = real
+    assert routes is None or len(seen) == len(routes), (len(seen),
+                                                        len(routes))
+    return out, seen
+
+
+def _routing_flips(ref, got, k):
+    """Every recorded routing (router logits of the same rows): a row whose
+    top-k sets differ must be a near-tie: for each expert i that left the
+    set and each j that joined it, ref[i] - ref[j] (at least the gap
+    between the k-th and (k+1)-th reference logits) no more than |got -
+    ref| at i plus at j plus one bf16 step, the most two moved logits can
+    close. The rule of _mk_moe_tick_checks bounds that gap by the row's
+    largest difference plus one bf16 step, which is too tight when the
+    two logits move in opposite directions; the flips it also admits are
+    counted. Returns (flips, rows compared, flips within the single-
+    difference rule, the widest swapped pair)."""
+    from triton_distributed_tpu_torch.ops.moe_utils import route_topk
+    flips, n, single, worst = 0, 0, 0, 0.0
+    for call, ((rl, _, _), (gl, _, _)) in enumerate(zip(ref, got)):
+        _, re = route_topk(rl, k)
+        _, ge = route_topk(gl, k)
+        differ = (torch.sort(re, -1).values != torch.sort(ge, -1).values
+                  ).any(-1)
+        n += rl.shape[0]
+        for r in differ.nonzero().flatten().tolist():
+            d = (gl[r] - rl[r]).abs()
+            srt = rl[r].sort(descending=True).values
+            ulp = _bf16_ulp(srt[k - 1].abs().item())
+            single += int((srt[k - 1] - srt[k]).item()
+                          <= d.max().item() + ulp)
+            left = set(re[r].tolist()) - set(ge[r].tolist())
+            joined = set(ge[r].tolist()) - set(re[r].tolist())
+            for i in left:
+                for j in joined:
+                    gap = (rl[r, i] - rl[r, j]).item()
+                    assert gap <= (d[i] + d[j]).item() + ulp, (
+                        "a routing difference that is no near-tie", call, r,
+                        i, j, gap, d[i].item(), d[j].item())
+                    worst = max(worst, gap)
+            flips += 1
+    return flips, n, single, worst
+
+
+def _forced_checks(name, one, one_params, model, params, ids, toks, steps,
+                   k):
+    """Teacher forcing of `model` against the one-rank `one` on the same
+    prompts and tokens: first with the routing forced to the one-rank
+    model's too, where the logits of the prefill and every step must be
+    within TP_LOGIT_TOL of the largest and every routing the model would
+    have chosen must equal the one-rank model's or be a near-tie
+    (`_routing_flips`); then with its own routing (information: a
+    near-tie flip changes a token's expert, and the change carries
+    through the layers after it). Returns the forced maximum error."""
+    ref, ref_routes = _forced_routes(one, one_params, ids, toks, steps)
+    got, own = _forced_routes(model, params, ids, toks, steps, ref_routes)
+    errs = [_rel_err(g, r) for g, r in zip(got, ref)]
+    flips, rows, single, worst = _routing_flips(ref_routes, own, k)
+    free, free_routes = _forced_routes(model, params, ids, toks, steps)
+    free_errs = [_rel_err(g, r) for g, r in zip(free, ref)]
+    free_flips, _, _, _ = _routing_flips(ref_routes, free_routes, k)
+    print(f"{name}: teacher-forced logits (prefill + {steps} steps, the "
+          f"one-rank model's routing forced) vs the one-rank engine max "
+          f"{max(errs):.3e} of the largest (per step "
+          f"{', '.join(f'{e:.2e}' for e in errs)}); of {rows} (layer, row) "
+          f"routings the model's own top-{k} differs in {flips}, each a "
+          f"near-tie ({single} within the single-difference rule; widest "
+          f"swapped pair {worst:.3e} apart). With its own routing "
+          f"(information): max {max(free_errs):.3e} (per step "
+          f"{', '.join(f'{e:.2e}' for e in free_errs)}), {free_flips} "
+          f"routings differ")
+    assert max(errs) <= TP_LOGIT_TOL, (name, errs)
+    top2 = ref[0].topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * max(errs) * ref[0].abs().max()
+    assert torch.equal(got[0].argmax(-1)[sure], ref[0].argmax(-1)[sure])
+    return max(errs)
+
+
+def check_ep_engine(models, kernels, moe, moe_params, cfg, ids, one_toks, smi,
+                    profile):
+    """The ep-engine cell: Qwen3-30B-A3B at full width and depth, n = 4,
+    experts as views of the one-rank model's (the attention and lm_head
+    re-laid into rank shards), Engine(max_len=1024), the moe cell's
+    prompts, mode "fused": ep_method "ragged", then "xla", then "ragged"
+    with ep_pipeline=2. Each run: exact launch counts, prefill ms, decode
+    tokens/s, aten ops a decode step, peak device memory. Ragged tokens
+    equal the xla transport's, pipeline 2's equal pipeline 1's;
+    teacher-forced logits (prefill + 8 steps fed the one-rank engine's
+    tokens and routing) within TP_LOGIT_TOL of the largest of the one-rank
+    engine's, every routing the model would choose equal to the one-rank
+    engine's but at near-ties (counted; `_forced_checks`); one EP layer's
+    prefill forward under set_sync_debug_mode("error"), and again,
+    bit for bit, with NaN in every a2a landing row. Then TP experts at
+    n = 4 on the first 8 layers (their rank shards of all 48 layers, ~54
+    GiB, do not fit beside the one-rank model), checked the same way
+    against a one-rank model over views of those 8 layers. Returns each
+    kernel's launches over the cell's serve runs."""
+    import dataclasses
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import ep_a2a as tep
+    n, L, GEN, FORCED = EP_RANKS, cfg.num_layers, one_toks.shape[1], 8
+    B, S = ids.shape
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    ep = models.Qwen3MoE(cfg, mode="fused", dtype="bfloat16", device="cuda",
+                         num_ranks=n, moe_parallel="ep")
+    eparams = ep.shard_params(moe_params)
+    torch.cuda.synchronize()
+    for k in ("w_moe_gate_up", "w_moe_down"):
+        assert eparams["layers"][k].data_ptr() == \
+            moe_params["layers"][k].data_ptr(), k
+    print(f"ep-engine: Qwen3-30B-A3B re-laid for {n} ranks in "
+          f"{time.perf_counter() - t0:.1f} s, experts as views of the "
+          f"one-rank model's; {(torch.cuda.memory_allocated() - base) / 2**30:.2f}"
+          f" GiB more, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated")
+    totals = {k: 0 for k in kernels}
+    toks, models_run = {}, {}
+    for method, pipe in (("ragged", 1), ("xla", 1), ("ragged", 2)):
+        name = f"ep-engine {method} ep_pipeline={pipe}"
+        m = models.Qwen3MoE(cfg, mode="fused", dtype="bfloat16",
+                            device="cuda", num_ranks=n, moe_parallel="ep",
+                            ep_method=method, ep_pipeline=pipe)
+        torch.cuda.reset_peak_memory_stats()
+        _, toks[(method, pipe)], launches = run_engine(
+            models, kernels, m, eparams, cfg, ids, GEN, smi,
+            profile and pipe == 1 and method == "ragged", name)
+        shmem.check_faults()
+        a2a = 2 * L * pipe if method == "ragged" else 0
+        want = {"flash_attention": L, "flash_decode": L * (GEN - 1),
+                "gmm": 2 * L * (pipe + GEN - 1), "ep_a2a": a2a, "ag_gemm": L,
+                "gemm_rs": L, "gemm_ar": 0}
+        assert launches == want, (name, launches, want)
+        print(f"{name}: launches a run {launches} (a2a {a2a // 2} dispatch + "
+              f"{a2a // 2} combine a prefill); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; greedy "
+              f"tokens (prompt 0) {toks[(method, pipe)][0].tolist()}")
+        for k in totals:
+            totals[k] += launches[k]
+        models_run[(method, pipe)] = m
+    assert np.array_equal(toks[("ragged", 1)], toks[("xla", 1)])
+    assert np.array_equal(toks[("ragged", 2)], toks[("ragged", 1)])
+    print("ep-engine: ragged tokens equal the xla transport's, "
+          "ep_pipeline=2's equal ep_pipeline=1's")
+    print(f"one-rank engine greedy tokens (prompt 0): {one_toks[0].tolist()}")
+
+    _forced_checks("ep-engine ragged", moe, moe_params,
+                   models_run[("ragged", 1)], eparams, ids, one_toks, FORCED,
+                   cfg.num_experts_per_tok)
+    same = float((toks[("ragged", 1)] == one_toks).mean())
+    print(f"ep-engine ragged: greedy tokens equal to the one-rank engine's "
+          f"{same:.3f} (free-running, information)")
+
+    # one EP layer's prefill forward never waits on the host
+    m = models_run[("ragged", 1)]
+    p = {k: t[0] for k, t in eparams["layers"].items()}
+    rows = torch.randn((n, S * B // n, cfg.hidden_size),
+                       device="cuda").bfloat16()
+    m.moe._shard_fwd(rows, p["router"], p["w_moe_gate_up"],
+                     p["w_moe_down"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = m.moe._shard_fwd(rows, p["router"], p["w_moe_gate_up"],
+                             p["w_moe_down"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    assert torch.isfinite(y.float()).all()
+    print(f"ep-engine: one EP layer's prefill forward ({n} x {rows.shape[1]} "
+          f"rows) ran under set_sync_debug_mode('error'): no host "
+          f"synchronisation")
+    # landing rows past the counts hold an earlier call's data: NaN planted
+    # in every landing row changes no output bit
+    lands = [ws.land for ws in shmem.primitives._WORKSPACES.values()
+             if ws.op.startswith("ep_a2a[")]
+    assert lands
+    for land in lands:
+        land.fill_(0xFF)                # NaN in bf16, f32 and fp8
+    y2 = m.moe._shard_fwd(rows, p["router"], p["w_moe_gate_up"],
+                          p["w_moe_down"])
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    stale = [f"{int((land == 0xFF).all(-1).sum())} of "
+             f"{land[..., 0].numel()} (C {land.shape[2]})" for land in lands]
+    assert torch.equal(y2, y)
+    print(f"ep-engine: NaN planted in every landing row of the {len(lands)} "
+          f"a2a workspaces, the same forward again: output bit for bit "
+          f"unchanged; slots left stale by the call: {', '.join(stale)}")
+    del ep, eparams, models_run, m, p, rows, y, y2, lands
+    shmem.release_workspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # TP experts at n = 4, the first 8 layers (the cell's only cut)
+    L8 = 8
+    cfg8 = dataclasses.replace(cfg, num_layers=L8)
+    p8 = {**moe_params,
+          "layers": {k: t[:L8] for k, t in moe_params["layers"].items()}}
+    one8 = models.Qwen3MoE(cfg8, dtype="bfloat16", device="cuda")
+    tp8 = models.Qwen3MoE(cfg8, mode="fused", dtype="bfloat16",
+                          device="cuda", num_ranks=n)
+    t0 = time.perf_counter()
+    tparams = tp8.shard_params(p8)
+    torch.cuda.synchronize()
+    print(f"ep-engine TP experts: the first {L8} layers re-laid into {n} "
+          f"rank shards in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    one8_toks = models.Engine(one8, p8, max_len=1024).serve(ids, GEN)
+    torch.cuda.reset_peak_memory_stats()
+    _, tp_toks, launches = run_engine(models, kernels, tp8, tparams, cfg8,
+                                      ids, GEN, smi, False,
+                                      f"ep-engine TP experts ({L8} layers)")
+    shmem.check_faults()
+    want = {"flash_attention": L8, "flash_decode": L8 * (GEN - 1),
+            "gmm": 2 * n * L8 * GEN, "ep_a2a": 0, "ag_gemm": L8,
+            "gemm_rs": L8, "gemm_ar": 0}
+    assert launches == want, (launches, want)
+    for k in totals:
+        totals[k] += launches[k]
+    print(f"ep-engine TP experts ({L8} layers): launches {launches}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; greedy tokens equal to the one-rank {L8}-layer engine's "
+          f"{float((tp_toks == one8_toks).mean()):.3f} (information)")
+    _forced_checks(f"ep-engine TP experts ({L8} layers)", one8, p8, tp8,
+                   tparams, ids, one8_toks, FORCED, cfg.num_experts_per_tok)
+    del tp8, tparams, one8, p8
+    shmem.release_workspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3256,8 +3717,10 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         sys.exit(1)
 
-    from triton_distributed_tpu_torch import models
+    from triton_distributed_tpu_torch import models, shmem
     from triton_distributed_tpu_torch.ops import _build
+    from triton_distributed_tpu_torch.ops import ag_gemm, ep_a2a, gemm_ar
+    from triton_distributed_tpu_torch.ops import gemm_rs
     from triton_distributed_tpu_torch.ops import attention as attn
     from triton_distributed_tpu_torch.ops import grouped_gemm as gg
 
@@ -3286,10 +3749,15 @@ def main():
     tp_entries = check_tp_kernels(dev, gen)
     check_tp_fault(dev, gen)
     torch.cuda.empty_cache()
+    ep_entry = check_ep_a2a_kernel(dev, gen)
+    check_ep_fault(dev, gen)
+    shmem.release_workspaces()
+    torch.cuda.empty_cache()
     check_small_model(models, args.seed)
     check_small_model_paged(models, args.seed)
     check_small_moe(models, gg, args.seed)
     check_small_tp_model(models, args.seed)
+    check_small_ep_model(models, args.seed)
 
     cfg = models.get_config("Qwen/Qwen3-8B")
     model = models.DenseLLM(cfg, dtype="bfloat16", device=dev)
@@ -3350,7 +3818,7 @@ def main():
     held = torch.cuda.memory_allocated()
     print(f"released Qwen3-8B: {held / 2**20:.1f} MiB still allocated")
     assert held < 2**30, held
-    moe, moe_params, moe_launches = check_moe_engine(
+    moe, moe_params, moe_launches, moe_ids, moe_toks = check_moe_engine(
         models, engine_kernels, args.seed, smi, args.profile)
     moe_serve, moe_engine_out = check_moe_serve(models, attn, gg, moe,
                                                 moe_params, moe.config,
@@ -3364,14 +3832,21 @@ def main():
     spec_moe, moe_verify_launches = check_spec_serve_moe(
         models, attn, gg, moe, moe_params, moe.config, args.seed, smi,
         mk_moe_out)
+    ep_kernels = {**engine_kernels, "ep_a2a": ep_a2a.EP_A2A,
+                  "ag_gemm": ag_gemm.AG_GEMM, "gemm_rs": gemm_rs.GEMM_RS,
+                  "gemm_ar": gemm_ar.GEMM_AR}
+    ep_launches = check_ep_engine(models, ep_kernels, moe, moe_params,
+                                  moe.config, moe_ids, moe_toks, smi,
+                                  args.profile)
 
     counts = (launches, tp_launches, serve_launches, mk_serve, moe_launches,
-              moe_serve, mk_moe, spec_serve, spec_moe)
+              moe_serve, mk_moe, spec_serve, spec_moe, ep_launches)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in counts)
         assert k["launches"] > 0, k["name"]
     gmm_entry["launches"] = (moe_launches["gmm"] + moe_serve["gmm"]
-                             + mk_moe["gmm"] + spec_moe["gmm"])
+                             + mk_moe["gmm"] + spec_moe["gmm"]
+                             + ep_launches["gmm"])
     mk["launches"] += mk_moe["megakernel"] + verify_launches \
         + moe_verify_launches
     mk_verify = {
@@ -3399,9 +3874,11 @@ def main():
           f"{moe_graph_step['bound_ms']:.4f} ms, plain walk "
           f"{moe_graph_step['plain_ms']:.1f} ms")
     for e in tp_entries:
-        e["launches"] = tp_launches[e["name"]]
+        e["launches"] = tp_launches[e["name"]] + ep_launches[e["name"]]
         assert e["launches"] > 0, e["name"]
-    kernels += [mk, mk_verify, mk_fused, gmm_entry] + tp_entries
+    ep_entry["launches"] = ep_launches["ep_a2a"]
+    assert ep_entry["launches"] > 0
+    kernels += [mk, mk_verify, mk_fused, gmm_entry] + tp_entries + [ep_entry]
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

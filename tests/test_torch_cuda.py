@@ -1254,3 +1254,144 @@ def test_tp_engine_step_raises_on_a_planted_fault(cuda):
     tok, cache = eng.start(ids)
     got, _ = eng.step(tok, cache)
     assert got.shape == (2,) and int(got.max()) < 512
+
+
+# -- the ragged all-to-all of expert parallelism (csrc/ep_a2a.cu) -----------
+
+def _a2a_case(n, C, W, dtype, dev, seed, counts=None):
+    """Rank-stacked send buffers (n, n, C, W) and counts (n, n) int32
+    (random in [0, C] unless given)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == torch.uint8:           # packed wire rows: any bytes
+        x = torch.randint(0, 256, (n, n, C, W), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    else:
+        x = torch.randn((n, n, C, W), generator=gen, device=dev).to(dtype)
+    if counts is None:
+        counts = torch.randint(0, C + 1, (n, n), generator=gen, device=dev,
+                               dtype=torch.int32)
+    return x, counts.to(device=dev, dtype=torch.int32)
+
+
+def _a2a_valid_equal(got, want, counts):
+    c = counts.cpu()
+    n = got.shape[0]
+    for d in range(n):
+        for s in range(n):
+            k = int(c[s, d])
+            assert torch.equal(got[d, s, :k], want[d, s, :k]), (s, d)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype,W", [(torch.bfloat16, 256),
+                                     (torch.float32, 24),
+                                     (torch.uint8, 16 + 128)])
+def test_ep_a2a_kernel_matches_plain(cuda, n, dtype, W):
+    """The kernel against its plain version, bit for bit on the valid rows,
+    two calls back to back with new data and counts (the second must not
+    pass on the first's signals), then a zero-count and a full-capacity
+    pair; one launch a call."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import ep_a2a as tep
+    C, chunk = 64, 16
+    edge = torch.randint(1, C, (n, n), dtype=torch.int32)
+    edge[0, n - 1], edge[n - 1, 0], edge[1, 1] = 0, C, C
+    for seed, counts in ((0, None), (1, None), (2, edge)):
+        x, cnt = _a2a_case(n, C, W, dtype, cuda, seed, counts)
+        before = tep.EP_A2A.launches
+        got = tep._ragged_a2a(x, cnt, num_ranks=n, chunk=chunk).clone()
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert tep.EP_A2A.launches == before + 1
+        _a2a_valid_equal(got, tep._ragged_a2a_plain(x, cnt), cnt)
+
+
+def test_ep_a2a_planted_lost_signal_raises_and_the_next_call_is_clean(cuda):
+    """One notification of the pair 1 -> 2 taken out of rank 2's pad: the
+    wait times out within the budget (50 ms), the check raises naming rank
+    2 and the source, and the next call runs clean."""
+    import time
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import ep_a2a as tep
+    n, C, W = 4, 32, 64
+    x, cnt = _a2a_case(n, C, W, torch.bfloat16, cuda, 0)
+    tep._ragged_a2a(x, cnt, num_ranks=n, chunk=8, collective_id=99)
+    torch.cuda.synchronize()
+    (ws,) = [w for w in shmem.primitives._WORKSPACES.values()
+             if w.op == "ep_a2a[99]"]
+    ws.pads[2, 1 + 1] -= 1
+    t0 = time.perf_counter()
+    tep._ragged_a2a(x, cnt, num_ranks=n, chunk=8, collective_id=99,
+                    wait_budget=0.05)
+    torch.cuda.synchronize()
+    assert time.perf_counter() - t0 < 5.0
+    with pytest.raises(RuntimeError, match=r"rank 2 timed out .*source rank "
+                                           r"1"):
+        shmem.check_faults()
+    assert ws.epoch == 0 and int(ws.pads.abs().sum()) == 0
+    got = tep._ragged_a2a(x, cnt, num_ranks=n, chunk=8, collective_id=99)
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    _a2a_valid_equal(got, tep._ragged_a2a_plain(x, cnt), cnt)
+
+
+def test_ep_a2a_refuses_a_grid_that_cannot_be_resident(cuda):
+    """One CTA more than can be resident is refused; one CTA alone walks
+    every item in the global order and finishes."""
+    import ctypes
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _build
+    from triton_distributed_tpu_torch.ops import ep_a2a as tep
+    n, C, W = 4, 64, 128
+    x, cnt = _a2a_case(n, C, W, torch.bfloat16, cuda, 3)
+    resident = _build.load_library("ep_a2a").tdt_ep_a2a_resident
+    resident.restype = ctypes.c_int
+    most = resident()
+    assert most >= torch.cuda.get_device_properties(0).multi_processor_count
+    xb = x.view(torch.uint8)
+    ws = shmem.a2a_workspace("ep_a2a[98]", cuda, n, C, xb.shape[-1])
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        shmem.launch_a2a(tep.EP_A2A, ws, xb, cnt, 16, grid=most + 1)
+    assert ws.epoch == 0
+    shmem.launch_a2a(tep.EP_A2A, ws, xb, cnt, 16, grid=1)
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    _a2a_valid_equal(ws.land.view(torch.bfloat16).reshape(x.shape),
+                     tep._ragged_a2a_plain(x, cnt), cnt)
+
+
+@pytest.mark.parametrize("wire", [None, "int8", "float8_e4m3fn"])
+def test_ep_layer_on_the_gpu_matches_the_cpu(cuda, wire):
+    """A small EPMoE at 4 ranks in bf16 on the GPU (the a2a and gmm
+    kernels) against the same weights on the CPU (plain versions), within
+    2e-2 of the largest value, and with a quantized wire one quantization
+    step more for each of its two quantizations (ops/wire.QUANT_EPS: a
+    bf16 step of difference before the quantizer can move its output by a
+    whole step); NaN planted in every landing region then changes no
+    output bit."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.layers.ep_moe import EPMoE
+    from triton_distributed_tpu_torch.ops import ep_a2a as tep
+    from triton_distributed_tpu_torch.ops.wire import QUANT_EPS
+    layer = EPMoE(16, 64, 32, 2, num_ranks=4, block_m=16, chunk=16,
+                  wire_dtype=wire)
+    params = layer.init_params(torch.Generator().manual_seed(0),
+                               dtype=torch.bfloat16)
+    x = torch.randn(4 * 24, 64, generator=torch.Generator().manual_seed(1))
+    x = x.bfloat16()
+    want = layer(params, x)
+    gp = {k: t.to(cuda) for k, t in params.items()}
+    a2a, g = tep.EP_A2A.launches, gg.GMM.launches
+    got = layer(gp, x.to(cuda))
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    assert tep.EP_A2A.launches == a2a + 2 and gg.GMM.launches == g + 2
+    err = (got.float().cpu() - want.float()).abs().max()
+    tol = 2e-2 + (2 * QUANT_EPS[wire] if wire else 0.0)
+    assert err <= tol * want.float().abs().max()
+    for ws in shmem.primitives._WORKSPACES.values():
+        if ws.op.startswith("ep_a2a["):
+            ws.land.fill_(0xFF)             # NaN in bf16, f32 and fp8
+    again = layer(gp, x.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)

@@ -124,13 +124,18 @@ def test_tp_attn_prefill_and_decode_match_jax(mesh1, qk_norm, dtype):
 
 
 def test_layers_refuse_more_than_one_rank():
-    """What stays one-rank refuses n = 2 (the MoE layer, the quantized
-    wire); the dense layers build at n = 2 and give the one-rank layer's
-    output on the same weights, in every mode (layer-level prefill and
-    decode; the model-level checks are tests/test_torch_tp_models.py)."""
+    """What stays one-rank refuses n = 2 (the perf model's multi-rank
+    arms, the quantized wire); the MoE layer builds at n = 2; the dense
+    layers build at n = 2 and give the one-rank layer's output on the same
+    weights, in every mode (layer-level prefill and decode; the
+    model-level checks are tests/test_torch_tp_models.py and
+    test_torch_ep_models.py)."""
+    from triton_distributed_tpu_torch import perf_model
     from triton_distributed_tpu_torch.layers.tp_moe import TPMoE
+    assert TPMoE(8, 8, 4, 2, num_ranks=2).n == 2
     with pytest.raises(NotImplementedError, match="Queue A"):
-        TPMoE(8, 8, 4, 2, num_ranks=2)
+        perf_model.ep_tick_plan(1, hidden=8, moe_intermediate=8, top_k=2,
+                                num_ranks=2)
     with pytest.raises(NotImplementedError, match="quant"):
         tcommon.row_parallel_out(torch.zeros(2, 4, 8), torch.zeros(2, 8, 4),
                                  mode="fused", num_ranks=2, wire_dtype="int8")

@@ -272,9 +272,11 @@ def test_autollm_and_one_rank_scope():
     two = _port_model("Qwen/Qwen3-8B").__class__(
         models.get_config("Qwen3-8B"), device="cpu", num_ranks=2)
     assert two.n == 2 and two.attn.h_loc == 16 and two.attn.hkv_loc == 4
+    moe2 = models.Qwen3MoE(models.get_config("Qwen/Qwen3-30B-A3B"),
+                           device="cpu", num_ranks=2)
+    assert moe2.n == 2 and moe2.moe.n == 2
     with pytest.raises(NotImplementedError, match="Queue A"):
-        models.Qwen3MoE(models.get_config("Qwen/Qwen3-30B-A3B"),
-                        device="cpu", num_ranks=2)
+        models.ServeEngine(moe2, None)
     with pytest.raises(ValueError):
         models.DenseLLM(models.get_config("Qwen3-8B"), mode="nccl",
                         device="cpu")

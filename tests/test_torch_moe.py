@@ -215,13 +215,16 @@ def test_moe_parallel_config_and_one_rank_scope():
         assert (got.block_m, got.gemm.block_m, got.method) == \
             (want.block_m, want.gemm.block_m, want.method)
         assert dataclasses.asdict(got.gemm) == dataclasses.asdict(want.gemm)
+    # at n ranks the ops take rank-stacked operands: a one-rank operand
+    # with num_ranks=2 is refused, and the layer splits its intermediate
     x = torch.zeros((4, 8))
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(ValueError, match="rank-stacked"):
         tmp.ag_group_gemm_shard(x, torch.zeros((4, 2), dtype=torch.int32),
                                 torch.zeros((3, 8, 8)), num_ranks=2,
                                 num_experts=3)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        TPMoE(8, 8, 4, 2, num_ranks=2)
+    assert TPMoE(8, 8, 4, 2, num_ranks=2).n == 2
+    with pytest.raises(ValueError, match="split"):
+        TPMoE(8, 9, 4, 2, num_ranks=2)
 
 
 LAYER = dict(hidden=32, moe_intermediate=16, num_experts=8, top_k=2)

@@ -88,8 +88,10 @@ def test_autollm_selects_qwen3moe_and_scope():
     m = models.AutoLLM.from_config(NAME, device="cpu")
     assert isinstance(m, models.Qwen3MoE) and m.moe_parallel == "tp"
     assert models.AutoLLM.model_class(_cfg(models)) is models.Qwen3MoE
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        models.Qwen3MoE(_cfg(models), device="cpu", moe_parallel="ep")
+    ep = models.Qwen3MoE(_cfg(models), device="cpu", moe_parallel="ep")
+    assert ep.moe_parallel == "ep" and ep.moe.n == 1
+    with pytest.raises(ValueError, match="moe_parallel"):
+        models.Qwen3MoE(_cfg(models), device="cpu", moe_parallel="dp")
     with pytest.raises(ValueError, match="MoE"):
         models.Qwen3MoE(models.get_config("Qwen/Qwen3-8B").tiny(),
                         device="cpu")

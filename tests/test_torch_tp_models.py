@@ -221,8 +221,11 @@ def test_what_stays_one_rank_raises_naming_its_slice():
     moe_cfg = models.get_config("Qwen/Qwen3-30B-A3B").tiny(
         hidden_size=64, num_heads=8, num_kv_heads=4, head_dim=16,
         vocab_size=128, moe_intermediate_size=32)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        models.Qwen3MoE(moe_cfg, dtype="float32", device="cpu", num_ranks=2)
+    for par in ("tp", "ep"):
+        with pytest.raises(NotImplementedError, match="slice 6b"):
+            models.ServeEngine(models.Qwen3MoE(
+                moe_cfg, dtype="float32", device="cpu", num_ranks=2,
+                moe_parallel=par), None)
     with pytest.raises(NotImplementedError, match="quant"):
         tcommon.row_parallel_out(torch.zeros(2, 4, 8), torch.zeros(2, 8, 4),
                                  mode="fused", num_ranks=2, wire_dtype="int8")

@@ -8,9 +8,11 @@ kernel under `csrc/`, built with `nvcc` at first use and loaded with
 ctypes (`ops/_build.py`). Dense Qwen3 / Llama and Qwen3-MoE generation
 through `models.Engine`, continuous batching through
 `models.ServeEngine`, and the megakernel decode path through
-`MegaDecoder` (megakernel/), at one rank; dense generation through
-`Engine` also tensor-parallel over n ranks in one process on one card
-(`DenseLLM(num_ranks=n)`, `parallel/`, `shmem/`).
+`MegaDecoder` (megakernel/), at one rank; generation through `Engine`
+also over n ranks in one process on one card: dense tensor-parallel
+(`DenseLLM(num_ranks=n)`) and Qwen3-MoE with tensor- or expert-parallel
+experts (`Qwen3MoE(num_ranks=n, moe_parallel="tp" | "ep")`), over
+`parallel/` and `shmem/`.
 """
 
 __version__ = "0.1.0"

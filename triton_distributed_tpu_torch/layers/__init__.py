@@ -1,6 +1,7 @@
-"""Counterparts of the JAX package's tensor-parallel layers (the dense
-ones at n ranks, the MoE layer at one)."""
+"""Counterparts of the JAX package's tensor- and expert-parallel layers,
+at one rank or n."""
 
+from .ep_moe import EPMoE  # noqa: F401
 from .norm import rms_norm  # noqa: F401
 from .tp_attn import TPAttn  # noqa: F401
 from .tp_mlp import TPMLP  # noqa: F401

@@ -26,15 +26,15 @@ def check_mode(mode: str) -> str:
     return mode
 
 
-def check_one_rank(num_ranks: int, what: str = "the MoE layers") -> int:
-    """Refuse n > 1 where the port has only the one-rank form: the MoE
-    layers (TP and EP experts) and the perf model's multi-rank arms are a
-    later part of slice 6."""
+def check_one_rank(num_ranks: int, what: str) -> int:
+    """Refuse n > 1 where the port has only the one-rank form: the perf
+    model's multi-rank arms (its EP estimators and step estimators at
+    tp_ranks > 1 need H100 figures that are not measured yet)."""
     if num_ranks != 1:
         raise NotImplementedError(
             f"num_ranks={num_ranks}: {what} run at one rank only in the "
-            f"PyTorch port; their multi-rank form is ROADMAP.md Queue A, "
-            f"slice 6")
+            f"PyTorch port; the multi-rank arms of perf_model.py wait for "
+            f"their H100 figures (ROADMAP.md Queue A, slice 6)")
     return num_ranks
 
 

@@ -12,7 +12,8 @@ n-rank fused layout (its `init_params` / `load_state_dict` lay the [q|k|v]
 and [gate|up] column groups out for n). `params_from_jax(tree,
 num_ranks=n)` splits them into the port's rank-stacked shards by
 `dense.PARAM_SPECS`: w_qkv / w_gate_up / lm_head by columns, w_o / w_down
-by rows, the rest replicated.
+by rows, the rest replicated; a Qwen3MoE's experts by
+`qwen_moe.moe_param_specs` of its layout.
 """
 
 from __future__ import annotations
@@ -34,14 +35,19 @@ def _leaf(a, device):
     return t.to(device=device, dtype=_TORCH_FLOATS[a.dtype.name])
 
 
-def params_from_jax(tree, *, device=None, num_ranks: int = 1):
+def params_from_jax(tree, *, device=None, num_ranks: int = 1,
+                    moe_parallel: str = "tp"):
     """JAX params pytree of numpy arrays -> the port's params dict
     ({"embed", "layers": {ln1, ln2, w_qkv, w_o, w_gate_up, w_down,
     q_norm, k_norm}, "norm", "lm_head"}; a Qwen3MoE tree has router
     (f32), w_moe_gate_up and w_moe_down in place of the MLP) on
-    `device`, each leaf at its own dtype; rank-stacked for a dense model of
-    `num_ranks` ranks."""
+    `device`, each leaf at its own dtype; rank-stacked for a model of
+    `num_ranks` ranks. A Qwen3MoE tree's experts are split as its
+    `moe_parallel` says (the JAX arrays of the two layouts have the same
+    shapes): "ep" on the expert dimension, as views of the converted
+    global tensors."""
     from .dense import PARAM_SPECS, place_params
+    from .qwen_moe import moe_param_specs
 
     device = runtime.resolve_device(device)
 
@@ -51,11 +57,6 @@ def params_from_jax(tree, *, device=None, num_ranks: int = 1):
         return _leaf(node, device)
 
     params = conv(tree)
-    if num_ranks > 1:
-        extra = set(params["layers"]) - set(PARAM_SPECS["layers"])
-        if extra:
-            raise NotImplementedError(
-                f"params_from_jax(num_ranks={num_ranks}): the layer "
-                f"parameters {sorted(extra)} belong to the multi-rank MoE, "
-                f"a later part of slice 6 (ROADMAP.md, Queue A)")
-    return place_params(params, num_ranks)
+    moe = "w_moe_gate_up" in params["layers"]
+    return place_params(params, num_ranks,
+                        moe_param_specs(moe_parallel) if moe else PARAM_SPECS)

@@ -115,18 +115,20 @@ PARAM_SPECS = {"embed": None, "norm": None, "lm_head": 1,
                           "w_gate_up": 2, "w_down": 1}}
 
 
-def place_params(params, n: int):
+def place_params(params, n: int, specs=None):
     """Global parameters, laid out for n ranks (the JAX arrays' layout),
-    to the port's rank-stacked dict. Identity at n == 1."""
+    to the port's rank-stacked dict by `specs` (default PARAM_SPECS; a
+    Qwen3MoE passes its `param_specs()`). Identity at n == 1."""
     if n == 1:
         return params
+    specs = specs or PARAM_SPECS
 
     def place(t, dim, at):
         return t if dim is None else shard(t, dim, n, at=at)
 
     return {"embed": params["embed"], "norm": params["norm"],
-            "lm_head": place(params["lm_head"], PARAM_SPECS["lm_head"], 0),
-            "layers": {k: place(t, PARAM_SPECS["layers"][k], 1)
+            "lm_head": place(params["lm_head"], specs["lm_head"], 0),
+            "layers": {k: place(t, specs["layers"][k], 1)
                        for k, t in params["layers"].items()}}
 
 
@@ -193,6 +195,11 @@ class DenseLLM(nn.Module):
                                                      device=dev),
                                   "lm_head": lm})
 
+    def param_specs(self) -> dict:
+        """The global dimension each parameter splits along at n ranks
+        (PARAM_SPECS; JAX param_specs :145)."""
+        return PARAM_SPECS
+
     def shard_params(self, params):
         """One-rank parameters (the layout `init_params` and
         `load_state_dict` give at n = 1) re-laid for this model's n ranks:
@@ -207,7 +214,8 @@ class DenseLLM(nn.Module):
         layers = {k: refuse_column_groups(t, widths[k], self.n)
                   if k in widths else t
                   for k, t in params["layers"].items()}
-        return place_params({**params, "layers": layers}, self.n)
+        return place_params({**params, "layers": layers}, self.n,
+                            self.param_specs())
 
     def load_state_dict(self, sd):
         """Parameters from an HF-style name -> array mapping (torch

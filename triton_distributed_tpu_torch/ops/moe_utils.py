@@ -50,9 +50,7 @@ def aligned_capacity(num_assignments: int, num_experts: int,
 class MoEDispatch:
     """Index plan for one routed batch (static shapes throughout).
 
-    T = M * top_k token->expert assignments, P = aligned_capacity rows.
-    A plan stacked over shards (`plan_shards`) carries a leading shard
-    dimension on every tensor."""
+    T = M * top_k token->expert assignments, P = aligned_capacity rows."""
     # (P,) source assignment id per padded sorted row; T for pad rows.
     sorted_assignment: torch.Tensor
     # (P,) source token id per padded sorted row; M (zero pad row) for pad.
@@ -115,14 +113,6 @@ def sort_tokens_by_expert(experts, num_experts: int,
                        gather_token=gather_token, dest_row=dest_row,
                        tile_expert=tile_expert, group_sizes=group_sizes,
                        top_k=top_k, block_m=block_m)
-
-
-def dispatch_at(disp: MoEDispatch, i: int) -> MoEDispatch:
-    """Shard i's plan from a stacked MoEDispatch (`plan_shards`)."""
-    return dataclasses.replace(
-        disp, **{f: getattr(disp, f)[i] for f in
-                 ("sorted_assignment", "gather_token", "dest_row",
-                  "tile_expert", "group_sizes")})
 
 
 def gather_sorted(x, disp: MoEDispatch):

@@ -1,7 +1,11 @@
-"""The per-block wire codec as torch ops (counterpart of the per-block
-part of triton_distributed_tpu/ops/wire.py).
+"""The wire codecs as torch ops (counterpart of the per-row and per-block
+parts of triton_distributed_tpu/ops/wire.py).
 
-A (…, H) float tensor is cut into `block`-wide slices of its last dim;
+Per row (`wire_quant` / `wire_dequant`): each row of the last dim is
+scaled by its own absmax into the wire dtype with one f32 scale, the
+codec of the expert-parallel all-to-all's quantized wire (ops/ep_a2a.py).
+
+Per block: a (…, H) float tensor is cut into `block`-wide slices of its last dim;
 each slice is scaled by its own absmax into a wire dtype ("int8",
 symmetric round-half-to-even, or "float8_e4m3fn") and carries one f32
 scale. The paged KV pool stores K/V rows this way with block = head_dim
@@ -56,6 +60,24 @@ def resolve_block(width: int, block: int | None = None) -> int:
             f"scaling block {block} does not divide row width {width}; "
             f"pick a divisor (or None for min({WIRE_BLOCK}, width))")
     return blk
+
+
+def wire_quant(buf, wire_dtype):
+    """(..., H) payload -> (quantized payload in the wire dtype, (...,) f32
+    per-row scale): symmetric per-row scaling (JAX wire_quant :100)."""
+    name = resolve_wire_dtype(wire_dtype)
+    f = buf.float()
+    amax = f.abs().amax(dim=-1, keepdim=True)
+    scale = amax.clamp_min(1e-30) / WIRE_MAX[name]
+    q = f / scale
+    if name == "int8":
+        q = torch.round(q)
+    return q.to(TORCH_WIRE_DTYPES[name]), scale[..., 0]
+
+
+def wire_dequant(q, scale, dtype):
+    """Inverse of `wire_quant` (JAX wire_dequant :115)."""
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def quant_blockwise(x, wire_dtype, block: int | None = None):

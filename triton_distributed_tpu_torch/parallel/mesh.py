@@ -16,7 +16,8 @@ weights: `x (M, K) @ w (n, K, N)` gives the n ranks' (M, N) products.
 The collectives here are plain torch ops over the rank dimension, on any
 device. They stand for XLA's collectives, which are not kernels in the
 JAX package either; the fused GEMM+communication ops
-(ops/ag_gemm.py, gemm_rs.py, gemm_ar.py) have hand-written kernels.
+(ops/ag_gemm.py, gemm_rs.py, gemm_ar.py) and the ragged all-to-all of
+expert parallelism (ops/ep_a2a.py) have hand-written kernels.
 `shard` / `unshard` move between a global array (the layout of a JAX
 array under its PartitionSpec) and the rank-stacked one.
 """
@@ -29,7 +30,9 @@ import torch
 def shard(t: torch.Tensor, dim: int, n: int, *, at: int = 0) -> torch.Tensor:
     """Split dimension `dim` of a global tensor into n equal contiguous
     shards and stack them on a new rank dimension at position `at`
-    (counted in the result). Contiguous."""
+    (counted in the result). Contiguous: a view of a contiguous t when the
+    rank dimension stays where the split was (at == dim), as for experts
+    split on their expert dimension, else a copy."""
     d = dim % t.dim()
     if t.shape[d] % n:
         raise ValueError(f"dimension {d} of {tuple(t.shape)} does not split "
@@ -105,3 +108,20 @@ class RankGroup:
             raise NotImplementedError("psum_scatter(tiled=False) is not "
                                       "used by the ported layers")
         return shard(self.psum(x), scatter_dimension, self.n)
+
+    def all_to_all(self, x):
+        """lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
+        tiled=False) of rank-stacked x (n, n, *s): rank r's slab d goes to
+        rank d, where it becomes slab r. A transpose of the first two
+        dimensions, copied (the padded buffer moves as a whole)."""
+        self._check(x)
+        if x.dim() < 2 or x.shape[1] != self.n:
+            raise ValueError(f"all_to_all takes (n, n, ...) with n = "
+                             f"{self.n}, got shape {tuple(x.shape)}")
+        return x.transpose(0, 1).contiguous()
+
+    def ppermute_ring(self, x):
+        """lax.ppermute of rank-stacked x over the ring perm [(i, (i + 1) %
+        n)]: rank i's value lands on rank i + 1."""
+        self._check(x)
+        return torch.roll(x, 1, dims=0)

@@ -19,7 +19,8 @@ dependent stages a layer whatever the occupancy (the TPU walk's task
 count grows with it), and the paged decode kernel splits no slot across
 CTAs (the TPU kernel chooses a split-KV count), so only the KV stream
 runs on its B x Hkv CTAs while cuBLAS streams the weights on every SM.
-Multi-rank arms (`tp_ranks > 1`) come with slice 6; the other choosers
+Multi-rank arms (`tp_ranks > 1`, the EP estimators) wait for H100
+figures (ROADMAP.md Queue A, slice 6); the other choosers
 (`choose_kv_tier`, `choose_admission`, `choose_decode_path`,
 `choose_moe_decode_path`) with slice 2c.
 """
@@ -123,8 +124,8 @@ def ep_tick_plan(occupancy: int, *, hidden: int, moe_intermediate: int,
     transfer to overlap, S chunks cost the grouped MLP S times over
     ceil(rows / S) rows, and a roofline time max(a*m, b*m + c) with a
     weight term c >= 0 gives S * t(m / S) >= t(m), so the JAX chooser's
-    first candidate, 1, is its least. `num_ranks > 1` raises (slice
-    6)."""
+    first candidate, 1, is its least. `num_ranks > 1` raises: the
+    multi-rank plan needs the EP estimators on H100 figures (slice 6)."""
     check_one_rank(num_ranks, "the EP tick plan")
     return {"occupancy": max(1, int(occupancy)), "transport": "flat",
             "num_chunks": 1, "a2a_round_s": 0.0}

@@ -6,7 +6,9 @@ from .primitives import (  # noqa: F401
     FAULT_TIMEOUT,
     WAIT_BUDGET_S,
     Workspace,
+    a2a_workspace,
     check_faults,
+    launch_a2a,
     launch_tp,
     release_workspaces,
     workspace,

@@ -2,7 +2,7 @@
 triton_distributed_tpu/shmem/primitives.py; the device side is
 csrc/tdt_shmem.cuh, which maps each JAX primitive to its device helper).
 
-A fused communication op at one shape owns a `Workspace`, its symmetric
+A communication op at one shape owns a `Workspace`, its symmetric
 heap: n landing regions (one per rank, rank-stacked like every per-rank
 tensor of the port, parallel/mesh.py), n signal pads of u32 counters, and
 a fault word. It is allocated once per (op, device, ranks, region shape,
@@ -44,6 +44,10 @@ TP_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
                + [ctypes.c_uint, ctypes.c_longlong] + [ctypes.c_int] * 7
                + [ctypes.c_void_p])
 DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+# the C entry point of csrc/ep_a2a.cu: x, send_cnt, land, pads, fault,
+# epoch, budget_ns, n, C, row_bytes, chunk, grid, stream
+A2A_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_uint, ctypes.c_longlong]
+                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 class Workspace:
@@ -157,4 +161,40 @@ def launch_tp(kernel, ws: Workspace, a, b, out, m: int, K: int, N: int,
                   ws.n, m, K, N, grid, stream_of(a))
     if nxt:            # a refused launch moved no signal: keep the epoch
         ws.epoch = epoch
+    ws.launched()
+
+
+def a2a_workspace(op: str, device, n: int, capacity: int,
+                  row_bytes: int) -> Workspace:
+    """The ragged all-to-all's workspace (csrc/ep_a2a.cu): rank r's landing
+    region is (n, capacity, row_bytes) bytes, slab s the rows from source
+    s; its pad holds the barrier counter (slot 0), one arrival counter per
+    source (1 + s) and the tally of its own chunks to each destination
+    (1 + n + d). `op` names one in-flight transport (a dispatch or a
+    combine of one pipeline chunk), so transports in flight never share
+    one."""
+    def describe(sig):
+        if sig == 0:
+            return "barrier_all"
+        if sig <= n:
+            return f"the rows from source rank {sig - 1}"
+        return f"the chunk tally toward rank {sig - 1 - n}"
+
+    return workspace(op, device, n, (n, capacity, row_bytes), torch.uint8,
+                     1 + 2 * n, describe)
+
+
+def launch_a2a(kernel, ws: Workspace, x, send_cnt, chunk: int, *,
+               budget_s: float = WAIT_BUDGET_S, grid: int = 0) -> None:
+    """Launch csrc/ep_a2a.cu (a CudaKernel over A2A_ARGTYPES) on the
+    rank-stacked byte buffer x (n, n, C, row_bytes) and counts send_cnt
+    (n, n) int32 through `ws`, whose landing regions receive the rows, at
+    the workspace's next epoch (kept only when the launch went in)."""
+    ws.poll()
+    epoch = (ws.epoch + 1) & 0xFFFFFFFF
+    n, _, C, row_bytes = x.shape
+    kernel.launch(ptr(x), ptr(send_cnt), ptr(ws.land_ptrs), ptr(ws.pad_ptrs),
+                  ptr(ws.fault), epoch, int(budget_s * 1e9), n, C, row_bytes,
+                  chunk, grid, stream_of(x))
+    ws.epoch = epoch
     ws.launched()

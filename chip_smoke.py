@@ -215,11 +215,42 @@ Phases, in order; any failure raises and exits non-zero:
      with NaN planted in every a2a landing row (the rows past the counts
      must change no output bit); then TP experts at n = 4 on the first 8
      layers, checked the same way;
- 39. one JSON line of per-kernel numbers, then the device JSON line.
-Steps 14-16, 31-32 and 35-36 run with the other kernel checks, before
-step 4, steps 33 and 37 after step 16 and step 34 right after step 5;
-steps 29, 19-20, 22-23 and 25-26 run after step 10, steps 30 and 21 after
-step 13 and step 27 after step 21; steps 17, 18, 24, 28 and 38 run last.
+ 39. the one-shot LL combine of the sequence-parallel decode
+     (csrc/ll_combine.cu) against its plain version at n = 2, 4 and 8, at
+     the sp-serve cell's rows (4 slots x 32 heads of 128) and odd rows, in
+     bf16 and f32, bit for bit, a rank past the frontier, NaN in the
+     landing regions changing no bit; its merge half alone (`ll_merge`);
+     both timed at the cell against their bounds;
+ 40. a planted lost signal in it: the check raises within the wait budget
+     naming the rank, the row block and the source; the next call runs
+     clean;
+ 41. a small model at n = 2 behind ServeEngine, tensor-parallel
+     ("gemm_ar", tp_ranks=2) and sequence-parallel under both combines,
+     GPU against CPU in bf16 (as step 20), with its kernels' launches;
+ 42. the slice-6b main path, the tp-serve cell: step 5's weights re-laid
+     into 4 rank shards behind ServeEngine(tp_ranks=4) with step 9's
+     stream and settings, mode "gemm_ar" with a bf16 then an int8 pool,
+     then mode "fused", then "gemm_ar" with speculative decoding (an
+     oracle drafter, the n-rank verify step): step 9's checks with exact
+     launch counts (gemm_ar twice a layer a tick and a prefill chunk,
+     ll_merge never), accepts and rejects under speculation, the rank
+     ledgers, tokens/s, the median decode tick and its aten ops; then the
+     teacher-forced paged logits of 4 prompts and 8 decode steps against
+     the one-rank model's within TP_LOGIT_TOL;
+ 43. the SP main path, the sp-serve cell: the same weights replicated for
+     4 sequence-parallel ranks, the same stream with prefix caching off
+     (512 tokens a rank, so prompts cross ownership boundaries),
+     sp_combine "ll" then "xla": exact launch counts (ll_combine once a
+     layer a decode tick, ll_merge never), check_conservation_sp, the
+     metrics of step 42;
+     then the teacher-forced paged logits of "ll" against "xla" and the
+     one-rank model within TP_LOGIT_TOL;
+ 44. one JSON line of per-kernel numbers, then the device JSON line.
+Steps 14-16, 31-32, 35-36 and 39-40 run with the other kernel checks,
+before step 4, steps 33, 37 and 41 after step 16 and step 34 right after
+step 5; steps 42-43 right after step 9; steps 29, 19-20, 22-23 and 25-26
+run after step 10, steps 30 and 21 after step 13 and step 27 after step
+21; steps 17, 18, 24, 28 and 38 run last.
 Without a GPU it exits non-zero before printing anything.
 """
 
@@ -622,13 +653,17 @@ def serve_stream(rng, vocab):
             (np.concatenate([pre, ids(200)]), 40), (b.copy(), 20)]
 
 
-def run_serve(models, attn, engine, stream, L, gg):
+def run_serve(models, attn, engine, stream, L, gg, extra=None,
+              extra_want=None):
     """One ServeEngine run of the stream with the launch counts set to 0
     just before it; returns (tokens by rid, stats, launches, decode tick
     ms list, aten ops one decode tick dispatched). The sixth decode tick
     is counted, not timed. A MoE model launches two grouped GEMMs per
     layer per prefill chunk and per decode step, a dense one none; a
-    megakernel tick launches the megakernel once and nothing else."""
+    megakernel tick launches the megakernel once and nothing else.
+    `extra` names more kernels to count and `extra_want(stats)` gives the
+    counts expected of them and of any kernel whose count it overrides
+    (the multi-rank cells)."""
     from triton_distributed_tpu_torch.megakernel import executor_cuda as mkx
     for rid_ids, gen_len in stream:
         engine.submit(rid_ids, gen_len)
@@ -655,6 +690,7 @@ def run_serve(models, attn, engine, stream, L, gg):
                     for a, k in attn.FLASH_DECODE_PAGED.items()})
     kernels["gmm"] = gg.GMM
     kernels["megakernel"] = mkx.MEGAKERNEL
+    kernels.update(extra or {})
     for k in kernels.values():
         k.launches = 0
     out = engine.run()
@@ -675,6 +711,8 @@ def run_serve(models, attn, engine, stream, L, gg):
         # megakernel decode tick launches none
         want["gmm"] = 2 * L * (st["prefill_chunks"] + st["decode_steps"]
                                - st["megakernel_steps"])
+    if extra_want is not None:
+        want.update(extra_want(st))
     assert launches == want, (launches, want)
     return out, st, launches, tick_ms, tick_ops[0]
 
@@ -3707,12 +3745,460 @@ def check_ep_engine(models, kernels, moe, moe_params, cfg, ids, one_toks, smi,
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Slice 6b + SP serving: ServeEngine at n ranks (csrc/ll_combine.cu)
+# ---------------------------------------------------------------------------
+
+SERVE_RANKS = 4            # the tp-serve and sp-serve cells
+LL_ROWS = (4, 32, 128)     # (B, H, D) of the sp-serve cell's combine
+FP32_FLOPS = 67e12         # H100 SXM f32 rate outside the tensor cores
+
+
+def _ll_partials(n, B, H, D, dtype, gen, dev, empty=None):
+    out = torch.randn((n, B, H, D), generator=gen, device=dev).to(dtype)
+    lse = 3 * torch.randn((n, B, H), generator=gen, device=dev)
+    if empty is not None:
+        out[empty], lse[empty] = 0, -1e30
+    return out, lse
+
+
+def check_ll_combine_kernel(dev, gen):
+    """The one-shot combine (csrc/ll_combine.cu) against its plain version
+    at n = 2, 4 and 8 ranks, at the sp-serve cell's rows (4 slots x 32
+    heads of 128) and at odd rows (1 x 3), in bf16 and f32, bit for bit,
+    two calls back to back, the second with its last rank empty (lse
+    -1e30); every call one launch; NaN in the landing regions changes no
+    bit of the next call. Then the merge kernel alone (`ll_merge`) the
+    same way. Timed at the cell (n = 4, bf16): the kernel and its plain
+    version, against the function's bound (the n partials and their lse
+    read once, the one result written once); the protocol's own traffic
+    (the n^2 packed partials written and read once on top) is printed
+    beside it. Likewise the merge over the packed buffer. No single
+    library call computes either. Returns the two kernels-line
+    entries."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import ll_gather as tll
+    t0 = time.perf_counter()
+    err = {"ll_combine": 0.0, "ll_merge": 0.0}
+
+    def close(name, got, want):
+        e = (got.float() - want.float()).abs().max().item()
+        assert got.dtype == want.dtype and torch.equal(got, want), (name, e)
+        err[name] = max(err[name], e)
+        return e
+
+    for n in (2, SERVE_RANKS, 8):
+        for B, H, D in (LL_ROWS, (1, 3, 128)):
+            for dtype in (torch.bfloat16, torch.float32):
+                e = []
+                for empty in (None, n - 1):
+                    out, lse = _ll_partials(n, B, H, D, dtype, gen, dev,
+                                            empty)
+                    before = tll.LL_COMBINE.launches
+                    got = tll.ll_combine_shard(out, lse, num_ranks=n)
+                    torch.cuda.synchronize()
+                    assert tll.LL_COMBINE.launches == before + 1
+                    e.append(close("ll_combine", got,
+                                   tll._ll_combine_plain(out, lse)))
+                for ws in shmem.primitives._WORKSPACES.values():
+                    if ws.op == "ll_combine":
+                        ws.land.fill_(float("nan"))
+                again = tll.ll_combine_shard(out, lse, num_ranks=n)
+                torch.cuda.synchronize()
+                assert torch.equal(again, got), (n, B, H, D, dtype)
+                shmem.check_faults()
+                print(f"ll_combine n {n} rows {B}x{H} D {D} "
+                      f"{str(dtype)[6:]}: kernel vs plain max_abs_err "
+                      f"{max(e):.3e} (bit for bit), NaN in the landing "
+                      f"regions changed no bit")
+            out, lse = _ll_partials(n, *LL_ROWS, torch.float32, gen, dev)
+            before = tll.LL_MERGE.launches
+            got = tll.ll_merge(out, lse)
+            torch.cuda.synchronize()
+            assert tll.LL_MERGE.launches == before + 1
+            close("ll_merge", got, tll._ll_combine_plain(out, lse))
+    n, (B, H, D) = SERVE_RANKS, LL_ROWS
+    rows, W = B * H, tll.packed_width(D)
+    out, lse = _ll_partials(n, B, H, D, torch.bfloat16, gen, dev, n - 1)
+    nb = out.numel() * 2 + lse.numel() * 4 + rows * D * 2
+    wire = nb + 2 * n * n * rows * W * 4
+    bms, by = bound(nb, 3 * n * rows * D, FP32_FLOPS)
+    wire_ms, _ = bound(wire, 3 * n * rows * D, FP32_FLOPS)
+    ms = time_ms([lambda: tll.ll_combine_shard(out, lse, num_ranks=n)])
+    plain_ms = time_ms([lambda: tll._ll_combine_plain(out, lse)], reps=5,
+                       rounds=3)
+    packed = torch.stack([tll.pack_partials(out[s], lse[s])
+                          for s in range(n)])
+    mnb = packed.numel() * 4 + rows * D * 4
+    mbms, mby = bound(mnb, 3 * n * rows * D, FP32_FLOPS)
+    mms = time_ms([lambda: tll.ll_merge_packed(packed, D)])
+    mplain = time_ms([lambda: tll._ll_merge_packed_plain(packed, D)],
+                     reps=5, rounds=3)
+    shmem.check_faults()
+    print(f"ll_combine bf16 n {n} ({rows} rows of {D}, packed rows of {W} "
+          f"f32): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bms:.5f} ms ({by}: {nb / 2**20:.3f} MiB; with the protocol's "
+          f"n^2 packed partials written and read {wire_ms:.5f} ms, "
+          f"{wire / 2**20:.3f} MiB), no single library call; the launch, "
+          f"barrier and signals set its time")
+    print(f"ll_merge f32 n {n} ({rows} rows): kernel {mms:.4f} ms, plain "
+          f"{mplain:.4f} ms, bound {mbms:.5f} ms ({mby}); phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    src = "triton_distributed_tpu_torch/csrc/ll_combine.cu"
+    return ({"name": "ll_combine", "route": "cuda", "source": src,
+             "replaces": "triton_distributed_tpu/ops/ll_gather.py:66",
+             "max_abs_err": err["ll_combine"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+             "library_ms": None},
+            {"name": "ll_merge", "route": "cuda", "source": src,
+             "replaces": "triton_distributed_tpu/ops/ll_gather.py:51",
+             "max_abs_err": err["ll_merge"], "ms": mms, "plain_ms": mplain,
+             "bound_ms": mbms, "bound_by": mby, "library_ms": None})
+
+
+def check_ll_fault(dev, gen):
+    """A planted lost signal: one notification of source 1's row block 0
+    taken out of rank 2's pad. The wait must time out within the budget
+    (plus launch and copy time), the check must raise naming rank 2, the
+    block and source rank 1, and the next call must run clean."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import ll_gather as tll
+    n = SERVE_RANKS
+    out, lse = _ll_partials(n, 2, 8, 128, torch.bfloat16, gen, dev)
+    tll.ll_combine_shard(out, lse, num_ranks=n)
+    torch.cuda.synchronize()
+    ws = next(w for w in shmem.primitives._WORKSPACES.values()
+              if w.op == "ll_combine" and w.n == n and w.land.shape[2] == 16)
+    ws.pads[2, 1 + 1] -= 1
+    t0 = time.perf_counter()
+    tll.ll_combine_shard(out, lse, num_ranks=n)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    assert int(ws.fault[0]) == shmem.FAULT_TIMEOUT
+    assert took < shmem.WAIT_BUDGET_S + 2.0, took
+    try:
+        shmem.check_faults()
+        raise AssertionError("ll_combine: the planted fault did not raise")
+    except RuntimeError as e:
+        msg = str(e)
+    assert msg.startswith("ll_combine: rank 2 timed out") \
+        and "row block 0 from source rank 1" in msg, msg
+    got = tll.ll_combine_shard(out, lse, num_ranks=n)
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    e = (got.float() - tll._ll_combine_plain(out, lse).float()).abs().max()
+    assert e <= 2.0 ** -7 * max(1.0, got.float().abs().max().item())
+    print(f"ll_combine planted lost signal: raised after {took:.3f} s "
+          f"(budget {shmem.WAIT_BUDGET_S} s): {msg}; the next call ran clean")
+
+
+def check_small_sp_tp_serve(models, seed):
+    """A small Qwen3-shaped model at n = 2 behind ServeEngine, tensor-
+    parallel in mode "gemm_ar" (tp_ranks=2) and sequence-parallel under
+    both combines, on the GPU (kernels) against the same weights on the
+    CPU (plain versions), bf16: the logits of every greedy pick within
+    5e-2 of the largest, the picks equal wherever the margin allows, up to
+    the first pick that differs; prompts crossing the 128-token ownership
+    boundary; the paged decode kernel once a layer a decode tick, gemm_ar
+    or ll_combine on their paths."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.models import dense
+    from triton_distributed_tpu_torch.ops import attention as attn
+    from triton_distributed_tpu_torch.ops import gemm_ar as ar
+    from triton_distributed_tpu_torch.ops import ll_gather as tll
+    cfg = models.get_config("Qwen/Qwen3-8B").tiny(
+        hidden_size=256, num_heads=8, num_kv_heads=2, head_dim=128,
+        intermediate_size=512, vocab_size=512, num_layers=2)
+    base = models.DenseLLM(cfg, dtype="bfloat16", device="cpu").init_params(
+        torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(seed)
+    reqs = [(rng.randint(0, 512, s).astype(np.int32), 6)
+            for s in (40, 150, 20)]
+    real = dense.greedy_token
+    for par in ("tp", "sp-xla", "sp-ll"):
+        mk = (dict(mode="gemm_ar", num_ranks=2) if par == "tp" else
+              dict(mode="ar", num_ranks=2, attn_parallelism="sp",
+                   sp_combine=par[3:]))
+        kernels = (attn.FLASH_DECODE_PAGED["bfloat16"], ar.GEMM_AR,
+                   tll.LL_COMBINE)
+        seen = {}
+        for dev in ("cpu", "cuda"):
+            m = models.DenseLLM(cfg, dtype="bfloat16", device=dev, **mk)
+            p = m.shard_params(_to_device_tree(base, dev))
+            seen[dev] = []
+
+            def spy(x, lm_head, dev=dev):
+                seen[dev].append(_full_logits(x, lm_head).cpu())
+                return real(x, lm_head)
+
+            before = [k.launches for k in kernels]
+            dense.greedy_token = spy
+            try:
+                se = models.ServeEngine(
+                    m, p, b_max=2, max_len=256, block=32, prefill_chunk=32,
+                    **({"tp_ranks": 2} if par == "tp" else {}))
+                se.serve([r for r, _ in reqs], [g for _, g in reqs])
+            finally:
+                dense.greedy_token = real
+            torch.cuda.synchronize()
+            shmem.check_faults()
+            ran = [k.launches - b for k, b in zip(kernels, before)]
+            if par != "tp":
+                se._cache.check_conservation_sp(2)
+        L, steps = cfg.num_layers, se.stats()["decode_steps"]
+        assert ran[0] == L * steps and (ran[1] > 0) == (par == "tp") \
+            and ran[2] == (L * steps if par == "sp-ll" else 0), (par, ran)
+        compared, worst = 0, 0.0
+        for ref, got in zip(seen["cpu"], seen["cuda"]):
+            assert torch.isfinite(got).all(), par
+            diff = (got - ref).abs().max().item()
+            scale = max(1.0, ref.abs().max().item())
+            assert diff <= 5e-2 * scale, (par, compared, diff)
+            top2 = ref.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * diff
+            assert torch.equal(got.argmax(-1)[sure], ref.argmax(-1)[sure])
+            worst = max(worst, diff / scale)
+            compared += 1
+            if not torch.equal(ref.argmax(-1), got.argmax(-1)):
+                break
+        assert compared >= 4, (par, compared)
+        print(f"small serve n 2 {par}: {compared} greedy calls GPU vs CPU, "
+              f"logits within {worst:.3e} of the largest, launches paged / "
+              f"gemm_ar / ll_combine {ran}")
+    shmem.release_workspaces()
+
+
+def _paged_forced_logits(model, params, prompts, toks):
+    """Teacher forcing through the paged serving steps: each prompt
+    prefilled into its own slot of a fresh pool in 256-token chunks, then
+    decode steps of every slot fed `toks` (B, steps). Returns a list of
+    (B, V) f32 logits on the CPU: the prompts' last rows, then one per
+    step."""
+    from triton_distributed_tpu_torch.models import dense
+    B, steps = toks.shape
+    sp = model.n if model.attn_parallelism == "sp" else 1
+    cache = model.new_paged_kv_cache(B, 2048, block=128, num_blocks=64)
+    seen, real = [], dense.greedy_token
+
+    def spy(x, lm_head):
+        seen.append(_full_logits(x, lm_head).cpu())
+        return real(x, lm_head)
+
+    dense.greedy_token = spy
+    try:
+        last = []
+        for b, ids in enumerate(prompts):
+            assert cache.assign_slot(b, -(-(len(ids) + steps) // 128),
+                                     sp_ranks=sp)
+            for off in range(0, len(ids), 256):
+                chunk = np.zeros(256, np.int32)
+                valid = min(256, len(ids) - off)
+                chunk[:valid] = ids[off:off + valid]
+                model.prefill_chunk_paged(params, chunk, cache, b, off, valid)
+            last.append(seen[-1])
+        out = [torch.cat(last)]
+        del seen[:]
+        for i in range(steps):
+            model.decode_step_paged(params, toks[:, i], cache, [True] * B)
+        torch.cuda.synchronize()
+    finally:
+        dense.greedy_token = real
+    return out + seen
+
+
+def _serve_cell(models, attn, se, stream, L, tag, smi, extra, extra_want,
+                vocab):
+    """One run of a multi-rank serve cell: the run_serve checks with the
+    extra kernels counted, every request at its length, one line of
+    metrics. Returns (tokens, stats, launches)."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import grouped_gemm as gg
+    out, st, launches, tick_ms, ops = run_serve(models, attn, se, stream, L,
+                                                gg, extra, extra_want)
+    shmem.check_faults()
+    assert sorted(out) == list(range(len(stream)))
+    for rid, (_, gen_len) in enumerate(stream):
+        assert len(out[rid]) == gen_len, (rid, len(out[rid]))
+        assert ((out[rid] >= 0) & (out[rid] < vocab)).all()
+    print(f"{tag}: {st['tokens']} tokens in {st['wall_s']:.3f} s "
+          f"({st['tokens_per_s']} tokens/s), {st['ticks']} ticks, "
+          f"{st['decode_steps']} decode ticks at "
+          f"{statistics.median(tick_ms):.2f} ms median "
+          f"({min(tick_ms):.2f}-{max(tick_ms):.2f}; {ops} aten ops a tick), "
+          f"{st['prefill_chunks']} chunks ({st['prefix_chunks']} over a "
+          f"cached prefix), grant refusals {st['grant_refusals']}, launches "
+          f"{ {n: c for n, c in launches.items() if c} } | {smi}")
+    return out, st, launches
+
+
+def check_tp_serve(models, attn, model, params, cfg, seed, smi):
+    """The tp-serve cell: the Qwen3-8B weights re-laid into n = 4 rank
+    shards behind ServeEngine(tp_ranks=4) with the serve cell's stream and
+    settings: mode "gemm_ar" with a bf16 pool, then an int8 pool, then
+    mode "fused" (whose paged steps end in psum), then "gemm_ar" with
+    speculative decoding (an OracleDrafter over the first run's tokens,
+    every third draft wrong, k 4: the n-rank verify step, the paged
+    decode kernel over 4 x B x K queries and gemm_ar at M = B x K; accepts
+    and rejects both seen). Exact launch counts (the paged decode kernel
+    once a layer a decode or verify tick over all 4 ranks, gemm_ar twice
+    a layer a tick and a prefill chunk in "gemm_ar"),
+    every request at its length, the rank ledgers drained and equal,
+    conservation; then the teacher-forced logits of 4 prompts' paged
+    prefill and 8 decode steps against the one-rank model's within
+    TP_LOGIT_TOL of the largest. Returns the launches over the runs."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import gemm_ar as ar
+    from triton_distributed_tpu_torch.ops import ll_gather as tll
+    n, L = SERVE_RANKS, cfg.num_layers
+    t0 = time.perf_counter()
+    tp = models.DenseLLM(cfg, mode="gemm_ar", dtype="bfloat16",
+                         device="cuda", num_ranks=n)
+    tparams = tp.shard_params(params)
+    torch.cuda.synchronize()
+    print(f"tp-serve: Qwen3-8B re-laid into {n} rank shards in "
+          f"{time.perf_counter() - t0:.1f} s")
+    stream = serve_stream(np.random.RandomState(seed), cfg.vocab_size)
+    extra = {"gemm_ar": ar.GEMM_AR, "ll_merge": tll.LL_MERGE}
+    totals, targets = {}, None
+    runs = (("gemm_ar", None, False), ("gemm_ar", "int8", False),
+            ("fused", None, False), ("gemm_ar", None, True))
+    for mode, kv, spec in runs:
+        m = models.DenseLLM(cfg, mode=mode, dtype="bfloat16", device="cuda",
+                            num_ranks=n)
+        se = models.ServeEngine(
+            m, tparams, b_max=4, max_len=2048, block=128, prefill_chunk=256,
+            num_blocks=64, kv_dtype=kv, tp_ranks=n,
+            speculative=_oracle_spec(models, targets, stream, cfg.vocab_size)
+            if spec else None)
+
+        def want(st, mode=mode):
+            per = 2 * L * (st["decode_steps"] + st["prefill_chunks"])
+            return {"gemm_ar": per if mode == "gemm_ar" else 0,
+                    "ll_merge": 0}
+
+        tag = f"tp-serve[{mode}, {kv or 'bf16'}{', spec' if spec else ''}]"
+        out, st, launches = _serve_cell(models, attn, se, stream, L, tag,
+                                        smi, extra, want, cfg.vocab_size)
+        targets = targets or out
+        if spec:
+            assert st["spec_accepted"] > 0 and st["spec_rejected"] > 0, st
+            print(f"{tag}: drafts accepted {st['spec_accepted']}, rejected "
+                  f"{st['spec_rejected']} over {st['decode_steps']} verify "
+                  f"ticks")
+        se._cache.check_conservation(cached=st["cached_free_blocks"])
+        pr = st["per_rank"]
+        assert st["tp_ranks"] == n and len(pr) == n \
+            and all(r == {**pr[0], "rank": i} for i, r in enumerate(pr)) \
+            and pr[0]["held_blocks"] == 0, pr
+        for k, c in launches.items():
+            totals[k] = totals.get(k, 0) + c
+    rng = np.random.RandomState(seed + 7)
+    prompts = [stream[i][0] for i in range(4)]
+    toks = rng.randint(0, cfg.vocab_size, (4, 8)).astype(np.int32)
+    ref = _paged_forced_logits(model, params, prompts, toks)
+    got = _paged_forced_logits(tp, tparams, prompts, toks)
+    shmem.check_faults()
+    errs = [_rel_err(g, r) for g, r in zip(got, ref)]
+    print(f"tp-serve gemm_ar: teacher-forced paged logits (4 prompts' last "
+          f"rows + 8 decode steps) vs the one-rank model max {max(errs):.3e} "
+          f"of the largest (per step {', '.join(f'{e:.2e}' for e in errs)})")
+    assert max(errs) <= TP_LOGIT_TOL, errs
+    del tp, tparams, m, se
+    shmem.release_workspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _sp_attention_launches(stream, n, chunk, rank_tokens):
+    """flash_attention launches of one layer over the stream's prefill
+    chunks under "sp": the n ring hops of every chunk, one more for the
+    prefix ranks a chunk's offset fills and one for a rank it fills in
+    part."""
+    total = 0
+    for ids, _ in stream:
+        for off in range(0, len(ids), chunk):
+            full, part = divmod(off, rank_tokens)
+            total += n + (full > 0) + (part > 0)
+    return total
+
+
+def check_sp_serve(models, attn, model, params, cfg, seed, smi):
+    """The sp-serve cell: the Qwen3-8B weights replicated in the 4-rank
+    fused layout behind ServeEngine(DenseLLM(num_ranks=4,
+    attn_parallelism="sp")) with the serve cell's stream and settings,
+    prefix caching off (so the 612- and 1500-token prompts cross the
+    512-token ownership boundaries), sp_combine "ll" then "xla": exact
+    launch counts (the paged decode kernel and, under "ll", the combine
+    once a layer a decode tick; flash_attention the ring's n hops and the
+    prefix partials a prefill chunk), every request at its length,
+    check_conservation_sp; then the teacher-forced paged logits of "ll"
+    against "xla" and against the one-rank model within TP_LOGIT_TOL.
+    Returns the launches over the runs."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import ll_gather as tll
+    n, L = SERVE_RANKS, cfg.num_layers
+    t0 = time.perf_counter()
+    sp = {c: models.DenseLLM(cfg, mode="ar", dtype="bfloat16", device="cuda",
+                             num_ranks=n, attn_parallelism="sp",
+                             sp_combine=c) for c in ("ll", "xla")}
+    sparams = sp["ll"].shard_params(params)
+    torch.cuda.synchronize()
+    print(f"sp-serve: Qwen3-8B re-laid for {n} sequence-parallel ranks in "
+          f"{time.perf_counter() - t0:.1f} s")
+    stream = serve_stream(np.random.RandomState(seed), cfg.vocab_size)
+    fa = _sp_attention_launches(stream, n, 256, 2048 // n)
+    extra = {"ll_combine": tll.LL_COMBINE, "ll_merge": tll.LL_MERGE}
+    totals, outs = {}, {}
+    for comb in ("ll", "xla"):
+        se = models.ServeEngine(sp[comb], sparams, b_max=4, max_len=2048,
+                                block=128, prefill_chunk=256, num_blocks=64)
+        assert se.attn_parallelism == "sp" and se.sp_combine == comb
+
+        def want(st, comb=comb):
+            return {"flash_attention": L * fa,
+                    "ll_combine": L * st["decode_steps"] if comb == "ll"
+                    else 0, "ll_merge": 0}
+
+        outs[comb], st, launches = _serve_cell(
+            models, attn, se, stream, L, f"sp-serve[{comb}]", smi, extra,
+            want, cfg.vocab_size)
+        se._cache.check_conservation_sp(n)
+        assert st["free_blocks"] == 64 and st["prefix_hit_blocks"] == 0, st
+        for k, c in launches.items():
+            totals[k] = totals.get(k, 0) + c
+    same = np.mean([np.mean(outs["ll"][r] == outs["xla"][r])
+                    for r in outs["ll"]])
+    print(f"sp-serve: ll vs xla greedy tokens equal {same:.3f} "
+          f"(free-running, information)")
+    rng = np.random.RandomState(seed + 7)
+    prompts = [stream[i][0] for i in range(4)]
+    toks = rng.randint(0, cfg.vocab_size, (4, 8)).astype(np.int32)
+    forced = {c: _paged_forced_logits(sp[c], sparams, prompts, toks)
+              for c in ("ll", "xla")}
+    ref = _paged_forced_logits(model, params, prompts, toks)
+    shmem.check_faults()
+    vs_xla = [_rel_err(g, r) for g, r in zip(forced["ll"], forced["xla"])]
+    vs_one = [_rel_err(g, r) for g, r in zip(forced["ll"], ref)]
+    print(f"sp-serve ll: teacher-forced paged logits (4 prompts' last rows + "
+          f"8 decode steps) vs xla max {max(vs_xla):.3e} of the largest "
+          f"(per step {', '.join(f'{e:.2e}' for e in vs_xla)}); vs the "
+          f"one-rank model max {max(vs_one):.3e}")
+    assert max(vs_xla) <= TP_LOGIT_TOL and max(vs_one) <= TP_LOGIT_TOL
+    del sp, sparams, se
+    shmem.release_workspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace decode steps with torch.profiler")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         sys.exit(1)
@@ -3751,6 +4237,8 @@ def main():
     torch.cuda.empty_cache()
     ep_entry = check_ep_a2a_kernel(dev, gen)
     check_ep_fault(dev, gen)
+    ll_entries = check_ll_combine_kernel(dev, gen)
+    check_ll_fault(dev, gen)
     shmem.release_workspaces()
     torch.cuda.empty_cache()
     check_small_model(models, args.seed)
@@ -3758,6 +4246,7 @@ def main():
     check_small_moe(models, gg, args.seed)
     check_small_tp_model(models, args.seed)
     check_small_ep_model(models, args.seed)
+    check_small_sp_tp_serve(models, args.seed)
 
     cfg = models.get_config("Qwen/Qwen3-8B")
     model = models.DenseLLM(cfg, dtype="bfloat16", device=dev)
@@ -3782,6 +4271,10 @@ def main():
 
     serve_launches, engine_out = check_serve(models, attn, gg, model, params,
                                              cfg, args.seed, smi, args.profile)
+    tp_serve = check_tp_serve(models, attn, model, params, cfg, args.seed,
+                              smi)
+    sp_serve = check_sp_serve(models, attn, model, params, cfg, args.seed,
+                              smi)
 
     check_megakernel_graphs(dev)
     fused_graph_err = check_megakernel_fused_graphs(dev)
@@ -3840,7 +4333,8 @@ def main():
                                   args.profile)
 
     counts = (launches, tp_launches, serve_launches, mk_serve, moe_launches,
-              moe_serve, mk_moe, spec_serve, spec_moe, ep_launches)
+              moe_serve, mk_moe, spec_serve, spec_moe, ep_launches, tp_serve,
+              sp_serve)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in counts)
         assert k["launches"] > 0, k["name"]
@@ -3874,14 +4368,27 @@ def main():
           f"{moe_graph_step['bound_ms']:.4f} ms, plain walk "
           f"{moe_graph_step['plain_ms']:.1f} ms")
     for e in tp_entries:
-        e["launches"] = tp_launches[e["name"]] + ep_launches[e["name"]]
+        e["launches"] = (tp_launches[e["name"]] + ep_launches[e["name"]]
+                         + tp_serve.get(e["name"], 0))
         assert e["launches"] > 0, e["name"]
+    assert tp_serve["gemm_ar"] > 0
     ep_entry["launches"] = ep_launches["ep_a2a"]
     assert ep_entry["launches"] > 0
-    kernels += [mk, mk_verify, mk_fused, gmm_entry] + tp_entries + [ep_entry]
+    # ll_combine runs on the sp-serve cell's path; ll_merge on no path
+    # (counted over both multi-rank serve cells, held to 0 by run_serve)
+    ll_entries[0]["launches"] = sp_serve["ll_combine"]
+    ll_entries[1]["launches"] = sp_serve["ll_merge"] + tp_serve["ll_merge"]
+    assert ll_entries[0]["launches"] > 0
+    print(f"ll_combine launches: {sp_serve['ll_combine']} (sp-serve, "
+          f"{cfg.num_layers} a decode tick under sp_combine='ll'); gemm_ar "
+          f"on the tp-serve path: {tp_serve['gemm_ar']}")
+    kernels += [mk, mk_verify, mk_fused, gmm_entry] + tp_entries \
+        + [ep_entry] + list(ll_entries)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+          f"kernels' build included | {smi}")
     print(json.dumps({"kernels": [{key: k[key] for key in order}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -1395,3 +1395,201 @@ def test_ep_layer_on_the_gpu_matches_the_cpu(cuda, wire):
     again = layer(gp, x.to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(again, got)
+
+
+# ---------------------------------------------------------------------------
+# The one-shot LL combine (csrc/ll_combine.cu) and multi-rank serving
+# ---------------------------------------------------------------------------
+
+def _ll_case(n, B, H, D, dtype, dev, seed, empty_rank=None):
+    """Rank-stacked decode partials (n, B, H, D) and their lse (n, B, H)
+    f32; `empty_rank` holds no token (out 0, lse -1e30)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = torch.randn((n, B, H, D), generator=gen, device=dev).to(dtype)
+    lse = 3 * torch.randn((n, B, H), generator=gen, device=dev)
+    if empty_rank is not None:
+        out[empty_rank], lse[empty_rank] = 0, -1e30
+    return out, lse
+
+
+def _ll_close(got, want):
+    """Bit for bit in either dtype: the kernel runs the plain version's f32
+    operations in its order with no contraction, rounding once at the
+    end."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,D", [(4, 32, 128), (1, 3, 16)])
+def test_ll_combine_kernel_matches_plain(cuda, n, dtype, B, H, D):
+    """The kernel against its plain version, two calls back to back with
+    new data (the second must not pass on the first's signals), one rank
+    empty in the second; one launch a call; NaN planted in the landing
+    regions changes no output bit of the next call."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import ll_gather as tll
+    for seed, empty in ((0, None), (1, n - 1)):
+        out, lse = _ll_case(n, B, H, D, dtype, cuda, seed, empty)
+        before = tll.LL_COMBINE.launches
+        got = tll.ll_combine_shard(out, lse, num_ranks=n)
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert tll.LL_COMBINE.launches == before + 1
+        assert got.shape == (B, H, D) and got.dtype == dtype
+        _ll_close(got, tll._ll_combine_plain(out, lse))
+    (ws,) = [w for w in shmem.primitives._WORKSPACES.values()
+             if w.op == "ll_combine" and w.n == n
+             and w.land.shape[2] == B * H]
+    ws.land.fill_(float("nan"))
+    again = tll.ll_combine_shard(out, lse, num_ranks=n)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("n,B,H,D", [(4, 4, 32, 128), (2, 101, 8, 8)])
+def test_ll_merge_kernel_matches_plain(cuda, n, B, H, D):
+    from triton_distributed_tpu_torch.ops import ll_gather as tll
+    out, lse = _ll_case(n, B, H, D, torch.float32, cuda, 2)
+    before = tll.LL_MERGE.launches
+    got = tll.ll_merge(out, lse)
+    torch.cuda.synchronize()
+    assert tll.LL_MERGE.launches == before + 1
+    _ll_close(got, tll._ll_combine_plain(out, lse))
+
+
+def test_ll_combine_planted_lost_signal_raises_and_the_next_call_is_clean(
+        cuda):
+    """One notification of source 1's row block 0 taken out of rank 2's
+    pad: the wait times out within the budget (50 ms), the check raises
+    naming rank 2, the block and the source, and the next call runs
+    clean."""
+    import time
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import ll_gather as tll
+    n = 4
+    out, lse = _ll_case(n, 2, 8, 128, torch.bfloat16, cuda, 3)
+    tll.ll_combine_shard(out, lse, num_ranks=n)
+    torch.cuda.synchronize()
+    (ws,) = [w for w in shmem.primitives._WORKSPACES.values()
+             if w.op == "ll_combine" and w.n == n
+             and w.land.shape[2] == 16]
+    ws.pads[2, 1 + 1] -= 1             # source 1, block 0 (one block)
+    t0 = time.perf_counter()
+    tll.ll_combine_shard(out, lse, num_ranks=n, wait_budget=0.05)
+    torch.cuda.synchronize()
+    assert time.perf_counter() - t0 < 5.0
+    with pytest.raises(RuntimeError, match=r"rank 2 timed out .*row block 0 "
+                                           r"from source rank 1"):
+        shmem.check_faults()
+    assert ws.epoch == 0 and int(ws.pads.abs().sum()) == 0
+    got = tll.ll_combine_shard(out, lse, num_ranks=n)
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    _ll_close(got, tll._ll_combine_plain(out, lse))
+
+
+def test_ll_combine_refuses_a_grid_that_cannot_be_resident(cuda):
+    """One CTA more than can be resident is refused; one CTA alone walks
+    every item in the global order and finishes."""
+    import ctypes
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _build
+    from triton_distributed_tpu_torch.ops import ll_gather as tll
+    n, B, H, D = 4, 4, 32, 128
+    out, lse = _ll_case(n, B, H, D, torch.bfloat16, cuda, 4)
+    resident = _build.load_library("ll_combine").tdt_ll_combine_resident
+    resident.restype = ctypes.c_int
+    most = resident(0)
+    assert most >= torch.cuda.get_device_properties(0).multi_processor_count
+    ws = shmem.ll_workspace(cuda, n, B * H, tll.packed_width(D))
+    o, ls = out.view(n, B * H, D), lse.view(n, B * H)
+    merged = torch.empty_like(o[0])
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        shmem.launch_ll(tll.LL_COMBINE, ws, o, ls, merged, grid=most + 1)
+    shmem.launch_ll(tll.LL_COMBINE, ws, o, ls, merged, grid=1)
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    _ll_close(merged.view(B, H, D), tll._ll_combine_plain(out, lse))
+
+
+@pytest.mark.parametrize("par", ["tp", "tp-spec", "sp-xla", "sp-ll"])
+def test_multi_rank_serve_gpu_matches_cpu(cuda, par):
+    """A small model at n = 2 behind ServeEngine, tensor-parallel in mode
+    "gemm_ar" (tp_ranks=2; "tp-spec" with speculative decoding, an oracle
+    drafter over the CPU's spec-off tokens, every third draft wrong, so
+    the n-rank verify step runs) or sequence-parallel under both
+    combines, on the GPU against the CPU in bf16: the logits of every
+    greedy pick within 5e-2 of the largest, the picks equal where the
+    margin allows; prompts crossing the 128-token ownership boundary; the
+    kernels of the path launched (paged decode, gemm_ar or ll_combine)."""
+    from triton_distributed_tpu_torch import models, shmem
+    from triton_distributed_tpu_torch.models import dense
+    from triton_distributed_tpu_torch.ops import gemm_ar as tar
+    from triton_distributed_tpu_torch.ops import ll_gather as tll
+    (cpu, params), _ = _small_pair(cuda, moe=False)
+    cfg, n = cpu.config, 2
+    if par.startswith("tp"):
+        mk = dict(mode="gemm_ar", num_ranks=n)
+        kw = dict(tp_ranks=n)
+    else:
+        mk = dict(mode="ar", num_ranks=n, attn_parallelism="sp",
+                  sp_combine=par[3:])
+        kw = {}
+    rng = np.random.default_rng(6)
+    reqs = [(rng.integers(0, 512, s).astype(np.int32), 6)
+            for s in (40, 150, 20)]
+    serve_kw = dict(b_max=2, max_len=256, block=32, prefill_chunk=32, **kw)
+    if par == "tp-spec":
+        m = models.DenseLLM(cfg, dtype="bfloat16", device="cpu", **mk)
+        off = models.ServeEngine(m, m.shard_params(params), **serve_kw).serve(
+            [r for r, _ in reqs], [g for _, g in reqs])
+    real = dense.greedy_token
+    runs, counts = [], {}
+    for dev in ("cpu", cuda):
+        m = models.DenseLLM(cfg, dtype="bfloat16", device=dev, **mk)
+        p = m.shard_params(
+            {"embed": params["embed"].to(dev), "norm": params["norm"].to(dev),
+             "lm_head": params["lm_head"].to(dev),
+             "layers": {k: t.to(dev) for k, t in params["layers"].items()}})
+        seen = []
+
+        def spy(x, lm_head):
+            lg = dense._logits(x, lm_head)
+            if lg.dim() == 3:
+                lg = lg.permute(1, 0, 2).reshape(x.shape[0], -1)
+            seen.append(lg.float().cpu())
+            return real(x, lm_head)
+
+        before = (attn.FLASH_DECODE_PAGED["bfloat16"].launches,
+                  tar.GEMM_AR.launches, tll.LL_COMBINE.launches)
+        spec = None
+        if par == "tp-spec":
+            spec = models.SpecConfig(drafter=models.OracleDrafter(
+                dict(enumerate(off)),
+                {r: q for r, (q, _) in enumerate(reqs)}, wrong_every=3,
+                vocab=512), k=4, adapt=False)
+        dense.greedy_token = spy
+        try:
+            se = models.ServeEngine(m, p, **serve_kw, speculative=spec)
+            se.serve([r for r, _ in reqs], [g for _, g in reqs])
+        finally:
+            dense.greedy_token = real
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        if par == "tp-spec":
+            st = se.stats()
+            assert st["spec_accepted"] > 0 and st["spec_rejected"] > 0, st
+        counts[str(dev)] = [a - b for a, b in zip(
+            (attn.FLASH_DECODE_PAGED["bfloat16"].launches,
+             tar.GEMM_AR.launches, tll.LL_COMBINE.launches), before)]
+        runs.append(seen)
+        if par.startswith("sp"):
+            se._cache.check_conservation_sp(n)
+    decode_steps = se.stats()["decode_steps"]
+    paged, gemm_ar, ll = counts["cuda"]
+    assert paged == cfg.num_layers * decode_steps
+    assert gemm_ar > 0 if par.startswith("tp") else gemm_ar == 0
+    assert ll == (cfg.num_layers * decode_steps if par == "sp-ll" else 0)
+    _compare_picks(runs, 4)

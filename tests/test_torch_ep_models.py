@@ -327,8 +327,8 @@ def test_ep_layer_decode_rows_equal_the_dispatch_path():
 
 def test_what_stays_refused():
     """pipeline="tune" / "auto" name their ROADMAP items; ServeEngine over
-    an n-rank MoE (EP included) names slice 6b; shapes that do not split
-    raise."""
+    an n-rank MoE (EP included) names its Queue A item, n-rank MoE
+    serving; shapes that do not split raise."""
     layer = EPMoE(**LAYER, num_ranks=2, pipeline="tune")
     with pytest.raises(NotImplementedError, match="slice 7"):
         layer(None, torch.zeros(4, LAYER["hidden"]))
@@ -336,7 +336,7 @@ def test_what_stays_refused():
     with pytest.raises(NotImplementedError, match="estimators"):
         auto._shard_fwd(torch.zeros(2, 2, LAYER["hidden"]), None, None, None)
     for par in ("ep", "tp"):
-        with pytest.raises(NotImplementedError, match="slice 6b"):
+        with pytest.raises(NotImplementedError, match="n-rank MoE serving"):
             models.ServeEngine(_port(par, 2, "xla"), None)
     with pytest.raises(ValueError, match="split"):
         EPMoE(**{**LAYER, "num_experts": 6}, num_ranks=4)

@@ -164,20 +164,28 @@ def test_sampled_stream_reproducible_and_in_top_k(port_model):
         np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"slo_ticks": 8}, "slice 2c"),
-    ({"chaos": object()}, "slice 2c"),
-    ({"max_faults": 5}, "slice 2c"),
-    ({"backoff_ticks": 1}, "slice 2c"),
-    ({"backoff_cap": 32}, "slice 2c"),
-    ({"host_blocks": 4}, "slice 2c"),
-    ({"mode": "megakernel", "tp_ranks": 2}, "slice 6"),
-    ({"attn_parallelism": "sp"}, "slice 6"),
-    ({"sp_combine": "ll"}, "slice 6"),
-    ({"tp_ranks": 2}, "slice 6"),
-])
-def test_out_of_scope_arguments_raise(port_model, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+_OUT_OF_SCOPE = [
+    ({"slo_ticks": 8}, NotImplementedError, "slice 2c"),
+    ({"chaos": object()}, NotImplementedError, "slice 2c"),
+    ({"max_faults": 5}, NotImplementedError, "slice 2c"),
+    ({"backoff_ticks": 1}, NotImplementedError, "slice 2c"),
+    ({"backoff_cap": 32}, NotImplementedError, "slice 2c"),
+    ({"host_blocks": 4}, NotImplementedError, "slice 2c"),
+    ({"mode": "megakernel", "tp_ranks": 2}, NotImplementedError, "slice 6"),
+    # multi-rank and sequence-parallel serving are ported: over this
+    # one-rank tensor-parallel model they are the JAX engine's ValueErrors
+    ({"attn_parallelism": "sp"}, ValueError, "rebuild the model"),
+    ({"sp_combine": "ll"}, ValueError, "compiled into"),
+    ({"tp_ranks": 2}, ValueError, "mesh rank"),
+]
+
+
+@pytest.mark.parametrize(
+    "kw,exc,match", _OUT_OF_SCOPE,
+    ids=[f"kw{i}-{'slice 2c' if i < 6 else 'slice 6'}"
+         for i in range(len(_OUT_OF_SCOPE))])
+def test_out_of_scope_arguments_raise(port_model, kw, exc, match):
+    with pytest.raises(exc, match=match):
         models.ServeEngine(*port_model, **kw)
 
 

@@ -208,21 +208,35 @@ def test_greedy_token_ranks_lowest_rank_wins_ties():
 
 
 def test_what_stays_one_rank_raises_naming_its_slice():
-    m = models.DenseLLM(_cfg(models), dtype="float32", device="cpu",
-                        num_ranks=2)
-    for call in (lambda: m.new_paged_kv_cache(2, 32, block=8),
-                 lambda: m.decode_step_paged(None, [0, 0], None, [1, 1]),
-                 lambda: m.prefill_chunk_paged(None, [0], None, 0, 0, 1),
-                 lambda: m.verify_step_paged(None, [[0]], None, [1], [1])):
-        with pytest.raises(NotImplementedError, match="slice 6b"):
-            call()
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        models.ServeEngine(m, None)
+    """The paged paths build at n ranks now (slice 6b): a head-sharded
+    pool, one prefill chunk and one decode step giving the one-rank
+    model's tokens, and a ServeEngine. What stays refused names what takes
+    it: an n-rank Qwen3MoE behind ServeEngine, the quantized wire."""
+    cfg = _cfg(models)
+    m1 = models.DenseLLM(cfg, dtype="float32", device="cpu")
+    m = models.DenseLLM(cfg, dtype="float32", device="cpu", num_ranks=2)
+    p1 = m1.init_params(torch.Generator().manual_seed(0))
+    p = m.shard_params(p1)
+    toks = []
+    for model, params in ((m1, p1), (m, p)):
+        cache = model.new_paged_kv_cache(2, 32, block=8)
+        assert cache.assign_slot(0, 2)
+        tok, cache = model.prefill_chunk_paged(params, _ids()[0, :8], cache,
+                                               0, 0, 8)
+        nxt, cache = model.decode_step_paged(params, [int(tok), 0], cache,
+                                             [True, False])
+        pred, _ = model.verify_step_paged(params, [[int(nxt[0])], [0]],
+                                          cache, [True, False], [1, 1])
+        toks.append((int(tok), nxt.tolist(), pred.tolist()))
+    assert toks[0] == toks[1]
+    assert cache.k_pool.shape[:3] == (cfg.num_layers, 2, 8)
+    assert models.ServeEngine(m, p, max_len=32, block=8).stats()[
+        "tp_ranks"] == 1
     moe_cfg = models.get_config("Qwen/Qwen3-30B-A3B").tiny(
         hidden_size=64, num_heads=8, num_kv_heads=4, head_dim=16,
         vocab_size=128, moe_intermediate_size=32)
     for par in ("tp", "ep"):
-        with pytest.raises(NotImplementedError, match="slice 6b"):
+        with pytest.raises(NotImplementedError, match="n-rank MoE serving"):
             models.ServeEngine(models.Qwen3MoE(
                 moe_cfg, dtype="float32", device="cpu", num_ranks=2,
                 moe_parallel=par), None)

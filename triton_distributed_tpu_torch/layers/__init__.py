@@ -1,7 +1,8 @@
-"""Counterparts of the JAX package's tensor- and expert-parallel layers,
-at one rank or n."""
+"""Counterparts of the JAX package's tensor-, sequence- and
+expert-parallel layers, at one rank or n."""
 
 from .ep_moe import EPMoE  # noqa: F401
 from .norm import rms_norm  # noqa: F401
+from .sp_attn import SPPagedAttn  # noqa: F401
 from .tp_attn import TPAttn  # noqa: F401
 from .tp_mlp import TPMLP  # noqa: F401

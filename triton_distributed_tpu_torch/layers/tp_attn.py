@@ -14,8 +14,10 @@ hidden)) and its cache slice ck[r] of a (n, B, Smax, Hkv / n, D) buffer.
 Prefill activations are sequence-major, as in the JAX layer, so the
 AllGather and ReduceScatter row chunks are sequence chunks. The n ranks'
 attention runs as one call of the attention kernels over n * B
-sequences. The paged, verify and chunked-prefill shards stay one-rank
-(slice 6b).
+sequences. The paged decode, verify and chunked-prefill shards do the
+same over the head-sharded paged pool (models/paged_kv_cache.py): a
+layer's n rank pools viewed as one, each rank's table offset to its own
+pages, one launch for the n ranks.
 """
 
 from __future__ import annotations
@@ -224,31 +226,50 @@ class TPAttn(nn.Module):
         return y, ck, cv
 
     # -- paged decode and chunked prefill (models/paged_kv_cache.py) -------
+    # At n ranks the model hands these one layer's head-sharded pool
+    # viewed as (n * nb, Hkv / n, block, D) (PagedKVCache.layer_pools) with
+    # its tables, lengths and row destinations laid out for that view
+    # (rank r's sequences r * B .. (r + 1) * B - 1), so each attention runs
+    # as one kernel launch over the n ranks; the projections end in psum,
+    # or gemm_ar in that mode (JAX tp_attn.py:274, :336, :403).
+
+    def _ranks(self):
+        """The leading rank dimension of per-rank activations: () at one
+        rank."""
+        return () if self.n == 1 else (self.n,)
+
+    def _paged_out(self, rows, w_o):
+        return row_parallel_out(
+            rows, w_o, mode="gemm_ar" if self.mode == "gemm_ar" else "ar",
+            num_ranks=self.n)
+
     def _decode_shard_paged(self, params, x, w_qkv, w_o, k_pool, v_pool,
                             table, kv_len, rope, at, *, attn_method=None,
                             k_scales=None, v_scales=None):
         """One decode step over ONE layer's paged pool, in place. x:
-        (B, hidden); k_pool/v_pool: (nb, Hkv, block, D); table: (B,
-        max_blocks) int32 and kv_len = seq_lens + active (B,) int32 on
-        the pool's device; rope: the (cos, sin) of each slot's position
-        (its cached length); at: where the active slots' rows land
-        (PagedKVCache.append_at). Quantized pools take their scale
-        sidecars. Returns y (B, hidden)."""
+        (B, hidden) replicated; k_pool/v_pool: (nb, Hkv, block, D) ((n *
+        nb, Hkv / n, block, D) at n ranks); table: (B, max_blocks) int32
+        and kv_len = seq_lens + active (B,) int32 on the pool's device
+        (each (n * B, ...), rank by rank, at n); rope: the (cos, sin) of
+        each slot's position (its cached length), (B, 1, D/2) ((n * B, 1,
+        D/2)); at: where the active slots' rows land
+        (PagedKVCache.append_at, RowsAt.over_ranks at n). Quantized pools
+        take their scale sidecars. Returns y (B, hidden)."""
         from ..models.paged_kv_cache import scatter_rows
 
-        B = x.shape[0]
+        B, D, rl = x.shape[0], self.head_dim, self._ranks()
         qkv = x @ w_qkv
-        q, k, v = self._split_qkv(qkv, (B,))
+        q, k, v = self._split_qkv(qkv, qkv.shape[:-1])
         q, k = self._maybe_qk_norm(params, q, k)
-        q = apply_rope(q[:, None], *rope)[:, 0]               # (B, Hl, D)
-        k = apply_rope(k[:, None], *rope)[:, 0]
+        q = apply_rope(q.reshape(-1, 1, self.h_loc, D), *rope)[:, 0]
+        k = apply_rope(k.reshape(-1, 1, self.hkv_loc, D), *rope)[:, 0]
         scatter_rows(k_pool, k, at, scales=k_scales)
-        scatter_rows(v_pool, v, at, scales=v_scales)
+        scatter_rows(v_pool, v.reshape(-1, self.hkv_loc, D), at,
+                     scales=v_scales)
         out = flash_decode_paged(q, k_pool, v_pool, table, kv_len,
                                  method=attn_method, k_scales=k_scales,
                                  v_scales=v_scales)
-        return row_parallel_out(out.reshape(B, -1), w_o, mode=self.mode,
-                                num_ranks=self.n)
+        return self._paged_out(out.reshape(*rl, B, -1), w_o)
 
     def _verify_shard_paged(self, params, x, w_qkv, w_o, k_pool, v_pool,
                             table, kv_len, rope, at, *, attn_method=None,
@@ -257,31 +278,33 @@ class TPAttn(nn.Module):
         place: slot b feeds K candidate rows (x: (B, K, hidden); rows
         past its count are pad). Row j ropes and appends at position
         seq_lens[b] + j (rope: the (B, K, D/2) cos / sin of those
-        positions; at: where the live rows land, PagedKVCache.verify_at)
-        and attends the slot's prefix plus candidates 0..j: every (b, j)
-        is its own paged-decode query over the slot's table row (table:
-        (B * K, max_blocks), each row repeated K times) with kv_len[b * K
-        + j] = seq_lens[b] + j + 1 when live, else 0 (a dead row reads no
-        page and gives zeros). counts == 1 everywhere is the decode
-        step. Returns y (B, K, hidden)."""
+        positions, (n * B, K, D/2) at n ranks; at: where the live rows
+        land, PagedKVCache.verify_at) and attends the slot's prefix plus
+        candidates 0..j: every (b, j) is its own paged-decode query over
+        the slot's table row (table: (B * K, max_blocks), each row
+        repeated K times) with kv_len[b * K + j] = seq_lens[b] + j + 1
+        when live, else 0 (a dead row reads no page and gives zeros); at
+        n ranks the tables and lengths of the n ranks follow one another.
+        counts == 1 everywhere is the decode step. Returns y (B, K,
+        hidden)."""
         from ..models.paged_kv_cache import scatter_rows
 
         B, K, _ = x.shape
+        D, rl = self.head_dim, self._ranks()
         qkv = x.reshape(B * K, self.hidden) @ w_qkv
-        q, k, v = self._split_qkv(qkv, (B, K))
+        q, k, v = self._split_qkv(qkv, qkv.shape[:-1])
         q, k = self._maybe_qk_norm(params, q, k)
-        q = apply_rope(q, *rope)                          # (B, K, Hl, D)
-        k = apply_rope(k, *rope)
-        scatter_rows(k_pool, k.reshape(B * K, self.hkv_loc, -1), at,
+        q = apply_rope(q.reshape(-1, K, self.h_loc, D), *rope)
+        k = apply_rope(k.reshape(-1, K, self.hkv_loc, D), *rope)
+        scatter_rows(k_pool, k.reshape(-1, self.hkv_loc, D), at,
                      scales=k_scales)
-        scatter_rows(v_pool, v.reshape(B * K, self.hkv_loc, -1), at,
+        scatter_rows(v_pool, v.reshape(-1, self.hkv_loc, D), at,
                      scales=v_scales)
-        out = flash_decode_paged(q.reshape(B * K, self.h_loc, self.head_dim),
+        out = flash_decode_paged(q.reshape(-1, self.h_loc, D),
                                  k_pool, v_pool, table, kv_len,
                                  method=attn_method, k_scales=k_scales,
                                  v_scales=v_scales)
-        y = row_parallel_out(out.reshape(B * K, -1), w_o, mode=self.mode,
-                             num_ranks=self.n)
+        y = self._paged_out(out.reshape(*rl, B * K, -1), w_o)
         return y.reshape(B, K, self.hidden)
 
     def _prefill_chunk_shard(self, params, x, w_qkv, w_o, k_pool, v_pool,
@@ -290,33 +313,38 @@ class TPAttn(nn.Module):
         """One prompt chunk of one slot against ONE layer's paged pool:
         x (C, hidden) holds positions [off, off + valid_len) (rows past
         valid_len are pad); its K/V rows land at `at`
-        (PagedKVCache.chunk_at). Attention merges two (out, lse)
-        partials by lse: the causal in-chunk partial over the chunk's
-        own (unquantized) K/V, and, when off > 0, a partial over the
-        `prefix` pages (device page ids holding positions [0, off)),
-        dequantized and cast to the compute dtype for a quantized pool.
-        Returns y (C, hidden)."""
+        (PagedKVCache.chunk_at, RowsAt.over_ranks at n). Attention merges
+        two (out, lse) partials by lse: the causal in-chunk partial over
+        the chunk's own (unquantized) K/V, and, when off > 0, a partial
+        over the `prefix` pages (device page ids holding positions [0,
+        off), rank by rank at n), dequantized and cast to the compute
+        dtype for a quantized pool. Each runs as one launch over the n
+        ranks. Returns y (C, hidden)."""
         from ..models.paged_kv_cache import scatter_rows
 
-        C = x.shape[0]
+        C, D, rl = x.shape[0], self.head_dim, self._ranks()
         qkv = x @ w_qkv
-        q, k, v = self._split_qkv(qkv, (C,))
+        q, k, v = self._split_qkv(qkv, qkv.shape[:-1])
         q, k = self._maybe_qk_norm(params, q, k)
-        qb = apply_rope(q[None], *rope)                       # (1, C, Hl, D)
-        kb = apply_rope(k[None], *rope)
-        scatter_rows(k_pool, kb[0], at, scales=k_scales)
-        scatter_rows(v_pool, v, at, scales=v_scales)
+        qb = apply_rope(q.reshape(-1, C, self.h_loc, D), *rope)  # (R, C, Hl, D)
+        kb = apply_rope(k.reshape(-1, C, self.hkv_loc, D), *rope)
+        vb = v.reshape(-1, C, self.hkv_loc, D).contiguous()
+        scatter_rows(k_pool, kb.reshape(-1, self.hkv_loc, D), at,
+                     scales=k_scales)
+        scatter_rows(v_pool, vb.reshape(-1, self.hkv_loc, D), at,
+                     scales=v_scales)
         out, lse = flash_attention_partial(
-            qb, kb, v[None].contiguous(), q_offset=0, kv_offset=0,
-            kv_valid=valid_len, causal=True)
+            qb, kb, vb, q_offset=0, kv_offset=0, kv_valid=valid_len,
+            causal=True)
         if off:
             # kv_valid = off masks the tail of the last prefix page,
             # which may hold this chunk's own just-written rows
+            R = qb.shape[0]
             kpre = paged_rows(k_pool, prefix, scales=k_scales)
             vpre = paged_rows(v_pool, prefix, scales=v_scales)
             o1, l1 = flash_attention_partial(
-                qb, kpre[None].to(qb.dtype), vpre[None].to(qb.dtype),
+                qb, kpre.view(R, -1, self.hkv_loc, D).to(qb.dtype),
+                vpre.view(R, -1, self.hkv_loc, D).to(qb.dtype),
                 q_offset=off, kv_offset=0, kv_valid=off, causal=True)
             out = merge_two_partials(o1, l1, out, lse)[0]
-        return row_parallel_out(out[0].reshape(C, -1).to(x.dtype), w_o,
-                                mode=self.mode, num_ranks=self.n)
+        return self._paged_out(out.reshape(*rl, C, -1).to(x.dtype), w_o)

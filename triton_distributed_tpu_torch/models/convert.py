@@ -13,7 +13,11 @@ and [gate|up] column groups out for n). `params_from_jax(tree,
 num_ranks=n)` splits them into the port's rank-stacked shards by
 `dense.PARAM_SPECS`: w_qkv / w_gate_up / lm_head by columns, w_o / w_down
 by rows, the rest replicated; a Qwen3MoE's experts by
-`qwen_moe.moe_param_specs` of its layout.
+`qwen_moe.moe_param_specs` of its layout. The tree of a sequence-parallel
+DenseLLM (attn_parallelism="sp") has the same n-rank fused layout with the
+trunk replicated: `params_from_jax(tree, num_ranks=n,
+attn_parallelism="sp")` keeps every layer leaf whole, once, and splits
+only the lm_head (`dense.SP_PARAM_SPECS`).
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ def _leaf(a, device):
 
 
 def params_from_jax(tree, *, device=None, num_ranks: int = 1,
-                    moe_parallel: str = "tp"):
+                    moe_parallel: str = "tp", attn_parallelism: str = "tp"):
     """JAX params pytree of numpy arrays -> the port's params dict
     ({"embed", "layers": {ln1, ln2, w_qkv, w_o, w_gate_up, w_down,
     q_norm, k_norm}, "norm", "lm_head"}; a Qwen3MoE tree has router
@@ -45,8 +49,9 @@ def params_from_jax(tree, *, device=None, num_ranks: int = 1,
     `num_ranks` ranks. A Qwen3MoE tree's experts are split as its
     `moe_parallel` says (the JAX arrays of the two layouts have the same
     shapes): "ep" on the expert dimension, as views of the converted
-    global tensors."""
-    from .dense import PARAM_SPECS, place_params
+    global tensors. `attn_parallelism="sp"`: the dense trunk replicated,
+    the lm_head vocab-sharded."""
+    from .dense import PARAM_SPECS, SP_PARAM_SPECS, place_params
     from .qwen_moe import moe_param_specs
 
     device = runtime.resolve_device(device)
@@ -58,5 +63,8 @@ def params_from_jax(tree, *, device=None, num_ranks: int = 1,
 
     params = conv(tree)
     moe = "w_moe_gate_up" in params["layers"]
-    return place_params(params, num_ranks,
-                        moe_param_specs(moe_parallel) if moe else PARAM_SPECS)
+    if moe:
+        specs = moe_param_specs(moe_parallel)
+    else:
+        specs = SP_PARAM_SPECS if attn_parallelism == "sp" else PARAM_SPECS
+    return place_params(params, num_ranks, specs)

@@ -21,8 +21,19 @@ logical model at every n. The contiguous cache is head-sharded, (L, n,
 B, Smax, Hkv / n, D). Prefill runs sequence-sharded ("xla" / "fused",
 padding the prompt to a multiple of n) or replicated ("ar" / "gemm_ar");
 decode steps are replicated and end each projection in psum, or gemm_ar
-in that mode; tokens come back as (B,), not per rank. The paged paths are
-one-rank (slice 6b).
+in that mode; tokens come back as (B,), not per rank. The paged paths of
+continuous batching run at n ranks the same way over a head-sharded pool
+(models/paged_kv_cache.py), the n ranks' attention one launch.
+
+`attn_parallelism="sp"` shards the SEQUENCE instead (JAX dense.py:106):
+the weights are replicated (`SP_PARAM_SPECS`, still in the n-rank fused
+column layout, so one parameter draw serves both parallelisms; the
+lm_head stays vocab-sharded), the paged pool is sequence-sharded, and
+only the paged serving paths exist: decode appends on the owner rank,
+runs every rank's split-KV partial and combines them (`sp_combine`
+"xla" | "ll", the one-shot kernel of ops/ll_gather.py); a prefill chunk
+runs ring attention over the ranks' slices merged with their prefix
+partials; the MLP runs full width, replicated (`_mlp_full`).
 """
 
 from __future__ import annotations
@@ -36,8 +47,9 @@ from .. import runtime
 from ..ops.attention import rope_cos_sin
 from ..layers.common import check_mode
 from ..layers.norm import rms_norm
+from ..layers.sp_attn import SPPagedAttn, SPPrefix
 from ..layers.tp_attn import TPAttn
-from ..layers.tp_mlp import TPMLP, fuse_column_parallel
+from ..layers.tp_mlp import TPMLP, fuse_column_parallel, silu
 from ..parallel.mesh import RankGroup, shard
 from .config import ModelConfig
 from .kv_cache import KVCache
@@ -113,6 +125,10 @@ PARAM_SPECS = {"embed": None, "norm": None, "lm_head": 1,
                "layers": {"ln1": None, "ln2": None, "q_norm": None,
                           "k_norm": None, "w_qkv": 2, "w_o": 1,
                           "w_gate_up": 2, "w_down": 1}}
+# attn_parallelism="sp": the trunk replicated (in the n-rank fused layout),
+# the lm_head vocab-sharded as under "tp" (JAX param_specs :150)
+SP_PARAM_SPECS = {"embed": None, "norm": None, "lm_head": 1,
+                  "layers": dict.fromkeys(PARAM_SPECS["layers"])}
 
 
 def place_params(params, n: int, specs=None):
@@ -135,15 +151,23 @@ def place_params(params, n: int, specs=None):
 class DenseLLM(nn.Module):
     """Dense LLM at `num_ranks` tensor-parallel ranks (default one). `mode`
     takes the JAX package's names ("xla" | "fused" | "ar" | "gemm_ar");
-    at one rank they are the same math. Runs on `device` (default: the
-    GPU, see runtime.default_device) in `dtype` ("bfloat16" | "float32" or
-    a torch dtype)."""
+    at one rank they are the same math. `attn_parallelism` "tp" (heads
+    sharded, the default) or "sp" (sequences sharded, paged serving only,
+    the decode partials combined by `sp_combine`, "xla" or "ll"). Runs on
+    `device` (default: the GPU, see runtime.default_device) in `dtype`
+    ("bfloat16" | "float32" or a torch dtype)."""
 
     def __init__(self, config: ModelConfig, *, mode: str = "fused",
-                 dtype=torch.bfloat16, device=None, num_ranks: int = 1):
+                 dtype=torch.bfloat16, device=None, num_ranks: int = 1,
+                 attn_parallelism: str = "tp", sp_combine: str = "xla"):
         super().__init__()
         self.config = config
         self.mode = check_mode(mode)
+        if attn_parallelism not in ("tp", "sp"):
+            raise ValueError(f"attn_parallelism={attn_parallelism!r}: "
+                             f"expected 'tp' or 'sp'")
+        self.attn_parallelism = attn_parallelism
+        self.sp_combine = sp_combine
         self.dtype = runtime.resolve_dtype(dtype)
         self.device = runtime.resolve_device(device)
         self.n = RankGroup(num_ranks).n
@@ -158,6 +182,16 @@ class DenseLLM(nn.Module):
                          num_ranks=num_ranks)
         # decode steps run the MLP in the AllReduce modes (JAX dense.py:133)
         self._decode_mlp_mode = "gemm_ar" if mode == "gemm_ar" else "ar"
+        self.sp_attn = None
+        if attn_parallelism == "sp":
+            self.sp_attn = SPPagedAttn(
+                c.hidden_size, c.num_heads, c.num_kv_heads, c.head_dim,
+                num_ranks=num_ranks, rope_theta=c.rope_theta,
+                qk_norm=c.qk_norm, combine=sp_combine)
+
+    @property
+    def _sp(self) -> bool:
+        return self.attn_parallelism == "sp"
 
     # ------------------------------------------------------------------
     # Parameters
@@ -197,8 +231,9 @@ class DenseLLM(nn.Module):
 
     def param_specs(self) -> dict:
         """The global dimension each parameter splits along at n ranks
-        (PARAM_SPECS; JAX param_specs :145)."""
-        return PARAM_SPECS
+        (PARAM_SPECS, or SP_PARAM_SPECS under "sp"; JAX param_specs
+        :145)."""
+        return SP_PARAM_SPECS if self._sp else PARAM_SPECS
 
     def shard_params(self, params):
         """One-rank parameters (the layout `init_params` and
@@ -258,7 +293,8 @@ class DenseLLM(nn.Module):
         return place_params(
             {"embed": embed,
              "layers": {k: torch.stack(v) for k, v in layers.items()},
-             "norm": get("model.norm.weight"), "lm_head": lm}, self.n)
+             "norm": get("model.norm.weight"), "lm_head": lm}, self.n,
+            self.param_specs())
 
     # ------------------------------------------------------------------
     # Cache
@@ -269,26 +305,30 @@ class DenseLLM(nn.Module):
                               c.head_dim, dtype=self.dtype,
                               device=self.device, num_ranks=self.n)
 
-    def _one_rank_only(self, what: str):
-        if self.n > 1:
-            raise NotImplementedError(
-                f"{what} at num_ranks={self.n}: the paged tensor-parallel "
-                f"paths (ServeEngine(tp_ranks=) in engine mode) are slice "
-                f"6b (ROADMAP.md, Queue A)")
+    def _require_tp(self, op: str):
+        if self._sp:
+            raise ValueError(
+                f"{op}: only the paged serving paths "
+                f"(decode_step_paged / prefill_chunk_paged) exist "
+                f"under attn_parallelism='sp' — the contiguous KVCache "
+                f"is head-sharded, which SP replaces with sequence "
+                f"sharding")
 
     def new_paged_kv_cache(self, batch: int, max_len: int, *,
                            block: int = 128, num_blocks: int | None = None,
                            kv_dtype: str | None = None) -> PagedKVCache:
         """Ragged paged cache for continuous batching (models/serve.py):
         `batch` slots of at most `max_len` tokens, blocks from a shared
-        free-list pool. kv_dtype="int8" | "float8_e4m3fn" stores the pool
-        at wire width with per-row f32 scale sidecars."""
-        self._one_rank_only("new_paged_kv_cache")
+        free-list pool, head-sharded over this model's ranks (under "sp":
+        sequence-sharded). kv_dtype="int8" | "float8_e4m3fn" stores the
+        pool at wire width with per-row f32 scale sidecars."""
         c = self.config
         return PagedKVCache.create(
             c.num_layers, batch, max_len, c.num_kv_heads, c.head_dim,
             block=block, num_blocks=num_blocks, dtype=self.dtype,
-            kv_dtype=kv_dtype, device=self.device)
+            kv_dtype=kv_dtype, device=self.device,
+            num_ranks=1 if self._sp else self.n,
+            sp_ranks=self.n if self._sp else 1)
 
     # ------------------------------------------------------------------
     # Forward
@@ -331,6 +371,7 @@ class DenseLLM(nn.Module):
                         true_len=None):
         """Prefill up to the final norm: (last real row (B, hidden),
         cache)."""
+        self._require_tp("prefill")
         ids = torch.as_tensor(input_ids, dtype=torch.int32,
                               device=self.device)
         B, S = ids.shape
@@ -408,6 +449,7 @@ class DenseLLM(nn.Module):
 
     def _decode_hidden(self, params, tok, cache: KVCache):
         """One decode step up to the final norm: (x (B, hidden), cache)."""
+        self._require_tp("decode_step")
         if cache.offset >= cache.max_len:
             raise ValueError(f"KV cache full at {cache.max_len} positions")
         tok = torch.as_tensor(tok, dtype=torch.int32, device=self.device)
@@ -429,10 +471,27 @@ class DenseLLM(nn.Module):
     # ------------------------------------------------------------------
     # Paged forward (continuous batching, models/serve.py)
     # ------------------------------------------------------------------
-    def _pool_layer(self, cache: PagedKVCache, i: int) -> dict:
-        if not cache.quantized:
-            return {}
-        return {"k_scales": cache.k_scales[i], "v_scales": cache.v_scales[i]}
+    def _pool_layer(self, cache: PagedKVCache, i: int):
+        """Layer i's pools and, for a quantized pool, its scale sidecars
+        as keyword arguments (a head-sharded layer's ranks as one pool)."""
+        kp, vp, ks, vs = cache.layer_pools(i)
+        return kp, vp, ({} if ks is None
+                        else {"k_scales": ks, "v_scales": vs})
+
+    def _mlp_paged(self, h, p):
+        """The MLP of the paged steps: full width and replicated under
+        "sp", else the AllReduce modes."""
+        if self._sp:
+            return self._mlp_full(h, p)
+        return self._mlp_rows(h, p, mode=self._decode_mlp_mode)
+
+    def _mlp_full(self, h, p):
+        """The replicated full-width SwiGLU of "sp" (JAX _mlp_full :720):
+        the fused [gate_r | up_r] columns regrouped to the original order,
+        no collective."""
+        i_loc = self.config.intermediate_size // self.n
+        gate, up = self.sp_attn._unfuse(h @ p["w_gate_up"], (i_loc, i_loc))
+        return (silu(gate) * up) @ p["w_down"]
 
     def _next_token(self, x, params, generator, *, sampling, temperature,
                     top_k):
@@ -442,6 +501,12 @@ class DenseLLM(nn.Module):
             return sample_token(x, params["lm_head"], generator,
                                 temperature=temperature, top_k=top_k)
         return greedy_token(x, params["lm_head"])
+
+    def _ranks_rope(self, rope):
+        """A head-sharded step's (cos, sin), one copy a rank."""
+        if self.n == 1:
+            return rope
+        return tuple(t.repeat(self.n, *([1] * (t.dim() - 1))) for t in rope)
 
     def decode_step_paged(self, params, tok, cache: PagedKVCache, active,
                           generator: torch.Generator | None = None, *,
@@ -454,30 +519,51 @@ class DenseLLM(nn.Module):
         token carries through unchanged). Shapes stay at (B_max, ...)
         as in the JAX step. tok: (B,) ints; active: (B,) bools (host).
         The pool is updated in place. Returns (next_token (B,) int32,
-        cache advanced by `active`)."""
-        self._one_rank_only("decode_step_paged")
+        cache advanced by `active`).
+
+        At n ranks every layer's attention runs the n ranks' heads in one
+        launch over the head-sharded pool; under "sp" the step appends on
+        the owner rank, runs every rank's split-KV partial over its pages
+        and combines them (`attn_method` is the head-sharded path's)."""
         if sampling is None:
             sampling = temperature > 0.0
         tok = torch.as_tensor(tok, dtype=torch.int32, device=self.device)
         act = np.asarray(active, bool).reshape(-1)
         lens = cache.seq_lens.copy()
-        dev = self.device
-        kv_len = torch.from_numpy(lens + act.astype(np.int32)).to(dev)
+        dev, n = self.device, self.n
+        kv_np = lens + act.astype(np.int32)
         rope = rope_cos_sin(torch.from_numpy(lens).to(dev)[:, None],
                             self.config.head_dim,
                             theta=self.config.rope_theta)     # (B, 1, D/2)
         at = cache.append_at(act)
-        table = cache.device_table
+        if self._sp:
+            rt = cache.sp_rank_tokens(n)
+            local = np.clip(kv_np[None] - np.arange(n)[:, None] * rt, 0, rt)
+            args = (cache.sp_tables,
+                    torch.from_numpy(local.astype(np.int32)).to(dev), rope,
+                    at)
+        else:
+            kv_len = torch.from_numpy(kv_np).to(dev)
+            args = (cache.rank_table.view(-1, cache.max_blocks),
+                    kv_len.repeat(n), self._ranks_rope(rope),
+                    at.over_ranks(n, cache.num_blocks, len(act))
+                    if n > 1 else at)
         eps = self.config.rms_norm_eps
         x = F.embedding(tok, params["embed"])              # (B, H)
         for i, p in self._layers(params):
             h = rms_norm(x, p["ln1"], eps)
-            x = x + self.attn._decode_shard_paged(
-                self._attn_layer_params(p), h, p["w_qkv"], p["w_o"],
-                cache.k_pool[i], cache.v_pool[i], table, kv_len, rope, at,
-                attn_method=attn_method, **self._pool_layer(cache, i))
+            kp, vp, scales = self._pool_layer(cache, i)
+            if self._sp:
+                a = self.sp_attn._decode_shard_paged(
+                    self._attn_layer_params(p), h, p["w_qkv"], p["w_o"], kp,
+                    vp, *args)
+            else:
+                a = self.attn._decode_shard_paged(
+                    self._attn_layer_params(p), h, p["w_qkv"], p["w_o"], kp,
+                    vp, *args, attn_method=attn_method, **scales)
+            x = x + a
             h = rms_norm(x, p["ln2"], eps)
-            x = x + self._mlp_rows(h, p, mode=self._decode_mlp_mode)
+            x = x + self._mlp_paged(h, p)
         x = rms_norm(x, params["norm"], eps)
         nxt = self._next_token(x, params, generator, sampling=sampling,
                                temperature=temperature, top_k=top_k)
@@ -500,15 +586,19 @@ class DenseLLM(nn.Module):
         rows back with `PagedKVCache.truncate_slot`. counts == 1
         everywhere is exactly the greedy decode step. Greedy only: the
         accept rule is argmax == draft. The pool is updated in place;
-        active / counts are host arrays."""
-        self._one_rank_only("verify_step_paged")
+        active / counts are host arrays. Not under "sp" (as in JAX)."""
+        if self._sp:
+            raise ValueError(
+                "verify_step_paged: speculative decoding is not "
+                "supported under attn_parallelism='sp' — serve with "
+                "speculative=None (ServeEngine enforces this)")
         ids = torch.as_tensor(np.asarray(cand_toks), dtype=torch.int32,
                               device=self.device)
         B, K = ids.shape
         act = np.asarray(active, bool).reshape(-1)
         cnt = np.asarray(counts, np.int32).reshape(-1)
         lens = cache.seq_lens.astype(np.int64)
-        dev = self.device
+        dev, n = self.device, self.n
         pos = lens[:, None] + np.arange(K)[None, :]               # (B, K)
         live = (np.arange(K)[None, :] < cnt[:, None]) & act[:, None]
         kv_len = torch.from_numpy(
@@ -517,15 +607,19 @@ class DenseLLM(nn.Module):
                             self.config.head_dim,
                             theta=self.config.rope_theta)     # (B, K, D/2)
         at = cache.verify_at(cnt, act, K)
-        table = cache.device_table.repeat_interleave(K, dim=0)
+        if n > 1:
+            at = at.over_ranks(n, cache.num_blocks, B * K)
+        table = cache.rank_table.repeat_interleave(K, dim=1).view(
+            -1, cache.max_blocks)
+        args = (table, kv_len.repeat(n), self._ranks_rope(rope), at)
         eps = self.config.rms_norm_eps
         x = F.embedding(ids, params["embed"])              # (B, K, H)
         for i, p in self._layers(params):
             h = rms_norm(x, p["ln1"], eps)
+            kp, vp, scales = self._pool_layer(cache, i)
             x = x + self.attn._verify_shard_paged(
-                self._attn_layer_params(p), h, p["w_qkv"], p["w_o"],
-                cache.k_pool[i], cache.v_pool[i], table, kv_len, rope, at,
-                attn_method=attn_method, **self._pool_layer(cache, i))
+                self._attn_layer_params(p), h, p["w_qkv"], p["w_o"], kp, vp,
+                *args, attn_method=attn_method, **scales)
             h = rms_norm(x, p["ln2"], eps)
             x = x + self._mlp_rows(h, p, mode=self._decode_mlp_mode)
         x = rms_norm(x, params["norm"], eps)
@@ -542,31 +636,52 @@ class DenseLLM(nn.Module):
         of sequence `slot` enter the paged pool in place (chunk_ids: (C,)
         ints, pad past valid_len arbitrary). Attention is the in-chunk
         causal partial merged with a partial over the ceil(off / block)
-        pages holding the cached prefix. Returns (next_token () int32 —
+        pages holding the cached prefix (under "sp": ring attention over
+        the ranks' chunk slices merged with each rank's prefix partial;
+        the chunk must lie in one rank's ownership range, which
+        `PagedKVCache.sp_owner` checks). Returns (next_token () int32 —
         meaningful when this is the prompt's final chunk, cache with
         seq_lens[slot] advanced by valid_len)."""
-        self._one_rank_only("prefill_chunk_paged")
         slot, off, valid_len = int(slot), int(off), int(valid_len)
         ids = torch.as_tensor(chunk_ids, dtype=torch.int32,
                               device=self.device).reshape(-1)
-        C = ids.shape[0]
+        C, n = ids.shape[0], self.n
         if not 0 < valid_len <= C:
             raise ValueError(f"valid_len {valid_len} outside [1, {C}]")
+        if self._sp:
+            cache.sp_owner(off, valid_len, sp_ranks=n)
         rope = rope_cos_sin(off + torch.arange(C, device=self.device),
                             self.config.head_dim,
                             theta=self.config.rope_theta)     # (C, D/2)
         at = cache.chunk_at(slot, off, valid_len)
-        prefix = cache.prefix_pages(slot, off) if off else None
+        if self._sp:
+            rt = cache.sp_rank_tokens(n)
+            prefix = SPPrefix.of(cache.block_table[slot], off, rt,
+                                 cache.block, self.device) if off else None
+        else:
+            prefix = cache.prefix_pages(slot, off) if off else None
+            if n > 1:
+                at = at.over_ranks(n, cache.num_blocks, C)
+                if prefix is not None:
+                    prefix = (prefix[None] + torch.arange(
+                        n, device=prefix.device)[:, None]
+                        * cache.num_blocks).reshape(-1)
         eps = self.config.rms_norm_eps
         x = F.embedding(ids, params["embed"])              # (C, H)
         for i, p in self._layers(params):
             h = rms_norm(x, p["ln1"], eps)
-            x = x + self.attn._prefill_chunk_shard(
-                self._attn_layer_params(p), h, p["w_qkv"], p["w_o"],
-                cache.k_pool[i], cache.v_pool[i], rope, at, prefix, off,
-                valid_len, **self._pool_layer(cache, i))
+            kp, vp, scales = self._pool_layer(cache, i)
+            if self._sp:
+                a = self.sp_attn._prefill_chunk_shard(
+                    self._attn_layer_params(p), h, p["w_qkv"], p["w_o"], kp,
+                    vp, rope, at, prefix, off, valid_len, rank_tokens=rt)
+            else:
+                a = self.attn._prefill_chunk_shard(
+                    self._attn_layer_params(p), h, p["w_qkv"], p["w_o"], kp,
+                    vp, rope, at, prefix, off, valid_len, **scales)
+            x = x + a
             h = rms_norm(x, p["ln2"], eps)
-            x = x + self._mlp_rows(h, p, mode=self._decode_mlp_mode)
+            x = x + self._mlp_paged(h, p)
         last = rms_norm(x[valid_len - 1], params["norm"], eps)
         tok = self._next_token(last[None], params, generator,
                                sampling=sampling,

@@ -1,6 +1,5 @@
 """Continuous-batching serving engine over the ragged paged KV cache
-(counterpart of triton_distributed_tpu/models/serve.py, engine mode at
-one rank).
+(counterpart of triton_distributed_tpu/models/serve.py).
 
 A fixed array of `b_max` SLOTS, an admission queue, and one decode step
 shaped (b_max, ...) with occupancy as an active mask, so sequences
@@ -74,10 +73,30 @@ the widths, on the SIMT LINEAR tiles, so megakernel-mode speculation is
 at present 3 to 4 times slower than spec-off on Qwen3-8B (NVIDIA H100
 80GB HBM3, 700 W; PERF.md §5, ROADMAP Queue A 7), k=1 ticks included.
 
+Multi-rank serving, n ranks in one process on one device (engine mode):
+- `tp_ranks=n` over a DenseLLM(num_ranks=n): the model's own steps span
+  the ranks (head-sharded pool, one attention launch for the n ranks,
+  each projection ending in psum or, in mode "gemm_ar", the gemm_ar
+  kernel). The control plane stays one SchedulerState: every decision is
+  applied once, to the one allocator (page ids are global), and mirrored
+  as the same edit on each rank's `serve_state.RankLedger`; the ledgers'
+  divergence check runs at the end of every tick, and `stats()["per_rank"]`
+  reports each rank's row (JAX serve.py:359-395, :1205-1234).
+  At n ranks every model step's tokens pass the communication kernels'
+  fault check (shmem.check_faults) before they are emitted, as Engine's
+  do.
+- A DenseLLM(num_ranks=n, attn_parallelism="sp", sp_combine=...) serves
+  sequence-parallel: the pool is sequence-sharded, a grant is all or
+  nothing per rank, and the scheduler runs with `sp_ranks=n`. The engine
+  inherits the model's parallelism and combine and keeps the JAX engine's
+  refusals: the megakernel, speculation and the prefix cache under "sp",
+  and geometry that does not split over the ranks (ValueError).
+
 Not in this slice (each raises NotImplementedError): the watchdog
 (`slo_ticks`) and fault injection (`chaos`), the host spill tier
 (`host_blocks`) and the plain ("xla") attention rung on a CUDA device
-(slice 2c), sequence parallel and multi-rank serving (slice 6).
+(slice 2c), megakernel serving at n ranks (slice 6), and an n-rank
+Qwen3MoE behind the engine (ROADMAP Queue A, "n-rank MoE serving").
 """
 
 from __future__ import annotations
@@ -89,6 +108,7 @@ import torch
 
 from .. import perf_model
 from ..ops import wire
+from ..shmem import check_faults
 from . import serve_state
 from .engine import pow2_bucket
 from .paged_kv_cache import PagedKVCache
@@ -104,22 +124,38 @@ SPEC_SLOT_ROWS = 8
 class _CachePool:
     """The pool protocol the serve_state transitions drive (grant /
     release / reclaim / refcnts / free_count / row), landing on the
-    engine's `PagedKVCache`. The allocator state lives on the host, so
+    engine's `PagedKVCache`, with each edit mirrored on the per-rank
+    ledgers at tp_ranks > 1. The allocator state lives on the host, so
     none of these calls waits on the device."""
 
     def __init__(self, eng):
         self._e = eng
 
     def grant(self, i, plan):
-        ok, new = self._e._cache.assign_slot_prefixed(
+        e = self._e
+        n = e.sched.cfg.sp_ranks
+        if n > 1:
+            # the sequence-sharded pool grants all or nothing per rank;
+            # prefix plans never come here (refused at construction)
+            return () if e._cache.assign_slot(i, plan.n_new, sp_ranks=n) \
+                else None
+        ok, new = e._cache.assign_slot_prefixed(
             i, shared=plan.shared, n_new=plan.n_new, cow_src=plan.cow_src,
             seq_len=plan.start)
-        return new if ok else None     # None: the request stays queued
+        if not ok:
+            return None                # the request stays queued
+        if e._rledger is not None:
+            # page ids are global: the same row on every rank's ledger
+            e._rledger.set_row(i, self.row(i), plan.start)
+        return new
 
     def release(self, i, quarantining=False, cached=()):
         # nothing quarantines without the watchdog (slice 2c), which
         # brings back the JAX engine's conservation check on that path
-        self._e._cache.free_slot(i, cached=cached)
+        e = self._e
+        e._cache.free_slot(i, cached=cached)
+        if e._rledger is not None:
+            e._rledger.release(i)
 
     def reclaim(self, ids):
         self._e._cache.reclaim_blocks(ids)
@@ -135,8 +171,11 @@ class _CachePool:
                 if s.req is not None else 0)
         pfx = e.sched.prefix
         cached = tuple(pfx.blocks) if pfx is not None else ()
-        return e._cache.truncate_slot(i, new_len, cached=cached,
-                                      min_blocks=keep)
+        freed = e._cache.truncate_slot(i, new_len, cached=cached,
+                                       min_blocks=keep)
+        if e._rledger is not None:
+            e._rledger.set_row(i, self.row(i), new_len)
+        return freed
 
     def refcnts(self):
         return self._e._cache.ref_counts.copy()
@@ -222,8 +261,9 @@ def _not_in_slice(what: str, where: str):
 
 
 class ServeEngine:
-    """Continuous batching over `b_max` slots for a one-rank `DenseLLM`
-    or `Qwen3MoE`. Decode attention reads the pages in place through the
+    """Continuous batching over `b_max` slots for a `DenseLLM` (one rank,
+    n tensor-parallel ranks, or n sequence-parallel ranks) or a one-rank
+    `Qwen3MoE`. Decode attention reads the pages in place through the
     block table (ops/attention.flash_decode_paged: the CUDA kernel on
     the GPU, its plain version on the CPU), or, with
     mode="megakernel", inside the megakernel's one launch per tick."""
@@ -259,21 +299,100 @@ class ServeEngine:
         self.mode = mode or "engine"
         if mk_opts is not None and self.mode != "megakernel":
             raise ValueError("mk_opts configures mode='megakernel'")
-        if attn_parallelism not in (None, "tp"):
-            if attn_parallelism == "sp":
-                _not_in_slice("attn_parallelism='sp'", "slice 6")
-            raise ValueError(f"attn_parallelism={attn_parallelism!r}: "
-                             f"choose 'tp' or 'sp'")
-        if sp_combine is not None:
-            _not_in_slice("sp_combine", "slice 6")
+        # the engine inherits the model's parallelism and combine: naming
+        # another one cannot re-shard the model, so it is refused
+        model_ap = getattr(model, "attn_parallelism", "tp")
+        if attn_parallelism is None:
+            attn_parallelism = model_ap
+        if attn_parallelism not in ("tp", "sp"):
+            raise ValueError(
+                f"attn_parallelism={attn_parallelism!r}: choose 'tp' "
+                f"(head-sharded) or 'sp' (sequence-sharded)")
+        if attn_parallelism != model_ap:
+            raise ValueError(
+                f"attn_parallelism={attn_parallelism!r} but the model "
+                f"was built with {model_ap!r} — the engine inherits "
+                f"the model's parallelism; rebuild the model or drop "
+                f"the kwarg")
+        self.attn_parallelism = attn_parallelism
+        model_comb = getattr(model, "sp_combine", "xla")
+        if sp_combine is not None and sp_combine != model_comb:
+            raise ValueError(
+                f"sp_combine={sp_combine!r} but the model was built "
+                f"with sp_combine={model_comb!r} — the combine kernel "
+                f"is compiled into the model's decode step")
+        self.sp_combine = model_comb
         if isinstance(tp_ranks, bool) \
                 or not isinstance(tp_ranks, (int, np.integer)) \
                 or tp_ranks < 1:
             raise ValueError(f"tp_ranks must be a positive integer, got "
                              f"{tp_ranks!r}")
-        if tp_ranks > 1 or model.n > 1:
-            _not_in_slice("ServeEngine over tp_ranks > 1 (the paged "
-                          "tensor-parallel attention)", "slice 6b")
+        tp_ranks = int(tp_ranks)
+        if self.mode == "megakernel" and attn_parallelism == "tp" \
+                and (tp_ranks > 1 or model.n > 1):
+            _not_in_slice("ServeEngine(mode='megakernel') over tp_ranks > 1 "
+                          "(the megakernel's AR / GEMM_AR bodies)", "slice 6")
+        if tp_ranks > 1:
+            if attn_parallelism != "tp":
+                raise ValueError(
+                    "tp_ranks > 1 is the head-sharded deployment; "
+                    "attn_parallelism='sp' shards sequences (sp_ranks) "
+                    "instead — the two cannot compose")
+            if int(model.n) != tp_ranks:
+                raise ValueError(
+                    f"tp_ranks={tp_ranks} but the model spans "
+                    f"{int(model.n)} mesh rank(s) — build the model on "
+                    f"{tp_ranks} ranks (the engine deploys the model's "
+                    f"own ranks)")
+        if getattr(model.config, "is_moe", False) and model.n > 1:
+            _not_in_slice("ServeEngine over an n-rank Qwen3MoE (EP or TP "
+                          "experts)", "'n-rank MoE serving'")
+        self.tp_ranks = tp_ranks
+        if attn_parallelism == "sp":
+            # the sequence-sharded layout fixes the geometry: every rank
+            # owns an equal slice of each slot's positions, and a prefill
+            # chunk stays inside one rank's slice
+            n = int(model.n)
+            if self.mode == "megakernel":
+                raise ValueError(
+                    "mode='megakernel' is tp-only: the persistent "
+                    "kernel's pool is not sequence-sharded; use "
+                    "mode='engine' with attn_parallelism='sp'")
+            if speculative is not None:
+                raise ValueError(
+                    "speculative decoding is tp-only: multi-token "
+                    "verify/rollback is not supported under "
+                    "attn_parallelism='sp'; set speculative=None")
+            if prefix_cache:
+                raise ValueError(
+                    "prefix_cache=True is tp-only: a radix hit would "
+                    "map cached blocks into table columns another rank "
+                    "owns; serve attn_parallelism='sp' with "
+                    "prefix_cache=False (or leave it unset)")
+            if max_len % (n * block):
+                raise ValueError(
+                    f"max_len={max_len} does not split over {n} ranks "
+                    f"of {block}-token pages — pad max_len to a "
+                    f"multiple of sp_ranks*block={n * block}")
+            rank_tokens = (max_len // block // n) * block
+            if prefill_chunk % n:
+                raise ValueError(
+                    f"prefill_chunk={prefill_chunk} does not split "
+                    f"over {n} ranks — the SP chunk runs {n} "
+                    f"rank-local slices through the ring")
+            if rank_tokens % prefill_chunk:
+                raise ValueError(
+                    f"prefill_chunk={prefill_chunk} does not divide "
+                    f"rank_tokens={rank_tokens}: a chunk would cross "
+                    f"a rank ownership boundary mid-write")
+            pool_blocks = (num_blocks if num_blocks is not None
+                           else b_max * (max_len // block))
+            if pool_blocks % n:
+                raise ValueError(
+                    f"num_blocks={pool_blocks} does not split over "
+                    f"{n} ranks — each rank holds an equal pool slice")
+            # the radix tree is tp-only: "auto" is off under sp
+            prefix_cache = False if prefix_cache is None else prefix_cache
         if attn_method not in (None, "kernel", "xla"):
             raise ValueError(f"attn_method={attn_method!r}: choose "
                              f"'kernel' or 'xla'")
@@ -349,7 +468,12 @@ class ServeEngine:
             tenant_weights=tuple(sorted((tenant_weights or {}).items())),
             preemption=bool(preemption),
             spec_k=(self.spec.k if self.spec is not None else 0),
-            ep_capacity=int(ep_capacity)))
+            sp_ranks=(int(model.n) if attn_parallelism == "sp" else 1),
+            ep_capacity=int(ep_capacity), tp_ranks=tp_ranks))
+        # the per-rank block ledgers and their divergence check (fresh
+        # each run)
+        self._rledger = (serve_state.RankLedger(tp_ranks, b_max)
+                         if tp_ranks > 1 else None)
         self._pool = _CachePool(self)
         self._cache: PagedKVCache | None = None
         self._running = False
@@ -419,6 +543,17 @@ class ServeEngine:
             raise ValueError(
                 f"request needs {need} blocks but the pool only has "
                 f"{self._pool_blocks}; raise num_blocks or max_len")
+        sp = self.sched.cfg.sp_ranks
+        if sp > 1:
+            # the per-rank form of the same guard: rank 0 serves the first
+            # bpr table columns, so its share of the request is the largest
+            bpr = (self.max_len // self.block) // sp
+            nb_loc = self._pool_blocks // sp
+            if min(need, bpr) > nb_loc:
+                raise ValueError(
+                    f"request needs {min(need, bpr)} blocks from rank "
+                    f"0's slice but each rank only holds {nb_loc}; "
+                    f"raise num_blocks or shorten the request")
         if not isinstance(tenant, str) or not tenant:
             raise ValueError(
                 f"tenant must be a non-empty string, got "
@@ -462,6 +597,8 @@ class ServeEngine:
     def _emit(self, i: int, tok: int, stream_cb):
         s = self._slots[i]
         serve_state.emit(self.sched, i, tok)
+        if self._rledger is not None:
+            self._rledger.emit(i)
         if stream_cb is not None:
             stream_cb(s.req.rid, tok, len(s.out) - 1)
 
@@ -474,6 +611,13 @@ class ServeEngine:
             self._budget_extra += 16 * (
                 self.max_len // self.prefill_chunk
                 + self.max_len // self.block + 2)
+
+    def _checked(self, out):
+        """`out`, once no communication kernel has recorded a fault (a
+        fault raises here; synchronises at n > 1 ranks)."""
+        if self.model.n > 1:
+            check_faults()
+        return out
 
     def _generator(self):
         """The step's generator, re-seeded from (seed, step) when
@@ -498,6 +642,7 @@ class ServeEngine:
             generator=self._generator(),
             sampling=self.temperature > 0.0, temperature=self.temperature,
             top_k=self.top_k)
+        tok = self._checked(tok)
         self._steps["prefill_prefix"] += off > 0
         if serve_state.prefill_advance(self.sched, i, valid):
             # final chunk: the first generated token; a megakernel slot's
@@ -544,7 +689,7 @@ class ServeEngine:
                 self.params, toks, self._cache, active, gen,
                 sampling=sampling, temperature=self.temperature,
                 top_k=self.top_k, attn_method=self.attn_method)
-            got[eng_live] = out.cpu().numpy()[eng_live]
+            got[eng_live] = self._checked(out).cpu().numpy()[eng_live]
         if mk_live:
             mask = np.asarray([i in mk_live for i in range(self.b_max)])
             out = self._mk.decode(
@@ -644,7 +789,7 @@ class ServeEngine:
             got, self._cache = self.model.verify_step_paged(
                 self.params, cands, self._cache, active, counts,
                 attn_method=self.attn_method)
-            pred[eng_live] = got.cpu().numpy()[eng_live]
+            pred[eng_live] = self._checked(got).cpu().numpy()[eng_live]
         if mk_live:
             mask = np.asarray([i in mk_live for i in range(self.b_max)])
             got = self._mk.verify(cands, counts, lens0,
@@ -687,11 +832,26 @@ class ServeEngine:
         self._spec_ctx.pop(s.req.rid, None)
         serve_state.finish(self.sched, i, self._pool)
 
+    def _rank_sync_check(self):
+        """End-of-tick rank-consistency tripwire (JAX serve.py:1091): each
+        resident slot's cache length lands on every rank's ledger as one
+        edit, then the ledgers must agree; a divergence is a scheduler
+        bug and raises."""
+        if self._rledger is None:
+            return
+        for i, s in enumerate(self.sched.slots):
+            if s.req is not None:
+                self._rledger.set_len(i, int(self._cache.seq_lens[i]))
+        div = self._rledger.divergence()
+        if div is not None:
+            raise RuntimeError(f"ServeEngine rank divergence: {div}")
+
     def _tick(self, stream_cb=None):
         self.sched.tick += 1
         self._admit()
         self._prefill_tick(stream_cb)
         self._decode_tick(stream_cb)
+        self._rank_sync_check()
 
     # -- observability ----------------------------------------------------
     def stats(self) -> dict:
@@ -752,12 +912,12 @@ class ServeEngine:
             "decode_steps": self._steps["decode"],
             "prefix_chunks": self._steps["prefill_prefix"],
             # the decode path, and the ticks that took the one megakernel
-            # launch; one rank (the JAX engine's per-rank list is empty
-            # at tp_ranks 1)
+            # launch; the deployment's ranks and one row each (empty at
+            # tp_ranks 1)
             "mode": self.mode,
             "megakernel_steps": self._steps["megakernel"],
-            "tp_ranks": 1,
-            "per_rank": [],
+            "tp_ranks": self.tp_ranks,
+            "per_rank": self._per_rank_stats(),
             # slot-ticks the expert-capacity budget deferred, routed rows
             # dispatched, and the last tick's live-occupancy EP plan
             "capacity_drops": c["capacity_drops"],
@@ -766,13 +926,29 @@ class ServeEngine:
             "ep_plan": self.ep_plan,
         }
 
+    def _per_rank_stats(self) -> list:
+        """One row a rank at tp_ranks > 1 (JAX _per_rank_stats): the
+        blocks its ledger holds, the pool's free blocks (page ids are
+        global, so every rank's count is the same), and the megakernel
+        path's AR wire bytes and bounded-drain launches, which the engine
+        path does not have (0)."""
+        if self._rledger is None:
+            return []
+        cache = self._cache
+        free = (cache.num_free_blocks if cache is not None
+                else self._pool_blocks)
+        return [{"rank": r, "held_blocks": self._rledger.held_blocks(r),
+                 "free_blocks": free, "ar_bytes_pushed": 0,
+                 "drain_budget_trips": 0} for r in range(self.tp_ranks)]
+
     def _quant_kv_bytes_saved(self) -> int:
         """Device bytes the wire-width pool saves against an f32 pool
         over the blocks in use."""
         cache = self._cache
         if cache is None or not cache.quantized:
             return 0
-        L, _, hkv, blk, d = cache.k_pool.shape
+        L, hkv = cache.k_pool.shape[0], cache.num_kv_heads
+        blk, d = cache.k_pool.shape[-2:]
         fp32 = 2 * L * hkv * blk * d * 4
         in_use = cache.num_blocks - cache.num_free_blocks
         return (fp32 - cache.block_nbytes()) * in_use
@@ -788,6 +964,8 @@ class ServeEngine:
             num_blocks=self.num_blocks, kv_dtype=self.kv_dtype)
         if self._mk is not None:
             self._mk.reset()
+        if self._rledger is not None:
+            self._rledger = serve_state.RankLedger(self.tp_ranks, self.b_max)
         self.sched.reset_run()
         self._spec_ewma, self._spec_ctx = {}, {}
         if self._cap_ledger is not None:

@@ -411,6 +411,18 @@ def combine_partials(outs, lses):
     return (num / denom[..., None]).to(outs.dtype)
 
 
+def combine_partials_with_lse(outs, lses):
+    """`combine_partials` that also returns the combined lse, so the
+    result can keep folding into further merges (the sequence-parallel
+    prefill combines the ranks' prefix partials, then merges the result
+    with the in-chunk partial). Returns (out f32, lse)."""
+    m = lses.amax(dim=0)
+    w = torch.exp(lses - m[None])
+    denom = w.sum(dim=0).clamp_min(1e-30)
+    num = (w[..., None] * outs.float()).sum(dim=0)
+    return num / denom[..., None], m + torch.log(denom)
+
+
 # ---------------------------------------------------------------------------
 # Rotary embeddings and the naive reference
 # ---------------------------------------------------------------------------

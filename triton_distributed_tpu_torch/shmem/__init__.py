@@ -9,6 +9,8 @@ from .primitives import (  # noqa: F401
     a2a_workspace,
     check_faults,
     launch_a2a,
+    launch_ll,
+    ll_workspace,
     launch_tp,
     release_workspaces,
     workspace,

@@ -48,6 +48,13 @@ DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 # epoch, budget_ns, n, C, row_bytes, chunk, grid, stream
 A2A_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_uint, ctypes.c_longlong]
                 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# the C entry point of csrc/ll_combine.cu: dtype, out, lse, merged, land,
+# pads, fault, epoch, budget_ns, n, rows, D, W, grid, stream
+LL_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+               + [ctypes.c_uint, ctypes.c_longlong] + [ctypes.c_int] * 5
+               + [ctypes.c_void_p])
+LL_ROWS = 16            # rows a work item of csrc/ll_combine.cu packs/merges
+LL_MAX_RANKS = 8        # csrc/ll_combine.cu MAX_RANKS
 
 
 class Workspace:
@@ -196,5 +203,40 @@ def launch_a2a(kernel, ws: Workspace, x, send_cnt, chunk: int, *,
     kernel.launch(ptr(x), ptr(send_cnt), ptr(ws.land_ptrs), ptr(ws.pad_ptrs),
                   ptr(ws.fault), epoch, int(budget_s * 1e9), n, C, row_bytes,
                   chunk, grid, stream_of(x))
+    ws.epoch = epoch
+    ws.launched()
+
+
+def ll_workspace(device, n: int, rows: int, width: int) -> Workspace:
+    """The one-shot combine's workspace (csrc/ll_combine.cu): rank r's
+    landing region is (n, rows, width) f32, slot s the packed partial rows
+    of source s; its pad holds the barrier counter (slot 0) and one
+    arrival counter per (source s, row block b) at 1 + s * nblk + b, nblk
+    = ceil(rows / LL_ROWS)."""
+    nblk = -(-rows // LL_ROWS)
+
+    def describe(sig):
+        if sig == 0:
+            return "barrier_all"
+        s, b = divmod(sig - 1, nblk)
+        return f"row block {b} from source rank {s}"
+
+    return workspace("ll_combine", device, n, (n, rows, width),
+                     torch.float32, 1 + n * nblk, describe)
+
+
+def launch_ll(kernel, ws: Workspace, out, lse, merged, *,
+              budget_s: float = WAIT_BUDGET_S, grid: int = 0) -> None:
+    """Launch csrc/ll_combine.cu (a CudaKernel over LL_ARGTYPES) on the
+    rank-stacked partials out (n, rows, D) and lse (n, rows) into the one
+    kept result merged (rows, D) through `ws`, at the workspace's next
+    epoch (kept only when the launch went in)."""
+    ws.poll()
+    epoch = (ws.epoch + 1) & 0xFFFFFFFF
+    n, rows, D = out.shape
+    kernel.launch(DTYPE_CODES[out.dtype], ptr(out), ptr(lse), ptr(merged),
+                  ptr(ws.land_ptrs), ptr(ws.pad_ptrs), ptr(ws.fault), epoch,
+                  int(budget_s * 1e9), n, rows, D, ws.land.shape[-1], grid,
+                  stream_of(out))
     ws.epoch = epoch
     ws.launched()

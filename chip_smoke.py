@@ -245,12 +245,35 @@ Phases, in order; any failure raises and exits non-zero:
      metrics of step 42;
      then the teacher-forced paged logits of "ll" against "xla" and the
      one-rank model within TP_LOGIT_TOL;
- 44. one JSON line of per-kernel numbers, then the device JSON line.
+ 44. the megakernel's AR body (the cross-rank sum of an n-rank program)
+     alone: an input -> all_reduce -> output program at n = 2, 4 and 8,
+     4 slots x 1 and x 8 rows of hidden 4096, f32 and bf16, the kernel
+     twice against its plain walk bit for bit; at n = 4, 4 rows, bf16 its
+     time, the plain walk's and x.sum(0)'s against the bound, and a chain
+     of 72 AR nodes (Qwen3-8B's) timed;
+ 45. a planted lost signal in it (one push notification taken out of a
+     rank's counter): the check raises within the wait budget naming the
+     AR task and both ranks; the next launch runs clean;
+ 46. the tp_shards=True decode and serve graphs, 2 layers at Qwen3-8B's
+     local widths for n = 4, every operand drawn per rank: the kernel
+     against its plain walk, f32 (1e-4) and bf16 (2e-2), every rank's
+     output alike;
+ 47. the slice-6d main path, the mk-tp-serve cell: step 42's rank shards
+     behind ServeEngine(tp_ranks=4, mode="megakernel") with step 9's
+     stream and settings: step 9's checks, exactly one megakernel launch
+     per decode tick, no paged decode launch, gemm_ar only in prefill
+     chunks, the AR tiles counted on the scoreboard (zeroed before the
+     run), the per-rank AR bytes; the first all-slots tick's logits
+     against the 4-rank decode_step_paged on the same state within 2.5e-2
+     of the largest; the batched step's time against its bound and
+     against step 21's one-rank step; then with speculative decoding (an
+     oracle drafter, k 4, slot_rows 8: the verify width at n ranks);
+ 48. one JSON line of per-kernel numbers, then the device JSON line.
 Steps 14-16, 31-32, 35-36 and 39-40 run with the other kernel checks,
 before step 4, steps 33, 37 and 41 after step 16 and step 34 right after
-step 5; steps 42-43 right after step 9; steps 29, 19-20, 22-23 and 25-26
-run after step 10, steps 30 and 21 after step 13 and step 27 after step
-21; steps 17, 18, 24, 28 and 38 run last.
+step 5; steps 42-43 and 47 right after step 9; steps 29, 19-20, 22-23,
+25-26 and 44-46 run after step 10, steps 30 and 21 after step 13 and step
+27 after step 21; steps 17, 18, 24, 28 and 38 run last.
 Without a GPU it exits non-zero before printing anything.
 """
 
@@ -873,19 +896,25 @@ def _rel_err(a, b):
     return (a - b).abs().max().item() / b.abs().max().item()
 
 
-def _device_io(mb, dev, seed):
+def _device_io(mb, dev, seed, ranks=None):
     """Random f32 inputs and weights on the device for a built graph:
     x ~ N(0, 1), caches ~ N(0, 0.25), norm weights 1 + |N(0, 0.04)|,
     dense weights N(0, 1 / rows) so that activations keep their scale
-    at any width."""
+    at any width; with `ranks`, rank-stacked operands of an n-rank
+    program: x and the norm weights one draw every rank holds alike, the
+    caches and dense weights (the shards) drawn for each rank."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def draw(h, scale):
-        return torch.randn(h.shape, generator=gen, device=dev) * scale
+    def draw(h, scale, shared=False):
+        one = ranks is None or shared
+        t = torch.randn(h.shape if one else (ranks, *h.shape), generator=gen,
+                        device=dev) * scale
+        return t.expand(ranks, *h.shape) if ranks and shared else t
 
     g = mb.graph
-    ins = {n: draw(h, 1.0 if n == "x" else 0.5) for n, h in g.inputs.items()}
-    ws = {n: draw(h, 0.2).abs() + 1.0 if "ln" in n or "norm" in n
+    ins = {n: draw(h, 1.0, True) if n == "x" else draw(h, 0.5)
+           for n, h in g.inputs.items()}
+    ws = {n: draw(h, 0.2, True).abs() + 1.0 if "ln" in n or "norm" in n
           else draw(h, h.rows ** -0.5) for n, h in g.weights.items()}
     return ins, ws
 
@@ -4045,7 +4074,9 @@ def check_tp_serve(models, attn, model, params, cfg, seed, smi):
     every request at its length, the rank ledgers drained and equal,
     conservation; then the teacher-forced logits of 4 prompts' paged
     prefill and 8 decode steps against the one-rank model's within
-    TP_LOGIT_TOL of the largest. Returns the launches over the runs."""
+    TP_LOGIT_TOL of the largest; then, on the same shards, the
+    mk-tp-serve cell (check_mk_tp_serve). Returns the launches over the
+    runs and the mk-tp-serve numbers."""
     from triton_distributed_tpu_torch import shmem
     from triton_distributed_tpu_torch.ops import gemm_ar as ar
     from triton_distributed_tpu_torch.ops import ll_gather as tll
@@ -4103,11 +4134,368 @@ def check_tp_serve(models, attn, model, params, cfg, seed, smi):
           f"rows + 8 decode steps) vs the one-rank model max {max(errs):.3e} "
           f"of the largest (per step {', '.join(f'{e:.2e}' for e in errs)})")
     assert max(errs) <= TP_LOGIT_TOL, errs
-    del tp, tparams, m, se
+    del m, se
+    mk_tp = check_mk_tp_serve(models, attn, tp, tparams, cfg, seed, smi,
+                              targets)
+    del tp, tparams
     shmem.release_workspaces()
     gc.collect()
     torch.cuda.empty_cache()
-    return totals
+    return totals, mk_tp
+
+
+# -- slice 6d: the megakernel at n ranks (the AR body, mk-tp-serve) ----------
+
+AR_CHAIN = 72                  # the AR nodes of Qwen3-8B's program (2 x 36)
+
+
+def _ar_program(dev, n, rows, dt, nodes=1):
+    """An n-rank program of `nodes` chained all_reduce nodes over an
+    input of (rows, 4096): the AR body alone at the trunk's shape."""
+    from triton_distributed_tpu_torch.megakernel.builder import ModelBuilder
+    from triton_distributed_tpu_torch.parallel.mesh import RankGroup
+    mb = ModelBuilder(mesh=RankGroup(n), dtype=dt)
+    h = mb.input("x", (rows, 4096))
+    for _ in range(nodes):
+        h = mb.all_reduce(h)
+    mb.output(h)
+    prog = mb.compile("kernel", device=dev)
+    prog.bind_weights({})
+    return prog
+
+
+def check_megakernel_ar(dev):
+    """Step 44: the AR body alone. An input -> all_reduce -> output
+    program at n = 2, 4 and 8 ranks, at the trunk's shapes (4 slots x 1
+    row and 4 x 8 rows, hidden 4096), f32 and bf16: the kernel twice (the
+    epoch-counted signals) against its plain walk with torch.equal, every
+    rank's copy alike. At the mk-tp-serve cell's shape (n 4, 4 rows,
+    bf16): the kernel's, the plain walk's and x.sum(0)'s times against the
+    function's bound (the n partials read once, the n replicated outputs
+    written once); the protocol's own traffic (each partial pushed to n -
+    1 peers and read back) is printed beside it. Then a chain of 72 AR
+    nodes (the step's) timed. Returns the AR arm's kernel entry."""
+    gen = torch.Generator(device=dev).manual_seed(44)
+    entry, worst = None, 0.0
+    for n in (2, 4, 8):
+        for rows in (4, 32):
+            for dt in (torch.float32, torch.bfloat16):
+                prog = _ar_program(dev, n, rows, dt)
+                x = torch.randn((n, rows, 4096), generator=gen,
+                                device=dev).to(dt)
+                outs = []
+                for plain in (False, True, False):
+                    outs.append(prog.step({"x": x}, plain=plain)[0].clone())
+                    torch.cuda.synchronize()
+                    prog.check_fault()
+                assert all(torch.equal(o, outs[1]) for o in outs), \
+                    (n, rows, dt)
+                assert all(torch.equal(outs[0][r], outs[0][0])
+                           for r in range(n)), (n, rows, dt)
+                worst = max(worst, (outs[0].float() - outs[1].float())
+                            .abs().max().item())
+                if (n, rows, dt) != (SERVE_RANKS, 4, torch.bfloat16):
+                    continue
+                prog.inputs["x"].copy_(x)
+                ms = time_ms([lambda: prog.step()])
+                plain_ms = time_ms([lambda: prog.step(plain=True)], reps=1,
+                                   rounds=3)
+                lib_ms = time_ms([lambda: x.sum(0)])
+                prog.check_fault()
+                # the function's own bytes: the n partials read once and
+                # the n replicated outputs written once; task_costs
+                # counts the protocol's (pushes, landing reads) on top
+                own = 2 * x.numel() * x.element_size()
+                adds = (n - 1) * x[0].numel()
+                bms, by = bound(own, adds, FP32_FLOPS)
+                wire = sum(c["bytes"] for c in prog.task_costs())
+                wire_ms, _ = bound(wire, adds, FP32_FLOPS)
+                entry = {"name": "megakernel[AR]", "route": "cuda",
+                         "source": "triton_distributed_tpu_torch/csrc/"
+                                   "megakernel.cu",
+                         "replaces": "triton_distributed_tpu/megakernel/"
+                                     "executor_pallas.py:1600",
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                         "bound_by": by, "library_ms": lib_ms}
+                print(f"megakernel AR at n {n}, {rows} x 4096 bf16: kernel "
+                      f"{ms:.4f} ms (one launch, push then sum), plain "
+                      f"{plain_ms:.3f} ms, x.sum(0) {lib_ms:.4f} ms, bound "
+                      f"{bms:.5f} ms ({by}: {own / 2**20:.3f} MiB, the n "
+                      f"partials read and the n outputs written; with the "
+                      f"protocol's pushes and landing reads {wire_ms:.5f} "
+                      f"ms, {wire / 2**20:.3f} MiB)")
+        print(f"megakernel AR at n {n}: kernel == plain bit for bit at rows "
+              f"4 and 32, f32 and bf16, twice")
+    chain = _ar_program(dev, SERVE_RANKS, 4, torch.bfloat16, AR_CHAIN)
+    chain.inputs["x"].copy_(torch.randn(chain.inputs["x"].shape,
+                                        generator=gen, device=dev))
+    chain_ms = time_ms([lambda: chain.step()])
+    chain.check_fault()
+    print(f"megakernel AR chain: {AR_CHAIN} dependent AR nodes ({2 * AR_CHAIN}"
+          f" tasks) at n {SERVE_RANKS}, 4 x 4096 bf16: {chain_ms:.4f} ms a "
+          f"launch, {chain_ms / AR_CHAIN * 1e3:.1f} us a node")
+    entry["max_abs_err"] = worst
+    entry["chain_ms"] = chain_ms
+    return entry
+
+
+def check_megakernel_ar_fault(dev):
+    """Step 45: a planted lost signal. One push notification is taken
+    out of rank 2's counter for source rank 1 (row tile 0). The program
+    has two tasks (push, sum) and no task after the sum, so only the
+    sum's signal wait can pass its budget: the kernel records
+    FAULT_SIGNAL with the sum task, source rank 1 and waiting rank 2, the
+    launch ends, the check raises naming the AR sum and the push it never
+    saw, and the next launch runs clean, equal to the plain walk."""
+    from triton_distributed_tpu_torch.megakernel import executor_cuda as mkx
+    prog = _ar_program(dev, SERVE_RANKS, 4, torch.bfloat16)
+    x = torch.randn((SERVE_RANKS, 4, 4096), device=dev).to(torch.bfloat16)
+    want = prog.step({"x": x}, plain=True)[0].clone()
+    prog.step({"x": x})
+    torch.cuda.synchronize()
+    prog.check_fault()
+    prog.signals[0, 2, 1, 0] -= 1
+    t0 = time.perf_counter()
+    prog.step({"x": x})
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    assert [t.op for t in prog.tasks] == ["all_reduce"] * 2, prog.tasks
+    assert prog.fault.tolist() == [3, 1, 1, 2], prog.fault
+    assert took < mkx.WAIT_BUDGET_S + 2.0, took
+    try:
+        prog.check_fault()
+        raise AssertionError("megakernel AR: the planted fault did not raise")
+    except RuntimeError as e:
+        msg = str(e)
+    assert "the first unfinished task is task 1 (all_reduce); its sum on " \
+        "rank 2 never saw rank 1's push (row tile 0)" in msg, msg
+    got = prog.step({"x": x})[0]
+    torch.cuda.synchronize()
+    prog.check_fault()
+    assert torch.equal(got, want)
+    print(f"megakernel AR planted lost signal: raised after {took:.3f} s "
+          f"(budget {mkx.WAIT_BUDGET_S} s): {msg}; the next launch ran clean")
+
+
+def check_megakernel_tp_graphs(dev):
+    """Step 46: the tp_shards=True decode and serve graphs, 2 layers at
+    Qwen3-8B's local widths for n = 4 (8 / 2 heads, intermediate 3072),
+    every operand drawn for each rank: one decode row at cache_len 500
+    (max_cache 1024) and the serve cell's 4 slots at lengths 0 (idle),
+    128, 777 and 1500 on a shuffled table; the kernel against its plain
+    walk, f32 (MK_F32_TOL) and bf16 (MK_BF16_2L_TOL) of the largest
+    value, every rank's output and appended rows."""
+    from triton_distributed_tpu_torch.megakernel.models import (
+        build_qwen3_decode, build_qwen3_serve_batched)
+    from triton_distributed_tpu_torch.parallel.mesh import RankGroup
+    n = SERVE_RANKS
+    local = dict(hidden=4096, intermediate=12288 // n, num_layers=2,
+                 num_heads=32 // n, num_kv_heads=8 // n, head_dim=128,
+                 qk_norm=True, mesh=RankGroup(n), tp_shards=True)
+    lens = np.asarray([0, 128, 777, 1500], np.int32)
+    tbl = _slot_table(lens, 128, 16, 64, 7)
+    rows = torch.as_tensor(tbl[np.arange(4), lens // 128] * 128 + lens % 128,
+                           device=dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: MK_F32_TOL, bf16: MK_BF16_2L_TOL}
+    for kind in ("decode", "serve"):
+        for dt in (f32, bf16):
+            if kind == "decode":
+                mb = build_qwen3_decode(seq_len=1, max_cache=1024,
+                                        kv_append=True, dtype=dt, **local)
+                run = dict(cache_len=500)
+                app = slice(500, 501)
+            else:
+                mb = build_qwen3_serve_batched(
+                    b_slots=4, slot_rows=1, num_blocks=64, block=128,
+                    max_pages=16, dtype=dt, **local)
+                run = dict(cache_lens=lens, block_table=tbl)
+                app = rows
+            ins, ws = ({k: t.to(dt) for k, t in d.items()}
+                       for d in _device_io(mb, dev, 46, ranks=n))
+            prog = mb.compile("kernel", device=dev)
+            prog.bind_weights(ws)
+            got = []
+            for plain in (False, True):
+                prog.bind_caches({k: ins[k].clone() for k in mb.graph.caches})
+                out = prog.step({"x": ins["x"]}, plain=plain, **run)[0]
+                torch.cuda.synchronize()
+                prog.check_fault()
+                got.append((out.float().clone(),
+                            torch.cat([c[:, app].float()
+                                       for c in prog.caches.values()])))
+            (ko, kr), (po, pr) = got
+            errs = (_rel_err(ko, po), _rel_err(kr, pr))
+            print(f"megakernel tp_shards {kind} {str(dt)[6:]}, 2 layers at "
+                  f"Qwen3-8B widths over {n} ranks ({len(prog.tasks)} tasks, "
+                  f"{int(prog.n_tiles.sum())} tiles): vs plain walk out "
+                  f"{errs[0]:.3e}, appended rows {errs[1]:.3e} of max |ref|")
+            assert torch.isfinite(ko).all() and max(errs) <= tol[dt], errs
+            assert all(torch.equal(ko[r], ko[0]) for r in range(n))
+            del prog, ins, ws, got
+            torch.cuda.empty_cache()
+
+
+def _tp_layout(pool, like):
+    """An n-rank megakernel pool (L, n, pages x block, Hkv / n x D) in the
+    engine's head-sharded layout (L, n, nb, Hkv / n, block, D)."""
+    L, n, nb, hkv, blk, d = like.shape
+    return pool.view(L, n, -1, blk, hkv, d)[:, :, :nb].permute(
+        0, 1, 2, 4, 3, 5).contiguous()
+
+
+def check_mk_tp_serve(models, attn, tp, tparams, cfg, seed, smi, targets):
+    """Step 47, the slice-6d main path: the mk-tp-serve cell. The tp-serve
+    cell's 4 rank shards behind ServeEngine(tp_ranks=4, mode="megakernel")
+    ("gemm_ar" prefill) with step 9's stream and settings, bf16 pool, the
+    program's scoreboard counters zeroed first: every request at its
+    length, exactly one megakernel launch per decode tick and no paged
+    decode launch, gemm_ar only in the prefill chunks (2 a layer), the AR
+    tiles the counters show equal to 2 phases x 72 nodes x 4 ranks x the
+    row tiles x the launches, the rank ledgers and AR bytes; the first
+    all-slots tick's logits against the n-rank engine's decode_step_paged
+    on the same state within 2.5e-2 of the largest; the batched step's
+    time against its bound. Then speculative decoding (an oracle drafter
+    over the tp-serve run's tokens, k 4, slot_rows 8): accepts and
+    rejects, the verify width at n ranks launched. Returns its numbers."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import gemm_ar as ar
+    from triton_distributed_tpu_torch.ops import grouped_gemm as gg
+    from triton_distributed_tpu_torch.ops import ll_gather as tll
+    n, L = SERVE_RANKS, cfg.num_layers
+    stream = serve_stream(np.random.RandomState(seed), cfg.vocab_size)
+    extra = {"gemm_ar": ar.GEMM_AR, "ll_merge": tll.LL_MERGE}
+    res = {}
+    for spec in (False, True):
+        se = models.ServeEngine(
+            tp, tparams, mode="megakernel", b_max=4, max_len=2048, block=128,
+            prefill_chunk=256, num_blocks=64, tp_ranks=n,
+            speculative=_oracle_spec(models, targets, stream, cfg.vocab_size)
+            if spec else None)
+        mk = se._mk
+        prog = mk.prog
+        assert prog.sharded and prog.n_ranks == n
+        ar_tasks = [t for t, nd in enumerate(prog.tasks)
+                    if nd.op == "all_reduce"]
+        assert len(ar_tasks) == 2 * 2 * L and len(prog.tasks) == 17 * L + 1
+        prog.counts.zero_()
+        prog.signals.zero_()
+        prog.epoch = 0
+        snap = {}
+        if not spec:
+            real = se._decode_tick
+
+            def tick(stream_cb, real=real):
+                from triton_distributed_tpu_torch.models import serve_state
+                if snap or len(serve_state.decode_live(se.sched)) < se.b_max:
+                    return real(stream_cb)
+                c = se._cache
+                snap.update(toks=[s_.last_tok for s_ in se._slots],
+                            lens=c.seq_lens.copy(),
+                            table=c.block_table.copy(),
+                            k=_tp_layout(mk.k_pool, c.k_pool),
+                            v=_tp_layout(mk.v_pool, c.v_pool))
+                snap["ktab"] = mk.kernel_table(
+                    torch.from_numpy(snap["table"]),
+                    torch.ones(se.b_max, dtype=torch.bool))
+                real(stream_cb)
+                snap["hid"] = prog.outputs()[0][0][::mk.slot_rows].float(
+                    ).clone()
+
+            se._decode_tick = tick      # run_serve wraps it, then drops both
+
+        def want(st):
+            return {"gemm_ar": 2 * L * st["prefill_chunks"], "ll_merge": 0}
+
+        tag = f"mk-tp-serve[bf16{', spec' if spec else ''}]"
+        out, st, launches, tick_ms, ops = run_serve(models, attn, se, stream,
+                                                    L, gg, extra, want)
+        shmem.check_faults()
+        prog.check_fault()
+        assert launches["megakernel"] == st["megakernel_steps"] \
+            == st["decode_steps"] > 0, launches
+        _check_stream_run(models, se, out, st, stream, cfg.vocab_size)
+        counts = prog.counts.cpu().numpy().astype(np.int64)
+        ar_tiles = int(counts[ar_tasks].sum())
+        want_tiles = int(prog.n_tiles[ar_tasks].sum()) * st["decode_steps"]
+        assert ar_tiles == want_tiles > 0, (ar_tiles, want_tiles)
+        pr = st["per_rank"]
+        assert len(pr) == n and all(
+            r == {**pr[0], "rank": i} for i, r in enumerate(pr)) \
+            and pr[0]["held_blocks"] == 0 and pr[0]["ar_bytes_pushed"] == \
+            st["decode_steps"] * mk.ar_bytes_per_step, pr
+        print(f"{tag}: {st['tokens']} tokens in {st['wall_s']:.3f} s "
+              f"({st['tokens_per_s']} tokens/s), {st['ticks']} ticks, "
+              f"{st['decode_steps']} decode ticks at "
+              f"{statistics.median(tick_ms):.2f} ms median "
+              f"({min(tick_ms):.2f}-{max(tick_ms):.2f}; {ops} aten ops a "
+              f"tick), {st['prefill_chunks']} chunks, launches "
+              f"{ {k: c for k, c in launches.items() if c} }, AR tiles "
+              f"{ar_tiles} from the scoreboard ({len(ar_tasks)} AR tasks), "
+              f"AR bytes a rank {pr[0]['ar_bytes_pushed']} | {smi}")
+        if spec:
+            assert st["spec_accepted"] > 0 and st["spec_rejected"] > 0, st
+            assert mk.slot_rows == 8
+            print(f"{tag}: drafts proposed / accepted / rejected "
+                  f"{st['spec_proposed']} / {st['spec_accepted']} / "
+                  f"{st['spec_rejected']} over {st['decode_steps']} verify "
+                  f"launches at slot_rows {mk.slot_rows}")
+            res["verify_launches"] = st["decode_steps"]
+            res["spec_tokens_per_s"] = st["tokens_per_s"]
+            continue
+        res.update(decode_launches=st["decode_steps"],
+                   tokens_per_s=st["tokens_per_s"],
+                   tick_ms=statistics.median(tick_ms), ops=ops)
+        # teacher forcing: the n-rank engine's decode step on that state
+        ref = tp.new_paged_kv_cache(4, 2048, block=128, num_blocks=64)
+        ref.k_pool.copy_(snap["k"])
+        ref.v_pool.copy_(snap["v"])
+        ref.block_table[:] = snap["table"]
+        ref.seq_lens[:] = snap["lens"]
+        seen, real_next = [], tp._next_token
+
+        def spy(x, p, generator, **kw):
+            seen.append(_full_logits(x, p["lm_head"]).cpu())
+            return real_next(x, p, generator, **kw)
+
+        tp._next_token = spy
+        try:
+            tp.decode_step_paged(tparams, snap["toks"], ref, [True] * 4)
+        finally:
+            del tp._next_token
+        shmem.check_faults()
+        want_lg = seen[0].to(snap["hid"].device)
+        got_lg = _full_logits(snap["hid"], tparams["lm_head"])
+        err = _rel_err(got_lg, want_lg)
+        print(f"mk-tp-serve teacher forcing: the first all-slots tick "
+              f"(lengths {snap['lens'].tolist()}) logits vs the {n}-rank "
+              f"decode_step_paged on the same state {err:.3e} of max "
+              f"|logit|; greedy {got_lg.argmax(-1).tolist()} vs "
+              f"{want_lg.argmax(-1).tolist()}")
+        assert torch.isfinite(got_lg).all() and err <= 2.5e-2, err
+        del ref, seen
+        lens, ktab = snap["lens"], snap["ktab"]
+        ms = time_ms([lambda: prog.step(cache_lens=lens, block_table=ktab)])
+        prog.check_fault()
+        costs = prog.task_costs(cache_lens=lens)
+        moved = sum(c["bytes"] for c in costs)
+        flops = sum(c["flops"] for c in costs)
+        ar_moved = sum(c["bytes"] for t, c in enumerate(costs)
+                       if t in ar_tasks)
+        bms, by = bound(moved, flops)
+        print(f"mk-tp-serve batched step ({n} ranks in one launch, 4 live "
+              f"rows, lengths {lens.tolist()}): kernel {ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}: {moved / 1e9:.3f} GB, of which the AR "
+              f"tasks {ar_moved / 2**20:.2f} MiB; {flops / 1e9:.2f} GFLOP), "
+              f"{len(prog.tasks)} tasks in {int(prog.n_tiles.sum())} tiles, "
+              f"teacher forcing {err:.3e} | {smi}")
+        res.update(step_ms=ms, bound_ms=bms, bound_by=by, tf_err=err)
+        del snap
+        torch.cuda.empty_cache()
+    del se, mk, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def _sp_attention_launches(stream, n, chunk, rank_tokens):
@@ -4271,8 +4659,8 @@ def main():
 
     serve_launches, engine_out = check_serve(models, attn, gg, model, params,
                                              cfg, args.seed, smi, args.profile)
-    tp_serve = check_tp_serve(models, attn, model, params, cfg, args.seed,
-                              smi)
+    tp_serve, mk_tp = check_tp_serve(models, attn, model, params, cfg,
+                                     args.seed, smi)
     sp_serve = check_sp_serve(models, attn, model, params, cfg, args.seed,
                               smi)
 
@@ -4281,6 +4669,9 @@ def main():
     check_megakernel_paged_graphs(dev)
     moe_graph_step = check_megakernel_moe_graphs(dev)
     verify_err = check_megakernel_verify_graphs(dev)
+    ar_entry = check_megakernel_ar(dev)
+    check_megakernel_ar_fault(dev)
+    check_megakernel_tp_graphs(dev)
     check_megadecoder_small(models, args.seed)
     check_mega_serve_small(models, args.seed)
     check_mega_serve_small(models, args.seed, moe=True)
@@ -4342,12 +4733,13 @@ def main():
                              + mk_moe["gmm"] + spec_moe["gmm"]
                              + ep_launches["gmm"])
     mk["launches"] += mk_moe["megakernel"] + verify_launches \
-        + moe_verify_launches
+        + moe_verify_launches + mk_tp["decode_launches"]
     mk_verify = {
         "name": "megakernel[verify]", "route": "cuda",
         "source": "triton_distributed_tpu_torch/csrc/megakernel.cu",
         "replaces": "triton_distributed_tpu/megakernel/executor_pallas.py:1192",
-        "launches": verify_launches + moe_verify_launches,
+        "launches": verify_launches + moe_verify_launches
+        + mk_tp["verify_launches"],
         "max_abs_err": max(verify_err, verify["abs_err"]),
         "ms": verify["ms"], "plain_ms": verify["plain_ms"],
         "bound_ms": verify["bound_ms"], "bound_by": verify["bound_by"],
@@ -4382,7 +4774,17 @@ def main():
     print(f"ll_combine launches: {sp_serve['ll_combine']} (sp-serve, "
           f"{cfg.num_layers} a decode tick under sp_combine='ll'); gemm_ar "
           f"on the tp-serve path: {tp_serve['gemm_ar']}")
-    kernels += [mk, mk_verify, mk_fused, gmm_entry] + tp_entries \
+    ar_entry["launches"] = mk_tp["decode_launches"] + mk_tp["verify_launches"]
+    assert ar_entry["launches"] > 0
+    print(f"mk-tp-serve: the batched step at {SERVE_RANKS} ranks "
+          f"{mk_tp['step_ms']:.4f} ms against {mk_tp['bound_ms']:.4f} ms "
+          f"({mk_tp['bound_by']}), {mk_tp['step_ms'] / mk_step['ms']:.3f}x "
+          f"the one-rank mk-serve step ({mk_step['ms']:.4f} ms, this run); "
+          f"{mk_tp['tokens_per_s']} tokens/s, {mk_tp['ops']} aten ops a "
+          f"tick; {AR_CHAIN} AR nodes alone {ar_entry['chain_ms']:.4f} ms; "
+          f"AR launches {ar_entry['launches']} ({mk_tp['decode_launches']} "
+          f"decode + {mk_tp['verify_launches']} verify)")
+    kernels += [mk, mk_verify, mk_fused, gmm_entry, ar_entry] + tp_entries \
         + [ep_entry] + list(ll_entries)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

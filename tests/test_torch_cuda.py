@@ -25,7 +25,10 @@ plain version sum the same bf16 products in f32 in other orders and
 round once to bf16, so they differ by at most a bf16 step or two of
 each value. The small megakernel ServeEngine runs bf16 (the engine
 path's prefill kernel takes bf16 only): its logits agree with the CPU's
-within 5e-2 of the largest, its picks wherever the margin allows.
+within 5e-2 of the largest, its picks wherever the margin allows. The
+megakernel's AR body (the cross-rank sum of an n-rank program) sums the
+same f32 values in the same rank order as its plain walk and rounds
+once, so it is held to it bit for bit.
 """
 
 import numpy as np
@@ -1592,4 +1595,166 @@ def test_multi_rank_serve_gpu_matches_cpu(cuda, par):
     assert paged == cfg.num_layers * decode_steps
     assert gemm_ar > 0 if par.startswith("tp") else gemm_ar == 0
     assert ll == (cfg.num_layers * decode_steps if par == "sp-ll" else 0)
+    _compare_picks(runs, 4)
+
+
+# -- the megakernel at n ranks: the AR body ------------------------------------
+
+def _ar_graph(n, rows, cols, dtype):
+    """x -> all_reduce -> add(., x) -> all_reduce over n ranks: two AR
+    nodes and an elementwise add, so kernel and plain agree bit for bit."""
+    from triton_distributed_tpu_torch.megakernel.builder import ModelBuilder
+    from triton_distributed_tpu_torch.parallel.mesh import RankGroup
+    mb = ModelBuilder(mesh=RankGroup(n), dtype=dtype)
+    x = mb.input("x", (rows, cols))
+    mb.output(mb.all_reduce(mb.add(mb.all_reduce(x), x)))
+    xs = torch.randn((n, rows, cols), generator=torch.Generator(
+        device="cpu").manual_seed(n * rows), dtype=torch.float32)
+    return mb, xs.to(dtype)
+
+
+def _ar_runs(prog, x):
+    """The kernel's output, then the plain walk's, on the same input."""
+    out = []
+    for plain in (False, True):
+        before = mkx.MEGAKERNEL.launches
+        got = prog.step({"x": x}, plain=plain)[0]
+        torch.cuda.synchronize()
+        prog.check_fault()
+        assert mkx.MEGAKERNEL.launches == before + (0 if plain else 1)
+        out.append(got.clone())
+    return out
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [4, 32])
+def test_megakernel_all_reduce_matches_plain_bitwise(cuda, n, dtype, rows):
+    """The AR body against the plain walk at the trunk's shapes (4 slots
+    x 1 and x 8 rows, hidden 4096): the same f32 sums in rank order,
+    rounded once, so equal bit for bit, every rank's copy of the output
+    alike; and twice in a row (the epoch-counted signals)."""
+    mb, x = _ar_graph(n, rows, 4096, dtype)
+    prog = mb.compile("kernel", device=cuda)
+    prog.bind_weights({})
+    x = x.to(cuda)
+    for _ in range(2):
+        got, want = _ar_runs(prog, x)
+        assert torch.equal(got, want)
+        assert all(torch.equal(got[r], got[0]) for r in range(n))
+    # AR(AR(x) + x_r) = (n + 1) x the sum of the ranks' x
+    ref = x.float().sum(0) * (n + 1)
+    assert (got[0].float() - ref).abs().max() <= 4e-2 * ref.abs().max()
+
+
+def test_megakernel_all_reduce_lost_signal_names_the_task(cuda):
+    """A planted lost signal: one push notification taken out of rank 2's
+    counter for source rank 1. A bounded wait passes its 50 ms budget
+    (the sum's on the signal, or a later task's on the scoreboard), the
+    host raises naming the AR sum as the first unfinished task and the
+    push it never saw, and the next launch runs clean."""
+    mb, x = _ar_graph(4, 4, 4096, torch.bfloat16)
+    prog = mb.compile("kernel", device=cuda)
+    prog.bind_weights({})
+    prog.wait_budget_ns = int(0.05e9)
+    x = x.to(cuda)
+    want = _ar_runs(prog, x)[1]
+    prog.signals[0, 2, 1, 0] -= 1
+    prog.step({"x": x})
+    torch.cuda.synchronize()
+    first_ar = [nd.op for nd in prog.tasks].index("all_reduce")
+    with pytest.raises(RuntimeError, match=(
+            rf"passed its budget: .* the first unfinished task is task "
+            rf"{first_ar + 1} \(all_reduce\); its sum on rank 2 never saw "
+            rf"rank 1's push \(row tile 0\)")):
+        prog.check_fault()
+    got = prog.step({"x": x})[0]
+    torch.cuda.synchronize()
+    prog.check_fault()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind,dtype", [("decode", torch.float32),
+                                        ("decode", torch.bfloat16),
+                                        ("forward", torch.float32)])
+def test_megakernel_tp_shards_graphs_match_plain(cuda, kind, dtype):
+    """The tp_shards decode (S 1, cache_len 37) and forward (S 20, f32)
+    graphs at n = 2: the kernel against its plain walk at MK_TOL, every
+    rank's copy of the output."""
+    from triton_distributed_tpu_torch.parallel.mesh import RankGroup
+    n, common = 2, dict(hidden=256, intermediate=192, num_layers=2,
+                        num_heads=4, num_kv_heads=1, head_dim=128,
+                        mesh=RankGroup(2), tp_shards=True)
+    if kind == "decode":
+        mb = build_qwen3_decode(seq_len=1, max_cache=64, qk_norm=True,
+                                kv_append=True, dtype=dtype, **common)
+        cl = 37
+    else:
+        mb = build_qwen3_forward(seq_len=20, **common)
+        cl = 0
+    ins, ws = init_random_io(mb, np.random.default_rng(9), stack=n)
+    prog = mb.compile("kernel", device=cuda)
+    prog.bind_weights({k: torch.as_tensor(v).to(cuda, prog.dtype)
+                       for k, v in ws.items()})
+    runs = _mk_kernel_and_plain(prog, ins, cl)
+    (ko, _), (po, _) = runs
+    tol = MK_TOL[prog.dtype]
+    err = (ko[0] - po[0]).abs().max().item()
+    assert torch.isfinite(ko[0]).all()
+    assert err <= tol * po[0].abs().max().item(), err
+
+
+def test_mega_tp_serve_gpu_matches_cpu(cuda):
+    """ServeEngine(DenseLLM(num_ranks=2), tp_ranks=2, mode="megakernel")
+    on the GPU (one launch of both ranks' programs a tick) against the
+    same engine on the CPU (the plain walk), bf16: every greedy pick's
+    logits within 5e-2 of the largest, the picks equal wherever the
+    margin allows, and the counters (ticks, launches, per-rank AR bytes
+    and blocks) equal."""
+    from triton_distributed_tpu_torch import models
+    from triton_distributed_tpu_torch.megakernel import serve as mserve
+    from triton_distributed_tpu_torch.models import dense
+    (cpu, params), _ = _small_pair(cuda, moe=False)
+    cfg = cpu.config
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, 512, s).astype(np.int32), g)
+            for s, g in ((37, 6), (5, 9), (20, 4), (16, 5))]
+    real = dense.greedy_token
+    runs, stats = [], []
+    for dev in ("cpu", cuda):
+        m = models.DenseLLM(cfg, dtype="bfloat16", device=dev, mode="gemm_ar",
+                            num_ranks=2)
+        p = m.shard_params(
+            {"embed": params["embed"].to(dev), "norm": params["norm"].to(dev),
+             "lm_head": params["lm_head"].to(dev),
+             "layers": {k: t.to(dev) for k, t in params["layers"].items()}})
+        seen = []
+
+        def spy(x, lm_head):
+            lg = dense._logits(x, lm_head)
+            if lg.dim() == 3:
+                lg = lg.permute(1, 0, 2).reshape(x.shape[0], -1)
+            seen.append(lg.float().cpu())
+            return real(x, lm_head)
+
+        dense.greedy_token = mserve.greedy_token = spy
+        try:
+            se = models.ServeEngine(m, p, mode="megakernel", b_max=2,
+                                    max_len=64, block=16, prefill_chunk=8,
+                                    tp_ranks=2)
+            before = mkx.MEGAKERNEL.launches
+            se.serve([r for r, _ in reqs], [g for _, g in reqs])
+        finally:
+            dense.greedy_token = mserve.greedy_token = real
+        torch.cuda.synchronize()
+        st = se.stats()
+        assert st["megakernel_steps"] == st["decode_steps"] > 0
+        stats.append({k: st[k] for k in ("ticks", "decode_steps",
+                                         "megakernel_steps", "per_rank",
+                                         "prefill_chunks")})
+        runs.append(seen)
+    assert mkx.MEGAKERNEL.launches - before == st["decode_steps"]
+    assert stats[0] == stats[1]
+    assert st["per_rank"][0]["ar_bytes_pushed"] == \
+        st["decode_steps"] * se._mk.ar_bytes_per_step > 0
     _compare_picks(runs, 4)

@@ -36,6 +36,7 @@ from triton_distributed_tpu_torch.megakernel import executor_cuda as mkx
 from triton_distributed_tpu_torch.megakernel import graph as tgraph
 from triton_distributed_tpu_torch.megakernel import models as tmodels
 from triton_distributed_tpu_torch.megakernel import scheduler
+from triton_distributed_tpu_torch.parallel import mesh as mk_mesh
 
 SHRINK = dict(hidden_size=64, num_heads=4, num_kv_heads=2, head_dim=16,
               vocab_size=128)
@@ -345,12 +346,6 @@ _MOE_SERVE = dict(b_slots=1, slot_rows=1, hidden=64, moe_intermediate=64,
 
 
 @pytest.mark.parametrize("call,slice_", [
-    (lambda mb, h: mk.MegaServe(_tiny_moe(), None, **_MS, tp_ranks=2), "6"),
-    (lambda mb, h: models.ServeEngine(_tiny_moe(), None, mode="megakernel",
-                                      tp_ranks=2), "6"),
-    (lambda mb, h: mk.MegaServe(*_tiny_dense(), **_MS, tp_ranks=2), "6"),
-    (lambda mb, h: models.ServeEngine(None, None, mode="megakernel",
-                                      tp_ranks=2), "6"),
     (lambda mb, h: mb.all_to_all(h), "6"),
     (lambda mb, h: tmodels.build_qwen3_moe_serve_batched(
         **_MOE_SERVE, tp_shards=True), "6"),
@@ -358,15 +353,7 @@ _MOE_SERVE = dict(b_slots=1, slot_rows=1, hidden=64, moe_intermediate=64,
         **_MOE_SERVE, mesh=object()), "6"),
     (lambda mb, h: tdecoder.moe_weight_map(
         dataclasses.make_dataclass("M", [("n", int)])(2), None), "6"),
-    (lambda mb, h: mb.all_reduce(h), "6"),
-    (lambda mb, h: tmodels.build_qwen3_decode(seq_len=1, **TINY,
-                                              tp_shards=True), "6"),
-    (lambda mb, h: tbuilder.ModelBuilder(mesh=object()), "6"),
-    (lambda mb, h: tdecoder.dense_weight_map_tp(None, None), "6"),
-    (lambda mb, h: tdecoder.dense_weight_map(
-        dataclasses.make_dataclass("M", [("n", int)])(2), None), "6"),
-    (lambda mb, h: mb.compile("graph").run_sharded({}, {}), "6"),
-    (lambda mb, h: mb.compile("kernel", device="cpu").step_fn_sharded(),
+    (lambda mb, h: mb.compile("kernel", device="cpu", fuse_collective=True),
      "6"),
     (lambda mb, h: mb.verify(), "7"),
     (lambda mb, h: mb.compile("kernel", device="cpu").profile_tasks({}, {}),
@@ -380,6 +367,28 @@ def test_out_of_scope_raises_naming_its_slice(call, slice_):
     h = mb.input("x", (1, 64))
     with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
         call(mb, h)
+
+
+def test_megakernel_at_n_ranks_is_built_or_refused_by_jaxs_rules():
+    """What slice 6d runs (the cases tests/test_torch_mega_tp*.py hold to
+    JAX): an all_reduce node, the tp_shards builders over a RankGroup,
+    and MegaServe / ServeEngine(mode="megakernel") at n ranks; and the JAX
+    ValueErrors where the rank counts disagree or the model is MoE."""
+    mb = tbuilder.ModelBuilder(mesh=mk_mesh.RankGroup(2))
+    h = mb.all_reduce(mb.input("x", (1, 64)))
+    assert mb.graph.nodes[-1].op == "all_reduce" and h.shape == (1, 64)
+    dec = tmodels.build_qwen3_decode(seq_len=1, **TINY, tp_shards=True)
+    assert sum(nd.op == "all_reduce" for nd in dec.graph.nodes) == \
+        2 * TINY["num_layers"]
+    with pytest.raises(ValueError, match="sharded over the same ranks"):
+        mk.MegaServe(*_tiny_dense(), **_MS, tp_ranks=2)
+    with pytest.raises(ValueError, match="sharded over the same ranks"):
+        mk.MegaServe(_tiny_moe(), None, **_MS, tp_ranks=2)
+    with pytest.raises(ValueError, match="mesh rank"):
+        models.ServeEngine(_tiny_moe(), None, mode="megakernel", tp_ranks=2)
+    with pytest.raises(ValueError, match="dense_weight_map_tp"):
+        tdecoder.dense_weight_map(
+            dataclasses.make_dataclass("M", [("n", int)])(2), None)
 
 
 def test_refusals_and_devices():

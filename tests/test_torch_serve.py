@@ -171,9 +171,10 @@ _OUT_OF_SCOPE = [
     ({"backoff_ticks": 1}, NotImplementedError, "slice 2c"),
     ({"backoff_cap": 32}, NotImplementedError, "slice 2c"),
     ({"host_blocks": 4}, NotImplementedError, "slice 2c"),
-    ({"mode": "megakernel", "tp_ranks": 2}, NotImplementedError, "slice 6"),
-    # multi-rank and sequence-parallel serving are ported: over this
-    # one-rank tensor-parallel model they are the JAX engine's ValueErrors
+    # multi-rank, megakernel multi-rank (slice 6d) and sequence-parallel
+    # serving are ported: over this one-rank tensor-parallel model they are
+    # the JAX engine's ValueErrors
+    ({"mode": "megakernel", "tp_ranks": 2}, ValueError, "mesh rank"),
     ({"attn_parallelism": "sp"}, ValueError, "rebuild the model"),
     ({"sp_combine": "ll"}, ValueError, "compiled into"),
     ({"tp_ranks": 2}, ValueError, "mesh rank"),

@@ -214,8 +214,8 @@ def test_tp2_quantized_pool_within_band_of_jax(jax_tp, kv):
 
 def test_tp_ranks_guards():
     """JAX test_serve_tp_ranks_guards' engine half, with its errors; the
-    megakernel at n ranks and an n-rank MoE stay refused, naming what
-    takes them."""
+    megakernel at n ranks builds, and an n-rank MoE stays refused, naming
+    what takes it."""
     m1, m2 = _port_model(1), _port_model(2)
     p2 = m2.init_params(torch.Generator().manual_seed(0))
     p1 = m1.init_params(torch.Generator().manual_seed(0))
@@ -230,8 +230,10 @@ def test_tp_ranks_guards():
     sp = _port_model(4, attn_parallelism="sp")
     with pytest.raises(ValueError, match="cannot compose"):
         models.ServeEngine(sp, None, **kw, tp_ranks=4)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        models.ServeEngine(m2, p2, **kw, tp_ranks=2, mode="megakernel")
+    # the megakernel at n ranks builds one program of every rank
+    # (tests/test_torch_mega_tp_serve.py runs it)
+    mk = models.ServeEngine(m2, p2, **kw, tp_ranks=2, mode="megakernel")._mk
+    assert mk.n == 2 and mk.prog.sharded and mk.prog.n_ranks == 2
     moe_cfg = models.get_config("Qwen/Qwen3-30B-A3B").tiny(
         hidden_size=64, num_heads=4, num_kv_heads=2, head_dim=16,
         vocab_size=128, num_experts=4, num_experts_per_tok=2,

@@ -8,9 +8,9 @@
 // attn_step :834, head_rms :879), KVA_K / KVA_V (:1512 / :1559), the
 // paged serving bodies ATTN_P (:1189) and KVA_PK / KVA_PV (:1351), and the
 // MoE expert FFN GROUPED_GEMM (:673-766), each at the run-time verify width
-// of queue column 10 (1..slot_rows candidate rows a slot), and the fused
-// arms of a decode program (below). The collective bodies (AR, A2A,
-// GEMM_AR) come with a later slice.
+// of queue column 10 (1..slot_rows candidate rows a slot), the fused arms of
+// a decode program (below), and the cross-rank sum AR (:1597-1636) of an
+// n-rank program (below). A2A (:1651) and GEMM_AR (:1712) are not built.
 //
 // The host side is megakernel/executor_cuda.py: one descriptor row per
 // task (a graph node cut into tiles), a flat list of each task's producer
@@ -54,6 +54,39 @@
 // prefix [0, cache_len) (written by earlier launches) go through __ldg. The
 // cache appends of a launch write rows [cache_len, cache_len + S), which no
 // task of the same launch reads from the cache.
+//
+// n-rank programs and AR. A tensor-parallel program is one rank's graph at
+// the local widths with an AR node after each row-parallel projection; one
+// launch runs all n ranks' programs on the card. A task keeps one descriptor
+// row and n x its one-rank tiles: tile t of rank r is r x F_TPR + t. Every
+// tile runs from a copy of its task's row in shared memory (one load a
+// field); for rank r the copy has every operand pointer moved by r x its
+// rank stride (F_RS_*: rank-stacked weight shards, the arena's activations
+// held once a rank, each rank's cache or pool) and r at F_RANK, and the body
+// runs it as it would run one rank. So the queues,
+// the scoreboard and the argument below are one rank's; a dependency is on
+// every rank's tiles of the producer, which is more than a rank needs and
+// correct. An AR node is two tasks:
+//   phase 0, tile (r, row tile): copy rank r's rows of the partial into slot
+//     r of this node's landing block in every peer's arena (16-byte vectors
+//     read through L2), then, after a system-scope fence, signal each peer:
+//     red.release.sys on the u32 counter (node, peer, r, tile) of F_SIG;
+//   phase 1, tile (r, row tile), which lists phase 0 among its producers:
+//     thread 0 waits each source's counter to reach the epoch with
+//     ld.acquire.sys, bounded by the budget (a lost signal sets the fault
+//     word to FAULT_SIGNAL with the task and both ranks; the host raises
+//     naming the AR task), then the CTA sums the n partials in rank order
+//     0..n-1 in f32, rank r's own from its partial and the others from its
+//     landing block, and rounds once to T (RankGroup.psum's order and
+//     rounding point), into rank r's copy of the output.
+// Because phase 1 waits on phase 0's tiles through the scoreboard, every push
+// of the node has finished before any sum starts: the signal wait never
+// spins in a sound launch and the argument below covers it unchanged (its
+// order has every phase-0 item before any phase-1 item). Each AR node has
+// its own landing block, so no launch reuses one (the TPU kernel alternates
+// two parities instead), and the counters are never cleared (epoch
+// targets, as the scoreboard). The landing rows and partials are
+// activations of this launch: plain / L2 loads after the acquire.
 //
 // Paged serving (ATTN_P, KVA_PK, KVA_PV). Slot b's length, live width w and
 // block-table row are run-time data, copied to the device before the launch
@@ -156,29 +189,34 @@
 // ATTN runs on only Hkv CTAs per layer, and nothing uses TMA or the tensor
 // cores. Those are later work (PERF.md §7).
 
-#include "tdt_common.cuh"
+#include "tdt_shmem.cuh"
 
 namespace {
 
 constexpr int NT = 256;           // threads per CTA
 constexpr int NW = NT / 32;
-constexpr int NF = 47;            // descriptor fields (executor_cuda.NF)
+constexpr int NF = 59;            // descriptor fields (executor_cuda.NF)
 enum : int {
   F_OP = 0, F_TILES, F_DEP_LO, F_DEP_HI, F_OUT, F_A, F_B, F_C, F_D, F_E,
   F_M, F_N, F_K, F_LDA, F_LDB, F_LDO, F_TR, F_NCT, F_TN, F_H, F_HKV, F_HD,
   F_QKN, F_CACHED, F_CAUSAL, F_EPS, F_SCALE, F_COS, F_SIN, F_LDC, F_MODE,
   F_BLOCK, F_SROWS, F_MAXP, F_NE, F_TOPK, F_INTER, F_NORMK, F_PHASE, F_LDD,
-  F_LDE, F_PRO, F_P, F_LDP, F_R, F_LDR, F_APPEND
+  F_LDE, F_PRO, F_P, F_LDP, F_R, F_LDR, F_APPEND, F_NR, F_TPR, F_RANK,
+  F_RS_OUT, F_RS_A, F_RS_B, F_RS_C, F_RS_D, F_RS_E, F_RS_P, F_RS_R, F_SIG
 };
+// the pointer field each rank stride F_RS_OUT + i moves (executor_cuda.RANKED)
+__constant__ int RANKED_PTR[8] = {F_OUT, F_A, F_B, F_C, F_D, F_E, F_P, F_R};
 // a fused LINEAR's A prologue (executor_cuda.PRO_*)
 enum : int { PRO_NONE = 0, PRO_RMS = 1, PRO_SILU = 2 };
 // op codes of megakernel/graph.py
 enum : int {
   OP_LINEAR = 0, OP_RMS_NORM = 1, OP_SILU_MUL = 2, OP_ADD = 3, OP_ATTN = 4,
-  OP_KVA_K = 6, OP_KVA_V = 7, OP_ATTN_P = 9, OP_KVA_PK = 10, OP_KVA_PV = 11,
-  OP_GROUPED_GEMM = 13
+  OP_AR = 5, OP_KVA_K = 6, OP_KVA_V = 7, OP_ATTN_P = 9, OP_KVA_PK = 10,
+  OP_KVA_PV = 11, OP_GROUPED_GEMM = 13
 };
-enum : int { FAULT_TIMEOUT = 1, FAULT_BAD_OP = 2 };
+enum : int { FAULT_TIMEOUT = 1, FAULT_BAD_OP = 2, FAULT_SIGNAL = 3 };
+// what a task body returns to the walk
+enum : int { TASK_DONE = 1, TASK_UNKNOWN = 0, TASK_STOP = -1 };
 
 // shared memory plan, in floats
 constexpr int QR_MAX = 64;        // q rows of one ATTN task (G x row tile)
@@ -1109,70 +1147,164 @@ __device__ void moe_down_task(const long long* d, int tile, float* sm,
   }
 }
 
+// -- AR: the cross-rank sum of a row-parallel partial (two phases) ---------
+// d is rank r's copy of the row: F_A rank r's partial (M, N), F_C rank r's
+// landing block (n x M, N) (a peer q's lies (q - r) x F_RS_C elements away),
+// F_OUT rank r's output; F_SIG the node's u32 counters (n dst, n src, F_TPR).
+template <typename T>
+__device__ __noinline__ void ar_push_task(const long long* d, int tile) {
+  const int M = static_cast<int>(d[F_M]), N = static_cast<int>(d[F_N]);
+  const int tr = static_cast<int>(d[F_TR]), tpr = static_cast<int>(d[F_TPR]);
+  const int n = static_cast<int>(d[F_NR]), r = static_cast<int>(d[F_RANK]);
+  const long long lda = d[F_LDA], ldc = d[F_LDC], rs = d[F_RS_C];
+  const int r0 = tile * tr, r1 = min(M, r0 + tr);
+  const T* part = cptr<T>(d[F_A]);
+  T* land = mptr<T>(d[F_C]);
+  for (int q = 0; q < n; ++q) {
+    if (q == r) continue;
+    T* dst = land + (q - r) * rs + (static_cast<long long>(r) * M) * ldc;
+    for (int row = r0; row < r1; ++row)
+      tdt_cta_copy(dst + row * ldc, part + row * lda, N * sizeof(T));
+  }
+  tdt_cta_release();
+  if (threadIdx.x == 0) {
+    unsigned* sig = reinterpret_cast<unsigned*>(d[F_SIG]);
+    for (int q = 0; q < n; ++q)
+      if (q != r) tdt_red_release_sys(sig + (q * n + r) * tpr + tile, 1u);
+  }
+}
+
+// Thread 0 only: wait until source s's counter of this tile reaches the
+// epoch, bounded. False (after recording a fault, or on finding one) when
+// the CTA must stop.
+__device__ bool ar_wait(const Params& p, const long long* d, int task,
+                        int tile) {
+  const int n = static_cast<int>(d[F_NR]), r = static_cast<int>(d[F_RANK]);
+  const int tpr = static_cast<int>(d[F_TPR]);
+  const unsigned* sig = reinterpret_cast<const unsigned*>(d[F_SIG]);
+  for (int s = 0; s < n; ++s) {
+    if (s == r) continue;
+    const unsigned* addr = sig + (r * n + s) * tpr + tile;
+    unsigned long long t0 = 0;
+    while (static_cast<int>(tdt_ld_acquire_sys(addr) - p.epoch) < 0) {
+      if (ld_volatile(p.fault) != 0) return false;
+      const unsigned long long now = globaltimer();
+      if (t0 == 0) {
+        t0 = now;
+      } else if (now - t0 > static_cast<unsigned long long>(p.budget_ns)) {
+        if (atomicCAS(p.fault, 0, FAULT_SIGNAL) == 0) {
+          p.fault[1] = task;
+          p.fault[2] = s;
+          p.fault[3] = r;
+          __threadfence();
+        }
+        return false;
+      }
+      __nanosleep(100);
+    }
+  }
+  return true;
+}
+
+template <typename T>
+__device__ __noinline__ int ar_sum_task(const long long* d, int tile,
+                                        const Params& p, int task) {
+  __shared__ int s_ok;
+  if (threadIdx.x == 0) s_ok = ar_wait(p, d, task, tile);
+  __syncthreads();
+  if (!s_ok) return TASK_STOP;
+  const int M = static_cast<int>(d[F_M]), N = static_cast<int>(d[F_N]);
+  const int tr = static_cast<int>(d[F_TR]);
+  const int n = static_cast<int>(d[F_NR]), r = static_cast<int>(d[F_RANK]);
+  const long long lda = d[F_LDA], ldc = d[F_LDC], ldo = d[F_LDO];
+  const int r0 = tile * tr, r1 = min(M, r0 + tr);
+  const T* part = cptr<T>(d[F_A]);
+  const T* land = cptr<T>(d[F_C]);
+  T* out = mptr<T>(d[F_OUT]);
+  for (int row = r0; row < r1; ++row)
+    for (int c = threadIdx.x; c < N; c += NT) {
+      float acc = 0.f;
+      for (int s = 0; s < n; ++s) {
+        const float v = to_f(s == r ? part[row * lda + c]
+                                    : land[(static_cast<long long>(s) * M +
+                                            row) * ldc + c]);
+        acc = s == 0 ? v : __fadd_rn(acc, v);
+      }
+      out[row * ldo + c] = from_f<T>(acc);
+    }
+  return TASK_DONE;
+}
+
 // Returns false on a fused descriptor it cannot run: any fused arm in the
 // tiled form, or an RMS prologue whose rows exceed the staged floats.
 template <typename T>
-__device__ bool linear_task(const long long* d, int tile, float* sm) {
+__device__ int linear_task(const long long* d, int tile, float* sm) {
   const bool fused = d[F_PRO] != PRO_NONE || d[F_R] != 0;
   if (d[F_MODE] == 1) {
-    if (fused) return false;
+    if (fused) return TASK_UNKNOWN;
     linear_tiled<T>(d, tile, sm);
-    return true;
+    return TASK_DONE;
   }
   const int tr = static_cast<int>(d[F_TR]);
   const int R = tr <= 1 ? 1 : tr <= 2 ? 2 : tr <= 4 ? 4 : 8;
-  if (d[F_PRO] == PRO_RMS && d[F_K] > XS_FLOATS / R) return false;
+  if (d[F_PRO] == PRO_RMS && d[F_K] > XS_FLOATS / R) return TASK_UNKNOWN;
   if (R == 1) linear_skinny<T, 1>(d, tile, sm);
   else if (R == 2) linear_skinny<T, 2>(d, tile, sm);
   else if (R == 4) linear_skinny<T, 4>(d, tile, sm);
   else linear_skinny<T, 8>(d, tile, sm);
-  return true;
+  return TASK_DONE;
 }
 
-// returns false on an op the kernel does not have
+// TASK_DONE, TASK_UNKNOWN on an op the kernel does not have, or TASK_STOP
+// when a wait inside the body recorded or found a fault
 template <typename T>
-__device__ bool run_task(const long long* d, int tile, float* sm,
-                         const Params& p) {
+__device__ int run_task(const long long* d, int tile, float* sm,
+                        const Params& p, int task) {
   const bool d128 = d[F_HD] == 128;
   const int cl = p.cache_len;
   switch (static_cast<int>(d[F_OP])) {
     case OP_LINEAR: return linear_task<T>(d, tile, sm);
-    case OP_RMS_NORM: rms_norm_task<T>(d, tile, sm); return true;
-    case OP_SILU_MUL: elementwise_task<T, true>(d, tile); return true;
-    case OP_ADD: elementwise_task<T, false>(d, tile); return true;
+    case OP_RMS_NORM: rms_norm_task<T>(d, tile, sm); return TASK_DONE;
+    case OP_SILU_MUL: elementwise_task<T, true>(d, tile); return TASK_DONE;
+    case OP_ADD: elementwise_task<T, false>(d, tile); return TASK_DONE;
     case OP_ATTN:
       if (d128) attn_rows_task<T, 128>(d, tile, sm, cl);
       else attn_rows_task<T, 64>(d, tile, sm, cl);
-      return true;
+      return TASK_DONE;
     case OP_KVA_K:
       if (d128) kv_append_task<T, 128, true>(d, tile, cl);
       else kv_append_task<T, 64, true>(d, tile, cl);
-      return true;
+      return TASK_DONE;
     case OP_KVA_V:
       if (d128) kv_append_task<T, 128, false>(d, tile, cl);
       else kv_append_task<T, 64, false>(d, tile, cl);
-      return true;
+      return TASK_DONE;
     case OP_ATTN_P:
-      if (p.lens == nullptr || p.widths == nullptr) return false;
+      if (p.lens == nullptr || p.widths == nullptr) return TASK_UNKNOWN;
       if (d128) attn_paged_task<T, 128>(d, tile, sm, p);
       else attn_paged_task<T, 64>(d, tile, sm, p);
-      return true;
+      return TASK_DONE;
     case OP_KVA_PK:
-      if (p.lens == nullptr || p.widths == nullptr) return false;
+      if (p.lens == nullptr || p.widths == nullptr) return TASK_UNKNOWN;
       if (d128) kv_append_paged_task<T, 128, true>(d, tile, p);
       else kv_append_paged_task<T, 64, true>(d, tile, p);
-      return true;
+      return TASK_DONE;
     case OP_KVA_PV:
-      if (p.lens == nullptr || p.widths == nullptr) return false;
+      if (p.lens == nullptr || p.widths == nullptr) return TASK_UNKNOWN;
       if (d128) kv_append_paged_task<T, 128, false>(d, tile, p);
       else kv_append_paged_task<T, 64, false>(d, tile, p);
-      return true;
+      return TASK_DONE;
     case OP_GROUPED_GEMM:
-      if (d[F_SROWS] != 0 && p.widths == nullptr) return false;
+      if (d[F_SROWS] != 0 && p.widths == nullptr) return TASK_UNKNOWN;
       if (d[F_PHASE] == 0) moe_gate_up_task<T>(d, tile, sm, p);
       else moe_down_task<T>(d, tile, sm, p);
-      return true;
-    default: return false;
+      return TASK_DONE;
+    case OP_AR:
+      if (d[F_SIG] == 0) return TASK_UNKNOWN;
+      if (d[F_PHASE] != 0) return ar_sum_task<T>(d, tile, p, task);
+      ar_push_task<T>(d, tile);
+      return TASK_DONE;
+    default: return TASK_UNKNOWN;
   }
 }
 
@@ -1180,6 +1312,7 @@ template <typename T>
 __global__ void __launch_bounds__(NT, 1) megakernel(Params p) {
   extern __shared__ __align__(16) float sm[];
   __shared__ int s_go;
+  __shared__ long long s_desc[NF];   // the tile's copy of its task's row
   const int* queue = p.queues + static_cast<long long>(blockIdx.x) * p.qcap;
   const int n = p.qlen[blockIdx.x];
   if (threadIdx.x == 0) s_go = ld_volatile(p.fault) == 0;
@@ -1187,22 +1320,41 @@ __global__ void __launch_bounds__(NT, 1) megakernel(Params p) {
   if (!s_go) return;
   for (int i = 0; i < n; ++i) {
     const int e = queue[i];
-    const int task = e >> 20, tile = e & 0xfffff;
-    const long long* d = p.desc + static_cast<long long>(task) * NF;
-    if (threadIdx.x == 0) s_go = wait_deps(p, d, task);
+    const int task = e >> 20;
+    int tile = e & 0xfffff;
+    const long long* gd = p.desc + static_cast<long long>(task) * NF;
+    // the row in shared memory, as rank r's in an n-rank program (each
+    // operand pointer moved by r x its rank stride, r at F_RANK); the
+    // barrier after the wait below publishes it
+    int r = 0;
+    if (__ldg(gd + F_NR) > 1) {
+      r = tile / static_cast<int>(__ldg(gd + F_TPR));
+      tile -= r * static_cast<int>(__ldg(gd + F_TPR));
+    }
+    for (int f = threadIdx.x; f < NF; f += NT) {
+      long long v = __ldg(gd + f);
+      if (r != 0)
+        for (int k = 0; k < 8; ++k)
+          if (RANKED_PTR[k] == f)
+            v += r * __ldg(gd + F_RS_OUT + k) *
+                 static_cast<long long>(sizeof(T));
+      s_desc[f] = f == F_RANK ? r : v;
+    }
+    const long long* d = s_desc;
+    if (threadIdx.x == 0) s_go = wait_deps(p, gd, task);
     __syncthreads();
     if (!s_go) return;
-    const bool known = run_task<T>(d, tile, sm, p);
+    const int done = run_task<T>(d, tile, sm, p, task);
     __syncthreads();
     if (threadIdx.x == 0) {
-      if (!known) {
+      if (done == TASK_UNKNOWN) {
         if (atomicCAS(p.fault, 0, FAULT_BAD_OP) == 0) p.fault[1] = task;
-      } else {
+      } else if (done == TASK_DONE) {
         __threadfence();
         atomicAdd(p.counts + task, 1u);
       }
     }
-    if (!known) return;
+    if (done != TASK_DONE) return;
   }
 }
 

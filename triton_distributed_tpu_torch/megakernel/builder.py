@@ -10,14 +10,17 @@ executor, the counterpart of JAX "xla") or "kernel" (the persistent CUDA
 megakernel, the counterpart of JAX "pallas"; on a CPU device its plain
 queue walk).
 
-Ops of later slices (the collectives, `verify`) raise
-NotImplementedError naming the slice.
+`mesh` is a `parallel.mesh.RankGroup`: a graph with `all_reduce` nodes
+is then an n-rank program, which runs every rank's operands (a leading
+rank dimension on each) in one launch. Ops of later slices
+(`all_to_all`, `verify`) raise NotImplementedError naming the slice.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import RankGroup
 from .graph import Graph, TensorHandle
 
 
@@ -27,17 +30,16 @@ def later_slice(what: str, slice_: str, detail: str = "") -> NotImplementedError
         f"comes with ROADMAP.md Queue A, slice {slice_}{detail}")
 
 
-_SLICE_MULTI = ("6", " (the multi-rank layer)")
-
-
 class ModelBuilder:
 
-    def __init__(self, *, mesh=None, axis: str = "tp",
+    def __init__(self, *, mesh: RankGroup | None = None, axis: str = "tp",
                  dtype=torch.float32, rms_eps: float = 1e-6):
-        if mesh is not None:
-            raise later_slice("ModelBuilder(mesh=...)", *_SLICE_MULTI)
+        if mesh is not None and not isinstance(mesh, RankGroup):
+            raise TypeError(f"mesh: the port's ranks are a "
+                            f"parallel.mesh.RankGroup, got "
+                            f"{type(mesh).__name__}")
         self.graph = Graph()
-        self.mesh = None
+        self.mesh = mesh
         self.axis = axis
         self.dtype = dtype
         self.rms_eps = rms_eps
@@ -255,12 +257,26 @@ class ModelBuilder:
             self.dtype, num_experts=num_experts, top_k=top_k,
             intermediate=inter, norm_topk=norm_topk)
 
+    def all_reduce(self, x: TensorHandle) -> TensorHandle:
+        """Cross-rank sum over the builder's ranks (reference
+        tasks/allreduce.py): the AR task body in the kernel (each rank
+        pushes its partial into its peers' landing blocks, then sums the
+        n partials in rank order in f32), `RankGroup.psum` in the golden
+        executor."""
+        return self.graph.add_node("all_reduce", (x,), x.shape, self.dtype,
+                                   axis=self.axis)
+
+    @property
+    def num_ranks(self) -> int:
+        """The ranks an n-rank program of this graph runs (1 without a
+        mesh)."""
+        return 1 if self.mesh is None else self.mesh.n
+
     # -- ops of later slices -----------------------------------------------
     def all_to_all(self, *args, **kwargs):
-        raise later_slice("ModelBuilder.all_to_all", *_SLICE_MULTI)
-
-    def all_reduce(self, *args, **kwargs):
-        raise later_slice("ModelBuilder.all_reduce", *_SLICE_MULTI)
+        raise later_slice("ModelBuilder.all_to_all", "6",
+                          " (the TASK_A2A body, ROADMAP Queue B 18: off every "
+                          "model path)")
 
     def verify(self, **kwargs):
         raise later_slice("ModelBuilder.verify", "7",

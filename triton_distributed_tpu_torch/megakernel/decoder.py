@@ -39,8 +39,9 @@ def dense_weight_map(model, params):
     with row stride 2 x intermediate. Returns (weights, embed,
     lm_head)."""
     if model.n != 1:
-        raise later_slice("dense_weight_map of a multi-rank model", "6",
-                          " (the multi-rank layer)")
+        raise ValueError(f"dense_weight_map maps one-rank parameters; a "
+                         f"{model.n}-rank model's shards map through "
+                         f"dense_weight_map_tp")
     c = model.config
     if c.is_moe:
         raise ValueError(
@@ -66,7 +67,50 @@ def dense_weight_map(model, params):
 
 
 def dense_weight_map_tp(model, params):
-    raise later_slice("dense_weight_map_tp", "6", " (the multi-rank layer)")
+    """Map an n-rank DenseLLM's parameters onto the megakernel weight
+    naming as rank stacks (JAX dense_weight_map_tp, decoder.py:64): every
+    value has a leading (n,) rank dimension, rank r's shard in the model's
+    own layout (`fuse_column_parallel`): w_qkv columns [q_r | k_r | v_r],
+    w_o / w_down row slices, w_gate / w_up the column halves of rank r's
+    [gate_r | up_r]. The sharded ones are views of `params`; the norms,
+    which every rank holds alike, are views expanded over the rank
+    dimension (rank stride 0), so nothing is copied. The per-rank graph is
+    the local-width trunk with an all_reduce after w_o and w_down. Returns
+    (weights, embed, lm_head): the lm_head stays rank-stacked (n, hidden,
+    V / n), as `greedy_token` / `sample_token` take it at n ranks."""
+    n = model.n
+    if n < 2:
+        raise ValueError("dense_weight_map_tp maps an n-rank model's shards; "
+                         "a one-rank model maps through dense_weight_map")
+    c = model.config
+    if c.is_moe:
+        raise ValueError(f"{c.name} is a MoE model: the megakernel serves "
+                         f"MoE at one rank only")
+    if c.num_heads % n or c.num_kv_heads % n or c.intermediate_size % n:
+        raise ValueError(
+            f"dense_weight_map_tp: heads {c.num_heads} / kv heads "
+            f"{c.num_kv_heads} / intermediate {c.intermediate_size} must "
+            f"all divide over {n} ranks")
+    lay = params["layers"]
+    i_loc = c.intermediate_size // n
+
+    def rep(t):
+        return t[None].expand(n, 1, *t.shape)
+
+    weights = {"final_norm": rep(params["norm"])}
+    for i in range(c.num_layers):
+        pre = f"l{i}."
+        weights[pre + "ln1"] = rep(lay["ln1"][i])
+        weights[pre + "ln2"] = rep(lay["ln2"][i])
+        weights[pre + "w_qkv"] = lay["w_qkv"][i]
+        weights[pre + "w_o"] = lay["w_o"][i]
+        weights[pre + "w_gate"] = lay["w_gate_up"][i][:, :, :i_loc]
+        weights[pre + "w_up"] = lay["w_gate_up"][i][:, :, i_loc:]
+        weights[pre + "w_down"] = lay["w_down"][i]
+        if c.qk_norm:
+            weights[pre + "q_norm"] = rep(lay["q_norm"][i])
+            weights[pre + "k_norm"] = rep(lay["k_norm"][i])
+    return weights, params["embed"], params["lm_head"]
 
 
 def moe_weight_map(model, params):

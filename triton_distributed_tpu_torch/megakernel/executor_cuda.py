@@ -37,6 +37,27 @@ A graph compiles into:
   non-cache inputs), the per-layer caches, and the RoPE cos/sin table
   of `rope_cos_sin` (f32, one row per position).
 
+An n-rank program (a graph with `all_reduce` nodes, built over a
+`RankGroup` of n ranks) keeps one task per node and gives it n times the
+tiles of one rank: tile t of rank r is r * tiles_per_rank + t, and every
+descriptor carries a rank stride for each operand (the rank-stacked
+weight shards, the arena, whose activations are held once a rank, the
+caches or pools of each rank), by which the kernel moves the operand
+pointers to rank r's before it runs the tile. So the scheduler, the
+scoreboard and the deadlock argument are those of one rank, dependencies
+stay node-level across the ranks (rank r's tile waits for every rank's
+producer tiles), and one launch runs all n ranks' programs. An
+all_reduce node is two AR tasks: phase 0, tile (r, row tile), pushes
+rank r's rows of the partial into this node's landing block of every
+peer (each rank's arena holds an (n x rows, cols) landing block per AR
+node: no buffer is reused within a launch, so no parity chain) and
+signals each peer; phase 1, after every phase-0 tile, waits each
+source's signal (bounded: a lost signal records a fault naming the
+task and the ranks) and sums the n partials in rank order in f32,
+rounding once (RankGroup.psum's order). The signals are u32 counters
+`signals` (AR nodes, n dst, n src, row tiles), never cleared: launch
+`epoch` waits for the value epoch.
+
 The descriptor table is built once per binding of weights and caches;
 the run-time data of a launch is `cache_len`, or for a paged serving
 program the per-slot lengths, the per-slot live widths (the rows of the
@@ -81,11 +102,11 @@ from ..ops.moe_utils import route_topk
 from . import scheduler
 from .builder import later_slice
 from .executor_torch import (PAGED_OPS, as_tensor, check_ops,
-                             identity_table, matmul_f32, paged_geometry,
-                             slot_lengths)
-from .graph import (TASK_ADD, TASK_ATTN, TASK_ATTN_P, TASK_GROUPED_GEMM,
-                    TASK_KVA_K, TASK_KVA_PK, TASK_KVA_PV, TASK_KVA_V,
-                    TASK_LINEAR, TASK_RMS_NORM, TASK_SILU_MUL)
+                             has_all_reduce, identity_table, matmul_f32,
+                             paged_geometry, slot_lengths)
+from .graph import (TASK_ADD, TASK_AR, TASK_ATTN, TASK_ATTN_P,
+                    TASK_GROUPED_GEMM, TASK_KVA_K, TASK_KVA_PK, TASK_KVA_PV,
+                    TASK_KVA_V, TASK_LINEAR, TASK_RMS_NORM, TASK_SILU_MUL)
 
 MEGAKERNEL = CudaKernel(
     "megakernel", "tdt_megakernel",
@@ -109,18 +130,27 @@ WAIT_BUDGET_S = 1.0     # a scoreboard wait longer than this is a fault
 # fused LINEAR's prologue (F_PRO: PRO_NONE, PRO_RMS with the norm weight
 # at F_P and its eps at F_EPS, PRO_SILU with the up rows at F_P, F_LDP)
 # and epilogue residual (F_R, F_LDR; 0: none); F_APPEND: an ATTN that
-# appends its rows' K / V to its caches.
+# appends its rows' K / V to its caches. An n-rank program: F_NR ranks of
+# F_TPR tiles each, the kernel's copy of the row for rank r holds r at
+# F_RANK and each operand pointer moved by r x its rank stride (elements;
+# F_RS_OUT .. F_RS_R, in the order of RANKED); an AR task's signal block at
+# F_SIG.
 (F_OP, F_TILES, F_DEP_LO, F_DEP_HI, F_OUT, F_A, F_B, F_C, F_D, F_E, F_M,
  F_N, F_K, F_LDA, F_LDB, F_LDO, F_TR, F_NCT, F_TN, F_H, F_HKV, F_HD,
  F_QKN, F_CACHED, F_CAUSAL, F_EPS, F_SCALE, F_COS, F_SIN, F_LDC,
  F_MODE, F_BLOCK, F_SROWS, F_MAXP, F_NE, F_TOPK, F_INTER, F_NORMK,
  F_PHASE, F_LDD, F_LDE, F_PRO, F_P, F_LDP, F_R, F_LDR,
- F_APPEND) = range(47)
-NF = 47
+ F_APPEND, F_NR, F_TPR, F_RANK, F_RS_OUT, F_RS_A, F_RS_B, F_RS_C, F_RS_D,
+ F_RS_E, F_RS_P, F_RS_R, F_SIG) = range(59)
+NF = 59
 PRO_NONE, PRO_RMS, PRO_SILU = 0, 1, 2
+# the operand slots that move with the rank, and their pointer fields
+RANKED = ("out", "a", "b", "c", "d", "e", "p", "r")
+_PTR = dict(zip(RANKED, (F_OUT, F_A, F_B, F_C, F_D, F_E, F_P, F_R)))
 
 _FAULTS = {1: "a scoreboard wait passed its budget",
-           2: "a descriptor names an op the kernel does not have"}
+           2: "a descriptor names an op the kernel does not have",
+           3: "an all_reduce signal wait passed its budget"}
 
 
 def indexed(device) -> torch.device:
@@ -145,9 +175,15 @@ class ExecutorCuda:
 
     def __init__(self, builder, *, device=None, n_sm: int | None = None,
                  fuse_elementwise: bool = False,
-                 fuse_kv_append: bool = False):
+                 fuse_kv_append: bool = False,
+                 fuse_collective: bool = False):
         g = builder.graph
         check_ops(g)
+        if fuse_collective:
+            raise later_slice(
+                "compile('kernel', fuse_collective=True)", "6",
+                " (the TASK_GEMM_AR body, ROADMAP Queue B 17: the JAX "
+                "MegaServe keeps it off at n ranks)")
         self.builder = builder
         self.graph = g
         self.device = indexed(runtime.resolve_device(device))
@@ -166,10 +202,16 @@ class ExecutorCuda:
         self.n_sm = int(H100_SMS if n_sm is None else n_sm)
         self.wait_budget_ns = int(WAIT_BUDGET_S * 1e9)
         self.eps = float(builder.rms_eps)
+        # an n-rank program: every operand rank-stacked, n x the tiles
+        self.sharded = has_all_reduce(g)
+        self.n_ranks = builder.num_ranks if self.sharded else 1
+        if self.sharded and (fuse_elementwise or fuse_kv_append):
+            raise ValueError("fuse_elementwise / fuse_kv_append: the fused "
+                             "decode arms run one-rank programs")
 
         # one task per compute node that is not fused away, two for a
-        # moe_ffn node (its phases; the node's output is phase 1's, which
-        # depends on phase 0)
+        # moe_ffn or all_reduce node (its phases; the node's output is
+        # phase 1's, which depends on phase 0)
         nodes = [nd for nd in g.nodes if nd.op not in ("input", "weight")]
         self.fusion, away = self._fusion_plan(nodes, fuse_elementwise,
                                               fuse_kv_append)
@@ -178,7 +220,8 @@ class ExecutorCuda:
         for nd in nodes:
             if nd.out.idx in away:
                 continue
-            for ph in ((0, 1) if nd.op == "moe_ffn" else (0,)):
+            two = nd.op in ("moe_ffn", "all_reduce")
+            for ph in ((0, 1) if two else (0,)):
                 self.tasks.append(nd)
                 self.phases.append(ph)
         # the task that writes each tensor's rows: its own output, and a
@@ -193,8 +236,12 @@ class ExecutorCuda:
         for t, nd in enumerate(self.tasks):
             dep = {writer[i] for i in self._reads(nd) if i in writer}
             self.deps.append(sorted(dep | {t - 1} if self.phases[t] else dep))
-        self.tiling = [self._tiling(nd, ph)
-                       for nd, ph in zip(self.tasks, self.phases)]
+        self.tiling = []
+        for nd, ph in zip(self.tasks, self.phases):
+            til = self._tiling(nd, ph)
+            til["tpr"] = til["tiles"]
+            til["tiles"] *= self.n_ranks
+            self.tiling.append(til)
         self.n_tiles = np.asarray([t["tiles"] for t in self.tiling], np.int32)
         self.queues, self.qlen = scheduler.schedule(self.n_tiles, self.n_sm)
         self._scalar_names = {nd.attrs["cache_len_name"] for nd in nodes
@@ -217,11 +264,12 @@ class ExecutorCuda:
         if cuda:
             self._check_kernel_shapes()
 
-        # persistent arena: every activation, and the non-cache inputs
-        dt, dev = self.dtype, self.device
+        # persistent arena: every activation, and the non-cache inputs;
+        # an n-rank program's holds them once a rank, (n, per rank)
+        dt, dev, n = self.dtype, self.device, self.n_ranks
         self._views = {}
-        acts = [(h.idx, h.shape) for n, h in g.inputs.items()
-                if n not in g.caches]
+        acts = [(h.idx, h.shape) for name, h in g.inputs.items()
+                if name not in g.caches]
         acts += [(nd.out.idx, nd.out.shape) for nd in nodes
                  if nd.out.idx not in kv_out]
         # a moe_ffn node's routed activations, (S, top_k * I): phase 0
@@ -229,15 +277,32 @@ class ExecutorCuda:
         acts += [(("moe", nd.out.idx),
                   (nd.out.rows, nd.attrs["top_k"] * nd.attrs["intermediate"]))
                  for nd in nodes if nd.op == "moe_ffn"]
+        # an all_reduce node's landing block, (n x S, cols): source s's
+        # rows at [s * S, (s + 1) * S)
+        ars = [nd for nd in nodes if nd.op == "all_reduce"]
+        acts += [(("land", nd.out.idx), (n * nd.out.rows, nd.out.cols))
+                 for nd in ars]
         offs, total = [], 0
         for key, (r, c) in acts:
             offs.append(total)
             total += runtime.round_up(r * c, 8)
-        self.arena = torch.zeros(max(total, 8), dtype=dt, device=dev)
-        for (key, (r, c)), o in zip(acts, offs):
-            self._views[key] = self.arena[o:o + r * c].view(r, c)
-        self.inputs = {n: self._views[h.idx] for n, h in g.inputs.items()
-                       if n not in g.caches}
+        total = max(total, 8)
+        if self.sharded:
+            self.arena = torch.zeros((n, total), dtype=dt, device=dev)
+            for (key, (r, c)), o in zip(acts, offs):
+                self._views[key] = self.arena[:, o:o + r * c].view(n, r, c)
+        else:
+            self.arena = torch.zeros(total, dtype=dt, device=dev)
+            for (key, (r, c)), o in zip(acts, offs):
+                self._views[key] = self.arena[o:o + r * c].view(r, c)
+        self.inputs = {name: self._views[h.idx]
+                       for name, h in g.inputs.items() if name not in g.caches}
+        # the AR signals: (AR nodes, n dst, n src, row tiles of a rank)
+        self._ar_index = {nd.out.idx: i for i, nd in enumerate(ars)}
+        tpr = max((til["tpr"] for nd, til in zip(self.tasks, self.tiling)
+                   if nd.op == "all_reduce"), default=1)
+        self.signals = torch.zeros((max(len(ars), 1), n, n, tpr),
+                                   dtype=torch.int32, device=dev)
 
         # RoPE tables, one per (head_dim, theta): row p = position p, for
         # every position a program can reach (cache rows, or S rows)
@@ -246,13 +311,13 @@ class ExecutorCuda:
             if nd.op in ("attention", "attention_kv", "kv_append") \
                     or nd.op in PAGED_OPS:
                 key = (nd.attrs["head_dim"], float(nd.attrs["rope_theta"]))
-                n = (nd.attrs["max_pages"] * nd.attrs["block"]
-                     if nd.op in PAGED_OPS
-                     else max(h.rows for h in nd.inputs[:2]))
-                lengths[key] = max(lengths.get(key, 0), n)
-        self._rope = {(d, th): rope_cos_sin(torch.arange(n, device=dev), d,
+                rows = (nd.attrs["max_pages"] * nd.attrs["block"]
+                        if nd.op in PAGED_OPS
+                        else max(h.rows for h in nd.inputs[:2]))
+                lengths[key] = max(lengths.get(key, 0), rows)
+        self._rope = {(d, th): rope_cos_sin(torch.arange(rows, device=dev), d,
                                             th)
-                      for (d, th), n in lengths.items()}
+                      for (d, th), rows in lengths.items()}
         self.weights: dict = {}
         self.caches: dict = {}
         self.counts = torch.zeros(len(self.tasks), dtype=torch.int32,
@@ -273,6 +338,11 @@ class ExecutorCuda:
             self._rt_host = torch.zeros(nb * (2 + mp), dtype=torch.int32,
                                         pin_memory=True)
             self._rt_copied = torch.cuda.Event()
+
+    def _shape(self, shape) -> tuple:
+        """An operand's shape as bound: with the leading rank dimension in
+        an n-rank program."""
+        return ((self.n_ranks,) if self.sharded else ()) + tuple(shape)
 
     # -- fusion ----------------------------------------------------------
     def _fusion_plan(self, nodes, fuse_elementwise, fuse_kv_append):
@@ -387,7 +457,8 @@ class ExecutorCuda:
         tile (tn), column tiles (nct) and the body's mode (0: <= 8 rows,
         32-column tiles; 1: 64x64 tiles). A GROUPED_GEMM tile is one
         row: in phase 0 a (row, k, strip of I) tile, in phase 1 a (row,
-        strip of H) tile; nct counts the strips."""
+        strip of H) tile; nct counts the strips. An AR tile (either
+        phase) is a row tile at full width. The tiles are one rank's."""
         S = nd.inputs[0].rows
         rows_tile = runtime.cdiv(S, self.n_sm)
         if nd.op == "moe_ffn":
@@ -427,6 +498,9 @@ class ExecutorCuda:
             R = nd.attrs["slot_rows"]
             op = TASK_KVA_PK if nd.attrs["part"] == "k" else TASK_KVA_PV
             return dict(op=op, tr=R, tiles=S // R)
+        if nd.op == "all_reduce":            # either phase: row tiles
+            return dict(op=TASK_AR, tr=rows_tile,
+                        tiles=runtime.cdiv(S, rows_tile))
         op = {"rms_norm": TASK_RMS_NORM, "silu_mul": TASK_SILU_MUL,
               "add": TASK_ADD}.get(nd.op)
         if nd.op == "kv_append":
@@ -498,7 +572,8 @@ class ExecutorCuda:
 
     # -- binding ---------------------------------------------------------
     def _check_operand(self, name, t, shape):
-        if tuple(t.shape) != tuple(shape):
+        shape = self._shape(shape)
+        if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, the graph "
                              f"declares {tuple(shape)}")
         if t.dtype != self.dtype or t.device != self.device:
@@ -506,15 +581,17 @@ class ExecutorCuda:
                              f"runs {self.dtype} on {self.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: rows must be contiguous")
-        if self.device.type == "cuda" and (
-                t.data_ptr() % 16 or (t.stride(0) * t.element_size()) % 16
-                and t.shape[0] > 1):
+        if self.device.type == "cuda" and (t.data_ptr() % 16 or any(
+                (st * t.element_size()) % 16 and sz > 1
+                for st, sz in zip(t.stride()[:-1], t.shape[:-1]))):
             raise ValueError(f"{name}: the kernel needs 16-byte aligned "
-                             f"rows")
+                             f"rows (and ranks)")
 
     def bind_weights(self, weights: dict):
         """Use these tensors (views are fine: rows contiguous, any row
-        stride) as the program's weights, without copying them."""
+        stride) as the program's weights, without copying them. An n-rank
+        program takes them rank-stacked, (n, *shape), any rank stride (0
+        for a weight every rank holds alike)."""
         g = self.graph
         missing = set(g.weights) - set(weights)
         if missing:
@@ -526,11 +603,12 @@ class ExecutorCuda:
 
     def bind_caches(self, caches: dict | None = None):
         """Use these (max_cache, Hkv*D) tensors as the caches, updated in
-        place by the kv_append tasks; None allocates zeroed ones. Two
-        programs given the same tensors share one cache."""
+        place by the kv_append tasks (an n-rank program's rank-stacked, one
+        cache a rank); None allocates zeroed ones. Two programs given the
+        same tensors share one cache."""
         g = self.graph
         if caches is None:
-            caches = {n: torch.zeros(h.shape, dtype=self.dtype,
+            caches = {n: torch.zeros(self._shape(h.shape), dtype=self.dtype,
                                      device=self.device)
                       for n, h in g.caches.items()}
         for n, h in g.caches.items():
@@ -554,7 +632,8 @@ class ExecutorCuda:
     def descriptors(self):
         """(desc int64 (n_tasks, NF), deps int32) as numpy, and the
         per-task tensors behind each address (the plain walk's view of
-        the same table). Built once per binding."""
+        the same table; an n-rank program's rank-stacked). Built once per
+        binding."""
         if self._desc is not None:
             return self._desc
         g = self.graph
@@ -562,66 +641,81 @@ class ExecutorCuda:
             raise RuntimeError("bind_weights before running the program")
         if set(self.caches) != set(g.caches):
             self.bind_caches()
+        sharded = self.sharded
+
+        def loc(t):             # rank 0's operand
+            return t[0] if sharded else t
+
         desc = np.zeros((len(self.tasks), NF), np.int64)
         flat, views = [], []
         for t, nd in enumerate(self.tasks):
             row, til, at = desc[t], self.tiling[t], nd.attrs
             row[F_OP], row[F_TILES], row[F_TR] = til["op"], til["tiles"], \
                 til["tr"]
+            row[F_NR], row[F_TPR] = self.n_ranks, til["tpr"]
             row[F_DEP_LO] = len(flat)
             flat += self.deps[t]
             row[F_DEP_HI] = len(flat)
-            ins = [self._tensor(h) for h in nd.inputs]
+            full = [self._tensor(h) for h in nd.inputs]
             if nd.op in ("kv_append", "kv_append_paged"):
                 # a = qkv, e = k_norm; the output is the cache itself
-                out = ins[1]
-                slots = {"a": ins[0]}
-                if len(ins) > 2:
-                    slots["e"] = ins[2]
+                out = full[1]
+                slots = {"a": full[0]}
+                if len(full) > 2:
+                    slots["e"] = full[2]
             else:
                 out = self._views[nd.out.idx]
-                slots = dict(zip("abcde", ins))
+                slots = dict(zip("abcde", full))
             if nd.op == "moe_ffn":      # e: the routed activations
                 slots["e"] = self._views[("moe", nd.out.idx)]
+            if nd.op == "all_reduce":   # c: the node's landing block
+                slots["c"] = self._views[("land", nd.out.idx)]
+                sig = self.signals[self._ar_index[nd.out.idx]]
+                row[F_SIG] = sig.data_ptr()
             fz = self.fusion.get(nd.out.idx, {})
             pro = fz.get("rms") or fz.get("silu")
             if pro is not None:         # a: the prologue's first source
-                slots["a"] = ins[0] = self._tensor(pro.inputs[0])
+                slots["a"] = full[0] = self._tensor(pro.inputs[0])
             if "add" in fz:             # out: the ADD's rows
                 out = self._views[fz["add"].out.idx]
             v = {"out": out, **slots}
-            row[F_OUT] = out.data_ptr()
-            for name, t_ in slots.items():
-                row[F_A + "abcde".index(name)] = t_.data_ptr()
-            row[F_M] = nd.inputs[0].rows
-            row[F_N] = nd.out.cols
-            row[F_LDA] = ins[0].stride(0)
-            row[F_LDO] = out.stride(0)
             if nd.op == "linear":
-                row[F_K] = nd.inputs[0].cols
-                row[F_LDB] = ins[1].stride(0)
-                row[F_NCT], row[F_TN], row[F_MODE] = til["nct"], til["tn"], \
-                    til["mode"]
                 if pro is not None:     # p: the norm weight / the up rows
                     v["p"] = self._tensor(pro.inputs[1])
-                    row[F_P], row[F_LDP] = v["p"].data_ptr(), \
-                        v["p"].stride(0)
+                    row[F_LDP] = loc(v["p"]).stride(0)
                     row[F_PRO] = PRO_RMS if "rms" in fz else PRO_SILU
                     if "rms" in fz:
                         row[F_EPS] = _f32_bits(pro.attrs["eps"])
                 if "resid" in fz:       # r: the residual rows
                     v["r"] = self._tensor(fz["resid"])
-                    row[F_R], row[F_LDR] = v["r"].data_ptr(), \
-                        v["r"].stride(0)
+                    row[F_LDR] = loc(v["r"]).stride(0)
+            for name, t_ in v.items():
+                row[_PTR[name]] = loc(t_).data_ptr()
+                if sharded:
+                    row[F_RS_OUT + RANKED.index(name)] = t_.stride(0)
+            ins = [loc(x) for x in full]
+            o = loc(out)
+            row[F_M] = nd.inputs[0].rows
+            row[F_N] = nd.out.cols
+            row[F_LDA] = ins[0].stride(0)
+            row[F_LDO] = o.stride(0)
+            if nd.op == "linear":
+                row[F_K] = nd.inputs[0].cols
+                row[F_LDB] = ins[1].stride(0)
+                row[F_NCT], row[F_TN], row[F_MODE] = til["nct"], til["tn"], \
+                    til["mode"]
             elif nd.op == "rms_norm":
                 row[F_EPS] = _f32_bits(at["eps"])
             elif nd.op in ("silu_mul", "add"):
                 row[F_LDB] = ins[1].stride(0)
+            elif nd.op == "all_reduce":
+                row[F_LDC] = loc(slots["c"]).stride(0)
+                row[F_PHASE] = self.phases[t]
             elif nd.op == "moe_ffn":
                 row[F_K] = nd.inputs[0].cols
                 row[F_LDB], row[F_LDC], row[F_LDD], row[F_LDE] = (
                     t_.stride(0) for t_ in (ins[1], ins[2], ins[3],
-                                            slots["e"]))
+                                            loc(slots["e"])))
                 row[F_NCT], row[F_TN] = til["nct"], til["tn"]
                 row[F_NE], row[F_TOPK], row[F_INTER] = \
                     at["num_experts"], at["top_k"], at["intermediate"]
@@ -643,7 +737,7 @@ class ExecutorCuda:
                 cos, sin = self._rope[(d, float(at["rope_theta"]))]
                 row[F_COS], row[F_SIN] = cos.data_ptr(), sin.data_ptr()
                 v["cos"], v["sin"] = cos, sin
-                cache = out if nd.op in ("kv_append", "kv_append_paged") \
+                cache = o if nd.op in ("kv_append", "kv_append_paged") \
                     else ins[1] if nd.op != "attention" else None
                 if cache is not None:
                     row[F_LDC] = cache.stride(0)
@@ -683,7 +777,11 @@ class ExecutorCuda:
         its own pages, as width 1, while a moe_ffn row at or past its
         slot's width routes to no expert and gives 0.
         On a CUDA device this is one kernel launch, with no host sync;
-        `plain=True` runs the plain walk instead (for comparisons)."""
+        `plain=True` runs the plain walk instead (for comparisons). An
+        n-rank program's inputs and outputs are rank-stacked (an input
+        given without the rank dimension is copied to every rank; the
+        outputs that all_reduce nodes leave alike on every rank are
+        rank 0's `[0]`); one launch runs every rank."""
         cache_len = int(cache_len)
         lens = btab = wid = None
         if self.paged is not None:
@@ -803,11 +901,16 @@ class ExecutorCuda:
 
     def check_fault(self):
         """Raise if a launch since the last check recorded a fault
-        (reads a device flag: synchronises). The scoreboard is reset so
-        the program can run again."""
+        (reads a device flag: synchronises). The message names the
+        waiting task and the first unfinished task of the order (the one
+        that could not run); when that is an AR sum, also the push it
+        never saw, read from the signal counters (whichever wait ran out
+        of budget first: the sum's, or a later task's on the
+        scoreboard). The scoreboard and the signals are reset so the
+        program can run again."""
         if self.device.type != "cuda":
             return
-        code, task, dep, _ = self.fault.cpu().tolist()
+        code, task, dep, dst = self.fault.cpu().tolist()
         if code == 0:
             return
         # the first task of the topological order left unfinished is the
@@ -815,8 +918,18 @@ class ExecutorCuda:
         left = (self.counts.cpu().numpy().astype(np.int64)
                 - self.epoch * self.n_tiles.astype(np.int64)) % 2 ** 32
         first = int(np.flatnonzero(left)[0]) if left.any() else -1
+        lost = ""
+        if first >= 0 and self.tasks[first].op == "all_reduce":
+            sig = self.signals[self._ar_index[self.tasks[first].out.idx]]
+            miss = (sig.cpu().numpy().astype(np.int64) - self.epoch) % 2 ** 32
+            for d, s_, t in zip(*np.nonzero(miss)):
+                if d != s_:
+                    lost = (f"; its sum on rank {d} never saw rank {s_}'s "
+                            f"push (row tile {t})")
+                    break
         self.counts.zero_()
         self.fault.zero_()
+        self.signals.zero_()
         self.epoch = 0
 
         def name(t):
@@ -826,8 +939,10 @@ class ExecutorCuda:
         what = name(task)
         if code == 1:
             what += f" waiting on {name(dep)}"
+        elif code == 3:
+            what += f" (AR phase 1) on rank {dst} never saw rank {dep}'s push"
         raise RuntimeError(f"megakernel: {_FAULTS.get(code, code)}: {what}; "
-                           f"the first unfinished task is {name(first)}")
+                           f"the first unfinished task is {name(first)}{lost}")
 
     def run(self, inputs: dict, weights: dict,
             scalars: dict | None = None, block_table=None):
@@ -838,7 +953,13 @@ class ExecutorCuda:
         paged program's table (default: slot b owns pages
         [b*max_pages, (b+1)*max_pages)); every slot's first row is
         live. Returns the outputs (activations copied out of the
-        arena)."""
+        arena). An n-rank program takes rank-stacked operands and runs as
+        `run_sharded` (as the JAX ExecutorPallas.run does)."""
+        if self.sharded:
+            return self.run_sharded(inputs, weights, scalars, block_table)
+        return self._run(inputs, weights, scalars, block_table)
+
+    def _run(self, inputs, weights, scalars, block_table):
         scalars = dict(scalars or {})
         unknown = set(scalars) - self._scalar_names
         if unknown:
@@ -864,13 +985,39 @@ class ExecutorCuda:
                              block_table=block_table)
         self.check_fault()
         cache_ids = {id(t) for t in self.caches.values()}
-        return tuple(o if id(o) in cache_ids else o.clone() for o in outs)
+        return tuple(o if id(o) in cache_ids else
+                     (o[0] if self.sharded else o).clone() for o in outs)
 
-    def run_sharded(self, *args, **kwargs):
-        raise later_slice("run_sharded", "6", " (the multi-rank layer)")
+    def _require_sharded(self, what):
+        if not self.sharded:
+            raise ValueError(f"{what} requires all_reduce nodes (per-rank "
+                             f"partial-sum semantics); use run() / step() "
+                             f"otherwise")
 
-    def step_fn_sharded(self, *args, **kwargs):
-        raise later_slice("step_fn_sharded", "6", " (the multi-rank layer)")
+    def run_sharded(self, inputs: dict, weights: dict,
+                    scalars: dict | None = None, block_table=None):
+        """run() of per-rank operands (JAX ExecutorXLA.run_sharded /
+        ExecutorPallas.run with AR nodes): every input, cache and weight
+        with a leading rank dimension. Returns the cache outputs
+        rank-stacked and the activations, which the all_reduce nodes leave
+        alike on every rank, once (rank 0's, copied out)."""
+        self._require_sharded("run_sharded")
+        return self._run(inputs, weights, scalars, block_table)
+
+    def step_fn_sharded(self):
+        """The n-rank step (JAX ExecutorPallas.step_fn_sharded): a
+        function of step()'s arguments that runs one launch for every rank
+        and returns the outputs with the replicated activations once
+        (rank 0's views) and the caches rank-stacked."""
+        self._require_sharded("step_fn_sharded")
+        cache_ids = {h.idx for h in self.graph.caches.values()}
+
+        def stepper(inputs=None, cache_len=0, **kwargs):
+            outs = self.step(inputs, cache_len, **kwargs)
+            return tuple(o if h.idx in cache_ids else o[0]
+                         for o, h in zip(outs, self._out_handles))
+
+        return stepper
 
     def profile_tasks(self, *args, **kwargs):
         raise later_slice("profile_tasks", "7", " (tools and verification)")
@@ -925,7 +1072,12 @@ class ExecutorCuda:
         of its own, capped at E: an upper bound. A fused task counts
         what it absorbed once: a LINEAR's norm weight or up rows and its
         residual, the norm's operations once per consumer; an ATTN's
-        appended rows."""
+        appended rows. In an n-rank program every task's cost is the sum
+        over the ranks (each reads its own shards; a weight every rank
+        holds alike counts once a rank); an AR task of a rank reads its S
+        partial rows and writes them to its n - 1 peers (phase 0), then
+        reads the n partials, adds n - 1 times a value and writes S rows
+        (phase 1)."""
         item = torch.finfo(self.dtype).bits // 8
         if self.paged is not None:
             lens = np.asarray(cache_lens if cache_lens is not None
@@ -933,9 +1085,14 @@ class ExecutorCuda:
             # the rows ATTN_P and KVA_P* run a slot (at least one)
             wq = np.maximum(self._slot_widths(widths), 1).astype(np.int64)
         costs = []
+        n = self.n_ranks
         for nd, phase in zip(self.tasks, self.phases):
             S = nd.inputs[0].rows
-            if nd.op == "moe_ffn":
+            if nd.op == "all_reduce":
+                rows = S * nd.out.cols
+                flops = (n - 1) * rows if phase else 0
+                bytes_ = (n * rows + rows if phase else n * rows) * item
+            elif nd.op == "moe_ffn":
                 at = nd.attrs
                 E, k, inter = at["num_experts"], at["top_k"], \
                     at["intermediate"]
@@ -998,7 +1155,7 @@ class ExecutorCuda:
                 rows = int(wq.sum()) if nd.op in PAGED_OPS else S
                 flops = 10 * rows * w if at["part"] == "k" else 0
                 bytes_ = 2 * rows * w * item
-            costs.append({"flops": int(flops), "bytes": int(bytes_)})
+            costs.append({"flops": n * int(flops), "bytes": n * int(bytes_)})
         return costs
 
 
@@ -1109,6 +1266,34 @@ def _plain_moe(dt, row, v, tile, widths):
         acc = acc + matmul_f32(act[r:r + 1, k * inter:(k + 1) * inter],
                                v["d"][ek * inter:(ek + 1) * inter, cols])
     v["out"][r:r + 1, cols] = acc.to(dt)
+
+
+def _plain_ar(ex, row, v, r, tile, signals):
+    """One AR tile of rank r. Phase 0: rank r's rows of the partial
+    copied into slot r of every peer's landing block, one signal each
+    (`signals`, a host count by (dst, src, tile)). Phase 1: the peers'
+    signals checked, then the n partials (rank r's own from its partial,
+    the others from its landing block) summed in rank order in f32 and
+    rounded once."""
+    n, M, tr = int(row[F_NR]), int(row[F_M]), int(row[F_TR])
+    r0, r1 = tile * tr, min(M, tile * tr + tr)
+    part, land = v["a"], v["c"]
+    if row[F_PHASE] == 0:
+        for q in range(n):
+            if q != r:
+                land[q, r * M + r0:r * M + r1] = part[r, r0:r1]
+                signals[q, r, tile] += 1
+        return
+    lost = [s_ for s_ in range(n) if s_ != r and signals[r, s_, tile] != 1]
+    if lost:
+        raise RuntimeError(f"megakernel plain walk: an all_reduce tile of "
+                           f"rank {r} never saw the push of rank(s) {lost}")
+    acc = None
+    for s_ in range(n):
+        src = (part[r, r0:r1] if s_ == r
+               else land[r, s_ * M + r0:s_ * M + r1]).float()
+        acc = src if acc is None else acc + src
+    v["out"][r, r0:r1] = acc.to(ex.dtype)
 
 
 def _plain_tile(ex, row, v, tile, cache_len, lens=None, btab=None,
@@ -1248,8 +1433,22 @@ def plain_walk(ex: ExecutorCuda, cache_len: int, *, seed: int = 0,
     tasks have all finished every tile. Raises if no head can run (a
     missing or cyclic dependency), which on the card would be a
     deadlock. A paged program runs at the per-slot `lens` and live
-    `widths` through `btab` (host int32 arrays)."""
+    `widths` through `btab` (host int32 arrays). An n-rank program's tile
+    runs rank r's operands; its AR tiles keep the signals a rank pushes
+    as host counts and raise if a sum finds one missing."""
     desc, _, views, *_ = ex.descriptors()
+    n = ex.n_ranks
+    # host signal counts of each all_reduce node, shared by its phases
+    signals = {nd.out.idx: np.zeros((n, n, ex.tiling[t]["tpr"]), np.int64)
+               for t, nd in enumerate(ex.tasks) if nd.op == "all_reduce"}
+    rank_views = {}
+
+    def rank_view(task, r):
+        if (task, r) not in rank_views:
+            rank_views[task, r] = {k: t if k in ("cos", "sin") else t[r]
+                                   for k, t in views[task].items()}
+        return rank_views[task, r]
+
     queues, qlen = ex.queues, ex.qlen
     rng = random.Random(seed)
     done = np.zeros(len(ex.tasks), np.int64)
@@ -1278,8 +1477,18 @@ def plain_walk(ex: ExecutorCuda, cache_len: int, *, seed: int = 0,
                 f"megakernel plain walk: no queue head can run (a "
                 f"dependency is missing or cyclic); heads (sm: task, tile) "
                 f"{stuck}")
-        _plain_tile(ex, desc[task], views[task], tile, cache_len, lens, btab,
-                    widths)
+        if not ex.sharded:
+            _plain_tile(ex, desc[task], views[task], tile, cache_len, lens,
+                        btab, widths)
+        else:
+            r, lt = divmod(tile, int(desc[task, F_TPR]))
+            nd = ex.tasks[task]
+            if nd.op == "all_reduce":
+                _plain_ar(ex, desc[task], views[task], r, lt,
+                          signals[nd.out.idx])
+            else:
+                _plain_tile(ex, desc[task], rank_view(task, r), lt,
+                            cache_len, lens, btab, widths)
         done[task] += 1
         heads[c] += 1
         if heads[c] == qlen[c]:

@@ -11,8 +11,9 @@ emitted in graph (topological) order; the port's executor
 `OPS` and the `TASK_*` codes are the JAX package's, so task rows keep
 their op codes across the two packages. The port's kernel runs
 LINEAR, RMS_NORM, SILU_MUL, ADD, ATTN, KVA_K, KVA_V, the paged ATTN_P,
-KVA_PK and KVA_PV, and GROUPED_GEMM; its builder raises on the
-collective ops (AR, A2A).
+KVA_PK and KVA_PV, GROUPED_GEMM, and AR, the cross-rank sum of an
+`all_reduce` node; its builder raises on `all_to_all` (A2A), and
+GEMM_AR (the fused LINEAR + AR of `fuse_collective`) is not built.
 """
 
 from __future__ import annotations

@@ -4,7 +4,12 @@
 Analog of reference mega_triton_kernel/models/qwen3.py:202 — the Qwen3
 forward assembled as one megakernel program. The builders emit the same
 op graph as the JAX package's, node for node, the MoE serving program
-included. Multi-rank options (`tp_shards`, `mesh`) raise, naming slice 6.
+included. With `tp_shards=True` the o and down projections are followed
+by `all_reduce` nodes: the builder's graph is then one rank's program at
+the local widths (heads / n, kv heads / n, intermediate / n), which the
+caller runs with rank-stacked weight shards over `mesh` (a RankGroup).
+The MoE serving program stays one-rank: the JAX MegaServe refuses MoE at
+n ranks too.
 """
 
 from __future__ import annotations
@@ -14,9 +19,26 @@ import numpy as np
 from .builder import ModelBuilder, later_slice
 
 
-def _one_rank(mesh, tp_shards):
+def _one_rank_moe(mesh, tp_shards):
     if mesh is not None or tp_shards:
-        raise later_slice("tp_shards / mesh", "6", " (the multi-rank layer)")
+        raise later_slice("the MoE serving program over ranks (tp_shards / "
+                          "mesh)", "6", " (MoE megakernel serving at n "
+                          "ranks; the JAX MegaServe refuses it too)")
+
+
+def _tp_mlp_tail(mb, x, o, ln2, w_gate, w_up, w_down, tp_shards):
+    """The residual add of the o projection, then the SwiGLU MLP and its
+    residual add; with `tp_shards` each row-parallel projection (o, down)
+    is summed over the ranks by an all_reduce node first."""
+    if tp_shards:
+        o = mb.all_reduce(o)
+    x = mb.add(x, o)
+    h = mb.rms_norm(x, ln2)
+    a = mb.silu_mul(mb.linear(h, w_gate), mb.linear(h, w_up))
+    y = mb.linear(a, w_down)
+    if tp_shards:
+        y = mb.all_reduce(y)
+    return mb.add(x, y)
 
 
 def build_qwen3_block(mb: ModelBuilder, x, *, layer: int, hidden: int,
@@ -25,7 +47,6 @@ def build_qwen3_block(mb: ModelBuilder, x, *, layer: int, hidden: int,
                       rope_theta: float = 1e6, tp_shards: bool = False):
     """Append one transformer block (attn + SwiGLU MLP, pre-norm,
     residuals) to the graph; returns the block output handle."""
-    _one_rank(None, tp_shards)
     pre = f"l{layer}."
     d = head_dim
     qkv_cols = (num_heads + 2 * num_kv_heads) * d
@@ -43,13 +64,8 @@ def build_qwen3_block(mb: ModelBuilder, x, *, layer: int, hidden: int,
     attn = mb.attention(qkv, num_heads=num_heads,
                         num_kv_heads=num_kv_heads, head_dim=d,
                         rope_theta=rope_theta)
-    o = mb.linear(attn, w_o)
-    x = mb.add(x, o)
-
-    h = mb.rms_norm(x, ln2)
-    a = mb.silu_mul(mb.linear(h, w_gate), mb.linear(h, w_up))
-    y = mb.linear(a, w_down)
-    return mb.add(x, y)
+    return _tp_mlp_tail(mb, x, mb.linear(attn, w_o), ln2, w_gate, w_up,
+                        w_down, tp_shards)
 
 
 def build_qwen3_decode_block(mb: ModelBuilder, x, *, layer: int,
@@ -67,7 +83,6 @@ def build_qwen3_decode_block(mb: ModelBuilder, x, *, layer: int,
     (normed + roped) and raw V rows land in the caches at
     [cache_len, cache_len + S) inside the same launch — the
     device-resident serving form MegaDecoder uses."""
-    _one_rank(None, tp_shards)
     pre = f"l{layer}."
     d = head_dim
     qkv_cols = (num_heads + 2 * num_kv_heads) * d
@@ -95,13 +110,8 @@ def build_qwen3_decode_block(mb: ModelBuilder, x, *, layer: int,
         mb.kv_append(qkv, kc, vc, num_heads=num_heads,
                      num_kv_heads=num_kv_heads, head_dim=d,
                      rope_theta=rope_theta, k_norm=kn)
-    o = mb.linear(attn, w_o)
-    x = mb.add(x, o)
-
-    h = mb.rms_norm(x, ln2)
-    a = mb.silu_mul(mb.linear(h, w_gate), mb.linear(h, w_up))
-    y = mb.linear(a, w_down)
-    return mb.add(x, y)
+    return _tp_mlp_tail(mb, x, mb.linear(attn, w_o), ln2, w_gate, w_up,
+                        w_down, tp_shards)
 
 
 def build_qwen3_decode(*, seq_len: int, hidden: int, intermediate: int,
@@ -116,16 +126,16 @@ def build_qwen3_decode(*, seq_len: int, hidden: int, intermediate: int,
     in -> normalized hidden states out) against per-layer KV caches, as
     one megakernel program. `qk_norm` adds Qwen3's per-head q/k RMSNorm
     weights (`l{i}.q_norm`/`k_norm`)."""
-    _one_rank(mesh, tp_shards)
     kwargs = {} if dtype is None else {"dtype": dtype}
-    mb = ModelBuilder(axis=axis, rms_eps=rms_eps, **kwargs)
+    mb = ModelBuilder(mesh=mesh, axis=axis, rms_eps=rms_eps, **kwargs)
     x = mb.input("x", (seq_len, hidden))
     for layer in range(num_layers):
         x = build_qwen3_decode_block(
             mb, x, layer=layer, hidden=hidden, intermediate=intermediate,
             num_heads=num_heads, num_kv_heads=num_kv_heads,
             head_dim=head_dim, max_cache=max_cache,
-            rope_theta=rope_theta, qk_norm=qk_norm, kv_append=kv_append)
+            rope_theta=rope_theta, qk_norm=qk_norm, tp_shards=tp_shards,
+            kv_append=kv_append)
     fn = mb.weight("final_norm", (1, hidden))
     mb.output(mb.rms_norm(x, fn))
     return mb
@@ -139,14 +149,13 @@ def build_qwen3_forward(*, seq_len: int, hidden: int, intermediate: int,
     """Whole-trunk forward (hidden states in -> hidden states out) as
     one megakernel program; embed/lm_head stay outside like the
     reference's server wrapper."""
-    _one_rank(mesh, tp_shards)
-    mb = ModelBuilder(axis=axis)
+    mb = ModelBuilder(mesh=mesh, axis=axis)
     x = mb.input("x", (seq_len, hidden))
     for layer in range(num_layers):
         x = build_qwen3_block(
             mb, x, layer=layer, hidden=hidden, intermediate=intermediate,
             num_heads=num_heads, num_kv_heads=num_kv_heads,
-            head_dim=head_dim, rope_theta=rope_theta)
+            head_dim=head_dim, rope_theta=rope_theta, tp_shards=tp_shards)
     fn = mb.weight("final_norm", (1, hidden))
     mb.output(mb.rms_norm(x, fn))
     return mb
@@ -157,15 +166,30 @@ def init_random_io(mb: ModelBuilder, rng, *, stack: int | None = None,
     """Random (inputs, weights) numpy arrays for a built graph from a
     numpy Generator, with the JAX package's conventions and draw order
     (norm weights positive around 1, small dense weights), so one seed
-    gives both packages the same numbers."""
-    if stack is not None:
-        raise later_slice("init_random_io(stack=...)", "6",
-                          " (the multi-rank layer)")
+    gives both packages the same numbers. `stack=n` gives every array a
+    leading rank dimension (the operands of an n-rank program): the
+    weight of a LINEAR that feeds an all_reduce is drawn on its own for
+    each rank, so the cross-rank sum adds different partials; every
+    other array is one draw replicated."""
     dtype = dtype or np.float32
+    # weights of a LINEAR whose output an all_reduce sums
+    vary = set()
+    for nd in mb.graph.nodes:
+        if nd.op == "all_reduce":
+            src = mb.graph.producer(nd.inputs[0])
+            if src is not None and src.op == "linear":
+                vary.add(src.inputs[1].idx)
 
     def draw(hdl, scale, positive=False):
-        w = rng.normal(size=hdl.shape).astype(dtype) * scale
-        return (np.abs(w) + 1.0).astype(dtype) if positive else w
+        def one():
+            w = rng.normal(size=hdl.shape).astype(dtype) * scale
+            return (np.abs(w) + 1.0).astype(dtype) if positive else w
+
+        if stack is None:
+            return one()
+        if hdl.idx in vary:
+            return np.stack([one() for _ in range(stack)])
+        return np.broadcast_to(one(), (stack,) + hdl.shape).copy()
 
     inputs, weights = {}, {}
     for name, hdl in mb.graph.inputs.items():
@@ -190,7 +214,6 @@ def build_qwen3_serve_block(mb: ModelBuilder, x, *, layer: int,
     of `block` rows), through the block table. The trunk is
     (b_slots * slot_rows, hidden): slot b's token in row b*slot_rows,
     pad rows zero."""
-    _one_rank(None, tp_shards)
     pre = f"l{layer}."
     d = head_dim
     qkv_cols = (num_heads + 2 * num_kv_heads) * d
@@ -221,13 +244,8 @@ def build_qwen3_serve_block(mb: ModelBuilder, x, *, layer: int,
                        block=block, max_pages=max_pages,
                        slot_rows=slot_rows, rope_theta=rope_theta,
                        k_norm=kn)
-    o = mb.linear(attn, w_o)
-    x = mb.add(x, o)
-
-    h = mb.rms_norm(x, ln2)
-    a = mb.silu_mul(mb.linear(h, w_gate), mb.linear(h, w_up))
-    y = mb.linear(a, w_down)
-    return mb.add(x, y)
+    return _tp_mlp_tail(mb, x, mb.linear(attn, w_o), ln2, w_gate, w_up,
+                        w_down, tp_shards)
 
 
 def build_qwen3_serve_batched(*, b_slots: int, slot_rows: int,
@@ -248,10 +266,11 @@ def build_qwen3_serve_batched(*, b_slots: int, slot_rows: int,
     `b_slots` per-slot trash pages (ids num_blocks + b): the host routes
     an inactive slot's table row there (MegaServe.kernel_table), so an
     empty slot rides the batched walk at cache_len 0 and corrupts
-    nothing."""
-    _one_rank(mesh, tp_shards)
+    nothing. With `tp_shards` it is one rank's program at the local
+    widths, an all_reduce after every o and down projection; each rank
+    has a pool of its own kv heads (and its own trash pages)."""
     kwargs = {} if dtype is None else {"dtype": dtype}
-    mb = ModelBuilder(axis=axis, rms_eps=rms_eps, **kwargs)
+    mb = ModelBuilder(mesh=mesh, axis=axis, rms_eps=rms_eps, **kwargs)
     pool_pages = num_blocks + b_slots
     x = mb.input("x", (b_slots * slot_rows, hidden))
     for layer in range(num_layers):
@@ -260,7 +279,7 @@ def build_qwen3_serve_batched(*, b_slots: int, slot_rows: int,
             num_heads=num_heads, num_kv_heads=num_kv_heads,
             head_dim=head_dim, pool_pages=pool_pages, block=block,
             max_pages=max_pages, slot_rows=slot_rows,
-            rope_theta=rope_theta, qk_norm=qk_norm)
+            rope_theta=rope_theta, qk_norm=qk_norm, tp_shards=tp_shards)
     fn = mb.weight("final_norm", (1, hidden))
     mb.output(mb.rms_norm(x, fn))
     return mb
@@ -283,7 +302,7 @@ def build_qwen3_moe_serve_block(mb: ModelBuilder, x, *, layer: int,
     (H, E)) into `moe_ffn` over the stacked expert slabs
     `l{i}.w_moe_gate_up` ((E*H, 2I)) and `l{i}.w_moe_down`
     ((E*I, H))."""
-    _one_rank(None, tp_shards)
+    _one_rank_moe(None, tp_shards)
     pre = f"l{layer}."
     d = head_dim
     qkv_cols = (num_heads + 2 * num_kv_heads) * d
@@ -346,7 +365,7 @@ def build_qwen3_moe_serve_batched(*, b_slots: int, slot_rows: int,
     pool with per-slot trash pages; a slot that does not decode
     (idle, or deferred by the expert-capacity budget) rides the launch
     on its trash page at width 0, so its rows route to no expert."""
-    _one_rank(mesh, tp_shards)
+    _one_rank_moe(mesh, tp_shards)
     kwargs = {} if dtype is None else {"dtype": dtype}
     mb = ModelBuilder(axis=axis, rms_eps=rms_eps, **kwargs)
     pool_pages = num_blocks + b_slots

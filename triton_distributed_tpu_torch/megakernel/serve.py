@@ -36,6 +36,21 @@ and the free list need to know nothing of the megakernel.
   the candidates, the paged append of every candidate row, GROUPED_GEMM
   on every live row), then lm_head and argmax on the live rows.
 
+With `tp_ranks=n > 1` (a DenseLLM(num_ranks=n)) the program is one
+rank's trunk at the local widths (heads / n, kv heads / n, intermediate /
+n) with an all_reduce after every o and down projection
+(`build_qwen3_serve_batched(tp_shards=True)`), its weights the model's own
+rank shards (`dense_weight_map_tp`, views). ONE launch runs all n ranks'
+programs, their AR tasks pushing the partials between the ranks' arenas
+on the card. Each rank has a pool of its own kv heads, (L, n, pages x
+block, Hkv / n x D), with its own trash pages; the handoff copies each
+rank's kv-head slice of the engine's head-sharded pool (L, n, nb, Hkv / n,
+block, D) at the shared page ids. The trunk's output is alike on every
+rank after the last all_reduce; lm_head and the pick run on rank 0's copy
+with the model's rank-stacked lm_head, as the engine path's steps do at n
+ranks. `ar_bytes_per_step` is JAX's count of the bytes a rank pushes a
+launch.
+
 The slot's trunk tile is `slot_rows` rows (its token, or its verify
 candidates, in the first, zero pad in the rest). The JAX package uses
 the TPU's 8 / 16-row sublane tile; here the default is 1, which keeps a
@@ -52,31 +67,56 @@ import torch.nn.functional as F
 
 from ..models.dense import greedy_token, sample_token
 from ..ops.wire import byte_view
-from .builder import later_slice
-from .decoder import dense_weight_map, moe_weight_map
+from ..parallel.mesh import RankGroup
+from .decoder import dense_weight_map, dense_weight_map_tp, moe_weight_map
 from .executor_cuda import indexed
 from .models import build_qwen3_moe_serve_batched, build_qwen3_serve_batched
 
 
 class MegaServe:
     """Batched megakernel decode for ServeEngine(mode="megakernel") on
-    a one-rank dense model or Qwen3MoE (tensor-parallel experts). On a
-    model on the CPU its program runs the plain queue walk (the tests);
-    on a CUDA model it launches the kernel."""
+    a one-rank dense model or Qwen3MoE (tensor-parallel experts), or a
+    dense model at `tp_ranks` = its n ranks. On a model on the CPU its
+    program runs the plain queue walk (the tests); on a CUDA model it
+    launches the kernel."""
 
     def __init__(self, model, params, *, b_max: int, max_len: int,
                  block: int, num_blocks: int, slot_rows: int = 1,
                  tp_ranks: int = 1):
-        if tp_ranks != 1 or model.n != 1:
-            raise later_slice("MegaServe over tp_ranks > 1", "6",
-                              " (the multi-rank layer)")
+        # the JAX constructor's guards, in its order (serve.py:85-140)
+        if isinstance(tp_ranks, bool) \
+                or not isinstance(tp_ranks, (int, np.integer)) \
+                or tp_ranks < 1:
+            raise ValueError(f"tp_ranks must be a positive integer, got "
+                             f"{tp_ranks!r}")
+        n = self.n = int(tp_ranks)
+        if n > 1 and model.n != n:
+            raise ValueError(
+                f"tp_ranks={n} needs a model sharded over the same ranks "
+                f"(model.n={model.n}): the per-rank weight shards come from "
+                f"the model's own column/row-parallel layout")
+        if n == 1 and model.n != 1:
+            raise ValueError(
+                "MegaServe with tp_ranks=1 drives one-rank models; pass "
+                "tp_ranks=model.n for tensor-parallel batched serving")
         c = model.config
+        if n > 1 and (c.num_heads % n or c.num_kv_heads % n
+                      or c.intermediate_size % n):
+            raise ValueError(
+                f"tp_ranks={n} does not divide the model: heads "
+                f"{c.num_heads}, kv heads {c.num_kv_heads}, intermediate "
+                f"{c.intermediate_size} must all split evenly across ranks")
+        if c.is_moe and n > 1:
+            raise ValueError(
+                "tp_ranks > 1 is dense-only: the MoE serving program's "
+                "grouped-GEMM slabs are not rank-sharded; EP serving rides "
+                "the engine path")
         if slot_rows < 1:
             raise ValueError(f"slot_rows must be >= 1, got {slot_rows}")
         common = dict(
             b_slots=b_max, slot_rows=slot_rows, hidden=c.hidden_size,
-            num_layers=c.num_layers, num_heads=c.num_heads,
-            num_kv_heads=c.num_kv_heads, head_dim=c.head_dim,
+            num_layers=c.num_layers, num_heads=c.num_heads // n,
+            num_kv_heads=c.num_kv_heads // n, head_dim=c.head_dim,
             num_blocks=num_blocks, block=block,
             max_pages=-(-max_len // block), rope_theta=c.rope_theta,
             qk_norm=c.qk_norm, rms_eps=c.rms_norm_eps, dtype=model.dtype)
@@ -91,6 +131,12 @@ class MegaServe:
                 moe_intermediate=c.moe_intermediate_size,
                 num_experts=c.num_experts, top_k=c.num_experts_per_tok,
                 norm_topk=c.norm_topk_prob, **common)
+        elif n > 1:
+            weights, self.embed, self.lm_head = dense_weight_map_tp(model,
+                                                                    params)
+            mb = build_qwen3_serve_batched(
+                intermediate=c.intermediate_size // n, mesh=RankGroup(n),
+                tp_shards=True, **common)
         else:
             weights, self.embed, self.lm_head = dense_weight_map(model,
                                                                  params)
@@ -101,12 +147,19 @@ class MegaServe:
         self.slot_rows = slot_rows
         self.prog = mb.compile("kernel", device=self.device)
         self.prog.bind_weights(weights)
-        # the pool of every layer in one tensor per part, so the handoff
-        # is one scatter; the program binds each layer's view
+        # JAX's count (serve.py:189-193): 2 ARs a layer push the (b_max x
+        # slot_rows, hidden) trunk to each of the n - 1 peers, per rank
+        self.ar_bytes_per_step = (
+            2 * c.num_layers * (n - 1) * b_max * slot_rows * c.hidden_size
+            * torch.finfo(model.dtype).bits // 8) if n > 1 else 0
+        # the pool of every layer in one tensor per part (a rank
+        # dimension after the layer's at n ranks), so the handoff is one
+        # scatter; the program binds each layer's view
         rows = (num_blocks + b_max) * block
-        kvw = c.num_kv_heads * c.head_dim
+        kvw = c.num_kv_heads // n * c.head_dim
+        ranks = (n,) if n > 1 else ()
         self.k_pool, self.v_pool = (
-            torch.zeros((c.num_layers, rows, kvw), dtype=model.dtype,
+            torch.zeros((c.num_layers, *ranks, rows, kvw), dtype=model.dtype,
                         device=self.device) for _ in range(2))
         self.prog.bind_caches(
             {f"l{i}.{part}": pool[i] for i in range(c.num_layers)
@@ -138,23 +191,35 @@ class MegaServe:
         """Copy slot `slot`'s pages from the engine pool
         (L, nb, Hkv, block, D) into the megakernel pool at the same page
         ids, every layer at once; unassigned columns land on the slot's
-        trash page. A quantized pool's pages are dequantized with their
+        trash page. At n ranks the engine pool is head-sharded, (L, n, nb,
+        Hkv / n, block, D), and each rank's kv-head slice lands in that
+        rank's pool. A quantized pool's pages are dequantized with their
         f32 scales (wire.dequant_blockwise's arithmetic) to the model
         dtype. Call once, at the slot's prefill->decode transition."""
         row = np.asarray(cache.block_table[slot], np.int64)
         src = torch.from_numpy(np.clip(row, 0, None)).to(self.device)
         dst = torch.from_numpy(np.where(row >= 0, row, self.num_blocks + slot)
                                ).to(self.device)
-        L, _, hkv, blk, d = cache.k_pool.shape
+        one = self.n == 1       # the one-rank pools, seen with n = 1
         for pool, scales, out in ((cache.k_pool, cache.k_scales, self.k_pool),
                                   (cache.v_pool, cache.v_scales, self.v_pool)):
-            # (L, max_pages, Hkv, blk, D)
-            pages = byte_view(pool)[:, src].view(pool.dtype)
+            if one:
+                pool, out = pool[:, None], out[:, None]
+                scales = None if scales is None else scales[:, None]
+            L, n, _, hkv, blk, d = pool.shape
+            # (L, n, max_pages, Hkv / n, blk, D)
+            pages = byte_view(pool)[:, :, src].view(pool.dtype)
             if scales is not None:
-                pages = pages.float() * scales[:, src][..., None]
-            pages = pages.to(out.dtype).permute(0, 1, 3, 2, 4)
-            out.view(L, -1, blk, hkv * d)[:, dst] = pages.reshape(
-                L, len(row), blk, hkv * d)
+                pages = pages.float() * scales[:, :, src][..., None]
+            pages = pages.to(out.dtype).permute(0, 1, 2, 4, 3, 5)
+            out.view(L, n, -1, blk, hkv * d)[:, :, dst] = pages.reshape(
+                L, n, len(row), blk, hkv * d)
+
+    def _trunk(self, **step):
+        """One launch; the trunk's output rows (rank 0's at n ranks, where
+        the last all_reduce leaves every rank's alike)."""
+        out = self.prog.step(**step)[0]
+        return out[0] if self.n > 1 else out
 
     # -- the batched decode step -----------------------------------------
     def decode(self, toks, cache_lens, block_table, decode_mask,
@@ -174,10 +239,10 @@ class MegaServe:
         tbl = self.kernel_table(torch.from_numpy(
             np.asarray(block_table, np.int32)), torch.from_numpy(mask))
         ids = torch.as_tensor(np.asarray(toks, np.int32), device=self.device)
-        x = self.prog.inputs["x"]
-        x[::self.slot_rows] = F.embedding(ids, self.embed)
-        hid = self.prog.step(cache_lens=lens, block_table=tbl,
-                             widths=mask.astype(np.int32))[0]
+        x = self.prog.inputs["x"]                 # (n, rows, H) at n ranks
+        x[..., ::self.slot_rows, :] = F.embedding(ids, self.embed)
+        hid = self._trunk(cache_lens=lens, block_table=tbl,
+                          widths=mask.astype(np.int32))
         hid = hid[::self.slot_rows]                    # the live rows
         if sampling:
             return sample_token(hid, self.lm_head, generator,
@@ -233,11 +298,12 @@ class MegaServe:
             np.asarray(block_table, np.int32)), torch.from_numpy(mask))
         ids = torch.from_numpy(np.where(live, cands, 0)).to(self.device)
         emb = F.embedding(ids, self.embed)                     # (B, K, H)
-        x = self.prog.inputs["x"].view(B, R, -1)
-        x[:, :K] = torch.where(torch.from_numpy(live).to(self.device)[
+        x = self.prog.inputs["x"]
+        x = x.view(*x.shape[:-2], B, R, x.shape[-1])
+        x[..., :K, :] = torch.where(torch.from_numpy(live).to(self.device)[
             ..., None], emb, 0)
-        hid = self.prog.step(cache_lens=np.where(mask, lens, 0),
-                             block_table=tbl, widths=wid)[0]
+        hid = self._trunk(cache_lens=np.where(mask, lens, 0),
+                          block_table=tbl, widths=wid)
         rows = torch.from_numpy((np.arange(B)[:, None] * R
                                  + np.arange(K)[None, :])[live]).to(
                                      self.device)

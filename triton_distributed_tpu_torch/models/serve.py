@@ -31,7 +31,8 @@ engine folds the step into its key: a request's sampled stream depends
 on the batch composition, and differs from the JAX engine's by
 construction (another RNG).
 
-`mode="megakernel"` (a one-rank dense model or Qwen3MoE) moves decode
+`mode="megakernel"` (a one-rank dense model or Qwen3MoE, or a dense
+model at `tp_ranks` = its n ranks) moves decode
 onto the persistent megakernel (megakernel/serve.py::MegaServe): each
 decode tick is ONE launch of csrc/megakernel.cu for the whole active
 batch, with paged attention and the paged appends reading and writing
@@ -73,7 +74,7 @@ the widths, on the SIMT LINEAR tiles, so megakernel-mode speculation is
 at present 3 to 4 times slower than spec-off on Qwen3-8B (NVIDIA H100
 80GB HBM3, 700 W; PERF.md §5, ROADMAP Queue A 7), k=1 ticks included.
 
-Multi-rank serving, n ranks in one process on one device (engine mode):
+Multi-rank serving, n ranks in one process on one device:
 - `tp_ranks=n` over a DenseLLM(num_ranks=n): the model's own steps span
   the ranks (head-sharded pool, one attention launch for the n ranks,
   each projection ending in psum or, in mode "gemm_ar", the gemm_ar
@@ -84,7 +85,10 @@ Multi-rank serving, n ranks in one process on one device (engine mode):
   reports each rank's row (JAX serve.py:359-395, :1205-1234).
   At n ranks every model step's tokens pass the communication kernels'
   fault check (shmem.check_faults) before they are emitted, as Engine's
-  do.
+  do. With `mode="megakernel"` the decode and verify ticks are one launch
+  of every rank's program (MegaServe at tp_ranks=n), prefill stays on the
+  model's own n-rank steps, and each rank's row of `per_rank` counts the
+  bytes its AR tasks pushed (`ar_bytes_pushed`, JAX serve.py:1078-1090).
 - A DenseLLM(num_ranks=n, attn_parallelism="sp", sp_combine=...) serves
   sequence-parallel: the pool is sequence-sharded, a grant is all or
   nothing per rank, and the scheduler runs with `sp_ranks=n`. The engine
@@ -95,8 +99,8 @@ Multi-rank serving, n ranks in one process on one device (engine mode):
 Not in this slice (each raises NotImplementedError): the watchdog
 (`slo_ticks`) and fault injection (`chaos`), the host spill tier
 (`host_blocks`) and the plain ("xla") attention rung on a CUDA device
-(slice 2c), megakernel serving at n ranks (slice 6), and an n-rank
-Qwen3MoE behind the engine (ROADMAP Queue A, "n-rank MoE serving").
+(slice 2c), and an n-rank Qwen3MoE behind the engine (ROADMAP Queue A,
+"n-rank MoE serving").
 """
 
 from __future__ import annotations
@@ -328,10 +332,6 @@ class ServeEngine:
             raise ValueError(f"tp_ranks must be a positive integer, got "
                              f"{tp_ranks!r}")
         tp_ranks = int(tp_ranks)
-        if self.mode == "megakernel" and attn_parallelism == "tp" \
-                and (tp_ranks > 1 or model.n > 1):
-            _not_in_slice("ServeEngine(mode='megakernel') over tp_ranks > 1 "
-                          "(the megakernel's AR / GEMM_AR bodies)", "slice 6")
         if tp_ranks > 1:
             if attn_parallelism != "tp":
                 raise ValueError(
@@ -474,6 +474,8 @@ class ServeEngine:
         # each run)
         self._rledger = (serve_state.RankLedger(tp_ranks, b_max)
                          if tp_ranks > 1 else None)
+        # the megakernel path's AR bytes a rank has pushed (tp_ranks > 1)
+        self._ar_bytes = [0] * tp_ranks
         self._pool = _CachePool(self)
         self._cache: PagedKVCache | None = None
         self._running = False
@@ -697,9 +699,8 @@ class ServeEngine:
                 gen, sampling=sampling, temperature=self.temperature,
                 top_k=self.top_k)
             got[mk_live] = out.cpu().numpy()[mk_live]
-            self._mk.prog.check_fault()
+            self._mk_launched()
             self._cache.advance(slice(None), mask.astype(np.int32))
-            self._steps["megakernel"] += 1
         self._steps["decode"] += 1
         for i in live:
             self._emit(i, int(got[i]), stream_cb)
@@ -794,11 +795,10 @@ class ServeEngine:
             mask = np.asarray([i in mk_live for i in range(self.b_max)])
             got = self._mk.verify(cands, counts, lens0,
                                   self._cache.block_table, mask)
-            self._mk.prog.check_fault()
+            self._mk_launched()
             self._cache.advance(slice(None),
                                 np.where(mask, counts, 0).astype(np.int32))
             pred[mk_live] = got[mk_live]
-            self._steps["megakernel"] += 1
         self._steps["decode"] += 1
         for i in live:
             s = self._slots[i]
@@ -926,19 +926,28 @@ class ServeEngine:
             "ep_plan": self.ep_plan,
         }
 
+    def _mk_launched(self):
+        """After a megakernel launch: its fault check, the launch count,
+        and each rank's AR bytes (JAX _note_mk_launch: the analytic bytes
+        a rank pushes a launch)."""
+        self._mk.prog.check_fault()
+        self._steps["megakernel"] += 1
+        for r in range(self.tp_ranks):
+            self._ar_bytes[r] += self._mk.ar_bytes_per_step
+
     def _per_rank_stats(self) -> list:
         """One row a rank at tp_ranks > 1 (JAX _per_rank_stats): the
         blocks its ledger holds, the pool's free blocks (page ids are
-        global, so every rank's count is the same), and the megakernel
-        path's AR wire bytes and bounded-drain launches, which the engine
-        path does not have (0)."""
+        global, so every rank's count is the same), the bytes its AR
+        tasks pushed on the megakernel path (0 on the engine path), and
+        the bounded-drain launches, which the port does not have (0)."""
         if self._rledger is None:
             return []
         cache = self._cache
         free = (cache.num_free_blocks if cache is not None
                 else self._pool_blocks)
         return [{"rank": r, "held_blocks": self._rledger.held_blocks(r),
-                 "free_blocks": free, "ar_bytes_pushed": 0,
+                 "free_blocks": free, "ar_bytes_pushed": self._ar_bytes[r],
                  "drain_budget_trips": 0} for r in range(self.tp_ranks)]
 
     def _quant_kv_bytes_saved(self) -> int:
@@ -966,6 +975,7 @@ class ServeEngine:
             self._mk.reset()
         if self._rledger is not None:
             self._rledger = serve_state.RankLedger(self.tp_ranks, self.b_max)
+        self._ar_bytes = [0] * self.tp_ranks
         self.sched.reset_run()
         self._spec_ewma, self._spec_ctx = {}, {}
         if self._cap_ledger is not None:

@@ -268,12 +268,33 @@ Phases, in order; any failure raises and exits non-zero:
      of the largest; the batched step's time against its bound and
      against step 21's one-rank step; then with speculative decoding (an
      oracle drafter, k 4, slot_rows 8: the verify width at n ranks);
- 48. one JSON line of per-kernel numbers, then the device JSON line.
-Steps 14-16, 31-32, 35-36 and 39-40 run with the other kernel checks,
+ 48. the tp-wire cell, the quantized wire of the tensor-parallel layers
+     (the quant arms of csrc/gemm_rs.cu and gemm_ar.cu): one Qwen3-8B
+     layer's TPMLP and TPAttn at n = 4, bf16, prefill of 4 x 512 rows in
+     "fused", decode of 4 rows in "gemm_ar" and in "ar", each with an int8
+     and an fp8 wire: the quant arms' launches held to the calls (counts
+     set to 0 before each run), each output against the layer's
+     full-width output within wire.sum_error_bound of its partials; then
+     each quant arm at the layers' shapes against its plain version
+     (within twice the bound, 99% of the elements bit for bit), its time
+     next to its bound, the plain version's and the full-width arm's;
+ 49. the ep-serve cell: step 18's stream behind ServeEngine(Qwen3MoE(
+     num_ranks=4, moe_parallel="ep", ep_method="ragged"), tp_ranks=4) at
+     full depth, the experts as views of step 17's, a bf16 pool, then
+     ep_capacity=2: step 9's checks with exact launch counts (gmm twice a
+     layer a step, the paged decode once a layer a decode tick, ep_a2a
+     never: every paged step takes replicated rows), no request cut, the
+     rank ledgers, tokens/s, ticks, aten ops a tick, peak memory; the
+     teacher-forced paged logits with the one-rank model's routing forced
+     within TP_LOGIT_TOL; then TP experts on the first 8 layers (step
+     38's cut), checked the same way;
+ 50. one line of wall seconds per phase, one JSON line of per-kernel
+     numbers, then the device JSON line.
+Steps 14-16, 31-32, 48, 35-36 and 39-40 run with the other kernel checks,
 before step 4, steps 33, 37 and 41 after step 16 and step 34 right after
 step 5; steps 42-43 and 47 right after step 9; steps 29, 19-20, 22-23,
 25-26 and 44-46 run after step 10, steps 30 and 21 after step 13 and step
-27 after step 21; steps 17, 18, 24, 28 and 38 run last.
+27 after step 21; steps 17, 18, 24, 28, 38 and 49 run last.
 Without a GPU it exits non-zero before printing anything.
 """
 
@@ -3517,12 +3538,14 @@ def check_small_ep_model(models, seed):
     shmem.release_workspaces()
 
 
-def _forced_routes(model, params, ids, toks, steps, routes=None):
-    """_forced_logits with every routing of the model's MoE layers
-    recorded: (logits, [(router logits (rows, E) f32 on the CPU, weights,
-    experts)] in call order). Given `routes`, another model's record over
-    the same calls and rows (the MoE layers route seq-major (S, B) rows at
-    prefill and (B,) at decode at every rank count), each call returns that
+def _forced_routes(model, params, ids, toks, steps, routes=None,
+                   paged=False):
+    """_forced_logits (with `paged`, _paged_forced_logits over the prompts
+    `ids`) with every routing of the model's MoE layers recorded: (logits,
+    [(router logits (rows, E) f32 on the CPU, weights, experts)] in call
+    order). Given `routes`, another model's record over the same calls and
+    rows (the MoE layers route seq-major (S, B) rows at prefill, a chunk's
+    rows and (B,) at decode at every rank count), each call returns that
     record's choice in place of its own: teacher forcing of the routing
     as well as of the tokens. Its own router logits are still recorded."""
     from triton_distributed_tpu_torch.ops import moe_utils
@@ -3538,7 +3561,8 @@ def _forced_routes(model, params, ids, toks, steps, routes=None):
 
     moe_utils.route_topk = spy
     try:
-        out = _forced_logits(model, params, ids, toks, steps)
+        out = (_paged_forced_logits(model, params, ids, toks) if paged
+               else _forced_logits(model, params, ids, toks, steps))
     finally:
         moe_utils.route_topk = real
     assert routes is None or len(seen) == len(routes), (len(seen),
@@ -3585,7 +3609,7 @@ def _routing_flips(ref, got, k):
 
 
 def _forced_checks(name, one, one_params, model, params, ids, toks, steps,
-                   k):
+                   k, paged=False):
     """Teacher forcing of `model` against the one-rank `one` on the same
     prompts and tokens: first with the routing forced to the one-rank
     model's too, where the logits of the prefill and every step must be
@@ -3593,12 +3617,17 @@ def _forced_checks(name, one, one_params, model, params, ids, toks, steps,
     have chosen must equal the one-rank model's or be a near-tie
     (`_routing_flips`); then with its own routing (information: a
     near-tie flip changes a token's expert, and the change carries
-    through the layers after it). Returns the forced maximum error."""
-    ref, ref_routes = _forced_routes(one, one_params, ids, toks, steps)
-    got, own = _forced_routes(model, params, ids, toks, steps, ref_routes)
+    through the layers after it). `paged`: through the paged serving
+    steps (_paged_forced_logits over the prompts `ids`). Returns the forced
+    maximum error."""
+    ref, ref_routes = _forced_routes(one, one_params, ids, toks, steps,
+                                     paged=paged)
+    got, own = _forced_routes(model, params, ids, toks, steps, ref_routes,
+                              paged=paged)
     errs = [_rel_err(g, r) for g, r in zip(got, ref)]
     flips, rows, single, worst = _routing_flips(ref_routes, own, k)
-    free, free_routes = _forced_routes(model, params, ids, toks, steps)
+    free, free_routes = _forced_routes(model, params, ids, toks, steps,
+                                       paged=paged)
     free_errs = [_rel_err(g, r) for g, r in zip(free, ref)]
     free_flips, _, _, _ = _routing_flips(ref_routes, free_routes, k)
     print(f"{name}: teacher-forced logits (prefill + {steps} steps, the "
@@ -4580,6 +4609,339 @@ def check_sp_serve(models, attn, model, params, cfg, seed, smi):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Slice 6e: the quantized wire on the TP layers (the quant arms of
+# csrc/gemm_rs.cu and gemm_ar.cu), and n-rank MoE serving
+# ---------------------------------------------------------------------------
+
+WIRE_RANKS = 4                 # the tp-wire and ep-serve cells
+WIRES = {"int8": "int8", "fp8": "float8_e4m3fn"}
+# one Qwen3-8B layer (hidden, intermediate, q / kv heads, head_dim), 4
+# prompts of 512 rows at prefill, 4 rows at decode over 500 cached rows
+WIRE_LAYER = dict(H=4096, I=12288, NH=32, NKV=8, D=128, B=4, S=512, KV=500)
+
+
+class _Partials:
+    """Records the row-parallel epilogues' f32 partials (rows @ w, rank by
+    rank) of the TP layers while active, for the wire's error bound."""
+
+    def __init__(self):
+        from triton_distributed_tpu_torch.layers import tp_attn, tp_mlp
+        self.mods, self.seen = (tp_attn, tp_mlp), []
+
+    def __enter__(self):
+        real = self.mods[0].row_parallel_out
+        self.real = real
+
+        def spy(rows, w, **kw):
+            self.seen.append((rows.float() @ w.float()))
+            return real(rows, w, **kw)
+
+        for m in self.mods:
+            m.row_parallel_out = spy
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.row_parallel_out = self.real
+
+
+def _wire_layer_check(tag, wd, got, full, parts):
+    """A wired layer's output against its full-width output: within
+    wire.sum_error_bound of the partials plus the full-width path's own
+    bf16 roundings (each partial and the sum), and nonzero (it really
+    quantized). Returns the largest difference over the largest value."""
+    from triton_distributed_tpu_torch.ops import wire
+    bound = torch.from_numpy(wire.sum_error_bound(parts, wd)).to(got.device)
+    bound = bound.reshape(full.shape)
+    ulp = 2.0 ** -8
+    slack = ulp * parts.abs().sum(0).reshape(full.shape) \
+        + ulp * full.float().abs()
+    dev = (got.float() - full.float()).abs()
+    assert bool((dev <= bound + slack).all()), (tag, dev.max().item())
+    assert dev.max().item() > 0, tag
+    rel = (dev.max() / full.float().abs().max()).item()
+    assert rel < 8 * wire.quant_eps(wd), (tag, rel)
+    return rel, (bound.max() / full.float().abs().max()).item()
+
+
+def _quant_bound(op, n, M, K, N, blk):
+    """(bytes, operations) a quant arm's call needs: A and B read once, the
+    output written once (gemm_ar: n replicas), the landing bytes and
+    scales written and read once each (gemm_ar: n destinations)."""
+    out = M * N if op == "gemm_rs" else n * M * N
+    fan = 1 if op == "gemm_rs" else n
+    land = fan * n * M * N + fan * n * M * (N // blk) * 4
+    return (n * M * K + n * K * N + out) * 2 + 2 * land, 2 * n * M * K * N
+
+
+def check_tp_wire(dev, gen, smi):
+    """The tp-wire cell: one Qwen3-8B layer's TPMLP and TPAttn at n = 4,
+    bf16, with an int8 and an fp8 wire: prefill of 4 x 512 rows in
+    "fused" (the gemm_rs quant arm, o and down), decode of 4 rows in
+    "gemm_ar" (the gemm_ar quant arm) and in "ar" (quant_psum). The layers
+    run first with the quant arms' launch counts set to 0, held to the
+    calls they imply (two a setting in "fused" and "gemm_ar", none in
+    "ar"), each output against its full-width output (_wire_layer_check).
+    Then each quant arm at the layers' shapes against its plain version,
+    and its time next to its bound, the plain version's and the
+    full-width arm's. Returns the kernels-line entries."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.layers import tp_attn, tp_mlp
+    from triton_distributed_tpu_torch.ops import _common
+    from triton_distributed_tpu_torch.ops import gemm_ar as ar
+    from triton_distributed_tpu_torch.ops import gemm_rs as rs
+    from triton_distributed_tpu_torch.ops import wire
+    n = WIRE_RANKS
+    H, I, NH, NKV, D, B, S, KV = (WIRE_LAYER[k] for k in (
+        "H", "I", "NH", "NKV", "D", "B", "S", "KV"))
+    t0 = time.perf_counter()
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=dev)
+                / shape[0] ** 0.5).bfloat16()
+
+    mlp_w = (w(H, I), w(H, I), w(I, H))
+    attn_w = (w(H, NH * D), w(H, NKV * D), w(H, NKV * D), w(NH * D, H))
+    x = torch.randn((B, S, H), generator=gen, device=dev).bfloat16()
+    xd = torch.randn((B, H), generator=gen, device=dev).bfloat16()
+    kern = {"gemm_rs": rs.GEMM_RS_QUANT, "gemm_ar": ar.GEMM_AR_QUANT}
+    launches = {(op, wl): 0 for op in kern for wl in WIRES}
+    shapes = {}                 # (op, name) -> (M, K, N) the layers gave
+    for wl, wd in WIRES.items():
+        for mode in ("fused", "gemm_ar", "ar"):
+            outs = {}
+            cache = None
+            if mode != "fused":     # one cache of 500 rows for both runs
+                cache = tp_attn.TPAttn(H, NH, NKV, D, num_ranks=n) \
+                    .new_kv_cache(B, KV + 1, dtype=torch.bfloat16, device=dev)
+                for c in cache:
+                    c.normal_(generator=gen)
+            for wire_dtype in (None, wd):
+                mlp = tp_mlp.TPMLP(H, I, mode=mode, num_ranks=n,
+                                   wire_dtype=wire_dtype)
+                att = tp_attn.TPAttn(H, NH, NKV, D, mode=mode, num_ranks=n,
+                                     qk_norm=True, wire_dtype=wire_dtype)
+                mp, ap = mlp.shard_params(*mlp_w), att.shard_params(*attn_w)
+                for k in kern.values():
+                    k.launches = 0
+                _common.reset_dispatch()
+                with _Partials() as parts:
+                    if mode == "fused":     # prefill, sequence-sharded rows
+                        ym = mlp(mp, x.reshape(n, -1, H))
+                        ya, _ = att.prefill(ap, x)
+                        got = (ym.reshape(-1, H), ya.transpose(0, 1)
+                               .reshape(-1, H))
+                    else:                   # decode on 4 replicated rows
+                        ym = mlp(mp, xd)
+                        ya, _ = att.decode(ap, xd, cache, KV)
+                        got = (ym, ya)
+                    torch.cuda.synchronize()
+                shmem.check_faults()
+                outs[wire_dtype] = (got, parts.seen,
+                                    {o: k.launches for o, k in kern.items()},
+                                    _common.dispatch_counts())
+            (full, _, _, _), (got, seen, count, log) = outs[None], outs[wd]
+            op = {"fused": "gemm_rs", "gemm_ar": "gemm_ar"}.get(mode)
+            want = {o: (2 if o == op else 0) for o in kern}
+            assert count == want, (mode, wl, count, want)
+            if op is not None:
+                assert log.get((op, "kernel", "wire")) == 2, log
+                for o in kern:
+                    launches[(o, wl)] += count[o]
+            for (name, g, f), part in zip(
+                    (("mlp", got[0], full[0]), ("attn", got[1], full[1])),
+                    seen):
+                rel, brel = _wire_layer_check(f"tp-wire {mode} {wl} {name}",
+                                              wd, g, f, part)
+                M, N = part.shape[1], part.shape[2]
+                if op is not None:
+                    K = (I if name == "mlp" else NH * D) // n
+                    shapes[(op, "down" if name == "mlp" else "o")] = (M, K, N)
+                print(f"tp-wire {mode} {wl} {name} ({n} ranks, {M} rows): "
+                      f"output vs wire_dtype=None {rel:.3e} of the largest "
+                      f"(sum_error_bound {brel:.3e}); quant arm launches "
+                      f"{count}")
+    print(f"tp-wire: layer runs {time.perf_counter() - t0:.1f} s | {smi}")
+
+    # each quant arm at the layers' shapes, against its plain version, and
+    # timed next to its bound, the plain version and the full-width arm
+    ops = {"gemm_rs": (rs.gemm_rs_shard, rs._gemm_rs_quant_plain,
+                       "triton_distributed_tpu/ops/gemm_rs.py:176"),
+           "gemm_ar": (ar.gemm_ar_shard, ar._gemm_ar_quant_plain,
+                       "triton_distributed_tpu/ops/gemm_ar.py:156")}
+    timed = {"gemm_rs": "down", "gemm_ar": "down"}
+    entries = {}
+    for (op, name), (M, K, N) in sorted(shapes.items()):
+        fn, plain, where = ops[op]
+        blk = 256
+        a = (torch.randn((n, M, K), generator=gen, device=dev)
+             / K ** 0.5).bfloat16()
+        b = torch.randn((n, K, N), generator=gen, device=dev).bfloat16()
+        full_ms = time_ms([lambda: fn(a, b, num_ranks=n)])
+        for wl, wd in WIRES.items():
+            got = fn(a, b, num_ranks=n, wire_dtype=wd)
+            torch.cuda.synchronize()
+            shmem.check_faults()
+            want = plain(a, b, wd, blk)
+            if op == "gemm_ar":
+                assert all(torch.equal(got[r], got[0]) for r in range(n))
+                got, want = got[0], want[0]
+            parts = a.float() @ b.float()
+            bnd = torch.from_numpy(wire.sum_error_bound(parts, wd)).to(dev)
+            bnd = bnd.reshape(want.shape)
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= 2 * bnd + 2.0 ** -7 * want.float().abs())
+                        .all()), (op, name, wl, err.max().item())
+            same = (got == want).float().mean().item()
+            assert same > 0.99, (op, name, wl, same)
+            ms = time_ms([lambda: fn(a, b, num_ranks=n, wire_dtype=wd)])
+            plain_ms = time_ms([lambda: plain(a, b, wd, blk)], reps=3,
+                               rounds=3)
+            nb, fl = _quant_bound(op, n, M, K, N, blk)
+            bms, by = bound(nb, fl)
+            print(f"tp-wire {op}[{wl}] {name} n {n} (M {M}, K {K}, N {N}, "
+                  f"block {blk}): kernel vs plain {err.max().item():.3e} "
+                  f"({same:.5f} of the elements bit for bit); kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, full-width arm "
+                  f"{full_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
+                  f"{nb / 1e9:.3f} GB, {fl / 1e9:.1f} GFLOP; "
+                  f"{fl / ms / 1e9:.1f} TFLOP/s) | {smi}")
+            key = f"{op}[{wl}]"
+            e = entries.setdefault(key, {
+                "name": key, "route": "cuda",
+                "source": f"triton_distributed_tpu_torch/csrc/{op}.cu",
+                "replaces": where, "launches": launches[(op, wl)],
+                "max_abs_err": 0.0, "library_ms": None})
+            e["max_abs_err"] = max(e["max_abs_err"], err.max().item())
+            if name == timed[op]:
+                e.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        del a, b
+    shmem.release_workspaces()
+    torch.cuda.empty_cache()
+    for e in entries.values():
+        assert e["launches"] > 0, e["name"]
+    print(f"tp-wire: launches on the layer runs "
+          f"{ {k: e['launches'] for k, e in entries.items()} }; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [entries[f"{op}[{wl}]"] for op in ops for wl in WIRES]
+
+
+def check_ep_serve(models, attn, moe, moe_params, cfg, seed, smi):
+    """The ep-serve cell: the moe serve stream behind
+    ServeEngine(Qwen3MoE(num_ranks=4, moe_parallel="ep",
+    ep_method="ragged"), tp_ranks=4) at full depth (48 layers), the
+    experts as views of the one-rank model's, with a bf16 pool, then again
+    with ep_capacity=2. Each run: tokens/s, ticks, aten ops a tick, peak
+    memory, launch counts held to the ticks (flash_attention a layer a
+    chunk, the paged decode a layer a decode tick, gmm twice a layer a
+    step: decode_rows_shard's one launch a projection for every rank's
+    experts; ep_a2a never: every paged step takes replicated rows, as in
+    JAX), every request at its length (none cut under the budget), the
+    rank ledgers. Then the teacher-forced paged logits of 4 prompts and 8
+    decode steps, the one-rank model's routing forced, against the
+    one-rank model's within TP_LOGIT_TOL. Then TP experts on the first 8
+    layers (the cut of the ep-engine cell), checked the same way. Returns
+    the launches over the runs."""
+    import dataclasses
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import ep_a2a as tep
+    from triton_distributed_tpu_torch.ops import gemm_ar as ar
+    n, L, k = WIRE_RANKS, cfg.num_layers, cfg.num_experts_per_tok
+    t0 = time.perf_counter()
+    stream = serve_stream(np.random.RandomState(seed), cfg.vocab_size)
+    rng = np.random.RandomState(seed + 11)
+    prompts = [stream[i][0] for i in range(4)]
+    toks = rng.randint(0, cfg.vocab_size, (4, 8)).astype(np.int32)
+    extra = {"ep_a2a": tep.EP_A2A, "gemm_ar": ar.GEMM_AR}
+    totals = {}
+
+    def serve_runs(tag, model, params, L, gmm_per_step):
+        for cap in (0, 2):
+            se = models.ServeEngine(model, params, b_max=4, max_len=2048,
+                                    block=128, prefill_chunk=256,
+                                    num_blocks=64, ep_capacity=cap,
+                                    tp_ranks=n)
+
+            def want(st):
+                steps = st["prefill_chunks"] + st["decode_steps"]
+                return {"ep_a2a": 0, "gemm_ar": 0,
+                        "gmm": gmm_per_step * L * steps}
+
+            torch.cuda.reset_peak_memory_stats()
+            name = f"{tag}[ep_capacity={cap}]"
+            out, st, launches = _serve_cell(models, attn, se, stream, L,
+                                            name, smi, extra, want,
+                                            cfg.vocab_size)
+            print(f"{name}: peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                  f"capacity_drops {st['capacity_drops']}, ep_rows "
+                  f"{st['ep_rows']}, ep_plan {st['ep_plan']}")
+            se._cache.check_conservation(cached=st["cached_free_blocks"])
+            pr = st["per_rank"]
+            assert st["tp_ranks"] == n and len(pr) == n \
+                and all(r == {**pr[0], "rank": i} for i, r in enumerate(pr)) \
+                and pr[0]["held_blocks"] == 0, pr
+            if cap:
+                assert st["capacity_drops"] > 0, st
+                assert st["ep_rows"] == sum(g - 1 for _, g in stream), st
+            for key, c in launches.items():
+                totals[key] = totals.get(key, 0) + c
+            del se
+
+    ep = models.Qwen3MoE(cfg, dtype="bfloat16", device="cuda", num_ranks=n,
+                         moe_parallel="ep", ep_method="ragged")
+    eparams = ep.shard_params(moe_params)
+    torch.cuda.synchronize()
+    for key in ("w_moe_gate_up", "w_moe_down"):
+        assert eparams["layers"][key].data_ptr() == \
+            moe_params["layers"][key].data_ptr(), key
+    serve_runs("ep-serve", ep, eparams, L, 2)
+    _forced_checks("ep-serve", moe, moe_params, ep, eparams, prompts, toks,
+                   toks.shape[1], k, paged=True)
+    del ep, eparams
+    shmem.release_workspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    L8 = 8                      # TP experts: the ep-engine cell's cut
+    cfg8 = dataclasses.replace(cfg, num_layers=L8)
+    p8 = {**moe_params,
+          "layers": {key: t[:L8] for key, t in moe_params["layers"].items()}}
+    one8 = models.Qwen3MoE(cfg8, dtype="bfloat16", device="cuda")
+    tp8 = models.Qwen3MoE(cfg8, dtype="bfloat16", device="cuda", num_ranks=n)
+    tparams = tp8.shard_params(p8)
+    serve_runs(f"ep-serve TP experts ({L8} layers)", tp8, tparams, L8, 2 * n)
+    _forced_checks(f"ep-serve TP experts ({L8} layers)", one8, p8, tp8,
+                   tparams, prompts, toks, toks.shape[1], k, paged=True)
+    del tp8, tparams, one8, p8
+    shmem.release_workspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"ep-serve: phase {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
+class Phases:
+    """Wall seconds of each phase of the run (a call of `ph(name, fn,
+    ...)` runs fn and adds its time to `name`), printed on one line before
+    the kernels line."""
+
+    def __init__(self):
+        self.s = {}
+
+    def __call__(self, name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
+
+    def line(self):
+        return "phase seconds: " + json.dumps(
+            {k: round(v, 1) for k, v in self.s.items()})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4606,35 +4968,38 @@ def main():
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(smi)
+    ph = Phases()
 
     t0 = time.perf_counter()
-    build_s = _build.build_all()
+    build_s = ph("build", _build.build_all)
     print(f"build: {build_s:.1f} s for {len(_build.sources())} sources "
           f"(phase {time.perf_counter() - t0:.1f} s)")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    kernels = [check_flash_attention(attn, dev, gen),
-               check_flash_decode(attn, dev, gen)]
-    kernels += check_flash_decode_paged(attn, dev, gen)
-    check_attention_group8(attn, dev, gen, kernels)
+    kernels = [ph("attention kernels", check_flash_attention, attn, dev, gen),
+               ph("attention kernels", check_flash_decode, attn, dev, gen)]
+    kernels += ph("attention kernels", check_flash_decode_paged, attn, dev,
+                  gen)
+    ph("attention kernels", check_attention_group8, attn, dev, gen, kernels)
     torch.cuda.empty_cache()
-    gmm_entry = check_gmm(dev, gen)
+    gmm_entry = ph("gmm", check_gmm, dev, gen)
     torch.cuda.empty_cache()
-    tp_entries = check_tp_kernels(dev, gen)
-    check_tp_fault(dev, gen)
+    tp_entries = ph("tp kernels", check_tp_kernels, dev, gen)
+    ph("tp kernels", check_tp_fault, dev, gen)
     torch.cuda.empty_cache()
-    ep_entry = check_ep_a2a_kernel(dev, gen)
-    check_ep_fault(dev, gen)
-    ll_entries = check_ll_combine_kernel(dev, gen)
-    check_ll_fault(dev, gen)
+    wire_entries = ph("tp-wire", check_tp_wire, dev, gen, smi)
+    ep_entry = ph("ep_a2a", check_ep_a2a_kernel, dev, gen)
+    ph("ep_a2a", check_ep_fault, dev, gen)
+    ll_entries = ph("ll_combine", check_ll_combine_kernel, dev, gen)
+    ph("ll_combine", check_ll_fault, dev, gen)
     shmem.release_workspaces()
     torch.cuda.empty_cache()
-    check_small_model(models, args.seed)
-    check_small_model_paged(models, args.seed)
-    check_small_moe(models, gg, args.seed)
-    check_small_tp_model(models, args.seed)
-    check_small_ep_model(models, args.seed)
-    check_small_sp_tp_serve(models, args.seed)
+    for check in (check_small_model, check_small_model_paged):
+        ph("small models", check, models, args.seed)
+    ph("small models", check_small_moe, models, gg, args.seed)
+    for check in (check_small_tp_model, check_small_ep_model,
+                  check_small_sp_tp_serve):
+        ph("small models", check, models, args.seed)
 
     cfg = models.get_config("Qwen/Qwen3-8B")
     model = models.DenseLLM(cfg, dtype="bfloat16", device=dev)
@@ -4649,50 +5014,54 @@ def main():
     ids = np.random.RandomState(args.seed).randint(0, cfg.vocab_size, (B, S))
     engine_kernels = {"flash_attention": attn.FLASH_ATTENTION,
                       "flash_decode": attn.FLASH_DECODE, "gmm": gg.GMM}
-    engine, toks, launches = run_engine(models, engine_kernels, model, params,
-                                        cfg, ids, GEN, smi, args.profile,
-                                        "Qwen3-8B")
+    engine, toks, launches = ph("engine", run_engine, models, engine_kernels,
+                                model, params, cfg, ids, GEN, smi,
+                                args.profile, "Qwen3-8B")
     assert launches == {"flash_attention": L, "flash_decode": L * (GEN - 1),
                         "gmm": 0}, launches
-    tp_launches = check_tp_engine(models, attn, model, params, cfg, ids, toks,
-                                  smi, args.profile)
+    tp_launches = ph("tp-engine", check_tp_engine, models, attn, model,
+                     params, cfg, ids, toks, smi, args.profile)
 
-    serve_launches, engine_out = check_serve(models, attn, gg, model, params,
-                                             cfg, args.seed, smi, args.profile)
-    tp_serve, mk_tp = check_tp_serve(models, attn, model, params, cfg,
-                                     args.seed, smi)
-    sp_serve = check_sp_serve(models, attn, model, params, cfg, args.seed,
-                              smi)
+    serve_launches, engine_out = ph("serve", check_serve, models, attn, gg,
+                                    model, params, cfg, args.seed, smi,
+                                    args.profile)
+    tp_serve, mk_tp = ph("tp-serve + mk-tp-serve", check_tp_serve, models,
+                         attn, model, params, cfg, args.seed, smi)
+    sp_serve = ph("sp-serve", check_sp_serve, models, attn, model, params,
+                  cfg, args.seed, smi)
 
-    check_megakernel_graphs(dev)
-    fused_graph_err = check_megakernel_fused_graphs(dev)
-    check_megakernel_paged_graphs(dev)
-    moe_graph_step = check_megakernel_moe_graphs(dev)
-    verify_err = check_megakernel_verify_graphs(dev)
-    ar_entry = check_megakernel_ar(dev)
-    check_megakernel_ar_fault(dev)
-    check_megakernel_tp_graphs(dev)
-    check_megadecoder_small(models, args.seed)
-    check_mega_serve_small(models, args.seed)
-    check_mega_serve_small(models, args.seed, moe=True)
-    check_spec_small(models, args.seed)
-    md, md_toks, mk_launches = check_megadecoder(attn, model, params, cfg,
-                                                 ids[0], toks[0], smi,
-                                                 args.profile)
-    mk = check_megakernel_main(md, cfg, ids[0], smi, args.profile)
-    mk_fused = check_megadecoder_fused(attn, md, md_toks, model, params, cfg,
-                                       ids[0], smi)
+    ph("megakernel graphs", check_megakernel_graphs, dev)
+    fused_graph_err = ph("megakernel graphs", check_megakernel_fused_graphs,
+                         dev)
+    ph("megakernel graphs", check_megakernel_paged_graphs, dev)
+    moe_graph_step = ph("megakernel graphs", check_megakernel_moe_graphs, dev)
+    verify_err = ph("megakernel graphs", check_megakernel_verify_graphs, dev)
+    ar_entry = ph("megakernel AR", check_megakernel_ar, dev)
+    ph("megakernel AR", check_megakernel_ar_fault, dev)
+    ph("megakernel graphs", check_megakernel_tp_graphs, dev)
+    ph("small models", check_megadecoder_small, models, args.seed)
+    ph("small models", check_mega_serve_small, models, args.seed)
+    ph("small models", check_mega_serve_small, models, args.seed, moe=True)
+    ph("small models", check_spec_small, models, args.seed)
+    md, md_toks, mk_launches = ph("megadecoder", check_megadecoder, attn,
+                                  model, params, cfg, ids[0], toks[0], smi,
+                                  args.profile)
+    mk = ph("megadecoder", check_megakernel_main, md, cfg, ids[0], smi,
+            args.profile)
+    mk_fused = ph("megadecoder", check_megadecoder_fused, attn, md, md_toks,
+                  model, params, cfg, ids[0], smi)
     mk_fused["max_abs_err"] = max(mk_fused["max_abs_err"], fused_graph_err)
     gc.collect()
     torch.cuda.empty_cache()
-    mk_serve, mk_step = check_mega_serve(models, attn, gg, model, params, cfg,
-                                         args.seed, smi, args.profile,
-                                         engine_out)
+    mk_serve, mk_step = ph("mk-serve", check_mega_serve, models, attn, gg,
+                           model, params, cfg, args.seed, smi, args.profile,
+                           engine_out)
     assert all(c == 0 for n, c in mk_serve.items()
                if n.startswith("flash_decode_paged")), mk_serve
     mk["launches"] = mk_launches + mk_serve["megakernel"]
-    spec_serve, verify_launches, verify = check_spec_serve(
-        models, attn, gg, model, params, cfg, args.seed, smi)
+    spec_serve, verify_launches, verify = ph(
+        "spec", check_spec_serve, models, attn, gg, model, params, cfg,
+        args.seed, smi)
 
     # the slice-4 main path needs the card to itself: release every
     # Qwen3-8B weight, cache, pool and program first
@@ -4702,36 +5071,39 @@ def main():
     held = torch.cuda.memory_allocated()
     print(f"released Qwen3-8B: {held / 2**20:.1f} MiB still allocated")
     assert held < 2**30, held
-    moe, moe_params, moe_launches, moe_ids, moe_toks = check_moe_engine(
-        models, engine_kernels, args.seed, smi, args.profile)
-    moe_serve, moe_engine_out = check_moe_serve(models, attn, gg, moe,
-                                                moe_params, moe.config,
-                                                args.seed, smi)
-    mk_moe, mk_moe_step, mk_moe_out = check_mega_serve_moe(
-        models, attn, gg, moe, moe_params, moe.config, args.seed, smi,
-        args.profile, moe_engine_out)
+    moe, moe_params, moe_launches, moe_ids, moe_toks = ph(
+        "moe engine", check_moe_engine, models, engine_kernels, args.seed,
+        smi, args.profile)
+    moe_serve, moe_engine_out = ph("moe serve", check_moe_serve, models, attn,
+                                   gg, moe, moe_params, moe.config,
+                                   args.seed, smi)
+    mk_moe, mk_moe_step, mk_moe_out = ph(
+        "mk-moe-serve", check_mega_serve_moe, models, attn, gg, moe,
+        moe_params, moe.config, args.seed, smi, args.profile, moe_engine_out)
     assert mk_moe["gmm"] > 0 and all(
         c == 0 for n, c in mk_moe.items()
         if n.startswith("flash_decode_paged")), mk_moe
-    spec_moe, moe_verify_launches = check_spec_serve_moe(
-        models, attn, gg, moe, moe_params, moe.config, args.seed, smi,
-        mk_moe_out)
+    spec_moe, moe_verify_launches = ph(
+        "spec-moe", check_spec_serve_moe, models, attn, gg, moe, moe_params,
+        moe.config, args.seed, smi, mk_moe_out)
     ep_kernels = {**engine_kernels, "ep_a2a": ep_a2a.EP_A2A,
                   "ag_gemm": ag_gemm.AG_GEMM, "gemm_rs": gemm_rs.GEMM_RS,
                   "gemm_ar": gemm_ar.GEMM_AR}
-    ep_launches = check_ep_engine(models, ep_kernels, moe, moe_params,
-                                  moe.config, moe_ids, moe_toks, smi,
-                                  args.profile)
+    ep_launches = ph("ep-engine", check_ep_engine, models, ep_kernels, moe,
+                     moe_params, moe.config, moe_ids, moe_toks, smi,
+                     args.profile)
+    ep_serve = ph("ep-serve", check_ep_serve, models, attn, moe, moe_params,
+                  moe.config, args.seed, smi)
 
     counts = (launches, tp_launches, serve_launches, mk_serve, moe_launches,
               moe_serve, mk_moe, spec_serve, spec_moe, ep_launches, tp_serve,
-              sp_serve)
+              sp_serve, ep_serve)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in counts)
         assert k["launches"] > 0, k["name"]
     gmm_entry["launches"] = (moe_launches["gmm"] + moe_serve["gmm"]
                              + mk_moe["gmm"] + spec_moe["gmm"]
-                             + ep_launches["gmm"])
+                             + ep_launches["gmm"] + ep_serve["gmm"])
     mk["launches"] += mk_moe["megakernel"] + verify_launches \
         + moe_verify_launches + mk_tp["decode_launches"]
     mk_verify = {
@@ -4784,11 +5156,14 @@ def main():
           f"tick; {AR_CHAIN} AR nodes alone {ar_entry['chain_ms']:.4f} ms; "
           f"AR launches {ar_entry['launches']} ({mk_tp['decode_launches']} "
           f"decode + {mk_tp['verify_launches']} verify)")
+    print(f"ep-serve launches over its runs: "
+          f"{ {n: c for n, c in ep_serve.items() if c} }")
     kernels += [mk, mk_verify, mk_fused, gmm_entry, ar_entry] + tp_entries \
-        + [ep_entry] + list(ll_entries)
+        + wire_entries + [ep_entry] + list(ll_entries)
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
+    print(ph.line())
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"kernels' build included | {smi}")
     print(json.dumps({"kernels": [{key: k[key] for key in order}

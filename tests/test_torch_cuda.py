@@ -28,7 +28,12 @@ path's prefill kernel takes bf16 only): its logits agree with the CPU's
 within 5e-2 of the largest, its picks wherever the margin allows. The
 megakernel's AR body (the cross-rank sum of an n-rank program) sums the
 same f32 values in the same rank order as its plain walk and rounds
-once, so it is held to it bit for bit.
+once, so it is held to it bit for bit. The quantized-wire arms of
+gemm_rs / gemm_ar quantize an f32 accumulator that their plain versions
+sum over K in another order, so a value on a rounding boundary may land
+one quantization step away on a source: they are held within twice
+wire.sum_error_bound of the partials and, in bf16, 99% of the elements
+bit for bit.
 """
 
 import numpy as np
@@ -1231,6 +1236,242 @@ def test_tp_kernel_refuses_a_grid_that_cannot_be_resident(cuda, op):
     torch.cuda.synchronize()
     shmem.check_faults()
     assert _tp_err(got, plain(a, b)) <= TP_TOL[torch.bfloat16]
+
+
+# -- the quantized wire: the quant arms of gemm_rs and gemm_ar ---------------
+
+WIRES = ("int8", "float8_e4m3fn")
+
+
+def _quant_ops():
+    from triton_distributed_tpu_torch.ops import gemm_ar, gemm_rs
+    return {"gemm_rs": (gemm_rs, gemm_rs.gemm_rs_shard,
+                        gemm_rs._gemm_rs_quant_plain, gemm_rs.GEMM_RS_QUANT),
+            "gemm_ar": (gemm_ar, gemm_ar.gemm_ar_shard,
+                        gemm_ar._gemm_ar_quant_plain, gemm_ar.GEMM_AR_QUANT)}
+
+
+def _quant_close(got, want, a, b, wd, blk):
+    """The quant arm against its plain version: both quantize an f32
+    accumulator summed over K in another order, so a value on a rounding
+    boundary may land one quantization step (twice the per-element bound)
+    away on a source; then one rounding to the dtype. In bf16 almost every
+    element is bit for bit equal (in f32 a block whose absmax differs by an
+    ulp moves every dequantized value of the block by an ulp)."""
+    from triton_distributed_tpu_torch.ops import wire
+    bound = torch.from_numpy(wire.sum_error_bound(
+        (a.float() @ b.float()).cpu(), wd, blk)).to(got.device)
+    if got.shape[-2] != bound.shape[-2]:          # gemm_rs: the row chunks
+        bound = bound.reshape(got.shape)
+    ulp = 2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-6
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 2 * bound + ulp * want.float().abs()).all()), \
+        err.max().item()
+    if got.dtype == torch.bfloat16:
+        assert (got != want).float().mean().item() < 1e-2
+
+
+@pytest.mark.parametrize("op", ["gemm_rs", "gemm_ar"])
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("wd", WIRES)
+@pytest.mark.parametrize("M,K,N,block", [(192, 512, 768, 256),
+                                         (8, 256, 1024, 256),
+                                         (64, 256, 192, 64),
+                                         (96, 128, 64, 256)])
+def test_quant_arm_matches_plain(cuda, op, n, dtype, wd, M, K, N, block):
+    """Each quant arm against its plain version, two calls back to back
+    with new data: strips of one 256-column block (3 a row), decode rows,
+    64-column blocks on 128-column strips with a half-live last strip,
+    and a row narrower than a tile (N 64, block 64); gemm_ar's n replicas
+    bit for bit equal; every call logged ("kernel", "wire")."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _common
+    _, fn, plain, kern = _quant_ops()[op]
+    blk = min(block, N)
+    for seed in (0, 1):
+        a, b = _tp_case(op, n, dtype, M, K, N, cuda, seed)
+        before = kern.launches
+        _common.reset_dispatch()
+        got = fn(a, b, num_ranks=n, wire_dtype=wd, wire_block=block)
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert kern.launches == before + 1
+        assert _common.dispatch_counts() == {(op, "kernel", "wire"): 1}
+        want = plain(a, b, wd, blk)
+        if op == "gemm_ar":
+            assert all(torch.equal(got[r], got[0]) for r in range(n))
+            got, want = got[0], want[0]
+        _quant_close(got, want, a, b, wd, blk)
+
+
+@pytest.mark.parametrize("op", ["gemm_rs", "gemm_ar"])
+def test_quant_arm_lost_signal_raises_and_the_next_call_is_clean(cuda, op):
+    """A signal target one epoch ahead, then a rank that never arrives at
+    barrier_all: the fault word is set within the budget (50 ms), the
+    check raises naming the quant arm's workspace, the rank and the
+    signal, and the next normal call runs clean."""
+    import time
+    from triton_distributed_tpu_torch import shmem
+    mod, fn, plain, _ = _quant_ops()[op]
+    n, wd = 4, "int8"
+    a, b = _tp_case(op, n, torch.bfloat16, 256, 512, 512, cuda, 0)
+    fn(a, b, num_ranks=n, wire_dtype=wd)
+    ws, _ = mod._quant_workspace(a, b, 256)
+    for planted in ({"epoch": ws.epoch + 2}, {"rank_cnt": n - 1}):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod._launch_quant(a, b, wd, 256, budget_s=0.05, **planted)
+        torch.cuda.synchronize()
+        assert time.perf_counter() - t0 < 5.0
+        assert int(ws.fault[0]) == shmem.FAULT_TIMEOUT
+        with pytest.raises(RuntimeError,
+                           match=rf"{op}\[wire\]: rank [0-3] timed out "
+                                 rf"waiting on signal"):
+            shmem.check_faults()
+        assert ws.epoch == 0 and int(ws.pads.abs().sum()) == 0
+        got = fn(a, b, num_ranks=n, wire_dtype=wd)
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        want = plain(a, b, wd, 256)
+        if op == "gemm_ar":
+            got, want = got[0], want[0]
+        _quant_close(got, want, a, b, wd, 256)
+
+
+@pytest.mark.parametrize("op", ["gemm_rs", "gemm_ar"])
+def test_quant_arm_refuses_a_grid_that_cannot_be_resident(cuda, op):
+    """One CTA more than can be resident (with the strip's dynamic shared
+    memory) is refused before launch; one CTA alone walks every item."""
+    import ctypes
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _build
+    mod, fn, plain, _ = _quant_ops()[op]
+    n, wd = 2, "float8_e4m3fn"
+    a, b = _tp_case(op, n, torch.bfloat16, 256, 512, 512, cuda, 0)
+    resident = getattr(_build.load_library(op), f"tdt_{op}_quant_resident")
+    resident.argtypes = [ctypes.c_int] * 3
+    resident.restype = ctypes.c_int
+    ws, bm = mod._quant_workspace(a, b, 256)
+    most = resident(0, bm, 256)
+    assert most >= torch.cuda.get_device_properties(0).multi_processor_count
+    epoch = ws.epoch
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        mod._launch_quant(a, b, wd, 256, grid=most + 1)
+    assert ws.epoch == epoch
+    got = mod._launch_quant(a, b, wd, 256, grid=1)
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    want = plain(a, b, wd, 256)
+    if op == "gemm_ar":
+        got, want = got[0], want[0]
+    _quant_close(got, want, a, b, wd, 256)
+
+
+@pytest.mark.parametrize("mode", ["fused", "gemm_ar", "ar"])
+def test_tp_layers_with_a_wire_gpu_match_cpu(cuda, mode):
+    """TPMLP and TPAttn (prefill, then decode) at n = 4 with an int8 wire
+    on the GPU against the CPU, bf16: within 2e-2 of the largest value;
+    the quant arms launched as the calls imply."""
+    from triton_distributed_tpu_torch.layers import tp_attn, tp_mlp
+    from triton_distributed_tpu_torch.ops import gemm_ar, gemm_rs
+    g = torch.Generator().manual_seed(0)
+    n, hidden, inter, H, Hkv, D = 4, 512, 1024, 8, 4, 64
+    w = [torch.randn(s, generator=g) / s[0] ** 0.5 for s in
+         ((hidden, inter), (hidden, inter), (inter, hidden),
+          (hidden, H * D), (hidden, Hkv * D), (hidden, Hkv * D),
+          (H * D, hidden))]
+    x = torch.randn(2, 65, hidden, generator=g)
+    outs = {}
+    for dev in ("cpu", cuda):
+        before = (gemm_rs.GEMM_RS_QUANT.launches,
+                  gemm_ar.GEMM_AR_QUANT.launches)
+        wb = [t.to(dev, torch.bfloat16) for t in w]
+        mlp = tp_mlp.TPMLP(hidden, inter, mode=mode, num_ranks=n,
+                           wire_dtype="int8")
+        xm = x[:, :64].reshape(-1, hidden).to(dev, torch.bfloat16)
+        if mode == "fused":
+            xm = xm.reshape(n, -1, hidden)
+        ym = mlp(mlp.shard_params(*wb[:3]), xm)
+        att = tp_attn.TPAttn(hidden, H, Hkv, D, mode=mode, num_ranks=n,
+                             qk_norm=True, wire_dtype="int8")
+        ap = att.shard_params(*wb[3:])
+        xa = x.to(dev, torch.bfloat16)
+        ya, cache = att.prefill(ap, xa[:, :64], max_len=65)
+        yd, _ = att.decode(ap, xa[:, 64], cache, 64)
+        torch.cuda.synchronize()
+        outs[str(dev)] = [t.float().cpu() for t in (ym, ya, yd)]
+        launched = (gemm_rs.GEMM_RS_QUANT.launches - before[0],
+                    gemm_ar.GEMM_AR_QUANT.launches - before[1])
+    # decode ends in "ar" (quant_psum) in "fused" mode
+    assert launched == {"fused": (2, 0), "gemm_ar": (0, 3),
+                        "ar": (0, 0)}[mode], launched
+    for c, gpu in zip(outs["cpu"], outs[str(cuda)]):
+        err = (gpu - c).abs().max().item()
+        assert err <= 2e-2 * c.abs().max().item(), err
+
+
+@pytest.mark.parametrize("par", ["ep", "tp"])
+def test_nrank_moe_serve_gpu_matches_cpu(cuda, par):
+    """A small Qwen3MoE at n = 2 (EP or TP experts) behind
+    ServeEngine(tp_ranks=2), mode "gemm_ar", on the GPU against the CPU in
+    bf16: the logits of every greedy pick within 5e-2 of the largest, the
+    picks equal where the margin allows; the paged decode once a layer a
+    decode tick, gmm twice a layer a step (EP: one launch a projection for
+    every rank's experts; TP: one a rank), no all-to-all."""
+    from triton_distributed_tpu_torch import models, shmem
+    from triton_distributed_tpu_torch.models import dense
+    from triton_distributed_tpu_torch.ops import ep_a2a
+    cfg = models.get_config("Qwen/Qwen3-30B-A3B").tiny(
+        hidden_size=256, num_heads=8, num_kv_heads=2, head_dim=128,
+        vocab_size=512, num_layers=2, num_experts=8, num_experts_per_tok=2,
+        moe_intermediate_size=256)
+    n = 2
+    params = models.Qwen3MoE(cfg, dtype="bfloat16", device="cpu") \
+        .init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(6)
+    reqs = [(rng.integers(0, 512, s).astype(np.int32), 6)
+            for s in (40, 70, 20)]
+    serve_kw = dict(b_max=2, max_len=256, block=32, prefill_chunk=32,
+                    tp_ranks=n)
+    real = dense.greedy_token
+    runs = []
+    for dev in ("cpu", cuda):
+        m = models.Qwen3MoE(cfg, dtype="bfloat16", device=dev, mode="gemm_ar",
+                            num_ranks=n, moe_parallel=par)
+        p = m.shard_params(
+            {"embed": params["embed"].to(dev), "norm": params["norm"].to(dev),
+             "lm_head": params["lm_head"].to(dev),
+             "layers": {k: t.to(dev) for k, t in params["layers"].items()}})
+        seen = []
+
+        def spy(x, lm_head):
+            lg = dense._logits(x, lm_head)
+            if lg.dim() == 3:
+                lg = lg.permute(1, 0, 2).reshape(x.shape[0], -1)
+            seen.append(lg.float().cpu())
+            return real(x, lm_head)
+
+        before = (attn.FLASH_DECODE_PAGED["bfloat16"].launches,
+                  gg.GMM.launches, ep_a2a.EP_A2A.launches)
+        dense.greedy_token = spy
+        try:
+            se = models.ServeEngine(m, p, **serve_kw)
+            se.serve([r for r, _ in reqs], [g for _, g in reqs])
+        finally:
+            dense.greedy_token = real
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        runs.append(seen)
+        counts = [a - b for a, b in zip(
+            (attn.FLASH_DECODE_PAGED["bfloat16"].launches, gg.GMM.launches,
+             ep_a2a.EP_A2A.launches), before)]
+    st = se.stats()
+    steps = st["decode_steps"] + st["prefill_chunks"]
+    per_step = 2 * (1 if par == "ep" else n)
+    assert counts == [cfg.num_layers * st["decode_steps"],
+                      per_step * cfg.num_layers * steps, 0], (counts, st)
+    _compare_picks(runs, 4)
 
 
 def test_tp_engine_step_raises_on_a_planted_fault(cuda):

@@ -326,18 +326,24 @@ def test_ep_layer_decode_rows_equal_the_dispatch_path():
 
 
 def test_what_stays_refused():
-    """pipeline="tune" / "auto" name their ROADMAP items; ServeEngine over
-    an n-rank MoE (EP included) names its Queue A item, n-rank MoE
-    serving; shapes that do not split raise."""
+    """pipeline="tune" / "auto" name their ROADMAP items, the EP tick plan
+    of an "auto" pipeline too; ServeEngine over an n-rank MoE (EP
+    included) builds at tp_ranks=n since slice 6e
+    (tests/test_torch_moe_serve_nrank.py holds it to JAX); shapes that do
+    not split raise."""
     layer = EPMoE(**LAYER, num_ranks=2, pipeline="tune")
     with pytest.raises(NotImplementedError, match="slice 7"):
         layer(None, torch.zeros(4, LAYER["hidden"]))
     auto = EPMoE(**LAYER, num_ranks=2, pipeline="auto")
     with pytest.raises(NotImplementedError, match="estimators"):
         auto._shard_fwd(torch.zeros(2, 2, LAYER["hidden"]), None, None, None)
+    from triton_distributed_tpu_torch import perf_model
+    with pytest.raises(NotImplementedError, match="estimators"):
+        perf_model.ep_tick_plan(4, hidden=64, moe_intermediate=32, top_k=2,
+                                num_ranks=2, pipeline="auto")
     for par in ("ep", "tp"):
-        with pytest.raises(NotImplementedError, match="n-rank MoE serving"):
-            models.ServeEngine(_port(par, 2, "xla"), None)
+        se = models.ServeEngine(_port(par, 2, "xla"), None, tp_ranks=2)
+        assert se.stats()["tp_ranks"] == 2 and se.model.moe_parallel == par
     with pytest.raises(ValueError, match="split"):
         EPMoE(**{**LAYER, "num_experts": 6}, num_ranks=4)
     with pytest.raises(ValueError, match="moe_parallel"):

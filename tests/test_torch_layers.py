@@ -124,21 +124,30 @@ def test_tp_attn_prefill_and_decode_match_jax(mesh1, qk_norm, dtype):
 
 
 def test_layers_refuse_more_than_one_rank():
-    """What stays one-rank refuses n = 2 (the perf model's multi-rank
-    arms, the quantized wire); the MoE layer builds at n = 2; the dense
-    layers build at n = 2 and give the one-rank layer's output on the same
-    weights, in every mode (layer-level prefill and decode; the
-    model-level checks are tests/test_torch_tp_models.py and
-    test_torch_ep_models.py)."""
+    """What stays one-rank refuses n = 2 (the perf model's step
+    estimators); the EP tick plan at n = 2 records the layer's own plan;
+    the quantized wire at n = 2 gives the gemm_rs quant arm's plain
+    version; the MoE layer builds at n = 2; the dense layers build at n =
+    2 and give the one-rank layer's output on the same weights, in every
+    mode (layer-level prefill and decode; the model-level checks are
+    tests/test_torch_tp_models.py and test_torch_ep_models.py)."""
     from triton_distributed_tpu_torch import perf_model
     from triton_distributed_tpu_torch.layers.tp_moe import TPMoE
     assert TPMoE(8, 8, 4, 2, num_ranks=2).n == 2
     with pytest.raises(NotImplementedError, match="Queue A"):
-        perf_model.ep_tick_plan(1, hidden=8, moe_intermediate=8, top_k=2,
-                                num_ranks=2)
-    with pytest.raises(NotImplementedError, match="quant"):
-        tcommon.row_parallel_out(torch.zeros(2, 4, 8), torch.zeros(2, 8, 4),
-                                 mode="fused", num_ranks=2, wire_dtype="int8")
+        perf_model.estimate_mk_step_s(
+            1, 1, num_layers=1, hidden=8, intermediate=8, num_heads=1,
+            num_kv_heads=1, head_dim=8, tp_ranks=2)
+    assert perf_model.ep_tick_plan(
+        1, hidden=8, moe_intermediate=8, top_k=2, num_ranks=2) == {
+            "occupancy": 1, "transport": "ragged", "num_chunks": 1,
+            "a2a_round_s": None}
+    from triton_distributed_tpu_torch.ops import gemm_rs
+    rows, w = torch.randn(2, 4, 8), torch.randn(2, 8, 8)
+    assert torch.equal(
+        tcommon.row_parallel_out(rows, w, mode="fused", num_ranks=2,
+                                 wire_dtype="int8"),
+        gemm_rs._gemm_rs_quant_plain(rows, w, "int8", 8))
     with pytest.raises(ValueError):
         tcommon.check_mode("nccl")
     assert tcommon.MODES == ("xla", "fused", "ar", "gemm_ar")

@@ -209,5 +209,5 @@ def test_megakernel_tp_guards(jax_tp):
         moe_intermediate_size=64)
     moe = models.Qwen3MoE(moe_cfg, mode="xla", dtype="float32", device="cpu",
                           num_ranks=2)
-    with pytest.raises(NotImplementedError, match="n-rank MoE serving"):
+    with pytest.raises(ValueError, match="dense-only"):
         models.ServeEngine(moe, None, **KW, tp_ranks=2, mode="megakernel")

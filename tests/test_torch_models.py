@@ -275,8 +275,10 @@ def test_autollm_and_one_rank_scope():
     moe2 = models.Qwen3MoE(models.get_config("Qwen/Qwen3-30B-A3B"),
                            device="cpu", num_ranks=2)
     assert moe2.n == 2 and moe2.moe.n == 2
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        models.ServeEngine(moe2, None)
+    # an n-rank MoE serves at tp_ranks=n since slice 6e
+    # (tests/test_torch_moe_serve_nrank.py holds it to JAX)
+    assert models.ServeEngine(moe2, None, tp_ranks=2).stats()[
+        "tp_ranks"] == 2
     with pytest.raises(ValueError):
         models.DenseLLM(models.get_config("Qwen3-8B"), mode="nccl",
                         device="cpu")

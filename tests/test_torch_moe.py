@@ -273,8 +273,18 @@ def test_tp_moe_matches_jax_and_reference(mesh1, layer_case, mode):
 
 @pytest.mark.parametrize("occupancy", [0, 1, 3, 4, 32, 257])
 def test_ep_tick_plan_one_rank_matches_jax(occupancy):
+    """One rank: JAX's plan. n ranks: the layer's own transport and chunk
+    count, `a2a_round_s` not modeled (ROADMAP Queue C 21); an "auto"
+    pipeline raises."""
     kw = dict(hidden=2048, moe_intermediate=768, top_k=8, num_ranks=1)
     assert tperf.ep_tick_plan(occupancy, **kw) == \
         jax_perf.ep_tick_plan(occupancy, **kw)
+    for method, chunks in (("ragged", 1), ("xla", 2)):
+        assert tperf.ep_tick_plan(
+            occupancy, **{**kw, "num_ranks": 2}, method=method,
+            pipeline=chunks) == {"occupancy": max(1, occupancy),
+                                 "transport": method, "num_chunks": chunks,
+                                 "a2a_round_s": None}
     with pytest.raises(NotImplementedError, match="slice 6"):
-        tperf.ep_tick_plan(occupancy, **{**kw, "num_ranks": 2})
+        tperf.ep_tick_plan(occupancy, **{**kw, "num_ranks": 2},
+                           pipeline="auto")

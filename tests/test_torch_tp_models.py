@@ -210,8 +210,12 @@ def test_greedy_token_ranks_lowest_rank_wins_ties():
 def test_what_stays_one_rank_raises_naming_its_slice():
     """The paged paths build at n ranks now (slice 6b): a head-sharded
     pool, one prefill chunk and one decode step giving the one-rank
-    model's tokens, and a ServeEngine. What stays refused names what takes
-    it: an n-rank Qwen3MoE behind ServeEngine, the quantized wire."""
+    model's tokens, and a ServeEngine. Slice 6e retired the last two
+    refusals here: an n-rank Qwen3MoE behind ServeEngine builds (EP and TP
+    experts; tests/test_torch_moe_serve_nrank.py holds it to JAX), and
+    row_parallel_out takes a quantized wire, "fused" through the gemm_rs
+    quant arm and "ar" through quant_psum (tests/test_torch_wire_*.py);
+    a model that does not split still raises."""
     cfg = _cfg(models)
     m1 = models.DenseLLM(cfg, dtype="float32", device="cpu")
     m = models.DenseLLM(cfg, dtype="float32", device="cpu", num_ranks=2)
@@ -236,16 +240,22 @@ def test_what_stays_one_rank_raises_naming_its_slice():
         hidden_size=64, num_heads=8, num_kv_heads=4, head_dim=16,
         vocab_size=128, moe_intermediate_size=32)
     for par in ("tp", "ep"):
-        with pytest.raises(NotImplementedError, match="n-rank MoE serving"):
-            models.ServeEngine(models.Qwen3MoE(
-                moe_cfg, dtype="float32", device="cpu", num_ranks=2,
-                moe_parallel=par), None)
-    with pytest.raises(NotImplementedError, match="quant"):
-        tcommon.row_parallel_out(torch.zeros(2, 4, 8), torch.zeros(2, 8, 4),
-                                 mode="fused", num_ranks=2, wire_dtype="int8")
-    with pytest.raises(NotImplementedError, match="quant"):
-        tcommon.row_parallel_out(torch.zeros(2, 4, 8), torch.zeros(2, 8, 4),
-                                 mode="ar", num_ranks=2, wire_dtype="int8")
+        se = models.ServeEngine(models.Qwen3MoE(
+            moe_cfg, dtype="float32", device="cpu", num_ranks=2,
+            moe_parallel=par), None, tp_ranks=2)
+        assert se.stats()["tp_ranks"] == 2
+    from triton_distributed_tpu_torch.ops import gemm_rs, wire
+    g = torch.Generator().manual_seed(0)
+    rows, w = torch.randn(2, 4, 8, generator=g), torch.randn(2, 8, 16,
+                                                             generator=g)
+    assert torch.equal(
+        tcommon.row_parallel_out(rows, w, mode="fused", num_ranks=2,
+                                 wire_dtype="int8"),
+        gemm_rs._gemm_rs_quant_plain(rows, w, "int8", 16))
+    assert torch.equal(
+        tcommon.row_parallel_out(rows, w, mode="ar", num_ranks=2,
+                                 wire_dtype="int8"),
+        wire.quant_psum(rows @ w, "int8"))
     with pytest.raises(ValueError, match="split"):
         models.DenseLLM(_cfg(models), device="cpu", num_ranks=8)
 

@@ -240,8 +240,10 @@ def test_tp_ranks_guards():
         moe_intermediate_size=64)
     moe = models.Qwen3MoE(moe_cfg, mode="xla", dtype="float32", device="cpu",
                           num_ranks=2)
-    with pytest.raises(NotImplementedError, match="n-rank MoE serving"):
-        models.ServeEngine(moe, None, **kw, tp_ranks=2)
+    # an n-rank MoE serves at tp_ranks=n (tests/test_torch_moe_serve_nrank.py
+    # holds it to JAX)
+    assert models.ServeEngine(moe, None, **kw, tp_ranks=2).stats()[
+        "tp_ranks"] == 2
     # tp_ranks defaults to 1 over an n-rank model, as in JAX: no ledgers
     se = models.ServeEngine(m2, p2, **kw)
     assert se.stats()["tp_ranks"] == 1 and se.stats()["per_rank"] == []

@@ -1,5 +1,6 @@
 // The GEMM tile and the persistent launch shared by the tensor-parallel
-// kernels (ag_gemm.cu, gemm_rs.cu, gemm_ar.cu).
+// kernels (ag_gemm.cu, gemm_rs.cu, gemm_ar.cu, and the quantized-wire arms
+// of the last two, which add dynamic shared memory for their f32 strip).
 //
 // One CTA of 128 threads computes one BM x BN output tile (BN = 128; BM =
 // 64, or 16 when the product has at most 16 rows) of A (rows, K) times
@@ -166,17 +167,22 @@ __device__ void reduce_tile(T* out, const T* base, size_t src_stride, int n,
 }
 
 // Cooperative launch of `kernel` on min(items, co-resident) CTAs, or on
-// `grid` CTAs when grid > 0 (refused when they could not all be resident).
+// `grid` CTAs when grid > 0 (refused when they could not all be resident),
+// each with `smem` bytes of dynamic shared memory.
 template <typename Kernel, typename... Args>
-int launch_persistent(Kernel kernel, long long items, int grid,
-                      cudaStream_t st, Args... args) {
+int launch_persistent_smem(Kernel kernel, long long items, int grid,
+                           size_t smem, cudaStream_t st, Args... args) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && smem > 0)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      NTHREADS, 0);
+                                                      NTHREADS, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long resident = static_cast<long long>(per_sm) * sms;
   if (resident == 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
@@ -186,20 +192,31 @@ int launch_persistent(Kernel kernel, long long items, int grid,
   void* argv[] = {static_cast<void*>(&args)...};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                   dim3(static_cast<unsigned>(g)),
-                                  dim3(NTHREADS), argv, 0, st);
+                                  dim3(NTHREADS), argv, smem, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// How many CTAs of `kernel` can be resident on the current device.
+template <typename Kernel, typename... Args>
+int launch_persistent(Kernel kernel, long long items, int grid,
+                      cudaStream_t st, Args... args) {
+  return launch_persistent_smem(kernel, items, grid, 0, st, args...);
+}
+
+// How many CTAs of `kernel` (with `smem` bytes of dynamic shared memory
+// each) can be resident on the current device.
 template <typename Kernel>
-int max_resident(Kernel kernel) {
+int max_resident(Kernel kernel, size_t smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
+      (smem > 0 &&
+       cudaFuncSetAttribute(kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            static_cast<int>(smem)) != cudaSuccess) ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    NTHREADS, 0) !=
+                                                    NTHREADS, smem) !=
           cudaSuccess)
     return -1;
   return per_sm * sms;

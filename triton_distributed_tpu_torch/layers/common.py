@@ -10,14 +10,12 @@ K_shard) and the weight (n, K_shard, N) (parallel/mesh.py).
 
 from __future__ import annotations
 
+from ..ops import wire
 from ..ops.gemm_ar import gemm_ar_shard
 from ..ops.gemm_rs import gemm_rs_shard
 from ..parallel.mesh import RankGroup
 
 MODES = ("xla", "fused", "ar", "gemm_ar")
-QUANT_WIRE = ("the quantized wire (wire_dtype, the JAX _kernel_quant arms "
-              "of ops/gemm_rs.py:176 and ops/gemm_ar.py:156) is not ported "
-              "yet: ROADMAP.md Queue B, the quant arms")
 
 
 def check_mode(mode: str) -> str:
@@ -42,18 +40,26 @@ def row_parallel_out(rows, w, *, mode, num_ranks: int = 1, wire_dtype=None):
     """Row-parallel projection epilogue: rows @ w summed across ranks. At
     one rank the matmul itself. At n ranks rows (n, M, K_shard) and w (n,
     K_shard, N): "fused" / "xla" return rank r's row chunk (n, M / n, N);
-    "ar" / "gemm_ar" the replicated sum (M, N), kept once. `wire_dtype`
-    (the quantized wire) raises: not ported yet."""
+    "ar" / "gemm_ar" the replicated sum (M, N), kept once.
+
+    `wire_dtype` ("int8" / "float8_e4m3fn") quantizes the epilogue's
+    collective wire (JAX common.py:35-62): "fused" and "gemm_ar" take
+    their kernels' quant arms, "ar" becomes `wire.quant_psum` when a
+    scaling block divides N, and "xla" stays full width, the golden the
+    others are held to."""
     check_mode(mode)
-    if wire_dtype is not None:
-        raise NotImplementedError(QUANT_WIRE)
+    wire.resolve_wire_dtype(wire_dtype)             # loud on a typo
     n = num_ranks
-    if n == 1:
+    if n == 1:                  # no wire to quantize
         return rows @ w
     if mode == "fused":
-        return gemm_rs_shard(rows, w, num_ranks=n)
+        return gemm_rs_shard(rows, w, num_ranks=n, wire_dtype=wire_dtype)
     if mode == "xla":
         return RankGroup(n).psum_scatter(rows @ w)
     if mode == "gemm_ar":
-        return gemm_ar_shard(rows, w, num_ranks=n)[0]
-    return RankGroup(n).psum(rows @ w)
+        return gemm_ar_shard(rows, w, num_ranks=n, wire_dtype=wire_dtype)[0]
+    partial = rows @ w
+    if wire_dtype is not None and \
+            wire.effective_block(partial.shape[-1]) is not None:
+        return wire.quant_psum(partial, wire_dtype)
+    return RankGroup(n).psum(partial)

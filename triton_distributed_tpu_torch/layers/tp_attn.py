@@ -17,7 +17,9 @@ attention runs as one call of the attention kernels over n * B
 sequences. The paged decode, verify and chunked-prefill shards do the
 same over the head-sharded paged pool (models/paged_kv_cache.py): a
 layer's n rank pools viewed as one, each rank's table offset to its own
-pages, one launch for the n ranks.
+pages, one launch for the n ranks. `wire_dtype` ("int8" /
+"float8_e4m3fn") quantizes the o projection's collective wire on every
+epilogue (row_parallel_out).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..ops.attention import (apply_rope, flash_attention,
                              flash_attention_partial, flash_decode,
                              flash_decode_paged, merge_two_partials,
                              paged_rows, rope_cos_sin)
+from ..ops import wire
 from ..ops.ag_gemm import ag_gemm_shard
 from ..parallel.mesh import RankGroup, shard
 from .common import check_mode, row_parallel_out
@@ -43,7 +46,7 @@ class TPAttn(nn.Module):
     def __init__(self, hidden: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, *, mode: str = "fused",
                  rope_theta: float = 1e6, qk_norm: bool = False,
-                 num_ranks: int = 1):
+                 num_ranks: int = 1, wire_dtype=None):
         super().__init__()
         self.hidden = hidden
         self.num_heads = num_heads
@@ -52,6 +55,7 @@ class TPAttn(nn.Module):
         self.mode = check_mode(mode)
         self.rope_theta = rope_theta
         self.qk_norm = qk_norm
+        self.wire_dtype = wire.resolve_wire_dtype(wire_dtype)
         self.n = RankGroup(num_ranks).n
         if num_heads % self.n or num_kv_heads % self.n:
             raise ValueError(f"{num_heads} q / {num_kv_heads} kv heads do not "
@@ -154,7 +158,8 @@ class TPAttn(nn.Module):
         ck[:, :, :S] = k.view(n, B, S, self.hkv_loc, D)
         cv[:, :, :S] = v.view(n, B, S, self.hkv_loc, D)
         om = out.view(n, B, S, -1).transpose(1, 2).reshape(n, S * B, -1)
-        y = row_parallel_out(om, w_o, mode=mode, num_ranks=n)
+        y = row_parallel_out(om, w_o, mode=mode, num_ranks=n,
+                             wire_dtype=self.wire_dtype)
         return y.view(x.shape), ck, cv
 
     def _prefill_shard(self, params, x, w_qkv, w_o, ck, cv, *, seq_len):
@@ -171,7 +176,7 @@ class TPAttn(nn.Module):
         ck[:, :S] = k
         cv[:, :S] = v
         y = row_parallel_out(out.reshape(B * S, -1), w_o, mode=self.mode,
-                             num_ranks=self.n)
+                             num_ranks=self.n, wire_dtype=self.wire_dtype)
         return y.reshape(B, S, self.hidden), ck, cv
 
     # -- decode ------------------------------------------------------------
@@ -206,7 +211,8 @@ class TPAttn(nn.Module):
                            cv.view(n * B, smax, self.hkv_loc, D), kv_len + 1)
         y = row_parallel_out(
             out.view(n, B, -1), w_o,
-            mode="gemm_ar" if self.mode == "gemm_ar" else "ar", num_ranks=n)
+            mode="gemm_ar" if self.mode == "gemm_ar" else "ar", num_ranks=n,
+            wire_dtype=self.wire_dtype)
         return y, ck, cv
 
     def _decode_shard(self, params, x, w_qkv, w_o, ck, cv, kv_len: int):
@@ -222,7 +228,7 @@ class TPAttn(nn.Module):
         cv[:, kv_len] = v
         out = flash_decode(q, ck, cv, kv_len + 1)         # (B, Hl, D)
         y = row_parallel_out(out.reshape(B, -1), w_o, mode=self.mode,
-                             num_ranks=self.n)
+                             num_ranks=self.n, wire_dtype=self.wire_dtype)
         return y, ck, cv
 
     # -- paged decode and chunked prefill (models/paged_kv_cache.py) -------
@@ -241,7 +247,7 @@ class TPAttn(nn.Module):
     def _paged_out(self, rows, w_o):
         return row_parallel_out(
             rows, w_o, mode="gemm_ar" if self.mode == "gemm_ar" else "ar",
-            num_ranks=self.n)
+            num_ranks=self.n, wire_dtype=self.wire_dtype)
 
     def _decode_shard_paged(self, params, x, w_qkv, w_o, k_pool, v_pool,
                             table, kv_len, rope, at, *, attn_method=None,

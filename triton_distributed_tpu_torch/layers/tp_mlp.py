@@ -8,7 +8,9 @@ one matmul feeds both halves. At n ranks the weights are rank-stacked
 w_down (n, inter / n, hidden) row shards. The modes are the JAX layer's:
 "fused" runs ag_gemm, SiLU x up, gemm_rs on sequence-sharded rows; "xla"
 the same with plain collectives; "ar" / "gemm_ar" take replicated rows
-and end in psum / gemm_ar.
+and end in psum / gemm_ar. `wire_dtype` ("int8" / "float8_e4m3fn")
+quantizes the down projection's collective wire (row_parallel_out);
+compute stays full precision.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops import wire
 from ..ops.ag_gemm import ag_gemm_shard
 from ..parallel.mesh import RankGroup, shard
 from .common import check_mode, row_parallel_out
@@ -42,11 +45,12 @@ class TPMLP(nn.Module):
     (hidden, 2*inter) and (inter, hidden) at one rank, rank-stacked at n."""
 
     def __init__(self, hidden: int, intermediate: int, *, mode: str = "fused",
-                 num_ranks: int = 1):
+                 num_ranks: int = 1, wire_dtype=None):
         super().__init__()
         self.hidden = hidden
         self.intermediate = intermediate
         self.mode = check_mode(mode)
+        self.wire_dtype = wire.resolve_wire_dtype(wire_dtype)
         self.n = RankGroup(num_ranks).n
         if intermediate % self.n:
             raise ValueError(f"intermediate {intermediate} does not split "
@@ -78,4 +82,5 @@ class TPMLP(nn.Module):
         else:  # one rank, or "ar" / "gemm_ar": x replicated
             h = x @ w_gu
         act = silu(h[..., :inter_per]) * h[..., inter_per:]
-        return row_parallel_out(act, w_down, mode=mode, num_ranks=n)
+        return row_parallel_out(act, w_down, mode=mode, num_ranks=n,
+                                wire_dtype=self.wire_dtype)

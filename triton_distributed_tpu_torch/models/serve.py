@@ -96,11 +96,18 @@ Multi-rank serving, n ranks in one process on one device:
   refusals: the megakernel, speculation and the prefix cache under "sp",
   and geometry that does not split over the ranks (ValueError).
 
+- A Qwen3MoE(num_ranks=n) serves at `tp_ranks=n` on the head-sharded
+  pool like a dense model, its experts tensor- or expert-parallel. Every
+  paged step takes replicated rows, so EP experts run
+  `EPMoE.decode_rows_shard` (each rank its own experts' share, then a
+  psum; no all-to-all), as the JAX model's `_mlp_rows` does under its
+  decode MLP mode. `ep_plan` at n records the plan the layer takes
+  (perf_model.ep_tick_plan). The megakernel refuses MoE at n, as in JAX.
+
 Not in this slice (each raises NotImplementedError): the watchdog
 (`slo_ticks`) and fault injection (`chaos`), the host spill tier
 (`host_blocks`) and the plain ("xla") attention rung on a CUDA device
-(slice 2c), and an n-rank Qwen3MoE behind the engine (ROADMAP Queue A,
-"n-rank MoE serving").
+(slice 2c).
 """
 
 from __future__ import annotations
@@ -266,11 +273,12 @@ def _not_in_slice(what: str, where: str):
 
 class ServeEngine:
     """Continuous batching over `b_max` slots for a `DenseLLM` (one rank,
-    n tensor-parallel ranks, or n sequence-parallel ranks) or a one-rank
-    `Qwen3MoE`. Decode attention reads the pages in place through the
-    block table (ops/attention.flash_decode_paged: the CUDA kernel on
-    the GPU, its plain version on the CPU), or, with
-    mode="megakernel", inside the megakernel's one launch per tick."""
+    n tensor-parallel ranks, or n sequence-parallel ranks) or a `Qwen3MoE`
+    (one rank, or n ranks with tensor- or expert-parallel experts). Decode
+    attention reads the pages in place through the block table
+    (ops/attention.flash_decode_paged: the CUDA kernel on the GPU, its
+    plain version on the CPU), or, with mode="megakernel", inside the
+    megakernel's one launch per tick."""
 
     def __init__(self, model, params, *, b_max: int = 4,
                  max_len: int = 2048, block: int = 128,
@@ -344,9 +352,6 @@ class ServeEngine:
                     f"{int(model.n)} mesh rank(s) — build the model on "
                     f"{tp_ranks} ranks (the engine deploys the model's "
                     f"own ranks)")
-        if getattr(model.config, "is_moe", False) and model.n > 1:
-            _not_in_slice("ServeEngine over an n-rank Qwen3MoE (EP or TP "
-                          "experts)", "'n-rank MoE serving'")
         self.tp_ranks = tp_ranks
         if attn_parallelism == "sp":
             # the sequence-sharded layout fixes the geometry: every rank
@@ -671,10 +676,14 @@ class ServeEngine:
             c = self.model.config
             rows = sum(serve_state.capacity_rows(self.sched, i)
                        for i in live)
+            ep = self.model.moe_parallel == "ep"
             self.ep_plan = perf_model.ep_tick_plan(
                 rows, hidden=c.hidden_size,
                 moe_intermediate=c.moe_intermediate_size,
-                top_k=c.num_experts_per_tok, num_ranks=1)
+                top_k=c.num_experts_per_tok,
+                num_ranks=int(self.model.n) if ep else 1,
+                method=self.model.moe.method if ep else "ragged",
+                pipeline=self.model.moe.pipeline if ep else 1)
         if self.spec is not None:
             return self._spec_decode_tick(live, stream_cb)
         # slots on the megakernel path take its one launch, the others

@@ -97,7 +97,7 @@ def _flash_attention_plain(q, k, v, q_offset, kv_offset, kv_valid, *,
                            causal, scale):
     """Plain PyTorch version of the prefill kernel: the whole score
     matrix at once. Returns (out (B, Sq, H, D) q.dtype, lse (B, Sq, H)
-    f32)."""
+    f32), both contiguous, as the kernel writes them."""
     B, Sq, H, D = q.shape
     _, Skv, Hkv, _ = k.shape
     G = H // Hkv
@@ -116,7 +116,7 @@ def _flash_attention_plain(q, k, v, q_offset, kv_offset, kv_valid, *,
     o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
     out = (o / l.permute(0, 3, 1, 2, 4)).reshape(B, Sq, H, D).to(q.dtype)
     lse = (m + torch.log(l))[..., 0].permute(0, 3, 1, 2).reshape(B, Sq, H)
-    return out, lse
+    return out.contiguous(), lse.contiguous()
 
 
 def _fa_call(q, k, v, q_offset, kv_offset, kv_valid, *, causal, scale,

@@ -1,5 +1,5 @@
-"""The wire codecs as torch ops (counterpart of the per-row and per-block
-parts of triton_distributed_tpu/ops/wire.py).
+"""The wire codecs as torch ops (counterpart of
+triton_distributed_tpu/ops/wire.py, all but its checksum ladder).
 
 Per row (`wire_quant` / `wire_dequant`): each row of the last dim is
 scaled by its own absmax into the wire dtype with one f32 scale, the
@@ -13,6 +13,14 @@ scale. The paged KV pool stores K/V rows this way with block = head_dim
 JAX codec's exactly: the same f32 division, `torch.round` rounds half to
 even as `jnp.round` does, and fp8 conversion rounds to nearest even
 (in range; the codec never leaves it).
+
+The quantized collective wire of the tensor-parallel epilogues (the
+quant arms of ops/gemm_rs.py and ops/gemm_ar.py, `quant_psum`,
+`quant_psum_scatter`) uses the per-block codec on 2-D values
+(`quant_value_blocks` / `dequant_value_blocks`, the plain versions of the
+device codec in csrc/tdt_wire.cuh) and accumulates the dequantized parts
+in f32 in rank order (`dequant_accumulate`), rounding once.
+`sum_error_bound` is the bound the tests derive their tolerances from.
 """
 
 from __future__ import annotations
@@ -50,12 +58,26 @@ def resolve_wire_dtype(wire_dtype) -> str | None:
     return name
 
 
+def quant_eps(wire_dtype) -> float:
+    """Per-element quantization error of the wire dtype, as a fraction of
+    its scaling block's absmax."""
+    return QUANT_EPS[resolve_wire_dtype(wire_dtype)]
+
+
+def effective_block(width: int, block: int | None = None) -> int | None:
+    """The scaling block usable for a `width`-wide row: min(block, width)
+    when it divides the row, else None (the caller runs full width and
+    records why)."""
+    blk = min(block or WIRE_BLOCK, width)
+    return blk if width % blk == 0 else None
+
+
 def resolve_block(width: int, block: int | None = None) -> int:
     """The scaling block for a `width`-wide row: min(block, width),
     raising when it does not divide the row (quantizing anyway would
     mis-scale the ragged tail)."""
-    blk = min(block or WIRE_BLOCK, width)
-    if width % blk:
+    blk = effective_block(width, block)
+    if blk is None:
         raise ValueError(
             f"scaling block {block} does not divide row width {width}; "
             f"pick a divisor (or None for min({WIRE_BLOCK}, width))")
@@ -103,6 +125,86 @@ def dequant_blockwise(q, scales, dtype, block: int | None = None):
                          f"{tuple(scales.shape)} disagree (block {block})")
     f = q.float().reshape(*q.shape[:-1], scales.shape[-1], blk)
     return (f * scales[..., None]).reshape(q.shape).to(dtype)
+
+
+def dequant_accumulate(qs, scales, dtype, block: int | None = None):
+    """Sum stacked quantized parts: qs (n, …, H), scales (n, …, H/block)
+    -> (…, H). Each part is dequantized in f32 and the parts are added in
+    rank order 0..n-1 in f32, rounded once to `dtype`."""
+    acc = None
+    for q, s in zip(qs, scales):
+        part = dequant_blockwise(q, s, torch.float32, block)
+        acc = part if acc is None else acc + part
+    return acc.to(dtype)
+
+
+def quant_value_blocks(val, wire_dtype, block: int):
+    """Quantize a 2-D (rows, cols) value (any float dtype, taken in f32) ->
+    (q (rows, cols) wire dtype, scales (rows, cols / block) f32); `cols %
+    block == 0` is the caller's contract. The plain version of the device
+    codec (csrc/tdt_wire.cuh `tdt_wire::quant`)."""
+    if val.dim() != 2 or val.shape[1] % block:
+        raise ValueError(f"quant_value_blocks takes (rows, cols) with cols a "
+                         f"multiple of {block}, got {tuple(val.shape)}")
+    return quant_blockwise(val, wire_dtype, block)
+
+
+def dequant_value_blocks(q, scales, block: int):
+    """Inverse of `quant_value_blocks`, in f32 (the caller accumulates in
+    f32 and rounds once)."""
+    return dequant_blockwise(q, scales, torch.float32, block)
+
+
+def quant_psum(x, wire_dtype, block: int | None = None, *,
+               checksum: bool = False, tamper=None):
+    """AllReduce (sum) of rank-stacked x (n, …, H) over a quantized wire
+    (JAX quant_psum :291, the one-shot wire): each rank's part is
+    block-quantized once, every receiver dequantizes the n parts and sums
+    them in f32 in rank order, rounding once to x's dtype. Returns the
+    replicated (…, H), kept once. The checksum-guarded form (`checksum`,
+    `tamper`) belongs to the chaos harness and comes with slice 2c."""
+    if checksum or tamper is not None:
+        raise NotImplementedError(
+            "quant_psum(checksum=True / tamper=) is the chaos harness's "
+            "guarded wire (tools/chaos.py): it comes with slice 2c "
+            "(ROADMAP.md, Queue A)")
+    blk = effective_block(x.shape[-1], block)
+    q, s = quant_blockwise(x, wire_dtype, blk)
+    return dequant_accumulate(q, s, x.dtype, blk)
+
+
+def quant_psum_scatter(x, wire_dtype, block: int | None = None):
+    """ReduceScatter of rank-stacked partials x (n, rows, cols) over a
+    quantized wire (JAX quant_psum_scatter :331, the fullmesh wire): row
+    chunk p of every rank's part is quantized and lands on rank p, which
+    sums its n landed chunks in f32 in rank order and rounds once.
+    Returns (n, rows / n, cols)."""
+    n, rows, cols = x.shape
+    blk = effective_block(cols, block)
+    q, s = quant_blockwise(x.reshape(n, n, rows // n, cols), wire_dtype, blk)
+    # slab p of every source lands on rank p: (source, owner, ...) summed
+    # over the sources
+    return dequant_accumulate(q, s, x.dtype, blk)
+
+
+def sum_error_bound(parts, wire_dtype, block: int | None = None,
+                    quantizations: int = 1):
+    """Elementwise bound on |quantized sum - exact sum| for a reduction of
+    stacked `parts` (n, …, H) (JAX sum_error_bound :354): per scaling
+    block eps(wire) * quantizations * sum over the parts of their absmax,
+    spread back to the elements. A float32 numpy array broadcastable
+    against the reduced output (…, H)."""
+    import numpy as np
+
+    if isinstance(parts, torch.Tensor):
+        parts = parts.detach().float().cpu().numpy()
+    parts = np.asarray(parts, np.float32)
+    blk = effective_block(parts.shape[-1], block)
+    if blk is None:
+        raise ValueError(f"no scaling block divides width {parts.shape[-1]}")
+    amax = np.abs(parts).reshape(*parts.shape[:-1], -1, blk).max(-1)
+    per_block = quant_eps(wire_dtype) * quantizations * amax.sum(0)
+    return np.repeat(per_block, blk, axis=-1)
 
 
 def checksum_blocks(q, block: int | None = None):

@@ -4,7 +4,8 @@ the speculative-width chooser `choose_spec_k` that
 `ServeEngine(speculative=SpecConfig(adapt=True))` runs every tick
 (counterparts of triton_distributed_tpu/perf_model.py:24-677); the
 decode-path health ladder the serving control plane reads (JAX :811-852)
-and the one-rank per-tick EP plan (`ep_tick_plan`, JAX :989).
+and the per-tick EP plan (`ep_tick_plan`, JAX :989; at n ranks the plan
+the layer is built with).
 
 The formulas are the JAX package's, set to the work the port's kernels
 do; none of its TPU figures is here. `CHIP_SPECS` holds the H100 alone
@@ -19,8 +20,8 @@ dependent stages a layer whatever the occupancy (the TPU walk's task
 count grows with it), and the paged decode kernel splits no slot across
 CTAs (the TPU kernel chooses a split-KV count), so only the KV stream
 runs on its B x Hkv CTAs while cuBLAS streams the weights on every SM.
-Multi-rank arms (`tp_ranks > 1`, the EP estimators) wait for H100
-figures (ROADMAP.md Queue A, slice 6); the other choosers
+Multi-rank arms (the step estimators at `tp_ranks > 1`, the EP
+estimators and choosers) wait for H100 figures (ROADMAP.md Queue A, slice 6); the other choosers
 (`choose_kv_tier`, `choose_admission`, `choose_decode_path`,
 `choose_moe_decode_path`) with slice 2c.
 """
@@ -116,19 +117,37 @@ class DecodePathHealth:
 
 
 def ep_tick_plan(occupancy: int, *, hidden: int, moe_intermediate: int,
-                 top_k: int, num_ranks: int) -> dict:
-    """The per-tick EP dispatch plan for a live decode batch, at one rank:
-    the dict the JAX function returns at `num_ranks=1`, which reads no
-    chip figure there. One rank has one transport ("flat") and no
+                 top_k: int, num_ranks: int, method: str = "ragged",
+                 pipeline: int | str = 1) -> dict:
+    """The per-tick EP dispatch plan for a live decode batch (JAX :989).
+
+    At one rank: the dict the JAX function returns at `num_ranks=1`, which
+    reads no chip figure there. One rank has one transport ("flat") and no
     all-to-all (`a2a_round_s` 0.0). Its chunk count is 1: with no
     transfer to overlap, S chunks cost the grouped MLP S times over
     ceil(rows / S) rows, and a roofline time max(a*m, b*m + c) with a
     weight term c >= 0 gives S * t(m / S) >= t(m), so the JAX chooser's
-    first candidate, 1, is its least. `num_ranks > 1` raises: the
-    multi-rank plan needs the EP estimators on H100 figures (slice 6)."""
-    check_one_rank(num_ranks, "the EP tick plan")
-    return {"occupancy": max(1, int(occupancy)), "transport": "flat",
-            "num_chunks": 1, "a2a_round_s": 0.0}
+    first candidate, 1, is its least.
+
+    At n ranks the JAX arm chooses a transport and a chunk count from
+    interconnect figures (`choose_ep_transport`,
+    `estimate_ep_dispatch_time_s`), which one card cannot give (slice 2c).
+    The port records the plan the layer is built with instead: the model's
+    `method` ("ragged" | "xla") as the transport, its integer `pipeline`
+    as the chunk count, and `a2a_round_s` None (not modeled).
+    `pipeline="auto"` / `"tune"` raise, as EPMoE does (AUTO_LATER,
+    TUNE_LATER)."""
+    occ = max(1, int(occupancy))
+    if num_ranks == 1:
+        return {"occupancy": occ, "transport": "flat", "num_chunks": 1,
+                "a2a_round_s": 0.0}
+    if isinstance(pipeline, str):
+        from .layers.ep_moe import AUTO_LATER
+        from .ops.ep_pipeline import TUNE_LATER
+        raise NotImplementedError(AUTO_LATER if pipeline == "auto"
+                                  else TUNE_LATER)
+    return {"occupancy": occ, "transport": method,
+            "num_chunks": int(pipeline), "a2a_round_s": None}
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ from .primitives import (  # noqa: F401
     FAULT_NONE,
     FAULT_TIMEOUT,
     WAIT_BUDGET_S,
+    WIRE_CODES,
     Workspace,
     a2a_workspace,
     check_faults,
@@ -13,5 +14,6 @@ from .primitives import (  # noqa: F401
     ll_workspace,
     launch_tp,
     release_workspaces,
+    wire_workspace,
     workspace,
 )

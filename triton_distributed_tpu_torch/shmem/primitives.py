@@ -44,6 +44,10 @@ TP_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
                + [ctypes.c_uint, ctypes.c_longlong] + [ctypes.c_int] * 7
                + [ctypes.c_void_p])
 DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+# the quant arms of csrc/gemm_rs.cu and gemm_ar.cu add the wire dtype and
+# the scaling block after bm: dtype, bm, wire, blk, a, b, out, ...
+TP_QUANT_ARGTYPES = TP_ARGTYPES[:2] + [ctypes.c_int] * 2 + TP_ARGTYPES[2:]
+WIRE_CODES = {"int8": 0, "float8_e4m3fn": 1}
 # the C entry point of csrc/ep_a2a.cu: x, send_cnt, land, pads, fault,
 # epoch, budget_ns, n, C, row_bytes, chunk, grid, stream
 A2A_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_uint, ctypes.c_longlong]
@@ -148,13 +152,39 @@ def release_workspaces() -> None:
     _WORKSPACES.clear()
 
 
+def wire_workspace(op: str, device, n: int, rows: int, N: int, blk: int,
+                   bm: int) -> Workspace:
+    """The workspace of a quant arm (csrc/gemm_rs.cu, gemm_ar.cu) with its
+    own collective id ("<op>[wire]"): rank r's landing region is bytes, the
+    quantized partials q (n, rows, N), one byte an element, then at the
+    next 16-byte boundary their scales (n, rows, N / blk) f32; its pad
+    holds the barrier counter and one signal per (source, row tile, strip
+    of max(128, blk) columns)."""
+    sw = max(128, blk)
+    m_tiles, n_strips = -(-rows // bm), -(-N // sw)
+    soff = -(-(n * rows * N) // 16) * 16
+    name = f"{op}[wire]"
+
+    def describe(sig):
+        if sig == 0:
+            return "barrier_all"
+        s, t = divmod(sig - 1, m_tiles * n_strips)
+        return f"source {s}'s quantized strip {divmod(t, n_strips)}"
+
+    size = -(-(soff + n * rows * (N // blk) * 4) // 16) * 16
+    return workspace(name, device, n, (size,), torch.uint8,
+                     1 + n * m_tiles * n_strips, describe)
+
+
 def launch_tp(kernel, ws: Workspace, a, b, out, m: int, K: int, N: int,
-              bm: int, *, budget_s: float = WAIT_BUDGET_S, epoch=None,
-              grid: int = 0, rank_lo: int = 0, rank_cnt=None) -> None:
+              bm: int, *, wire=(), budget_s: float = WAIT_BUDGET_S,
+              epoch=None, grid: int = 0, rank_lo: int = 0,
+              rank_cnt=None) -> None:
     """Launch one of the tensor-parallel kernels (CudaKernel over
-    TP_ARGTYPES) on rank-stacked a, b, out through `ws`. `epoch` defaults
-    to the workspace's next (u32, from 1 after a reset), taken only once
-    the launch went in; an explicit epoch leaves the workspace's alone.
+    TP_ARGTYPES, or TP_QUANT_ARGTYPES with `wire` = (WIRE_CODES[dtype],
+    blk)) on rank-stacked a, b, out through `ws`. `epoch` defaults to the
+    workspace's next (u32, from 1 after a reset), taken only once the
+    launch went in; an explicit epoch leaves the workspace's alone.
     `grid` 0 lets the kernel size its persistent grid; ranks [rank_lo,
     rank_lo + rank_cnt) run (default all)."""
     nxt = epoch is None
@@ -162,7 +192,7 @@ def launch_tp(kernel, ws: Workspace, a, b, out, m: int, K: int, N: int,
         ws.poll()
         epoch = (ws.epoch + 1) & 0xFFFFFFFF
     rank_cnt = ws.n - rank_lo if rank_cnt is None else rank_cnt
-    kernel.launch(DTYPE_CODES[a.dtype], bm, ptr(a), ptr(b), ptr(out),
+    kernel.launch(DTYPE_CODES[a.dtype], bm, *wire, ptr(a), ptr(b), ptr(out),
                   ptr(ws.land_ptrs), ptr(ws.pad_ptrs), ptr(ws.fault),
                   epoch & 0xFFFFFFFF, int(budget_s * 1e9), rank_lo, rank_cnt,
                   ws.n, m, K, N, grid, stream_of(a))

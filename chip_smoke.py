@@ -288,9 +288,20 @@ Phases, in order; any failure raises and exits non-zero:
      teacher-forced paged logits with the one-rank model's routing forced
      within TP_LOGIT_TOL; then TP experts on the first 8 layers (step
      38's cut), checked the same way;
- 50. one line of wall seconds per phase, one JSON line of per-kernel
+ 50. the collective library (csrc/all_gather.cu, reduce_scatter.cu,
+     all_reduce.cu; the dense all_to_all over csrc/ep_a2a.cu) at Qwen3-8B's
+     widths (hidden 4096, bf16, n = 4): each of the six arms bit for bit
+     against its plain version at the row-parallel epilogues' shapes and at
+     an odd width, and at n = 2 and 8 with fewer rows; the main path (every
+     count set to 0, the host-level entry points and AllGatherLayer with
+     AUTO and each method, launches read back, outputs against the XLA
+     route's); each arm's time against its bound, plain version and library
+     call, AUTO's pick against the fastest arm; PEER_LATENCY_S fitted from
+     each arm at 1 row; then a planted lost signal in the one-shot
+     AllReduce, raised and returned (return_fault), the next call clean;
+ 51. one line of wall seconds per phase, one JSON line of per-kernel
      numbers, then the device JSON line.
-Steps 14-16, 31-32, 48, 35-36 and 39-40 run with the other kernel checks,
+Steps 14-16, 31-32, 48, 35-36, 39-40 and 50 run with the other kernel checks,
 before step 4, steps 33, 37 and 41 after step 16 and step 34 right after
 step 5; steps 42-43 and 47 right after step 9; steps 29, 19-20, 22-23,
 25-26 and 44-46 run after step 10, steps 30 and 21 after step 13 and step
@@ -3950,6 +3961,343 @@ def check_ll_fault(dev, gen):
           f"(budget {shmem.WAIT_BUDGET_S} s): {msg}; the next call ran clean")
 
 
+# ---------------------------------------------------------------------------
+# Slice 6f: the collective library (csrc/all_gather.cu, reduce_scatter.cu,
+# all_reduce.cu; the dense all_to_all over csrc/ep_a2a.cu)
+# ---------------------------------------------------------------------------
+
+COLL_RANKS = 4                 # the tp-engine cell's n
+COLL_H = 4096                  # Qwen3-8B's hidden width
+COLL_PREFILL = 2048            # rows of the row-parallel epilogues (4 x 512)
+COLL_DECODE = 4                # rows at decode (4 slots)
+
+
+def _coll_mods():
+    """The three op modules, keyed by op (each package __init__ binds the
+    names to the functions)."""
+    import importlib
+    return {op: importlib.import_module(
+        f"triton_distributed_tpu_torch.ops.collectives.{op}")
+        for op in ("all_gather", "reduce_scatter", "all_reduce")}
+
+
+def _coll_arms():
+    """(op, method name, shard-level fn, methods enum, kernel, plain) of the
+    six kernel arms."""
+    from triton_distributed_tpu_torch.ops import collectives as tc
+    m = _coll_mods()
+    ag, rs, ar = m["all_gather"], m["reduce_scatter"], m["all_reduce"]
+
+    def split(f):
+        return lambda x: f(x.reshape(x.shape[0], x.shape[0], -1,
+                                     x.shape[-1]))
+
+    return [
+        ("all_gather", "FULLMESH_PUSH", tc.all_gather_shard,
+         tc.AllGatherMethod, ag.ALL_GATHER, ag._fullmesh_plain),
+        ("all_gather", "RING", tc.all_gather_shard, tc.AllGatherMethod,
+         ag.ALL_GATHER, ag._ring_plain),
+        ("reduce_scatter", "RING", tc.reduce_scatter_shard,
+         tc.ReduceScatterMethod, rs.REDUCE_SCATTER, split(rs.ring_plain)),
+        ("reduce_scatter", "FULLMESH", tc.reduce_scatter_shard,
+         tc.ReduceScatterMethod, rs.REDUCE_SCATTER,
+         split(rs.fullmesh_plain)),
+        ("all_reduce", "ONE_SHOT", tc.all_reduce_shard, tc.AllReduceMethod,
+         ar.ALL_REDUCE, ar.one_shot_plain),
+        ("all_reduce", "TWO_SHOT", tc.all_reduce_shard, tc.AllReduceMethod,
+         ar.ALL_REDUCE, ar.two_shot_plain)]
+
+
+def _coll_x(op, n, rows, gen, dev, dtype=torch.bfloat16, cols=COLL_H):
+    """Rank-stacked input of `op` whose per-rank unit has `rows` rows: the
+    shard (all_gather), the chunk (reduce_scatter: n chunks a rank), the
+    buffer (all_reduce)."""
+    r = n * rows if op == "reduce_scatter" else rows
+    return torch.randn((n, r, cols), generator=gen, device=dev).to(dtype)
+
+
+def _coll_bound(op, x):
+    """The function's bound: its inputs read once, its outputs written once
+    (all_gather: n x n shards; reduce_scatter: n chunks; all_reduce: n
+    replicas), the sums' f32 additions at the f32 rate. Returns (ms, by,
+    bytes)."""
+    n = x.shape[0]
+    inp = x.numel() * x.element_size()
+    out = {"all_gather": n * inp, "reduce_scatter": inp // n,
+           "all_reduce": inp}[op]
+    adds = 0 if op == "all_gather" else (n - 1) * out // x.element_size()
+    ms, by = bound(inp + out, adds, FP32_FLOPS)
+    return ms, by, inp + out
+
+
+def _coll_protocol_bytes(op, method, x):
+    """Bytes the arm's protocol moves through HBM on top of the function's
+    (its landing stores and reads, the ring's relays)."""
+    n = x.shape[0]
+    u = x[0].numel() * x.element_size()          # a rank's input
+    return {("all_gather", "FULLMESH_PUSH"): 0,
+            ("all_gather", "RING"): 2 * (n - 2) * n * u,
+            ("reduce_scatter", "FULLMESH"): 2 * (n - 1) * u,
+            ("reduce_scatter", "RING"): 2 * (n - 1) * u,
+            ("all_reduce", "ONE_SHOT"): 2 * n * (n - 1) * u,
+            ("all_reduce", "TWO_SHOT"): (3 * n - 4) * u}[(op, method)]
+
+
+def check_collectives(dev, gen):
+    """The collective library at Qwen3-8B's widths (hidden 4096, bf16, the
+    row-parallel epilogues' shapes at n = 4): each of the six kernel arms
+    against its plain version, bit for bit, one launch a call logged
+    "kernel", every rank's copy alike, at n = 4 (all_gather of 512-row
+    shards, reduce_scatter of 2048-row partials, all_reduce of 4 and 2048
+    rows; back to back with new data; an odd width), and at n = 2 and 8 with
+    fewer rows. Then the main path: every count set to 0, the host-level
+    entry points a user calls (`all_gather`, `reduce_scatter`, `all_reduce`
+    at the decode and prefill rows, `all_to_all` of 2048 rows a rank,
+    `AllGatherLayer` at the decode and the prefill shard) with AUTO and each
+    method, the launches read back (each kernel launched as often as its op
+    logged "kernel"), every output against the XLA route's (copies bit for
+    bit, sums within two bf16 steps of the largest). Then each arm timed at
+    n = 4 against its bound, its plain version and the library call
+    (`x.sum(0)` for the sums, one contiguous copy of the gathered tensor
+    for all_gather), AUTO's pick against the faster arm measured; one call
+    of each arm at 1 row x 4096 fits PEER_LATENCY_S (time = fixed +
+    dependent hops x PEER_LATENCY_S, least squares). Returns (the three
+    kernels-line entries, the all_to_all's ep_a2a launches)."""
+    from triton_distributed_tpu_torch import perf_model, shmem
+    from triton_distributed_tpu_torch.ops import _common, ep_a2a
+    from triton_distributed_tpu_torch.ops import collectives as tc
+    from triton_distributed_tpu_torch.ops.ll_gather import AllGatherLayer
+    from triton_distributed_tpu_torch.parallel import unshard
+    t0 = time.perf_counter()
+    arms = _coll_arms()
+    kernels = {op: k for op, _, _, _, k, _ in arms}
+    err = {op: 0.0 for op in kernels}
+
+    def check(op, method, fn, methods, kernel, plain, x):
+        n = x.shape[0]
+        before = kernel.launches
+        _common.reset_dispatch()
+        got = fn(x, num_ranks=n, method=methods[method])
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert kernel.launches == before + 1, (op, method)
+        assert _common.dispatch_counts() == {(op, "kernel", ""): 1}
+        want = plain(x)
+        e = (got.float() - want.float()).abs().max().item()
+        assert got.shape == want.shape and torch.equal(got, want), \
+            (op, method, tuple(x.shape), e)
+        if op != "reduce_scatter":
+            assert all(torch.equal(g, got[0]) for g in got), (op, method)
+        err[op] = max(err[op], e)
+
+    for n, small in ((2, 64), (COLL_RANKS, None), (8, 64)):
+        for op, method, fn, methods, kernel, plain in arms:
+            rows = {"all_gather": 512, "reduce_scatter": 512,
+                    "all_reduce": COLL_PREFILL}[op] if small is None \
+                else small
+            cases = [rows] + ([COLL_DECODE] if op == "all_reduce" else [])
+            for r in cases:
+                if method == "TWO_SHOT":     # whole chunks (else XLA)
+                    r = -(-r // n) * n
+                for _ in range(2 if small is None else 1):
+                    check(op, method, fn, methods, kernel, plain,
+                          _coll_x(op, n, r, gen, dev))
+            if small is None:       # an odd width: the element-wise tail
+                odd = _coll_x(op, n, 4, gen, dev, cols=COLL_H - 1)
+                check(op, method, fn, methods, kernel, plain, odd)
+        print(f"collectives n {n}: the six arms bit for bit against their "
+              f"plain versions, one launch a call logged 'kernel'")
+
+    # the main path, through the entry points a user calls
+    n, H = COLL_RANKS, COLL_H
+    x_dec = _coll_x("all_reduce", n, COLL_DECODE, gen, dev)
+    x_pre = _coll_x("all_reduce", n, COLL_PREFILL, gen, dev)
+    x_rs = _coll_x("reduce_scatter", n, COLL_PREFILL // n, gen, dev)
+    x_ag = _coll_x("all_gather", n, COLL_PREFILL // n, gen, dev)
+    x_a2a = _coll_x("all_gather", n, COLL_PREFILL, gen, dev)
+    layer = AllGatherLayer(num_ranks=n)
+    for k in (*kernels.values(), ep_a2a.EP_A2A):
+        k.launches = 0
+    _common.reset_dispatch()
+    mains, a2a_calls = [], 0
+    for methods, fn, xs, ref in (
+            (tc.AllReduceMethod, tc.all_reduce, (x_dec, x_pre), "XLA"),
+            (tc.ReduceScatterMethod, tc.reduce_scatter, (x_rs,), "XLA"),
+            (tc.AllGatherMethod, tc.all_gather,
+             (unshard(x_ag, 0),), "XLA"),
+            (tc.AllToAllMethod, tc.all_to_all,
+             (x_a2a.reshape(-1, H),), "XLA")):
+        for x in xs:
+            want = fn(x, num_ranks=n, method=methods[ref])
+            for m in methods:
+                got = fn(x, num_ranks=n, method=m)
+                mains.append((fn.__name__, m.name, got, want))
+                a2a_calls += fn is tc.all_to_all and m.name != "XLA"
+    for rows in (COLL_DECODE, COLL_PREFILL // n):
+        x = _coll_x("all_gather", n, rows, gen, dev)
+        mains.append(("layer", layer.resolve(x).name, layer(unshard(x, 0)),
+                      unshard(x, 0)))
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    launches = {op: k.launches for op, k in kernels.items()}
+    log = _common.dispatch_counts()
+    for op in kernels:
+        assert launches[op] == log.get((op, "kernel", ""), 0) > 0, \
+            (op, launches, log)
+    assert ep_a2a.EP_A2A.launches == a2a_calls > 0
+    assert {b: m.name for b, m in layer._by_bytes.items()} == {
+        COLL_DECODE * H * 2: "FULLMESH_PUSH",
+        COLL_PREFILL // n * H * 2: "RING"}, layer._by_bytes
+    for name, m, got, want in mains:
+        assert got.shape == want.shape and bool(got.isfinite().all()), name
+        if name in ("all_gather", "all_to_all", "layer"):
+            assert torch.equal(got, want), (name, m)
+        else:
+            e = (got.float() - want.float()).abs().max().item()
+            assert e <= 2.0 ** -6 * want.float().abs().max().item(), \
+                (name, m, e)
+    print(f"collectives main path (n {n}, hidden {H}, bf16; AUTO and every "
+          f"method of all_reduce at {COLL_DECODE} and {COLL_PREFILL} rows, "
+          f"reduce_scatter of {COLL_PREFILL} rows, all_gather of "
+          f"{COLL_PREFILL // n}-row shards, all_to_all of {COLL_PREFILL} "
+          f"rows a rank, AllGatherLayer at {COLL_DECODE} and "
+          f"{COLL_PREFILL // n} rows): launches {launches}, ep_a2a "
+          f"{ep_a2a.EP_A2A.launches}; the layer's cache "
+          f"{ {b: m.name for b, m in layer._by_bytes.items()} }; outputs "
+          f"equal the XLA route's (sums within 2^-6 of the largest)")
+
+    # times at n = 4 against the bound, the plain version and the library
+    timed, entries = {}, {}
+    lib = {"all_reduce": lambda x: x.sum(0),
+           "reduce_scatter": lambda x: x.sum(0),
+           "all_gather": lambda x: x.reshape(1, -1, x.shape[-1]).expand(
+               x.shape[0], -1, -1).contiguous()}
+    shapes = {"all_gather": (x_ag,), "reduce_scatter": (x_rs,),
+              "all_reduce": (x_dec, x_pre)}
+    for op, method, fn, methods, kernel, plain in arms:
+        for x in shapes[op]:
+            ms = time_ms([lambda: fn(x, num_ranks=n,
+                                     method=methods[method])])
+            plain_ms = time_ms([lambda: plain(x)], reps=5, rounds=3)
+            bms, by, nb = _coll_bound(op, x)
+            proto = _coll_protocol_bytes(op, method, x)
+            timed[(op, method, x.shape[1])] = (ms, plain_ms, bms, by)
+            print(f"{op} {method} n {n} {tuple(x.shape[1:])} bf16: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
+                  f"({by}: {nb / 2**20:.2f} MiB; with the protocol's "
+                  f"{proto / 2**20:.2f} MiB of landing stores, reads and "
+                  f"relays {(nb + proto) / PEAK_BYTES * 1e3:.5f} ms)")
+    lib_ms = {}
+    for op, xs in shapes.items():
+        for x in xs:
+            lib_ms[(op, x.shape[1])] = time_ms([lambda: lib[op](x)])
+    picks = []
+    for op, xs in shapes.items():
+        methods = {"all_gather": tc.AllGatherMethod,
+                   "reduce_scatter": tc.ReduceScatterMethod,
+                   "all_reduce": tc.AllReduceMethod}[op]
+        for x in xs:
+            unit = x[0].numel() * 2 // (n if op == "reduce_scatter" else 1)
+            pick = (_coll_mods()[op].choose_method(unit, n) if op ==
+                    "all_gather" else _coll_mods()[op].choose_method(
+                        unit, n, itemsize=2))
+            arm_ms = {m: timed[(op, m, x.shape[1])][0] for (o, m, r) in timed
+                      if o == op and r == x.shape[1]}
+            best = min(arm_ms, key=arm_ms.get)
+            picks.append((op, x.shape[1], pick.name, best))
+            print(f"{op} AUTO at {tuple(x.shape[1:])}: picks {pick.name}; "
+                  f"measured fastest {best} "
+                  f"({', '.join(f'{m} {t:.4f}' for m, t in arm_ms.items())} "
+                  f"ms); library {lib_ms[(op, x.shape[1])]:.4f} ms")
+            if op == "all_reduce" and x.shape[1] == COLL_DECODE:
+                continue
+            ms, plain_ms, bms, by = timed[(op, pick.name, x.shape[1])]
+            entries[op] = {
+                "name": op, "route": "cuda",
+                "source": f"triton_distributed_tpu_torch/csrc/{op}.cu",
+                "replaces": {"all_gather": "triton_distributed_tpu/ops/"
+                             "collectives/all_gather.py:64",
+                             "reduce_scatter": "triton_distributed_tpu/ops/"
+                             "collectives/reduce_scatter.py:68",
+                             "all_reduce": "triton_distributed_tpu/ops/"
+                             "collectives/all_reduce.py:89"}[op],
+                "launches": launches[op], "max_abs_err": err[op], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                "library_ms": lib_ms[(op, x.shape[1])]}
+
+    # the transport's per-hop latency: each arm at 1 row x 4096
+    hops = {"FULLMESH_PUSH": 1, "RING": n - 1, "FULLMESH": 1,
+            "ONE_SHOT": 1, "TWO_SHOT": 2 * (n - 1)}
+    pts = []
+    for op, method, fn, methods, kernel, plain in arms:
+        x = _coll_x(op, n, n if method == "TWO_SHOT" else 1, gen, dev)
+        t = time_ms([lambda: fn(x, num_ranks=n, method=methods[method])],
+                    rounds=3)
+        pts.append((hops[method], t))
+        print(f"{op} {method} n {n} {tuple(x.shape[1:])}: {t:.4f} ms "
+              f"({hops[method]} dependent hops)")
+    h = np.array([p[0] for p in pts], float)
+    t = np.array([p[1] for p in pts], float)
+    slope, fixed = np.polyfit(h, t, 1)
+    shmem.check_faults()
+    print(f"perf_model constants: PEER_LATENCY_S = {slope * 1e-3:.6g} "
+          f"(fixed {fixed * 1e-3:.6g} s a call; the model holds "
+          f"{perf_model.PEER_LATENCY_S:.6g}); AUTO picks vs fastest: "
+          f"{picks}; phase {time.perf_counter() - t0:.1f} s")
+    return [entries[op] for op in ("all_gather", "reduce_scatter",
+                                   "all_reduce")], ep_a2a.EP_A2A.launches
+
+
+def check_collectives_fault(dev, gen):
+    """A planted lost signal in the one-shot AllReduce at decode (4 x 4096
+    bf16, n = 4): one notification of source 1's block 0 taken out of rank
+    2's pad. Without return_fault the check raises within the budget naming
+    rank 2, the block and the source; with return_fault=True the call
+    returns rank 2's flag; each time the next call runs clean."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import collectives as tc
+    n, one = COLL_RANKS, tc.AllReduceMethod.ONE_SHOT
+    x = _coll_x("all_reduce", n, COLL_DECODE, gen, dev)
+    want = tc.all_reduce_shard(x, num_ranks=n, method=one)
+    torch.cuda.synchronize()
+    ws = next(w for w in shmem.primitives._WORKSPACES.values()
+              if w.op == "all_reduce[one_shot]" and w.n == n
+              and w.land.shape[2] == COLL_DECODE * COLL_H)
+    nblk = (ws.pads.shape[1] - 1) // n
+    budget = 0.1
+    for return_fault in (False, True):
+        ws.pads[2, 1 + 1 * nblk] -= 1
+        t0 = time.perf_counter()
+        out = tc.all_reduce_shard(x, num_ranks=n, method=one,
+                                  wait_budget=budget,
+                                  return_fault=return_fault)
+        torch.cuda.synchronize()
+        if return_fault:
+            out, fault = out
+            took = time.perf_counter() - t0
+            assert fault.tolist() == [0, 0, shmem.FAULT_TIMEOUT, 0], fault
+            msg = f"returned the flags {fault.tolist()}"
+        else:
+            took = time.perf_counter() - t0
+            try:
+                shmem.check_faults()
+                raise AssertionError("all_reduce: the planted fault did not "
+                                     "raise")
+            except RuntimeError as e:
+                msg = str(e)
+            assert msg.startswith("all_reduce[one_shot]: rank 2 timed out") \
+                and "block 0 from source rank 1" in msg, msg
+        assert took < budget + 2.0, took
+        assert ws.epoch == 0 and int(ws.pads.abs().sum()) == 0
+        got = tc.all_reduce_shard(x, num_ranks=n, method=one)
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert torch.equal(got, want)
+        print(f"all_reduce one-shot planted lost signal (return_fault="
+              f"{return_fault}): after {took:.3f} s (budget {budget} s) "
+              f"{msg}; the next call ran clean")
+
+
 def check_small_sp_tp_serve(models, seed):
     """A small Qwen3-shaped model at n = 2 behind ServeEngine, tensor-
     parallel in mode "gemm_ar" (tp_ranks=2) and sequence-parallel under
@@ -4992,6 +5340,8 @@ def main():
     ph("ep_a2a", check_ep_fault, dev, gen)
     ll_entries = ph("ll_combine", check_ll_combine_kernel, dev, gen)
     ph("ll_combine", check_ll_fault, dev, gen)
+    coll_entries, coll_a2a = ph("collectives", check_collectives, dev, gen)
+    ph("collectives", check_collectives_fault, dev, gen)
     shmem.release_workspaces()
     torch.cuda.empty_cache()
     for check in (check_small_model, check_small_model_paged):
@@ -5136,8 +5486,11 @@ def main():
                          + tp_serve.get(e["name"], 0))
         assert e["launches"] > 0, e["name"]
     assert tp_serve["gemm_ar"] > 0
-    ep_entry["launches"] = ep_launches["ep_a2a"]
-    assert ep_entry["launches"] > 0
+    ep_entry["launches"] = ep_launches["ep_a2a"] + coll_a2a
+    assert ep_entry["launches"] > coll_a2a > 0
+    print(f"collectives launches (their main path): "
+          f"{ {e['name']: e['launches'] for e in coll_entries} }, ep_a2a "
+          f"{coll_a2a} (the dense all_to_all); no model path reaches them")
     # ll_combine runs on the sp-serve cell's path; ll_merge on no path
     # (counted over both multi-rank serve cells, held to 0 by run_serve)
     ll_entries[0]["launches"] = sp_serve["ll_combine"]
@@ -5159,7 +5512,7 @@ def main():
     print(f"ep-serve launches over its runs: "
           f"{ {n: c for n, c in ep_serve.items() if c} }")
     kernels += [mk, mk_verify, mk_fused, gmm_entry, ar_entry] + tp_entries \
-        + wire_entries + [ep_entry] + list(ll_entries)
+        + wire_entries + [ep_entry] + list(ll_entries) + coll_entries
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

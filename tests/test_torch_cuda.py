@@ -33,7 +33,10 @@ gemm_rs / gemm_ar quantize an f32 accumulator that their plain versions
 sum over K in another order, so a value on a rounding boundary may land
 one quantization step away on a source: they are held within twice
 wire.sum_error_bound of the partials and, in bf16, 99% of the elements
-bit for bit.
+bit for bit. The collective kernels (all_gather, reduce_scatter,
+all_reduce) copy bytes, or sum in f32 in their plain versions' order and
+round at the same points, so each is held to its plain version bit for
+bit.
 """
 
 import numpy as np
@@ -1999,3 +2002,162 @@ def test_mega_tp_serve_gpu_matches_cpu(cuda):
     assert st["per_rank"][0]["ar_bytes_pushed"] == \
         st["decode_steps"] * se._mk.ar_bytes_per_step > 0
     _compare_picks(runs, 4)
+
+
+# ---------------------------------------------------------------------------
+# The collective library (csrc/all_gather.cu, reduce_scatter.cu,
+# all_reduce.cu): each arm bit for bit against its plain version (the
+# gather copies; the sums run the plain versions' f32 additions in their
+# order and round at their points)
+# ---------------------------------------------------------------------------
+
+_COLL_ARMS = [("all_gather", "FULLMESH_PUSH"), ("all_gather", "RING"),
+              ("reduce_scatter", "RING"), ("reduce_scatter", "FULLMESH"),
+              ("all_reduce", "ONE_SHOT"), ("all_reduce", "TWO_SHOT")]
+
+
+def _coll(op):
+    """(shard-level op, its methods, its kernel, its plain versions by
+    method name) of one collective."""
+    import importlib
+    from triton_distributed_tpu_torch.ops import collectives as tc
+    mod = importlib.import_module(
+        f"triton_distributed_tpu_torch.ops.collectives.{op}")
+    if op == "all_gather":
+        return (tc.all_gather_shard, tc.AllGatherMethod, mod.ALL_GATHER,
+                {"FULLMESH_PUSH": mod._fullmesh_plain,
+                 "RING": mod._ring_plain})
+    if op == "reduce_scatter":
+        def split(f):
+            return lambda x: f(x.reshape(x.shape[0], x.shape[0], -1,
+                                         x.shape[-1]))
+        return (tc.reduce_scatter_shard, tc.ReduceScatterMethod,
+                mod.REDUCE_SCATTER, {"RING": split(mod.ring_plain),
+                                     "FULLMESH": split(mod.fullmesh_plain)})
+    return (tc.all_reduce_shard, tc.AllReduceMethod, mod.ALL_REDUCE,
+            {"ONE_SHOT": mod.one_shot_plain, "TWO_SHOT": mod.two_shot_plain})
+
+
+def _coll_input(op, n, rows, cols, dtype, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = n * rows if op == "reduce_scatter" else rows
+    return torch.randn((n, r, cols), generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,cols", [(64, 4096), (8, 37), (5, 3)])
+@pytest.mark.parametrize("op,method", _COLL_ARMS)
+def test_collective_arm_matches_plain(cuda, op, method, n, dtype, rows,
+                                      cols):
+    """Two calls back to back with new data (the second must not pass on
+    the first's signals), each one launch logged "kernel", bit for bit
+    against the plain version; every rank's copy alike; odd widths take
+    the element-wise tail (and misaligned slots)."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _common
+    fn, methods, kernel, plains = _coll(op)
+    if method == "TWO_SHOT":
+        rows = rows - rows % n or n
+    for seed in (0, 1):
+        x = _coll_input(op, n, rows, cols, dtype, cuda, seed)
+        before = kernel.launches
+        _common.reset_dispatch()
+        got = fn(x, num_ranks=n, method=methods[method])
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert kernel.launches == before + 1
+        assert _common.dispatch_counts() == {(op, "kernel", ""): 1}
+        want = plains[method](x)
+        assert got.shape == want.shape and got.dtype == dtype
+        assert torch.equal(got, want), \
+            (got.float() - want.float()).abs().max()
+        if op != "reduce_scatter":
+            assert all(torch.equal(g, got[0]) for g in got)
+
+
+def test_collective_all_to_all_matches_plain(cuda):
+    """The dense all_to_all through the ragged a2a kernel at counts ==
+    capacity, twice, bit for bit against the rank group's transpose."""
+    from triton_distributed_tpu_torch.ops import collectives as tc
+    from triton_distributed_tpu_torch.ops import ep_a2a
+    n = 4
+    for seed in (0, 1):
+        x = _coll_input("all_to_all", n, n * 24, 64, torch.bfloat16, cuda,
+                        seed)
+        before = ep_a2a.EP_A2A.launches
+        got = tc.all_to_all_shard(x, num_ranks=n)
+        want = tc.all_to_all_shard(x, num_ranks=n,
+                                   method=tc.AllToAllMethod.XLA)
+        torch.cuda.synchronize()
+        assert ep_a2a.EP_A2A.launches == before + 1
+        assert torch.equal(got, want)
+
+
+def test_all_reduce_planted_lost_signal(cuda):
+    """One notification of source 1's block 0 taken out of rank 2's pad of
+    the one-shot: without return_fault the check raises within the budget
+    naming rank 2, the block and the source; with it the call returns rank
+    2's flag; each time the next call runs clean."""
+    import time
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import collectives as tc
+    n = 4
+    x = _coll_input("all_reduce", n, 4, 4096, torch.bfloat16, cuda, 5)
+    one = tc.AllReduceMethod.ONE_SHOT
+    want = tc.all_reduce_shard(x, num_ranks=n, method=one)
+    torch.cuda.synchronize()
+    (ws,) = [w for w in shmem.primitives._WORKSPACES.values()
+             if w.op == "all_reduce[one_shot]" and w.land.shape[2] == 4 * 4096]
+    nblk = (ws.pads.shape[1] - 1) // n
+    for return_fault in (False, True):
+        ws.pads[2, 1 + 1 * nblk] -= 1
+        t0 = time.perf_counter()
+        out = tc.all_reduce_shard(x, num_ranks=n, method=one,
+                                  wait_budget=0.05, return_fault=return_fault)
+        torch.cuda.synchronize()
+        assert time.perf_counter() - t0 < 5.0
+        if return_fault:
+            out, fault = out
+            assert fault.tolist() == [0, 0, shmem.FAULT_TIMEOUT, 0]
+        else:
+            with pytest.raises(RuntimeError,
+                               match=r"all_reduce\[one_shot\]: rank 2 timed "
+                                     r"out .*block 0 from source rank 1"):
+                shmem.check_faults()
+        assert ws.epoch == 0 and int(ws.pads.abs().sum()) == 0
+        got = tc.all_reduce_shard(x, num_ranks=n, method=one)
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("op,arm", [("all_gather", 1), ("reduce_scatter", 0),
+                                    ("all_reduce", 1)])
+def test_collective_refuses_a_grid_that_cannot_be_resident(cuda, op, arm,
+                                                           monkeypatch):
+    """One CTA more than can be resident is refused; one CTA alone walks
+    every item of a ring arm in the global order and finishes."""
+    import ctypes
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _build
+    fn, methods, _, plains = _coll(op)
+    method = list(plains)[arm]
+    n = 4
+    x = _coll_input(op, n, 64, 4096, torch.float32, cuda, 6)
+    resident = getattr(_build.load_library(op), f"tdt_{op}_resident")
+    resident.restype = ctypes.c_int
+    most = resident(arm) if op == "all_gather" else resident(arm, 1)
+    assert most >= torch.cuda.get_device_properties(0).multi_processor_count
+    launch = shmem.launch_coll
+    for grid in (most + 1, 1):
+        monkeypatch.setattr(shmem, "launch_coll", lambda *a, **kw: launch(
+            *a, **{**kw, "grid": grid}))
+        if grid > 1:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                fn(x, num_ranks=n, method=methods[method])
+            continue
+        got = fn(x, num_ranks=n, method=methods[method])
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert torch.equal(got, plains[method](x))

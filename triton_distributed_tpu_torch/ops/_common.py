@@ -141,3 +141,36 @@ def check_tp_cuda(op: str, *tensors) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{op}: the CUDA kernel takes contiguous, "
                              f"16-byte aligned operands")
+
+
+# ---------------------------------------------------------------------------
+# The collective library (ops/collectives): its kernels' operand rule and
+# the quantized arms that come later.
+# ---------------------------------------------------------------------------
+
+COLL_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def check_coll_cuda(op: str, x, n: int, dtypes=COLL_KERNEL_DTYPES) -> None:
+    """A collective kernel takes one contiguous CUDA tensor of `dtypes`
+    (None: any) at most 8 ranks."""
+    from ..shmem.primitives import COLL_MAX_RANKS
+
+    if x.device.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {x.device}")
+    if dtypes is not None and x.dtype not in dtypes:
+        raise TypeError(f"{op}: the CUDA kernel takes "
+                        f"{[str(d) for d in dtypes]}, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{op}: the CUDA kernel takes a contiguous tensor")
+    if n > COLL_MAX_RANKS:
+        raise ValueError(f"{op}: the CUDA kernel takes at most "
+                         f"{COLL_MAX_RANKS} ranks, got {n}")
+
+
+def wire_later(op: str, arm: str, jax_kernel: str, queue_id: int):
+    """The error of a quantized wire on a collective's kernel arm."""
+    return NotImplementedError(
+        f"{op}: the quantized wire on the {arm} kernel arm (JAX "
+        f"{jax_kernel}) comes with slice 6g (ROADMAP.md, Queue B "
+        f"{queue_id}); method 'xla' takes wire_dtype")

@@ -1,6 +1,6 @@
 """Low-latency fused combine of decode partials (counterpart of
 triton_distributed_tpu/ops/ll_gather.py, its `ll_combine_shard`,
-`pack_partials`, `ll_merge_packed` and `ll_merge`).
+`pack_partials`, `ll_merge_packed`, `ll_merge` and `AllGatherLayer`).
 
 `ll_combine_shard(out, lse)` is the sequence-parallel flash-decode
 combine as ONE kernel: each rank packs its (out, lse) partial into one
@@ -17,6 +17,9 @@ the lse a whole 128-lane tile and pads rows to 8 because Mosaic tiles f32
 buffers so (its `_LSE_LANES` note); the kernel here needs one lane and
 16-byte rows.
 
+`AllGatherLayer` is the method-cached AllGather of the collective library
+(ops/collectives/all_gather.py), taking `num_ranks` in place of the mesh.
+
 On a CPU tensor both take their plain version (`_ll_combine_plain`,
 `_ll_merge_packed_plain`): the partials stacked, then `combine_partials`'
 math in f32 rank by rank in order, as `_merge_packed` does; on a CUDA
@@ -31,6 +34,8 @@ import torch
 
 from .. import shmem
 from ._build import CudaKernel, ptr, stream_of
+from .collectives.all_gather import (AllGatherMethod, all_gather,
+                                     all_gather_shard, choose_method)
 
 _NEG_INF = -1e30
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -158,3 +163,39 @@ def ll_merge(outs, lses):
     n, B, H, D = outs.shape
     packed = torch.stack([pack_partials(outs[s], lses[s]) for s in range(n)])
     return ll_merge_packed(packed, D).view(B, H, D).to(outs.dtype)
+
+
+class AllGatherLayer:
+    """Method-cached AllGather (JAX :218): AUTO resolves the method per
+    shard byte size (`choose_method`: the full-mesh push up to 1 MiB, the
+    ring above), so one layer serving a decode message and a prefill
+    message picks each its own method; an explicit method is kept."""
+
+    def __init__(self, *, num_ranks: int,
+                 method: AllGatherMethod = AllGatherMethod.AUTO):
+        self.n = num_ranks
+        self._method = method
+        self._by_bytes: dict[int, AllGatherMethod] = {}
+
+    def _resolve_bytes(self, shard_bytes: int) -> AllGatherMethod:
+        if self._method != AllGatherMethod.AUTO:
+            return self._method
+        m = self._by_bytes.get(shard_bytes)
+        if m is None:
+            m = self._by_bytes[shard_bytes] = choose_method(shard_bytes,
+                                                            self.n)
+        return m
+
+    def resolve(self, x) -> AllGatherMethod:
+        """The method for rank-stacked shards x (n, rows, cols)."""
+        return self._resolve_bytes(x.numel() // self.n * x.element_size())
+
+    def shard(self, x):
+        """x (n, rows, cols) rank-stacked -> (n, n * rows, cols), every
+        rank's copy (`all_gather_shard`)."""
+        return all_gather_shard(x, num_ranks=self.n, method=self.resolve(x))
+
+    def __call__(self, x):
+        """The global (n * rows, cols), sharded on dim 0 -> the replicated
+        (n * rows, cols) (`all_gather`)."""
+        return all_gather(x, num_ranks=self.n, method=self.resolve(x))

@@ -20,8 +20,11 @@ dependent stages a layer whatever the occupancy (the TPU walk's task
 count grows with it), and the paged decode kernel splits no slot across
 CTAs (the TPU kernel chooses a split-KV count), so only the KV stream
 runs on its B x Hkv CTAs while cuBLAS streams the weights on every SM.
-Multi-rank arms (the step estimators at `tp_ranks > 1`, the EP
-estimators and choosers) wait for H100 figures (ROADMAP.md Queue A, slice 6); the other choosers
+The collective estimators that the AUTO choosers of ops/collectives read
+(JAX :81-230) price a push at the HBM rate, the n ranks sharing one card,
+with `PEER_LATENCY_S` a dependent hop. Other multi-rank arms (the step
+estimators at `tp_ranks > 1`, the EP estimators and choosers) wait for
+H100 figures (ROADMAP.md Queue A, slice 6); the other choosers
 (`choose_kv_tier`, `choose_admission`, `choose_decode_path`,
 `choose_moe_decode_path`) with slice 2c.
 """
@@ -62,6 +65,15 @@ SKINNY_MM_SHARE = 1.0          # torch.mm: 12 extra rows cost no time (0.8
 # the port's serving megakernel program (build_qwen3_serve_batched): 13
 # dependent stages a layer, one more for the final norm
 MK_STAGES_PER_LAYER = 13
+
+
+# One dependent hop of the one-sided transport (csrc/tdt_shmem.cuh): a
+# producer's release, its signal and the consumer's acquire spin. Fitted by
+# chip_smoke.py's collectives phase (its "perf_model constants" line) on an
+# NVIDIA H100 80GB HBM3 at 700 W: the slope of the six collective arms'
+# times at 1 row x 4096 over their dependent hops, beside a fixed ~28 us a
+# launch (PERF.md §6 names the run)
+PEER_LATENCY_S = 4.70478e-06
 
 
 def chip_spec(name: str | None = None) -> ChipSpec:
@@ -299,3 +311,104 @@ def choose_spec_k(acceptance_rate: float, cache_len: int,
         if rate > best_rate * (1.0 + 1e-9):   # ties -> smaller k
             best_k, best_rate = k, rate
     return best_k
+
+
+# ---------------------------------------------------------------------------
+# Collective models (JAX perf_model.py:81-230), read by the AUTO choosers of
+# ops/collectives. The JAX models price a push over the chip's ICI links
+# and a ring over two of them; here the n ranks share one card, so a peer's
+# landing region lies in the same HBM and every push is priced at
+# `hbm_bw`, with `PEER_LATENCY_S` for each dependent hop. The formulas are
+# otherwise JAX's: a rank's wire bytes over the rate.
+# ---------------------------------------------------------------------------
+
+def wire_nbytes(nbytes: int, itemsize: int = 2, wire_dtype=None,
+                block: int | None = None) -> int:
+    """Bytes a `nbytes` payload of the working dtype takes on the wire
+    (JAX :81): unchanged without a wire; else one byte an element (int8 /
+    float8_e4m3fn) and one f32 scale per `block` elements (ops/wire.py)."""
+    if wire_dtype is None:
+        return nbytes
+    name = wire.resolve_wire_dtype(wire_dtype)
+    blk = block or wire.WIRE_BLOCK
+    elems = nbytes // itemsize
+    return elems * wire.TORCH_WIRE_DTYPES[name].itemsize + (elems // blk) * 4
+
+
+def estimate_one_shot_all_reduce_time_s(
+        nbytes: int, num_ranks: int, spec: ChipSpec | None = None, *,
+        wire_dtype=None, itemsize: int = 2,
+        block: int | None = None) -> float:
+    """One-shot AR (JAX :128): a rank pushes its whole (wire-encoded)
+    buffer to the n - 1 peers in one round."""
+    spec = spec or chip_spec()
+    if num_ranks <= 1:
+        return 0.0
+    wb = wire_nbytes(nbytes, itemsize, wire_dtype, block)
+    return (num_ranks - 1) * wb / spec.hbm_bw + PEER_LATENCY_S
+
+
+def estimate_two_shot_all_reduce_time_s(
+        nbytes: int, num_ranks: int, spec: ChipSpec | None = None, *,
+        wire_dtype=None, itemsize: int = 2,
+        block: int | None = None) -> float:
+    """Two-shot AR (JAX :143): a ring reduce-scatter, then a ring
+    all-gather, each moving (n - 1) / n of the buffer, one hop at a
+    time."""
+    spec = spec or chip_spec()
+    if num_ranks <= 1:
+        return 0.0
+    wb = wire_nbytes(nbytes, itemsize, wire_dtype, block)
+    moved = 2 * wb * (num_ranks - 1) // num_ranks
+    return moved / spec.hbm_bw + 2 * (num_ranks - 1) * PEER_LATENCY_S
+
+
+def estimate_fullmesh_reduce_scatter_time_s(
+        nbytes_chunk: int, num_ranks: int, spec: ChipSpec | None = None, *,
+        wire_dtype=None, itemsize: int = 2,
+        block: int | None = None) -> float:
+    """Fullmesh RS (JAX :159): a rank pushes one chunk to each of the n - 1
+    owners in one round."""
+    spec = spec or chip_spec()
+    if num_ranks <= 1:
+        return 0.0
+    wb = wire_nbytes(nbytes_chunk, itemsize, wire_dtype, block)
+    return (num_ranks - 1) * wb / spec.hbm_bw + PEER_LATENCY_S
+
+
+def estimate_ring_reduce_scatter_time_s(
+        nbytes_chunk: int, num_ranks: int, spec: ChipSpec | None = None, *,
+        wire_dtype=None, itemsize: int = 2,
+        block: int | None = None) -> float:
+    """Ring RS (JAX :173): n - 1 dependent hops of one chunk each."""
+    spec = spec or chip_spec()
+    if num_ranks <= 1:
+        return 0.0
+    wb = wire_nbytes(nbytes_chunk, itemsize, wire_dtype, block)
+    return ((num_ranks - 1) * wb / spec.hbm_bw
+            + (num_ranks - 1) * PEER_LATENCY_S)
+
+
+def estimate_all_gather_time_s(bytes_per_rank: int, num_ranks: int,
+                               spec: ChipSpec | None = None) -> float:
+    """Ring all-gather (JAX :197): n - 1 shards cross to each rank."""
+    spec = spec or chip_spec()
+    if num_ranks <= 1:
+        return 0.0
+    moved = bytes_per_rank * (num_ranks - 1)
+    return moved / spec.hbm_bw + (num_ranks - 1) * PEER_LATENCY_S
+
+
+def estimate_reduce_scatter_time_s(bytes_per_rank: int, num_ranks: int,
+                                   spec: ChipSpec | None = None) -> float:
+    """Ring reduce-scatter (JAX :207): the all-gather's wire profile."""
+    return estimate_all_gather_time_s(bytes_per_rank, num_ranks, spec)
+
+
+def estimate_all_reduce_time_s(nbytes: int, num_ranks: int,
+                               spec: ChipSpec | None = None) -> float:
+    """The plain AR the "xla" method stands for (JAX :213): a ring RS and a
+    ring AG over per-rank shards."""
+    per = -(-nbytes // max(1, num_ranks))
+    return (estimate_reduce_scatter_time_s(per, num_ranks, spec)
+            + estimate_all_gather_time_s(per, num_ranks, spec))

@@ -9,7 +9,10 @@ from .primitives import (  # noqa: F401
     Workspace,
     a2a_workspace,
     check_faults,
+    coll_block,
+    coll_workspace,
     launch_a2a,
+    launch_coll,
     launch_ll,
     ll_workspace,
     launch_tp,

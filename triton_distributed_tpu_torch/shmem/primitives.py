@@ -59,6 +59,15 @@ LL_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                + [ctypes.c_void_p])
 LL_ROWS = 16            # rows a work item of csrc/ll_combine.cu packs/merges
 LL_MAX_RANKS = 8        # csrc/ll_combine.cu MAX_RANKS
+# the C entry points of csrc/all_gather.cu, reduce_scatter.cu and
+# all_reduce.cu: arm, dtype, x, out, land, pads, fault, epoch, budget_ns, n,
+# count, blk, grid, stream (count and blk in elements; in bytes, with dtype
+# COLL_BYTES, for the gather)
+COLL_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                 + [ctypes.c_uint, ctypes.c_longlong, ctypes.c_int]
+                 + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+COLL_BYTES = 2          # the gather's dtype code: it copies bytes
+COLL_MAX_RANKS = 8      # csrc/tdt_coll.cuh MAX_RANKS
 
 
 class Workspace:
@@ -72,12 +81,14 @@ class Workspace:
                  describe=None):
         self.op = op
         self.n = n
-        self.land = torch.empty((n, *region), dtype=dtype, device=device)
+        self.land = self.land_ptrs = None      # region None: signals only
+        if region is not None:
+            self.land = torch.empty((n, *region), dtype=dtype, device=device)
+            self.land_ptrs = torch.tensor(
+                [self.land[r].data_ptr() for r in range(n)],
+                dtype=torch.int64, device=device)
         self.pads = torch.zeros((n, pad_len), dtype=torch.int32, device=device)
         self.fault = torch.zeros(4, dtype=torch.int32, device=device)
-        self.land_ptrs = torch.tensor(
-            [self.land[r].data_ptr() for r in range(n)], dtype=torch.int64,
-            device=device)
         self.pad_ptrs = torch.tensor(
             [self.pads[r].data_ptr() for r in range(n)], dtype=torch.int64,
             device=device)
@@ -117,6 +128,19 @@ class Workspace:
             f"{seen & 0xFFFFFFFF}; calls up to epoch {epoch}); the workspace "
             f"was reset")
 
+    def fault_flags(self) -> torch.Tensor:
+        """The per-rank fault words of the calls so far, (n,) int32 on the
+        workspace's device (synchronises): the code of a timed-out wait at
+        the rank that waited, 0 elsewhere (a launch records its first
+        fault). After a fault the workspace resets, as `check` does,
+        without raising."""
+        code, rank, _, _ = self.fault.cpu().tolist()
+        flags = torch.zeros(self.n, dtype=torch.int32)
+        if code != FAULT_NONE:
+            flags[rank] = code
+            self.reset()
+        return flags.to(self.fault.device)
+
     def reset(self) -> None:
         self.pads.zero_()
         self.fault.zero_()
@@ -131,7 +155,7 @@ _WORKSPACES: dict = {}
 def workspace(op: str, device, n: int, region, dtype, pad_len: int,
               describe=None) -> Workspace:
     """The op's workspace at this shape, allocated on first use."""
-    key = (op, str(device), n, tuple(region), dtype, pad_len)
+    key = (op, str(device), n, region and tuple(region), dtype, pad_len)
     ws = _WORKSPACES.get(key)
     if ws is None:
         ws = _WORKSPACES[key] = Workspace(op, n, region, dtype, pad_len,
@@ -268,5 +292,72 @@ def launch_ll(kernel, ws: Workspace, out, lse, merged, *,
                   ptr(ws.land_ptrs), ptr(ws.pad_ptrs), ptr(ws.fault), epoch,
                   int(budget_s * 1e9), n, rows, D, ws.land.shape[-1], grid,
                   stream_of(out))
+    ws.epoch = epoch
+    ws.launched()
+
+
+# ---------------------------------------------------------------------------
+# The collective library (ops/collectives): csrc/all_gather.cu,
+# reduce_scatter.cu, all_reduce.cu
+# ---------------------------------------------------------------------------
+
+COLL_BLOCK_MIN, COLL_BLOCK_MAX = 2048, 65536    # bytes a work item moves
+
+
+def coll_block(unit_bytes: int) -> int:
+    """Bytes of one block, the data one work item moves and one signal
+    guards: a 32nd of the unit a rank moves (its shard, buffer or chunk),
+    2-64 KiB, a multiple of 32 bytes (so 16-byte vectors in bf16 and
+    f32)."""
+    b = -(-unit_bytes // 32)
+    return max(COLL_BLOCK_MIN, min(COLL_BLOCK_MAX, -(-b // 32) * 32))
+
+
+def coll_workspace(op: str, arm: str, device, n: int, nblk: int, region,
+                   dtype) -> Workspace:
+    """The workspace of one arm of a collective ("<op>[<arm>]"): landing
+    regions (n, *region) of `dtype` (None: the outputs are the regions, as
+    for the gather); its pad holds the barrier counter (slot 0) and one
+    signal per block: of each source s at 1 + s * nblk + b for "fullmesh"
+    and "one_shot", of each hop k at 1 + k * nblk + b for "ring" (n - 1
+    hops) and "two_shot" (the reduce-scatter's n - 1 hops, then the
+    all-gather's)."""
+    if arm in ("fullmesh", "one_shot"):
+        groups = n
+
+        def what(g):
+            return f"from source rank {g}"
+    else:
+        groups = (n - 1) * (2 if arm == "two_shot" else 1)
+
+        def what(g):
+            phase = ("reduce-scatter " if g < n - 1 else "all-gather ") \
+                if arm == "two_shot" else ""
+            return (f"of {phase}hop {g % (n - 1)} from the left "
+                    f"neighbour")
+
+    def describe(sig):
+        if sig == 0:
+            return "barrier_all"
+        g, b = divmod(sig - 1, nblk)
+        return f"block {b} {what(g)}"
+
+    return workspace(f"{op}[{arm}]", device, n, region, dtype,
+                     1 + groups * nblk, describe)
+
+
+def launch_coll(kernel, ws: Workspace, arm: int, dtype_code: int, x, out,
+                count: int, blk: int, *, budget_s: float = WAIT_BUDGET_S,
+                grid: int = 0) -> None:
+    """Launch one of the collective kernels (a CudaKernel over
+    COLL_ARGTYPES) on rank-stacked x and out through `ws`, at the
+    workspace's next epoch (kept only when the launch went in)."""
+    ws.poll()
+    epoch = (ws.epoch + 1) & 0xFFFFFFFF
+    land = ptr(ws.land_ptrs) if ws.land_ptrs is not None \
+        else ctypes.c_void_p(None)
+    kernel.launch(arm, dtype_code, ptr(x), ptr(out), land, ptr(ws.pad_ptrs),
+                  ptr(ws.fault), epoch, int(budget_s * 1e9), ws.n, count,
+                  blk, grid, stream_of(x))
     ws.epoch = epoch
     ws.launched()

@@ -299,11 +299,22 @@ Phases, in order; any failure raises and exits non-zero:
      call, AUTO's pick against the fastest arm; PEER_LATENCY_S fitted from
      each arm at 1 row; then a planted lost signal in the one-shot
      AllReduce, raised and returned (return_fault), the next call clean;
- 51. one line of wall seconds per phase, one JSON line of per-kernel
+ 51. the collectives' quantized wire (csrc/reduce_scatter.cu arms 2 and 3,
+     all_reduce.cu arm 2, the two-shot composition over them and
+     all_gather.cu): each quant arm and the two-shot bit for bit against
+     its plain version at n = 2, 4, 8, bf16 and f32, int8 and fp8, blocks
+     128, 256 and 315 of a 4095-wide row; the main path (every count set to
+     0, reduce_scatter and all_reduce with each method and AUTO and
+     quant_all_gather_shard, both wires, launches read back, each output
+     within wire.sum_error_bound of the full-width XLA route's); each
+     route's time at n = 4, bf16, block 256 beside the full-width arm's,
+     its plain version's and its bound; then a planted lost signal in the
+     quantized one-shot, raised naming the rank, the block and the source;
+ 52. one line of wall seconds per phase, one JSON line of per-kernel
      numbers, then the device JSON line.
-Steps 14-16, 31-32, 48, 35-36, 39-40 and 50 run with the other kernel checks,
-before step 4, steps 33, 37 and 41 after step 16 and step 34 right after
-step 5; steps 42-43 and 47 right after step 9; steps 29, 19-20, 22-23,
+Steps 14-16, 31-32, 48, 35-36, 39-40 and 50-51 run with the other kernel
+checks, before step 4, steps 33, 37 and 41 after step 16 and step 34 right
+after step 5; steps 42-43 and 47 right after step 9; steps 29, 19-20, 22-23,
 25-26 and 44-46 run after step 10, steps 30 and 21 after step 13 and step
 27 after step 21; steps 17, 18, 24, 28, 38 and 49 run last.
 Without a GPU it exits non-zero before printing anything.
@@ -4298,6 +4309,327 @@ def check_collectives_fault(dev, gen):
               f"{msg}; the next call ran clean")
 
 
+# ---------------------------------------------------------------------------
+# Slice 6g: the collectives' quantized wire (csrc/reduce_scatter.cu arms 2
+# and 3, all_reduce.cu arm 2, the two-shot composition, the wire-width
+# all_gather)
+# ---------------------------------------------------------------------------
+
+COLL_WIRE_BLK = 256            # the wire's default scaling block
+COLL_ODD = (4095, 315)         # an odd width and an odd divisor of it
+
+
+def _coll_wire_routes():
+    """(name, op, method name, shard-level fn, methods enum, kernels a call
+    launches, plain (x, wire, blk) -> out, quantizations (None: n)) of the
+    four quantized routes."""
+    from triton_distributed_tpu_torch.ops import collectives as tc
+    m = _coll_mods()
+    ag, rs, ar = m["all_gather"], m["reduce_scatter"], m["all_reduce"]
+
+    def split(f):
+        return lambda x, wd, blk: f(x.reshape(x.shape[0], x.shape[0], -1,
+                                              x.shape[-1]), wd, blk)
+
+    return [
+        ("reduce_scatter_quant[ring]", "reduce_scatter", "RING",
+         tc.reduce_scatter_shard, tc.ReduceScatterMethod,
+         [rs.REDUCE_SCATTER_QUANT["ring"]], split(rs.ring_quant_plain), None),
+        ("reduce_scatter_quant[fullmesh]", "reduce_scatter", "FULLMESH",
+         tc.reduce_scatter_shard, tc.ReduceScatterMethod,
+         [rs.REDUCE_SCATTER_QUANT["fullmesh"]],
+         split(rs.fullmesh_quant_plain), 1),
+        ("all_reduce_quant[one_shot]", "all_reduce", "ONE_SHOT",
+         tc.all_reduce_shard, tc.AllReduceMethod, [ar.ALL_REDUCE_QUANT],
+         ar.one_shot_quant_plain, 1),
+        ("all_reduce[two_shot/wire]", "all_reduce", "TWO_SHOT",
+         tc.all_reduce_shard, tc.AllReduceMethod,
+         [rs.REDUCE_SCATTER_QUANT["ring"], ag.ALL_GATHER],
+         ar.two_shot_quant_plain, None)]
+
+
+def _coll_wire_bound(name, op, x, quants):
+    """The quantized op's bound: the full-width function's bytes (inputs
+    read once, outputs written once) and its operations at the f32 rate
+    (each added value's dequantize and add, each quantized value's absmax,
+    divide and round); and the wire's traffic on top (bytes and scales
+    written and read once). Returns (ms, by, bytes, wire bytes)."""
+    n, e = x.shape[0], x.numel()
+    _, _, nb = _coll_bound(op, x)
+    adds = (n - 1) * (e // n if op == "reduce_scatter" else e)
+    ms, by = bound(nb, 2 * adds + 3 * e * quants, FP32_FLOPS)
+    payload = {"reduce_scatter_quant[ring]": (n - 1) * e // n,
+               "reduce_scatter_quant[fullmesh]": e,
+               "all_reduce_quant[one_shot]": n * e,
+               "all_reduce[two_shot/wire]": (n - 1) * e // n + e}[name]
+    return ms, by, nb, 2 * payload * (COLL_WIRE_BLK + 4) // COLL_WIRE_BLK
+
+
+def _sum_bound(parts, wd, blk, quantizations):
+    """`wire.sum_error_bound` of stacked parts, on their device."""
+    from triton_distributed_tpu_torch.ops import wire
+    a = parts.float().abs().reshape(*parts.shape[:-1], -1, blk).amax(-1)
+    return (wire.quant_eps(wd) * quantizations * a.sum(0)).repeat_interleave(
+        blk, -1)
+
+
+def check_collectives_wire(dev, gen):
+    """The collectives' quantized wire at Qwen3-8B's widths: each quant arm
+    and the two-shot composition bit for bit against its plain version at
+    n = 2, 4, 8, bf16 and f32, int8 and fp8, blocks 128, 256 and 315 of a
+    4095-wide row (one launch of each of its kernels a call, logged as
+    JAX logs, every replica alike); the main path (every count set to 0,
+    the host-level `reduce_scatter` and `all_reduce` with each method and
+    AUTO and `quant_all_gather_shard`, both wires, at n = 4 and the
+    row-parallel epilogues' shapes, launches read back; each output within
+    `wire.sum_error_bound` of the full-width XLA route's, quantizations n
+    for the ring and the two-shot, 1 for the others, plus a bf16 step);
+    then each route timed at n = 4, bf16, block 256 (reduce_scatter of
+    2048-row partials, all_reduce of 4 and 2048 rows) beside the
+    full-width arm at the same shape, its plain version and its bound.
+    Returns the three kernels-line entries."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _common
+    from triton_distributed_tpu_torch.ops import collectives as tc
+    t0 = time.perf_counter()
+    routes = _coll_wire_routes()
+    mods = _coll_mods()
+    err = {r[0]: 0.0 for r in routes}
+    logs = {("reduce_scatter", "RING"): {("reduce_scatter", "kernel",
+                                          "wire"): 1},
+            ("reduce_scatter", "FULLMESH"): {("reduce_scatter", "kernel",
+                                              "wire"): 1},
+            ("all_reduce", "ONE_SHOT"): {("all_reduce", "kernel", "wire"): 1},
+            ("all_reduce", "TWO_SHOT"): {("all_reduce", "kernel", "wire"): 1,
+                                         ("reduce_scatter", "kernel",
+                                          "wire"): 1,
+                                         ("all_gather", "kernel", ""): 1}}
+
+    def check(route, x, wd, blk):
+        name, op, method, fn, methods, kernels, plain, _ = route
+        n = x.shape[0]
+        before = [k.launches for k in kernels]
+        _common.reset_dispatch()
+        got = fn(x, num_ranks=n, method=methods[method], wire_dtype=wd,
+                 wire_block=blk)
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert [k.launches - b for k, b in zip(kernels, before)] == \
+            [1] * len(kernels), name
+        assert _common.dispatch_counts() == logs[(op, method)], name
+        want = plain(x, wd, blk)
+        e = (got.float() - want.float()).abs().max().item()
+        assert got.shape == want.shape and torch.equal(got, want), \
+            (name, n, tuple(x.shape), x.dtype, wd, blk, e)
+        if op == "all_reduce":
+            assert all(torch.equal(g, got[0]) for g in got), name
+        err[name] = max(err[name], e)
+
+    checked = 0
+    for n in (2, COLL_RANKS, 8):
+        for route in routes:
+            op, method = route[1], route[2]
+            for dtype in (torch.bfloat16, torch.float32):
+                for wd in WIRES.values():
+                    for blk, cols in ((128, COLL_H), (COLL_WIRE_BLK, COLL_H),
+                                      (COLL_ODD[1], COLL_ODD[0])):
+                        rows = 16 if method != "TWO_SHOT" else 2 * n
+                        check(route, _coll_x(op, n, rows, gen, dev, dtype,
+                                             cols), wd, blk)
+                        checked += 1
+            if n == COLL_RANKS:       # the timed shapes
+                full = {"reduce_scatter": (COLL_PREFILL // n,),
+                        "all_reduce": (COLL_DECODE, COLL_PREFILL)}[op]
+                for rows in full:
+                    if method == "TWO_SHOT" and rows % n:
+                        continue
+                    for wd in WIRES.values():
+                        check(route, _coll_x(op, n, rows, gen, dev), wd,
+                              COLL_WIRE_BLK)
+                        checked += 1
+        print(f"collectives wire n {n}: the three quant arms and the "
+              f"two-shot bit for bit against their plain versions (bf16, "
+              f"f32; int8, fp8; blocks 128, 256, {COLL_ODD[1]} of "
+              f"{COLL_ODD[0]})")
+
+    # the main path, through the entry points a user calls
+    n, H = COLL_RANKS, COLL_H
+    x_rs = _coll_x("reduce_scatter", n, COLL_PREFILL // n, gen, dev)
+    xs_ar = (_coll_x("all_reduce", n, COLL_DECODE, gen, dev),
+             _coll_x("all_reduce", n, COLL_PREFILL, gen, dev))
+    x_ag = _coll_x("all_gather", n, COLL_PREFILL // n, gen, dev)
+    rs_quant = mods["reduce_scatter"].REDUCE_SCATTER_QUANT
+    counted = {"reduce_scatter_quant[ring]": rs_quant["ring"],
+               "reduce_scatter_quant[fullmesh]": rs_quant["fullmesh"],
+               "all_reduce_quant[one_shot]":
+               mods["all_reduce"].ALL_REDUCE_QUANT,
+               "all_gather": mods["all_gather"].ALL_GATHER}
+    for k in counted.values():
+        k.launches = 0
+    _common.reset_dispatch()
+    mains = []
+    for wd in WIRES.values():
+        for fn, methods, xs, op in (
+                (tc.reduce_scatter, tc.ReduceScatterMethod, (x_rs,),
+                 "reduce_scatter"),
+                (tc.all_reduce, tc.AllReduceMethod, xs_ar, "all_reduce")):
+            for x in xs:
+                for m in methods:
+                    if m.name == "XLA":
+                        continue
+                    picked = m
+                    if m.name == "AUTO":
+                        unit = x[0].numel() * 2 // (n if op ==
+                                                     "reduce_scatter" else 1)
+                        picked = mods[op].choose_method(
+                            unit, n, wire_dtype=wd, itemsize=2)
+                    mains.append((op, m.name, picked.name, wd, x,
+                                  fn(x, num_ranks=n, method=m, wire_dtype=wd)))
+        mains.append(("all_gather", "RING", "RING", wd, x_ag,
+                      mods["all_gather"].quant_all_gather_shard(
+                          x_ag, num_ranks=n, wire_dtype=wd,
+                          block=COLL_WIRE_BLK)))
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    launches = {k: c.launches for k, c in counted.items()}
+    log = _common.dispatch_counts()
+    for k in launches:
+        assert launches[k] > 0, (k, launches)
+    assert launches["all_reduce_quant[one_shot]"] == sum(
+        1 for r in mains if r[0] == "all_reduce" and r[2] == "ONE_SHOT")
+    two_shots = sum(1 for r in mains if r[0] == "all_reduce"
+                    and r[2] == "TWO_SHOT")
+    assert launches["reduce_scatter_quant[ring]"] == two_shots + sum(
+        1 for r in mains if r[0] == "reduce_scatter" and r[2] == "RING")
+    assert launches["reduce_scatter_quant[fullmesh]"] == sum(
+        1 for r in mains if r[0] == "reduce_scatter" and r[2] == "FULLMESH")
+    assert launches["all_gather"] == two_shots + 2, launches
+    assert log[("reduce_scatter", "kernel", "wire")] == \
+        launches["reduce_scatter_quant[ring]"] \
+        + launches["reduce_scatter_quant[fullmesh]"], log
+    worst = 0.0
+    for op, m, picked, wd, x, got in mains:
+        quants = n if picked in ("RING", "TWO_SHOT") else 1
+        if op == "all_gather":
+            full = x.reshape(-1, H).expand(n, -1, -1)
+            bnd = _sum_bound(x.reshape(1, -1, H), wd, COLL_WIRE_BLK, 1)
+        elif op == "reduce_scatter":     # rank p's parts: chunk p of each
+            full = tc.reduce_scatter(x, num_ranks=n,
+                                     method=tc.ReduceScatterMethod.XLA)
+            bnd = torch.cat([_sum_bound(c, wd, COLL_WIRE_BLK, quants)
+                             for c in x.chunk(n, dim=1)])
+        else:
+            full = tc.all_reduce(x, num_ranks=n,
+                                 method=tc.AllReduceMethod.XLA)
+            bnd = _sum_bound(x, wd, COLL_WIRE_BLK, quants)
+        full = full.float()
+        assert got.shape == full.shape and bool(got.isfinite().all()), \
+            (op, m, wd)
+        lim = bnd + 2.0 ** -7 * full.abs() + 1e-5
+        ratio = ((got.float() - full).abs() / lim).max().item()
+        assert ratio <= 1.0, (op, m, wd, ratio)
+        worst = max(worst, ratio)
+    autos = sorted({(op, wd, x.shape[1], picked)
+                    for op, m, picked, wd, x, _ in mains if m == "AUTO"})
+    print(f"collectives wire main path (n {n}, hidden {H}, bf16, block "
+          f"{COLL_WIRE_BLK}; int8 and fp8; reduce_scatter of "
+          f"{COLL_PREFILL} rows, all_reduce of {COLL_DECODE} and "
+          f"{COLL_PREFILL} rows, each method and AUTO; quant_all_gather_shard "
+          f"of {COLL_PREFILL // n}-row shards): launches {launches}; AUTO "
+          f"picked (op, wire, rows, method) {autos}; every output within "
+          f"wire.sum_error_bound (+ a bf16 step) of the full-width XLA "
+          f"route's, at most {worst:.3f} of it")
+
+    # times at n = 4, bf16, block 256, beside the full-width arm
+    timed, entries = {}, {}
+    shapes = {"reduce_scatter": (x_rs,), "all_reduce": xs_ar}
+    for route in routes:
+        name, op, method, fn, methods, kernels, plain, quants = route
+        q = quants or n
+        for x in shapes[op]:
+            if method == "TWO_SHOT" and x.shape[1] % n:
+                continue
+            fw = time_ms([lambda: fn(x, num_ranks=n, method=methods[method])])
+            bms, by, nb, wb = _coll_wire_bound(name, op, x, q)
+            for tag, wd in WIRES.items():
+                ms = time_ms([lambda: fn(x, num_ranks=n,
+                                         method=methods[method],
+                                         wire_dtype=wd,
+                                         wire_block=COLL_WIRE_BLK)])
+                plain_ms = time_ms([lambda: plain(x, wd, COLL_WIRE_BLK)],
+                                   reps=3, rounds=3)
+                timed[(name, x.shape[1], tag)] = (ms, plain_ms, bms, by, fw)
+                print(f"{name} n {n} {tuple(x.shape[1:])} bf16 {tag} block "
+                      f"{COLL_WIRE_BLK}: kernel {ms:.4f} ms (full-width arm "
+                      f"{fw:.4f} ms, {ms / fw:.2f}x), plain {plain_ms:.4f} "
+                      f"ms, bound {bms:.5f} ms ({by}: {nb / 2**20:.2f} MiB; "
+                      f"the wire's {wb / 2**20:.2f} MiB on top "
+                      f"{(nb + wb) / PEAK_BYTES * 1e3:.5f} ms)")
+    replaces = {"reduce_scatter_quant[ring]": "reduce_scatter.py:132",
+                "reduce_scatter_quant[fullmesh]": "reduce_scatter.py:178",
+                "all_reduce_quant[one_shot]": "all_reduce.py:175"}
+    for name, where in replaces.items():
+        op = name.split("_quant")[0]
+        rows = shapes[op][-1].shape[1]
+        ms, plain_ms, bms, by, _ = timed[(name, rows, "int8")]
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": f"triton_distributed_tpu_torch/csrc/{op}.cu",
+            "replaces": "triton_distributed_tpu/ops/collectives/" + where,
+            "launches": launches[name], "max_abs_err": err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+    shmem.check_faults()
+    print(f"collectives wire: {checked} bit-for-bit checks; no single "
+          f"library call computes a quantized collective; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return list(entries.values())
+
+
+def check_collectives_wire_fault(dev, gen):
+    """A planted lost signal in the quantized one-shot AllReduce at decode
+    (4 x 4096 bf16, n = 4, int8): one notification of source 1's first work
+    item taken out of rank 2's pad; the check raises within the budget
+    naming rank 2, the block (with its scaling blocks) and the source; the
+    next call runs clean."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import collectives as tc
+    n, one = COLL_RANKS, tc.AllReduceMethod.ONE_SHOT
+    x = _coll_x("all_reduce", n, COLL_DECODE, gen, dev)
+    want = tc.all_reduce_shard(x, num_ranks=n, method=one, wire_dtype="int8")
+    torch.cuda.synchronize()
+    E = COLL_DECODE * COLL_H
+    gblk = shmem.coll_wire_group(E * 2, COLL_WIRE_BLK * 2)
+    ws = shmem.coll_wire_workspace("all_reduce", "one_shot", x.device, n, n,
+                                   E, COLL_WIRE_BLK, gblk)   # the call's own
+    assert ws.epoch >= 1
+    nitem = (ws.pads.shape[1] - 1) // n
+    budget = 0.1
+    ws.pads[2, 1 + 1 * nitem] -= 1
+    t0 = time.perf_counter()
+    tc.all_reduce_shard(x, num_ranks=n, method=one, wire_dtype="int8",
+                        wait_budget=budget)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    try:
+        shmem.check_faults()
+        raise AssertionError("all_reduce wire: the planted fault did not "
+                             "raise")
+    except RuntimeError as e:
+        msg = str(e)
+    assert msg.startswith("all_reduce[one_shot/wire]: rank 2 timed out") \
+        and "block 0 (scaling blocks 0.." in msg \
+        and "from source rank 1" in msg, msg
+    assert took < budget + 2.0, took
+    assert ws.epoch == 0 and int(ws.pads.abs().sum()) == 0
+    got = tc.all_reduce_shard(x, num_ranks=n, method=one, wire_dtype="int8")
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    assert torch.equal(got, want)
+    print(f"all_reduce one-shot int8 planted lost signal: after {took:.3f} s "
+          f"(budget {budget} s) {msg}; the next call ran clean")
+
+
 def check_small_sp_tp_serve(models, seed):
     """A small Qwen3-shaped model at n = 2 behind ServeEngine, tensor-
     parallel in mode "gemm_ar" (tp_ranks=2) and sequence-parallel under
@@ -5342,6 +5674,8 @@ def main():
     ph("ll_combine", check_ll_fault, dev, gen)
     coll_entries, coll_a2a = ph("collectives", check_collectives, dev, gen)
     ph("collectives", check_collectives_fault, dev, gen)
+    coll_wire = ph("collectives", check_collectives_wire, dev, gen)
+    ph("collectives", check_collectives_wire_fault, dev, gen)
     shmem.release_workspaces()
     torch.cuda.empty_cache()
     for check in (check_small_model, check_small_model_paged):
@@ -5490,7 +5824,9 @@ def main():
     assert ep_entry["launches"] > coll_a2a > 0
     print(f"collectives launches (their main path): "
           f"{ {e['name']: e['launches'] for e in coll_entries} }, ep_a2a "
-          f"{coll_a2a} (the dense all_to_all); no model path reaches them")
+          f"{coll_a2a} (the dense all_to_all); the quant arms "
+          f"{ {e['name']: e['launches'] for e in coll_wire} } (their main "
+          f"path); no model path reaches them")
     # ll_combine runs on the sp-serve cell's path; ll_merge on no path
     # (counted over both multi-rank serve cells, held to 0 by run_serve)
     ll_entries[0]["launches"] = sp_serve["ll_combine"]
@@ -5512,7 +5848,8 @@ def main():
     print(f"ep-serve launches over its runs: "
           f"{ {n: c for n, c in ep_serve.items() if c} }")
     kernels += [mk, mk_verify, mk_fused, gmm_entry, ar_entry] + tp_entries \
-        + wire_entries + [ep_entry] + list(ll_entries) + coll_entries
+        + wire_entries + [ep_entry] + list(ll_entries) + coll_entries \
+        + coll_wire
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

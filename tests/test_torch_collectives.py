@@ -254,13 +254,21 @@ def test_dispatch_log_equals_jax_traced(case):
     ("reduce_scatter", "RING"), ("reduce_scatter", "FULLMESH"),
     ("reduce_scatter", "AUTO"), ("all_reduce", "ONE_SHOT"),
     ("all_reduce", "TWO_SHOT"), ("all_reduce", "AUTO")])
-def test_kernel_route_with_a_wire_raises_naming_slice_6g(op, method):
+def test_kernel_route_with_a_wire_logs_as_jax(op, method):
+    """A kernel route with a wire (AUTO included) runs its quant arm (the
+    plain version on the CPU; tests/test_torch_quant_collectives.py holds
+    the values to JAX's) and logs as JAX traces it."""
+    want = _jax_traced_log(op, method, 4, 64, 256, "int8")
     fn, methods = PORT_OPS[op]
-    x = torch.zeros((4, 64, 256))
+    shape = (4, 4 * 64, 256) if op == "reduce_scatter" else (4, 64, 256)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        shape).astype(np.float32))
     tcommon.reset_dispatch()
-    with pytest.raises(NotImplementedError, match="slice 6g"):
-        fn(x, num_ranks=4, method=methods[method], wire_dtype="int8")
-    assert tcommon.dispatch_counts() == {}      # nothing ran, not even XLA
+    out = fn(x, num_ranks=4, method=methods[method], wire_dtype="int8")
+    assert _rs_ar_log(tcommon.dispatch_counts()) == want
+    assert (op, "kernel", "wire") in want
+    exact = x.sum(0).reshape(out.shape)
+    assert (out - exact).abs().max() <= 0.1
 
 
 RETURN_FAULT = [  # (method, rows, wait_budget given, wire)

@@ -36,7 +36,9 @@ wire.sum_error_bound of the partials and, in bf16, 99% of the elements
 bit for bit. The collective kernels (all_gather, reduce_scatter,
 all_reduce) copy bytes, or sum in f32 in their plain versions' order and
 round at the same points, so each is held to its plain version bit for
-bit.
+bit; so are their quantized-wire arms and the quantized two-shot, which
+quantize with the torch codec's IEEE divisions and add the dequantized
+values in their plain versions' order.
 """
 
 import numpy as np
@@ -2161,3 +2163,171 @@ def test_collective_refuses_a_grid_that_cannot_be_resident(cuda, op, arm,
         torch.cuda.synchronize()
         shmem.check_faults()
         assert torch.equal(got, plains[method](x))
+
+
+# ---------------------------------------------------------------------------
+# The collectives' quantized wire (csrc/reduce_scatter.cu arms 2 and 3,
+# all_reduce.cu arm 2, and the two-shot composition): the arms quantize
+# with the torch codec's IEEE divisions and add the dequantized values in
+# their plain versions' order, rounding at the same points, so each is held
+# to its plain version bit for bit
+# ---------------------------------------------------------------------------
+
+_QUANT_ARMS = [("reduce_scatter", "RING"), ("reduce_scatter", "FULLMESH"),
+               ("all_reduce", "ONE_SHOT"), ("all_reduce", "TWO_SHOT")]
+
+
+def _quant_coll(op, method):
+    """(shard-level op, its methods, the kernels a call launches, its plain
+    version (x, wire, blk) -> out) of one quantized route."""
+    import importlib
+    from triton_distributed_tpu_torch.ops import collectives as tc
+    rs = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.collectives.reduce_scatter")
+    ar = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.collectives.all_reduce")
+    ag = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.collectives.all_gather")
+    if op == "reduce_scatter":
+        plain = {"RING": rs.ring_quant_plain,
+                 "FULLMESH": rs.fullmesh_quant_plain}[method]
+        return (tc.reduce_scatter_shard, tc.ReduceScatterMethod,
+                [rs.REDUCE_SCATTER_QUANT[method.lower()]],
+                lambda x, wd, blk: plain(x.reshape(x.shape[0], x.shape[0], -1,
+                                                   x.shape[-1]), wd, blk))
+    if method == "ONE_SHOT":
+        return (tc.all_reduce_shard, tc.AllReduceMethod, [ar.ALL_REDUCE_QUANT],
+                ar.one_shot_quant_plain)
+    return (tc.all_reduce_shard, tc.AllReduceMethod,
+            [rs.REDUCE_SCATTER_QUANT["ring"], ag.ALL_GATHER],
+            ar.two_shot_quant_plain)
+
+
+def _quant_log(op, method):
+    if op == "reduce_scatter":
+        return {("reduce_scatter", "kernel", "wire"): 1}
+    if method == "ONE_SHOT":
+        return {("all_reduce", "kernel", "wire"): 1}
+    return {("all_reduce", "kernel", "wire"): 1,
+            ("reduce_scatter", "kernel", "wire"): 1,
+            ("all_gather", "kernel", ""): 1}
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("wd", ["int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("rows,cols,blk", [(16, 4096, 256), (8, 1024, 128),
+                                           (6, 4095, 315)])
+@pytest.mark.parametrize("op,method", _QUANT_ARMS)
+def test_collective_quant_arm_matches_plain(cuda, op, method, n, dtype, wd,
+                                            rows, cols, blk):
+    """Two calls back to back with new data, each launching its arm (the
+    two-shot: the ring arm and the gather) once, logged as JAX logs, bit
+    for bit against the plain version, every replica alike; the odd width
+    (4095, block 315) takes the one-value-a-lane path."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _common
+    fn, methods, kernels, plain = _quant_coll(op, method)
+    if method == "TWO_SHOT":
+        rows = rows - rows % n or n
+    for seed in (0, 1):
+        x = _coll_input(op, n, rows, cols, dtype, cuda, seed)
+        before = [k.launches for k in kernels]
+        _common.reset_dispatch()
+        got = fn(x, num_ranks=n, method=methods[method], wire_dtype=wd,
+                 wire_block=blk)
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert [k.launches - b for k, b in zip(kernels, before)] == \
+            [1] * len(kernels)
+        assert _common.dispatch_counts() == _quant_log(op, method)
+        want = plain(x, wd, blk)
+        assert got.shape == want.shape and got.dtype == dtype
+        assert torch.equal(got, want), \
+            (got.float() - want.float()).abs().max()
+        if op == "all_reduce":
+            assert all(torch.equal(g, got[0]) for g in got)
+
+
+def test_collective_quant_planted_lost_signal(cuda):
+    """One notification of source 1's first work item taken out of rank
+    2's pad of the quantized one-shot: the check raises within the budget
+    naming rank 2, the block and the source; the next call runs clean."""
+    import time
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import collectives as tc
+    n = 4
+    x = _coll_input("all_reduce", n, 4, 4096, torch.bfloat16, cuda, 5)
+    one = tc.AllReduceMethod.ONE_SHOT
+    want = tc.all_reduce_shard(x, num_ranks=n, method=one, wire_dtype="int8")
+    torch.cuda.synchronize()
+    gblk = shmem.coll_wire_group(4 * 4096 * 2, 256 * 2)
+    ws = shmem.coll_wire_workspace("all_reduce", "one_shot", x.device, n, n,
+                                   4 * 4096, 256, gblk)  # the call's own
+    nitem = (ws.pads.shape[1] - 1) // n
+    assert ws.epoch >= 1 and nitem == 64 // gblk
+    ws.pads[2, 1 + 1 * nitem] -= 1
+    t0 = time.perf_counter()
+    tc.all_reduce_shard(x, num_ranks=n, method=one, wire_dtype="int8",
+                        wait_budget=0.05)
+    torch.cuda.synchronize()
+    assert time.perf_counter() - t0 < 5.0
+    with pytest.raises(RuntimeError,
+                       match=r"all_reduce\[one_shot/wire\]: rank 2 timed out "
+                             r".*block 0 \(scaling blocks 0\.\..*\) from "
+                             r"source rank 1"):
+        shmem.check_faults()
+    assert ws.epoch == 0 and int(ws.pads.abs().sum()) == 0
+    got = tc.all_reduce_shard(x, num_ranks=n, method=one, wire_dtype="int8")
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("op,method,arm", [("reduce_scatter", "RING", 2),
+                                           ("reduce_scatter", "FULLMESH", 3),
+                                           ("all_reduce", "ONE_SHOT", 2)])
+def test_collective_quant_refuses_a_grid_that_cannot_be_resident(
+        cuda, op, method, arm, monkeypatch):
+    """The occupancy entry points cover the quant arms: one CTA more than
+    can be resident is refused; one CTA alone walks every item in the
+    global order and finishes, bit for bit."""
+    import ctypes
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _build
+    fn, methods, _, plain = _quant_coll(op, method)
+    n = 4
+    x = _coll_input(op, n, 64, 4096, torch.float32, cuda, 6)
+    resident = getattr(_build.load_library(op), f"tdt_{op}_resident")
+    resident.restype = ctypes.c_int
+    most = resident(arm, 1)
+    assert most >= torch.cuda.get_device_properties(0).multi_processor_count
+    launch = shmem.launch_coll
+    for grid in (most + 1, 1):
+        monkeypatch.setattr(shmem, "launch_coll", lambda *a, **kw: launch(
+            *a, **{**kw, "grid": grid}))
+        if grid > 1:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                fn(x, num_ranks=n, method=methods[method],
+                   wire_dtype="float8_e4m3fn")
+            continue
+        got = fn(x, num_ranks=n, method=methods[method],
+                 wire_dtype="float8_e4m3fn")
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert torch.equal(got, plain(x, "float8_e4m3fn", 256))
+
+
+@pytest.mark.parametrize("wd", ["int8", "float8_e4m3fn"])
+def test_codec_on_the_card_equals_the_cpu_codec(cuda, wd):
+    """`wire.quant_blockwise` on a CUDA tensor gives the CPU's bytes and
+    scales bit for bit (a CUDA tensor divided by a Python number is
+    multiplied by its reciprocal, an ulp off the IEEE quotient in some
+    blocks: the codec divides by a tensor)."""
+    from triton_distributed_tpu_torch.ops import wire
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((64, 4096), generator=gen, device=cuda) * 3
+    q, s = wire.quant_blockwise(x, wd, 128)
+    qc, sc = wire.quant_blockwise(x.cpu(), wd, 128)
+    assert torch.equal(s.cpu(), sc)
+    assert torch.equal(wire.byte_view(q).cpu(), wire.byte_view(qc))

@@ -2,7 +2,11 @@
 //
 // Replaces: triton_distributed_tpu/ops/collectives/all_reduce.py::
 // _one_shot_kernel (:89) and _two_shot_kernel (:128), launched by
-// all_reduce_shard (:233). Its quantized one-shot (:175) is not here.
+// all_reduce_shard (:233); with a quantized wire, _one_shot_quant_kernel
+// (:175) (arm 2, tdt_all_reduce_quant). The quantized two-shot
+// (_two_shot_quant_shard :214) is a composition on the host: the ring arm
+// of reduce_scatter.cu with a wire, then an all-gather of quantized bytes
+// (all_gather.cu).
 //
 // Contract (all_reduce_shard's): rank r holds x_r (E elements); every rank
 // d gets out_d, the sum of the n buffers, replicated. Rank-stacked
@@ -30,6 +34,15 @@
 // global order: arrivals, the n - 1 RS hops, the RS result with AG hop 0,
 // the AG hops 1 .. n - 2, the final waits (n * nblk each).
 //
+// One-shot with a wire (arm 2), per rank r: barrier_all; each scaling
+// block of x_r quantized once (the quantize fused into the push) and its
+// bytes and scale stored into slot r of every rank's landing region, its
+// own included (JAX's land_q[me] = q_ref: the own buffer crosses the codec
+// too), one notification each at 1 + r * nitem + g; rank d waits on its n
+// sources and dequantizes and adds the n slots in rank order in f32,
+// rounding once, so all n replicas hold the same bits. Work items of whole
+// scaling blocks (tdt_coll_wire.cuh).
+//
 // One launch runs every rank's body on a persistent cooperative grid
 // (tdt_tp.cuh).
 //
@@ -42,7 +55,7 @@
 // threads a block, 16-byte vectors summed in f32 registers; the one-shot
 // push stores each vector to the n - 1 peers at once.
 
-#include "tdt_coll.cuh"
+#include "tdt_coll_wire.cuh"
 
 using namespace tdt_coll;
 
@@ -168,6 +181,82 @@ __global__ void __launch_bounds__(NTHREADS) two_shot_kernel(Params p) {
   }
 }
 
+// Arm 2: one-shot with a wire. Items: the n arrivals, the n * nitem
+// pushes, the n * nitem sums.
+template <typename T, int W>
+__global__ void __launch_bounds__(NTHREADS) one_shot_quant_kernel(QParams p) {
+  if (tdt_faulted(p.peers)) return;
+  const int n = p.peers.n;
+  const long long nitem = p.nitem();
+  const long long n_push = n * nitem, total = n + 2 * n_push;
+  const unsigned epoch = p.peers.epoch;
+  const bool vec = vec_ok<T>(p);
+  const int warp = threadIdx.x >> 5;
+  for (long long it = blockIdx.x; it < total; it += gridDim.x) {
+    if (it < n) {
+      if (threadIdx.x == 0) tdt_barrier_arrive(p.peers);
+      continue;
+    }
+    const bool push = it < n + n_push;
+    const long long j = push ? it - n : it - n - n_push;
+    const int me = static_cast<int>(j / nitem);
+    const long long g = j % nitem;
+    const Items its = item_blocks(p, g);
+    if (push) {
+      if (!tdt_cta_wait(p.peers, me, TDT_PAD_BARRIER, 0, 1, epoch * n))
+        return;
+      const T* x = static_cast<const T*>(p.x) + me * p.unit;
+      for (long long b = its.first + warp; b < its.last; b += NWARPS) {
+        const long long off = b * p.sblk;
+        uint8_t* dq[MAX_RANKS];
+        float* ds[MAX_RANKS];
+        for (int i = 0; i < n; ++i) {
+          const int d = (me + 1 + i) % n;
+          dq[i] = p.q(d, me) + off;
+          ds[i] = p.s(d, me) + b;
+        }
+        if (vec)
+          quant_block<W, 4, 0>(Src<T, W, 4>{x + off, nullptr, 0.f}, p.sblk, dq,
+                               ds, n);
+        else
+          quant_block<W, 1, 0>(Src<T, W, 1>{x + off, nullptr, 0.f}, p.sblk, dq,
+                               ds, n);
+      }
+      tdt_cta_release();
+      if (threadIdx.x == 0)
+        for (int i = 0; i < n; ++i)
+          tdt_signal(p.peers, (me + 1 + i) % n,
+                     static_cast<int>(1 + me * nitem + g));
+      continue;
+    }
+    if (!tdt_cta_wait(p.peers, me, static_cast<int>(1 + g),
+                      static_cast<int>(nitem), n, epoch))
+      return;
+    T* out = static_cast<T*>(p.out) + me * p.unit;
+    for (long long b = its.first + warp; b < its.last; b += NWARPS) {
+      const long long off = b * p.sblk;
+      const uint8_t* q[MAX_RANKS];
+      const float* sc[MAX_RANKS];
+      for (int s = 0; s < n; ++s) {
+        q[s] = p.q(me, s) + off;
+        sc[s] = p.s(me, s) + b;
+      }
+      if (vec)
+        dequant_sum_block<W, 4>(out + off, q, sc, n, p.sblk);
+      else
+        dequant_sum_block<W, 1>(out + off, q, sc, n, p.sblk);
+    }
+  }
+}
+
+template <typename T, int W>
+int launch_quant(const QParams& p, int grid, cudaStream_t st) {
+  const int n = p.peers.n;
+  const long long nitem = (p.unit / p.sblk + p.gblk - 1) / p.gblk;
+  return coop_launch(one_shot_quant_kernel<T, W>, p, n + 2 * n * nitem, grid,
+                     st);
+}
+
 template <typename T>
 int launch(int arm, const Params& p, int grid, cudaStream_t st) {
   const int n = p.peers.n;
@@ -207,7 +296,45 @@ extern "C" int tdt_all_reduce(int arm, int dtype, const void* x, void* out,
                     : launch<float>(arm, p, grid, st);
 }
 
+// arm 2 = one-shot with a wire; dtype as above; wire 0 = int8, 1 = fp8
+// e4m3; sblk: the scaling block (elements, any divisor of the buffer's
+// width); x and out (n, E) rank-stacked; land: byte regions of n slots of E
+// bytes, then from the next 16-byte boundary their (n, E / sblk) f32
+// scales; pads of 1 + n * nitem slots, nitem = ceil(E / sblk / gblk);
+// gblk: scaling blocks a work item.
+extern "C" int tdt_all_reduce_quant(int arm, int dtype, int wire, int sblk,
+                                    const void* x, void* out,
+                                    const void* land, const void* pads,
+                                    void* fault, unsigned epoch,
+                                    long long budget_ns, int n, long long E,
+                                    long long gblk, int grid, void* stream) {
+  if (arm != 2 || dtype < 0 || dtype > 1 || wire < 0 || wire > 1 || n < 2 ||
+      n > MAX_RANKS || E < 1 || sblk < 1 || E % sblk || gblk < 1 || grid < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const QParams p{x, out,
+                  TdtPeers{static_cast<const unsigned long long*>(land),
+                           static_cast<const unsigned long long*>(pads),
+                           static_cast<int*>(fault), epoch, budget_ns, n},
+                  E, gblk, sblk, n};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using tdt_wire::WIRE_FP8, tdt_wire::WIRE_INT8;
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0)
+    return wire == 0 ? launch_quant<bf16, WIRE_INT8>(p, grid, st)
+                     : launch_quant<bf16, WIRE_FP8>(p, grid, st);
+  return wire == 0 ? launch_quant<float, WIRE_INT8>(p, grid, st)
+                   : launch_quant<float, WIRE_FP8>(p, grid, st);
+}
+
+// Co-resident CTAs of an arm (2: the least over the two wires).
 extern "C" int tdt_all_reduce_resident(int arm, int dtype) {
+  if (arm == 2) {
+    const int a = dtype == 0 ? resident(one_shot_quant_kernel<__nv_bfloat16, 0>)
+                             : resident(one_shot_quant_kernel<float, 0>);
+    const int b = dtype == 0 ? resident(one_shot_quant_kernel<__nv_bfloat16, 1>)
+                             : resident(one_shot_quant_kernel<float, 1>);
+    return a < b ? a : b;
+  }
   if (dtype == 0)
     return arm == 0 ? resident(one_shot_kernel<__nv_bfloat16>)
                     : resident(two_shot_kernel<__nv_bfloat16>);

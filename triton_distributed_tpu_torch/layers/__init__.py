@@ -6,3 +6,4 @@ from .norm import rms_norm  # noqa: F401
 from .sp_attn import SPPagedAttn  # noqa: F401
 from .tp_attn import TPAttn  # noqa: F401
 from .tp_mlp import TPMLP  # noqa: F401
+from .tp_moe import TPMoE  # noqa: F401

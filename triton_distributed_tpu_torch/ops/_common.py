@@ -144,8 +144,7 @@ def check_tp_cuda(op: str, *tensors) -> None:
 
 
 # ---------------------------------------------------------------------------
-# The collective library (ops/collectives): its kernels' operand rule and
-# the quantized arms that come later.
+# The collective library (ops/collectives): its kernels' operand rule.
 # ---------------------------------------------------------------------------
 
 COLL_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -167,10 +166,3 @@ def check_coll_cuda(op: str, x, n: int, dtypes=COLL_KERNEL_DTYPES) -> None:
         raise ValueError(f"{op}: the CUDA kernel takes at most "
                          f"{COLL_MAX_RANKS} ranks, got {n}")
 
-
-def wire_later(op: str, arm: str, jax_kernel: str, queue_id: int):
-    """The error of a quantized wire on a collective's kernel arm."""
-    return NotImplementedError(
-        f"{op}: the quantized wire on the {arm} kernel arm (JAX "
-        f"{jax_kernel}) comes with slice 6g (ROADMAP.md, Queue B "
-        f"{queue_id}); method 'xla' takes wire_dtype")

@@ -1,9 +1,13 @@
 """The collective kernel library (counterpart of
 triton_distributed_tpu/ops/collectives): AllGather, ReduceScatter and
 AllReduce with hand-written kernels (csrc/all_gather.cu,
-reduce_scatter.cu, all_reduce.cu), and the dense AllToAll over the ragged
-all-to-all of ops/ep_a2a.py. `hierarchical.py` (two-tier AllReduce) comes
-with a two-axis rank group."""
+reduce_scatter.cu, all_reduce.cu), full width and, with `wire_dtype`,
+over quantized-wire arms that block-quantize each pushed value once (the
+ring each hop's f32 running sum) and sum the dequantized values in f32
+in rank order, rounding once; `all_gather.quant_all_gather_shard` gathers
+at wire width. The dense AllToAll runs over the ragged all-to-all of
+ops/ep_a2a.py. `hierarchical.py` (two-tier AllReduce) comes with a
+two-axis rank group."""
 
 from .all_gather import (  # noqa: F401
     AllGatherMethod,

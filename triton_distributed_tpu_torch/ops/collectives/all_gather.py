@@ -1,5 +1,5 @@
 """AllGather over n ranks (counterpart of
-triton_distributed_tpu/ops/collectives/all_gather.py, its full-width part).
+triton_distributed_tpu/ops/collectives/all_gather.py).
 
 Rank-stacked (parallel/mesh.py): `all_gather_shard(x)` takes every rank's
 shard at once, x (n, rows, cols), and returns (n, n * rows, cols), every
@@ -23,8 +23,15 @@ ring relays slot by slot). Every call is logged (`_common.record_dispatch`,
 JAX's `collective_id` is dropped: the port's workspaces are per op, arm
 and shape, so the argument would select nothing. `wait_budget` is in
 seconds (the device clock); None is the transport's default,
-`shmem.WAIT_BUDGET_S`. `quant_all_gather_shard`, the gather of quantized
-payloads, comes with slice 6g.
+`shmem.WAIT_BUDGET_S`.
+
+`quant_all_gather_shard` gathers at wire width, as JAX's (:163-184): x is
+block-quantized once (`wire.quant_blockwise`), the payload bytes go
+through the kernel (any method; the gather copies bytes), the f32 scales
+through `RankGroup.all_gather` (JAX's XLA all_gather), and every rank
+dequantizes the gathered tensor to x's dtype (one quantization; no sum).
+It is the all-gather half of the quantized two-shot AllReduce
+(all_reduce.py).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 
 from ... import shmem
 from ...parallel.mesh import RankGroup
+from .. import wire
 from .._build import CudaKernel
 from .._common import check_coll_cuda, record_dispatch
 
@@ -126,3 +134,24 @@ def all_gather(x, *, num_ranks: int,
                          f"cols) with n = {n}")
     return all_gather_shard(x.reshape(n, -1, x.shape[1]), num_ranks=n,
                             method=method)[0]
+
+
+def _quant_gather(x, wire_dtype, block: int, gather):
+    """x (n, rows, cols) quantized once, its payload bytes gathered by
+    `gather` ((n, rows, cols) -> (n, n * rows, cols)), its scales by the
+    rank group, and the gathered tensor dequantized to x's dtype."""
+    q, s = wire.quant_blockwise(x, wire_dtype, block)
+    full_q = gather(wire.byte_view(q)).view(q.dtype)
+    full_s = RankGroup(x.shape[0]).all_gather(s, tiled=True)
+    return wire.dequant_blockwise(full_q, full_s, x.dtype, block)
+
+
+def quant_all_gather_shard(x, *, num_ranks: int, wire_dtype, block: int,
+                           method: AllGatherMethod = AllGatherMethod.RING,
+                           wait_budget: float | None = None):
+    """AllGather at wire width of every rank's (rows, cols) shard, x (n,
+    rows, cols) rank-stacked (JAX :163): (n, n * rows, cols) in x's dtype,
+    every rank's copy of the gathered, dequantized tensor. `block` is the
+    scaling block (it divides cols)."""
+    return _quant_gather(x, wire_dtype, block, lambda q: all_gather_shard(
+        q, num_ranks=num_ranks, method=method, wait_budget=wait_budget))

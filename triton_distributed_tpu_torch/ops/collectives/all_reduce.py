@@ -1,6 +1,7 @@
 """AllReduce (sum) over n ranks (counterpart of
-triton_distributed_tpu/ops/collectives/all_reduce.py, its full-width kernel
-arms and its XLA path with or without a quantized wire).
+triton_distributed_tpu/ops/collectives/all_reduce.py: its kernel arms,
+full width and with a quantized wire, and its XLA path with or without a
+wire).
 
 Rank-stacked (parallel/mesh.py): `all_reduce_shard(x)` takes every rank's
 buffer at once, x (n, rows, cols), and returns (n, rows, cols), every
@@ -27,10 +28,25 @@ the same bits; two-shot rounds each ring hop's message to the dtype, as
 the JAX ring's `acc` does. JAX adds in the working dtype, so in bf16 the
 two packages differ by a rounding or two.
 
-`wire_dtype` on a kernel route (AUTO included) raises NotImplementedError:
-the quantized one-shot (JAX `_one_shot_quant_kernel` :175) and two-shot
-(`_two_shot_quant_shard` :214) come with slice 6g; nothing falls back to
-XLA. `return_fault=True` (JAX :278-283) is allowed only with an explicit
+With `wire_dtype` ("int8" / "float8_e4m3fn", scaling block `wire_block`,
+`wire.effective_block`: any divisor of cols) the kernel routes go over the
+wire, as JAX's (logged ("kernel", "wire")):
+- ONE_SHOT (arm 2, JAX `_one_shot_quant_kernel` :175): every rank's
+  buffer quantized once, its own included, and every rank dequantizes the
+  n buffers and adds them in rank order in f32, rounding once
+  (`wire.quant_psum`); the quantize is fused into the push (JAX quantizes
+  on the host, :302), with `wire.quant_blockwise`'s bytes and scales, bit
+  for bit;
+- TWO_SHOT (JAX `_two_shot_quant_shard` :214), a composition: the ring
+  ReduceScatter's quant arm (reduce_scatter.py, logged there too: its acc
+  stays f32 between hops), then `all_gather.quant_all_gather_shard` over
+  the ring (the reduced chunk quantized once more, its bytes gathered by
+  the kernel, its scales by the rank group). So each value crosses n
+  quantizations.
+A wire with no usable block runs full width
+("wire-fallback:block-divisibility").
+
+`return_fault=True` (JAX :278-283) is allowed only with an explicit
 `wait_budget` on the unquantized ONE_SHOT route, and else raises
 ValueError; the call then returns (out, fault), `fault` an (n,) int32 of
 the ranks' fault words (synchronising: the rank whose wait timed out
@@ -56,16 +72,18 @@ from ... import shmem
 from ...parallel.mesh import RankGroup, sum_in_rank_order
 from .. import wire
 from .._build import CudaKernel
-from .._common import check_coll_cuda, record_dispatch, wire_later
+from .._common import check_coll_cuda, record_dispatch
+from .all_gather import AllGatherMethod, _quant_gather, quant_all_gather_shard
 from .all_gather import _ring_plain as _ag_ring_plain
+from .reduce_scatter import ReduceScatterMethod, reduce_scatter_shard
 from .reduce_scatter import ring_plain as _rs_ring_plain
+from .reduce_scatter import ring_quant_plain as _rs_ring_quant_plain
 
 ALL_REDUCE = CudaKernel("all_reduce", "tdt_all_reduce",
                         shmem.primitives.COLL_ARGTYPES)
-_ARMS = {"one_shot": (0, "one_shot",
-                      "all_reduce.py::_one_shot_quant_kernel :175"),
-         "two_shot": (1, "two_shot",
-                      "all_reduce.py::_two_shot_quant_shard :214")}
+ALL_REDUCE_QUANT = CudaKernel("all_reduce", "tdt_all_reduce_quant",
+                              shmem.primitives.COLL_QUANT_ARGTYPES)  # arm 2
+_ARMS = {"one_shot": (0, "one_shot"), "two_shot": (1, "two_shot")}
 
 
 class AllReduceMethod(enum.Enum):
@@ -111,6 +129,37 @@ def two_shot_plain(x):
     return _ag_ring_plain(chunks)
 
 
+def one_shot_quant_plain(x, wire_dtype, blk: int):
+    """Plain version of arm 2: every rank's buffer quantized once, the n
+    dequantized in rank order in f32, rounded once (`wire.quant_psum`);
+    every rank's replica (a broadcast view of one copy)."""
+    return wire.quant_psum(x, wire_dtype, blk).expand(x.shape[0], -1, -1)
+
+
+def two_shot_quant_plain(x, wire_dtype, blk: int):
+    """Plain version of the quantized two-shot: the ring ReduceScatter's
+    quant arm, then the wire-width ring AllGather of the reduced chunks."""
+    n, rows, cols = x.shape
+    chunks = _rs_ring_quant_plain(x.reshape(n, n, rows // n, cols),
+                                  wire_dtype, blk)
+    return _quant_gather(chunks, wire_dtype, blk, _ag_ring_plain)
+
+
+def _two_shot_quant_shard(x, *, num_ranks: int, wire_dtype, block: int,
+                          wait_budget=None):
+    """The quantized two-shot as JAX's decomposition (:214): the ring
+    ReduceScatter with a wire, then `quant_all_gather_shard` over the
+    ring."""
+    n = num_ranks
+    chunk = reduce_scatter_shard(x, num_ranks=n,
+                                 method=ReduceScatterMethod.RING,
+                                 wire_dtype=wire_dtype, wire_block=block,
+                                 wait_budget=wait_budget)
+    return quant_all_gather_shard(chunk, num_ranks=n, wire_dtype=wire_dtype,
+                                  block=block, method=AllGatherMethod.RING,
+                                  wait_budget=wait_budget)
+
+
 def all_reduce_shard(x, *, num_ranks: int,
                      method: AllReduceMethod = AllReduceMethod.AUTO,
                      wire_dtype=None, wire_block: int | None = None,
@@ -119,8 +168,9 @@ def all_reduce_shard(x, *, num_ranks: int,
     """AllReduce (sum) of every rank's (rows, cols) buffer, x (n, rows,
     cols) rank-stacked: (n, rows, cols), rank d's replica at [d] (n written
     replicas from the kernel, a broadcast view of one copy on the plain
-    paths). `wire_dtype` quantizes the XLA path's wire per `wire_block`
-    (ops/wire.py). With `return_fault`: (out, fault) (module docstring)."""
+    paths). `wire_dtype` quantizes the wire per `wire_block` (ops/wire.py;
+    the kernel routes go over the quant arms). With `return_fault`: (out,
+    fault) (module docstring)."""
     n = num_ranks
     if x.dim() != 3 or x.shape[0] != n:
         raise ValueError(f"all_reduce: x {tuple(x.shape)} is not (n, rows, "
@@ -153,9 +203,26 @@ def all_reduce_shard(x, *, num_ranks: int,
             out = RankGroup(n).psum(x)
         out = out.expand(n, -1, -1)
         return (out, _no_fault(x)) if return_fault else out
-    arm, name, quant_kernel = _ARMS[method.value]
+    arm, name = _ARMS[method.value]
     if wire_dtype is not None:
-        raise wire_later("all_reduce", name, quant_kernel, 8)
+        record_dispatch("all_reduce", "kernel", "wire")
+        if arm == 1:
+            return _two_shot_quant_shard(x, num_ranks=n, wire_dtype=wire_dtype,
+                                         block=blk, wait_budget=wait_budget)
+        if x.device.type == "cpu":
+            return one_shot_quant_plain(x, wire_dtype, blk)
+        check_coll_cuda("all_reduce", x, n)
+        out = torch.empty_like(x)
+        E = rows * cols
+        gblk = shmem.coll_wire_group(E * x.element_size(),
+                                     blk * x.element_size())
+        ws = shmem.coll_wire_workspace("all_reduce", name, x.device, n, n, E,
+                                       blk, gblk)
+        shmem.launch_coll(ALL_REDUCE_QUANT, ws, 2,
+                          shmem.primitives.DTYPE_CODES[x.dtype], x, out, E,
+                          gblk, wire=(shmem.WIRE_CODES[wire_dtype], blk),
+                          budget_s=wait_budget or shmem.WAIT_BUDGET_S)
+        return out
     record_dispatch("all_reduce", "kernel")
     if x.device.type == "cpu":
         out = one_shot_plain(x) if arm == 0 else two_shot_plain(x)

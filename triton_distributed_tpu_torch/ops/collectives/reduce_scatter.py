@@ -1,6 +1,7 @@
 """ReduceScatter over n ranks (counterpart of
-triton_distributed_tpu/ops/collectives/reduce_scatter.py, its full-width
-kernel arms and its XLA path with or without a quantized wire).
+triton_distributed_tpu/ops/collectives/reduce_scatter.py: its kernel arms,
+full width and with a quantized wire, and its XLA path with or without a
+wire).
 
 Rank-stacked (parallel/mesh.py): `reduce_scatter_shard(x)` takes every
 rank's partials at once, x (n, n * rows, cols), and returns (n, rows,
@@ -28,12 +29,25 @@ in rank order in f32 and rounds once (`parallel.mesh.sum_in_rank_order`).
 JAX adds in the working dtype, so in bf16 the two packages differ by a
 rounding or two.
 
-`wire_dtype` on a kernel route (AUTO included) raises NotImplementedError:
-the quantized arms (JAX `_ring_quant_kernel` :132, `_fullmesh_quant_kernel`
-:178) come with slice 6g; nothing falls back to XLA. The dispatch log is
-JAX's ("kernel", "xla", "n==1", "wire", "wire-fallback:block-divisibility").
-On a CUDA tensor the kernel runs or raises; on a CPU tensor its plain
-version, the same steps in the same order and rounding.
+With `wire_dtype` ("int8" / "float8_e4m3fn", scaling block `wire_block`,
+`wire.effective_block`: any divisor of cols) the kernel routes take the
+quant arms, as JAX's (logged ("kernel", "wire")):
+- RING (arm 2, JAX `_ring_quant_kernel` :132): hop k block-quantizes acc =
+  chunk (r - 1 - k) mod n in f32 plus the hop k - 1 landing dequantized;
+  acc stays f32 between hops (never rounded to x's dtype, unlike the
+  full-width ring's message); the result, chunk r in f32 plus the last
+  landing dequantized, is rounded once (`ring_quant_plain`);
+- FULLMESH (arm 3, JAX `_fullmesh_quant_kernel` :178): every chunk of
+  every rank quantized once, its own included; rank p dequantizes its n
+  landed chunks and adds them in rank order in f32, rounding once
+  (`wire.quant_psum_scatter`).
+The quantize is fused into the arms' pushes (JAX's full mesh quantizes on
+the host, :287): the bytes and scales are `wire.quant_blockwise`'s, bit for
+bit (csrc/tdt_coll_wire.cuh). A wire with no usable block runs full width
+("wire-fallback:block-divisibility"). The dispatch log is JAX's ("kernel",
+"xla", "n==1", "wire", "wire-fallback:block-divisibility"). On a CUDA
+tensor the kernel runs or raises; on a CPU tensor its plain version, the
+same steps in the same order and rounding.
 
 JAX's `collective_id` is dropped: the port's workspaces are per op, arm and
 shape, so the argument would select nothing. `wait_budget` is in seconds
@@ -50,13 +64,16 @@ from ... import shmem
 from ...parallel.mesh import RankGroup, sum_in_rank_order
 from .. import wire
 from .._build import CudaKernel
-from .._common import check_coll_cuda, record_dispatch, wire_later
+from .._common import check_coll_cuda, record_dispatch
 
 REDUCE_SCATTER = CudaKernel("reduce_scatter", "tdt_reduce_scatter",
                             shmem.primitives.COLL_ARGTYPES)
-_ARMS = {"ring": (0, "ring", "reduce_scatter.py::_ring_quant_kernel :132"),
-         "fullmesh": (1, "fullmesh",
-                      "reduce_scatter.py::_fullmesh_quant_kernel :178")}
+# the quant arms, one launch counter each: arm 2 (ring), arm 3 (full mesh)
+REDUCE_SCATTER_QUANT = {
+    m: CudaKernel("reduce_scatter", "tdt_reduce_scatter_quant",
+                  shmem.primitives.COLL_QUANT_ARGTYPES)
+    for m in ("ring", "fullmesh")}
+_ARMS = {"ring": (0, "ring"), "fullmesh": (1, "fullmesh")}
 
 
 class ReduceScatterMethod(enum.Enum):
@@ -111,14 +128,44 @@ def fullmesh_plain(xs):
     return sum_in_rank_order(xs)
 
 
+def ring_quant_plain(xs, wire_dtype, blk: int):
+    """Plain version of arm 2 on xs (n, n, rows, cols): at hop k every
+    rank r block-quantizes acc = chunk (r - 1 - k) mod n in f32, plus the
+    hop k - 1 landing dequantized, and the bytes and scales land on r + 1;
+    the result is chunk r in f32 plus the last landing dequantized, rounded
+    once to x's dtype. Returns (n, rows, cols)."""
+    n = xs.shape[0]
+    ranks = torch.arange(n)
+    land = None
+    for k in range(n - 1):
+        acc = xs[ranks, (ranks - 1 - k) % n].float()
+        if k:
+            acc = acc + wire.dequant_blockwise(*land, torch.float32, blk)
+        q, s = wire.quant_blockwise(acc, wire_dtype, blk)
+        land = (torch.roll(wire.byte_view(q), 1, dims=0).view(q.dtype),
+                torch.roll(s, 1, dims=0))
+    own = xs[ranks, ranks].float()
+    return (own + wire.dequant_blockwise(*land, torch.float32, blk)).to(
+        xs.dtype)
+
+
+def fullmesh_quant_plain(xs, wire_dtype, blk: int):
+    """Plain version of arm 3 on xs (n, n, rows, cols): every chunk of
+    every rank quantized once, rank p's n landed chunks dequantized and
+    added in rank order in f32, rounded once (`wire.quant_psum_scatter`)."""
+    n, _, rows, cols = xs.shape
+    return wire.quant_psum_scatter(xs.reshape(n, n * rows, cols), wire_dtype,
+                                   blk)
+
+
 def reduce_scatter_shard(x, *, num_ranks: int,
                          method: ReduceScatterMethod = ReduceScatterMethod.AUTO,
                          wire_dtype=None, wire_block: int | None = None,
                          wait_budget: float | None = None):
     """ReduceScatter of every rank's (n * rows, cols) partials, x (n, n *
     rows, cols) rank-stacked, along dim 0: (n, rows, cols), rank r's chunk
-    of the sum at [r]. `wire_dtype` quantizes the XLA path's wire per
-    `wire_block` (ops/wire.py)."""
+    of the sum at [r]. `wire_dtype` quantizes the wire per `wire_block`
+    (ops/wire.py; the kernel routes take the quant arms)."""
     n = num_ranks
     if x.dim() != 3 or x.shape[0] != n or x.shape[1] % n:
         raise ValueError(f"reduce_scatter: x {tuple(x.shape)} is not (n, n "
@@ -141,16 +188,32 @@ def reduce_scatter_shard(x, *, num_ranks: int,
             return wire.quant_psum_scatter(x, wire_dtype, blk)
         record_dispatch("reduce_scatter", "xla", "n==1" if n == 1 else "")
         return RankGroup(n).psum_scatter(x)
-    arm, name, quant_kernel = _ARMS[method.value]
+    arm, name = _ARMS[method.value]
+    c = chunk_rows * cols
     if wire_dtype is not None:
-        raise wire_later("reduce_scatter", name, quant_kernel, 7)
+        record_dispatch("reduce_scatter", "kernel", "wire")
+        if x.device.type == "cpu":
+            return (ring_quant_plain if arm == 0 else fullmesh_quant_plain)(
+                x.reshape(n, n, chunk_rows, cols), wire_dtype, blk)
+        check_coll_cuda("reduce_scatter", x, n)
+        out = torch.empty((n, chunk_rows, cols), dtype=x.dtype,
+                          device=x.device)
+        gblk = shmem.coll_wire_group(c * x.element_size(),
+                                     blk * x.element_size())
+        ws = shmem.coll_wire_workspace("reduce_scatter", name, x.device, n,
+                                       n - 1 if arm == 0 else n, c, blk, gblk)
+        shmem.launch_coll(REDUCE_SCATTER_QUANT[name], ws, arm + 2,
+                          shmem.primitives.DTYPE_CODES[x.dtype], x, out,
+                          n * c, gblk,
+                          wire=(shmem.WIRE_CODES[wire_dtype], blk),
+                          budget_s=wait_budget or shmem.WAIT_BUDGET_S)
+        return out
     record_dispatch("reduce_scatter", "kernel")
     if x.device.type == "cpu":
         xs = x.reshape(n, n, chunk_rows, cols)
         return ring_plain(xs) if arm == 0 else fullmesh_plain(xs)
     check_coll_cuda("reduce_scatter", x, n)
     out = torch.empty((n, chunk_rows, cols), dtype=x.dtype, device=x.device)
-    c = chunk_rows * cols
     step = shmem.coll_block(c * x.element_size()) // x.element_size()
     region = (n - 1 if arm == 0 else n, c)
     ws = shmem.coll_workspace("reduce_scatter", name, x.device, n,

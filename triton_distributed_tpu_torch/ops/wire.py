@@ -10,13 +10,15 @@ each slice is scaled by its own absmax into a wire dtype ("int8",
 symmetric round-half-to-even, or "float8_e4m3fn") and carries one f32
 scale. The paged KV pool stores K/V rows this way with block = head_dim
 (models/paged_kv_cache.py::quant_kv). Payload bytes and scales equal the
-JAX codec's exactly: the same f32 division, `torch.round` rounds half to
-even as `jnp.round` does, and fp8 conversion rounds to nearest even
-(in range; the codec never leaves it).
+JAX codec's exactly: the same f32 division (IEEE on the CPU and on a
+CUDA tensor alike), `torch.round` rounds half to even as `jnp.round`
+does, and fp8 conversion rounds to nearest even (in range; the codec
+never leaves it).
 
 The quantized collective wire of the tensor-parallel epilogues (the
 quant arms of ops/gemm_rs.py and ops/gemm_ar.py, `quant_psum`,
-`quant_psum_scatter`) uses the per-block codec on 2-D values
+`quant_psum_scatter`) and of the collective library's quant arms
+(ops/collectives) uses the per-block codec on 2-D values
 (`quant_value_blocks` / `dequant_value_blocks`, the plain versions of the
 device codec in csrc/tdt_wire.cuh) and accumulates the dequantized parts
 in f32 in rank order (`dequant_accumulate`), rounding once.
@@ -109,7 +111,10 @@ def quant_blockwise(x, wire_dtype, block: int | None = None):
     blk = resolve_block(x.shape[-1], block)
     f = x.float().reshape(*x.shape[:-1], -1, blk)
     amax = f.abs().amax(dim=-1, keepdim=True)
-    scale = amax.clamp_min(1e-30) / WIRE_MAX[name]
+    # divided by a tensor on amax's device: a CUDA tensor divided by a
+    # Python number is multiplied by its reciprocal, which can put a scale
+    # an ulp off the IEEE quotient the device codec and the CPU compute
+    scale = amax.clamp_min(1e-30) / torch.full_like(amax, WIRE_MAX[name])
     q = f / scale
     if name == "int8":
         q = torch.round(q)

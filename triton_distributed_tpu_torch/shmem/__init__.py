@@ -10,6 +10,8 @@ from .primitives import (  # noqa: F401
     a2a_workspace,
     check_faults,
     coll_block,
+    coll_wire_group,
+    coll_wire_workspace,
     coll_workspace,
     launch_a2a,
     launch_coll,

@@ -67,6 +67,12 @@ COLL_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                  + [ctypes.c_uint, ctypes.c_longlong, ctypes.c_int]
                  + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
 COLL_BYTES = 2          # the gather's dtype code: it copies bytes
+# the quant arms of csrc/reduce_scatter.cu and all_reduce.cu
+# (tdt_reduce_scatter_quant, tdt_all_reduce_quant) add the wire dtype and
+# the scaling block after dtype, and take the scaling blocks a work item
+# for blk: arm, dtype, wire, sblk, x, out, ...
+COLL_QUANT_ARGTYPES = COLL_ARGTYPES[:2] + [ctypes.c_int] * 2 \
+    + COLL_ARGTYPES[2:]
 COLL_MAX_RANKS = 8      # csrc/tdt_coll.cuh MAX_RANKS
 
 
@@ -314,15 +320,16 @@ def coll_block(unit_bytes: int) -> int:
 
 
 def coll_workspace(op: str, arm: str, device, n: int, nblk: int, region,
-                   dtype) -> Workspace:
+                   dtype, sblocks: int | None = None) -> Workspace:
     """The workspace of one arm of a collective ("<op>[<arm>]"): landing
     regions (n, *region) of `dtype` (None: the outputs are the regions, as
     for the gather); its pad holds the barrier counter (slot 0) and one
     signal per block: of each source s at 1 + s * nblk + b for "fullmesh"
     and "one_shot", of each hop k at 1 + k * nblk + b for "ring" (n - 1
     hops) and "two_shot" (the reduce-scatter's n - 1 hops, then the
-    all-gather's)."""
-    if arm in ("fullmesh", "one_shot"):
+    all-gather's). A quant arm ("<arm>/wire", `coll_wire_workspace`) has the
+    same layout over its work items of `sblocks` scaling blocks."""
+    if arm.split("/")[0] in ("fullmesh", "one_shot"):
         groups = n
 
         def what(g):
@@ -340,24 +347,49 @@ def coll_workspace(op: str, arm: str, device, n: int, nblk: int, region,
         if sig == 0:
             return "barrier_all"
         g, b = divmod(sig - 1, nblk)
-        return f"block {b} {what(g)}"
+        sb = ("" if sblocks is None else
+              f" (scaling blocks {b * sblocks}..{(b + 1) * sblocks - 1})")
+        return f"block {b}{sb} {what(g)}"
 
     return workspace(f"{op}[{arm}]", device, n, region, dtype,
                      1 + groups * nblk, describe)
 
 
+def coll_wire_group(unit_bytes: int, sblk_bytes: int) -> int:
+    """Scaling blocks a work item of a quant arm holds: whole blocks of
+    about `coll_block(unit_bytes)` input bytes, at least one (a block is
+    never split: its absmax comes before its first byte)."""
+    return max(1, coll_block(unit_bytes) // sblk_bytes)
+
+
+def coll_wire_workspace(op: str, arm: str, device, n: int, slots: int,
+                        unit: int, sblk: int, gblk: int) -> Workspace:
+    """The workspace of a collective's quant arm ("<op>[<arm>/wire]",
+    csrc/tdt_coll_wire.cuh): rank r's landing region is bytes, `slots`
+    slots of `unit` quantized elements (one byte each), then from the next
+    16-byte boundary their scales (slots, unit / sblk) f32; its pad is
+    `coll_workspace`'s over work items of `gblk` scaling blocks."""
+    soff = -(-(slots * unit) // 16) * 16
+    size = -(-(soff + slots * (unit // sblk) * 4) // 16) * 16
+    nitem = -(-(unit // sblk) // gblk)
+    return coll_workspace(op, f"{arm}/wire", device, n, nitem, (size,),
+                          torch.uint8, sblocks=gblk)
+
+
 def launch_coll(kernel, ws: Workspace, arm: int, dtype_code: int, x, out,
-                count: int, blk: int, *, budget_s: float = WAIT_BUDGET_S,
-                grid: int = 0) -> None:
+                count: int, blk: int, *, wire=(),
+                budget_s: float = WAIT_BUDGET_S, grid: int = 0) -> None:
     """Launch one of the collective kernels (a CudaKernel over
-    COLL_ARGTYPES) on rank-stacked x and out through `ws`, at the
-    workspace's next epoch (kept only when the launch went in)."""
+    COLL_ARGTYPES, or COLL_QUANT_ARGTYPES with `wire` = (WIRE_CODES[dtype],
+    scaling block) and `blk` the scaling blocks a work item) on
+    rank-stacked x and out through `ws`, at the workspace's next epoch
+    (kept only when the launch went in)."""
     ws.poll()
     epoch = (ws.epoch + 1) & 0xFFFFFFFF
     land = ptr(ws.land_ptrs) if ws.land_ptrs is not None \
         else ctypes.c_void_p(None)
-    kernel.launch(arm, dtype_code, ptr(x), ptr(out), land, ptr(ws.pad_ptrs),
-                  ptr(ws.fault), epoch, int(budget_s * 1e9), ws.n, count,
-                  blk, grid, stream_of(x))
+    kernel.launch(arm, dtype_code, *wire, ptr(x), ptr(out), land,
+                  ptr(ws.pad_ptrs), ptr(ws.fault), epoch, int(budget_s * 1e9),
+                  ws.n, count, blk, grid, stream_of(x))
     ws.epoch = epoch
     ws.launched()

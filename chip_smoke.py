@@ -310,10 +310,30 @@ Phases, in order; any failure raises and exits non-zero:
      route's time at n = 4, bf16, block 256 beside the full-width arm's,
      its plain version's and its bound; then a planted lost signal in the
      quantized one-shot, raised naming the rank, the block and the source;
- 52. one line of wall seconds per phase, one JSON line of per-kernel
+ 52. the sp-family cell, the SP family beyond serving (the varlen arm of
+     csrc/flash_attention.cu, csrc/sp_ag_attention.cu) at Qwen3-8B's
+     attention (32 / 8 heads of 128, bf16) over n = 4 ranks: each kernel
+     against its plain version on the cell's shapes (the fused one causal
+     and full, dense and varlen); the main path (every count set to 0): a
+     causal prefill of 8192 rows through sp_ag_attention, ring_attention
+     and UlyssesAttn(4096, 32, 8, 128), a packed varlen batch of 8192 rows
+     (lengths drawn from 64-1500, some across shard boundaries, a trailing
+     pad) through flash_attention_varlen, ring_attention_varlen and
+     sp_ag_attention(cu_seqlens=), a decode step of SpFlashDecodeAttention
+     over 4 x 2048 positions under "xla" and "ll", the launches read back
+     (varlen 1 + one a ring round, sp_ag one a call) and every output
+     against the one-device golden within OUT_TOL and within SP_ROW_TOL of
+     each row's RMS; each kernel's time against its bound, its plain
+     version and the library yardstick;
+ 53. two planted faults in the fused kernel: a chunk read before it landed
+     (the plain version on another draw's rows of that chunk), which the
+     row check must refuse; then a lost signal: the check raises naming
+     the rank, the chunk's kv rows and the source; the next call runs
+     clean;
+ 54. one line of wall seconds per phase, one JSON line of per-kernel
      numbers, then the device JSON line.
-Steps 14-16, 31-32, 48, 35-36, 39-40 and 50-51 run with the other kernel
-checks, before step 4, steps 33, 37 and 41 after step 16 and step 34 right
+Steps 14-16, 31-32, 48, 35-36, 39-40, 50-51 and 52-53 run with the other
+kernel checks, before step 4, steps 33, 37 and 41 after step 16 and step 34 right
 after step 5; steps 42-43 and 47 right after step 9; steps 29, 19-20, 22-23,
 25-26 and 44-46 run after step 10, steps 30 and 21 after step 13 and step
 27 after step 21; steps 17, 18, 24, 28, 38 and 49 run last.
@@ -5602,6 +5622,390 @@ def check_ep_serve(models, attn, moe, moe_params, cfg, seed, smi):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Slice 6h: the SP family beyond serving (csrc/flash_attention.cu's varlen
+# arm, csrc/sp_ag_attention.cu)
+# ---------------------------------------------------------------------------
+
+SP_RANKS = 4                   # the sp-family cell's n
+SP_SEQ = 8192                  # rows of the long prefill / the packed batch
+SP_SHAPE = (32, 8, 128)        # Qwen3-8B's attention: heads, kv heads, D
+SP_DECODE = (4, 2048)          # decode slots, cache positions a rank
+SP_ROW_TOL = 8e-2              # sp family, of each output row's RMS: one
+                               # bf16 step of an element up to 5x its row's
+                               # RMS is 2^-7 x 5 = 0.039; twice that
+
+
+def _sp_lens(seed, total, lo=64, hi=1500):
+    """Sequence lengths drawn from the serve cell's prompt range, packed
+    until the next would reach `total`: cu_seqlens[-1] < total."""
+    rng = np.random.default_rng(seed)
+    lens = []
+    while True:
+        L = int(rng.integers(lo, hi + 1))
+        if sum(lens) + L >= total:
+            return lens
+        lens.append(L)
+
+
+def _sp_pairs(lens, causal=True):
+    """(row, column) pairs a packed batch's rows see."""
+    return sum(L * (L + 1) // 2 if causal else L * L for L in lens)
+
+
+def sp_errs(got, want):
+    """(max |got - want|, the largest |got - want| over the RMS of want's
+    last axis at that element). The second holds the error against the
+    scale of what it compares: an attention row over N keys of unit-
+    variance values has an RMS near sqrt(e / N), 0.018 at N = 8192."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return d.max().item(), (d / rms).max().item()
+
+
+def check_sp_family(dev, gen):
+    """The sp-family cell: Qwen3-8B's attention (32 / 8 heads of 128, bf16)
+    at n = 4 sequence-parallel ranks. First each kernel against its plain
+    version at the cell's shapes (the plain versions chunked over q rows):
+    the varlen arm of csrc/flash_attention.cu on the packed batch (out and
+    lse), csrc/sp_ag_attention.cu causal and full, dense and varlen. Then
+    the main path, every count set to 0: a causal prefill of 8192 rows
+    (2048 a rank) through sp_ag_attention (logged "kernel"), ring_attention
+    and UlyssesAttn(4096, 32, 8, 128) on an (8192, 4096) activation; a
+    packed varlen batch of 8192 rows (lengths drawn from 64-1500, some
+    crossing shard boundaries, rows past cu_seqlens[-1] exactly 0) through
+    flash_attention_varlen, ring_attention_varlen and sp_ag_attention(
+    cu_seqlens=); one decode step of SpFlashDecodeAttention (4 slots, a
+    cache of 4 x 2048 positions) under "xla" and "ll". The launches are
+    read back against what the steps imply, and each result is held
+    against the one-device golden over the gathered sequence (the port's
+    flash_attention per sequence, flash_attention_varlen, flash_decode)
+    within OUT_TOL (OUT_TOL of the value above 1: the goldens round at
+    other points) and within SP_ROW_TOL of each row's RMS (`close`). Every call of a kernel against its plain version takes
+    new data, so a consumer that read a landing slot before its signal
+    would find another call's rows there. Then each kernel timed at the
+    cell against its bound, its plain version and the library yardstick.
+    Returns (the two kernels-line entries, the main path's launches by
+    kernel name)."""
+    import torch.nn.functional as F
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.layers import (SpFlashDecodeAttention,
+                                                     UlyssesAttn)
+    from triton_distributed_tpu_torch.ops import _common, ll_gather
+    from triton_distributed_tpu_torch.ops import attention as attn
+    from triton_distributed_tpu_torch.ops import sp_ag_attention as tag
+    from triton_distributed_tpu_torch.ops import sp_attention as tsp
+    t0 = time.perf_counter()
+    n, T = SP_RANKS, SP_SEQ
+    H, Hkv, D = SP_SHAPE
+    s_loc = T // n
+    scale = D ** -0.5
+
+    def draw(*lead):
+        return tuple(torch.randn((*lead, h, D), generator=gen,
+                                 device=dev).bfloat16() for h in (H, Hkv, Hkv))
+
+    q, k, v = draw(1, T)            # the causal prefill
+    qp, kp, vp = draw(1, T)         # the packed batch
+    lens = _sp_lens(7, T)
+    cu = torch.tensor([0, *np.cumsum(lens)], dtype=torch.int32, device=dev)
+    live = int(cu[-1])
+    starts = np.cumsum([0, *lens[:-1]])
+    crossing = sum(1 for a, L in zip(starts, lens)
+                   if a // s_loc != (a + L - 1) // s_loc)
+    assert live < T and crossing > 0, (live, crossing)
+    meta = attn.segment_sideband(cu, T)
+    err = {"flash_attention_varlen": 0.0, "sp_ag_attention": 0.0}
+
+    def close(name, got, want, rows=None, tol=OUT_TOL, golden=False):
+        """Within tol of want on the first `rows` rows and within
+        SP_ROW_TOL of each row's RMS (`sp_errs`), the rest exactly 0. Returns (max abs error, max error
+        of the row's RMS). Against a golden that rounds q * scale to bf16
+        where the kernel scales the f32 scores, two bf16 results may sit a
+        step apart, and a step grows with the value: there tol also scales
+        with |want| above 1."""
+        rows = got.shape[-3] if rows is None else rows
+        assert got.shape == want.shape and bool(got.isfinite().all()), name
+        g, w = (t[..., :rows, :, :].float() for t in (got, want))
+        lim = tol * (w.abs().clamp_min(1.0) if golden else 1.0)
+        e, r = sp_errs(g, w)
+        assert bool(((g - w).abs() <= lim).all()), (name, e)
+        assert r <= SP_ROW_TOL, (name, r)
+        assert (got[..., rows:, :, :] == 0).all(), name
+        if name in err and not golden:
+            err[name] = max(err[name], e)
+        return e, r
+
+    def fmt(errs):
+        return {k_: (round(e_, 6), round(r_, 4)) for k_, (e_, r_) in
+                errs.items()}
+
+    # 1. each kernel against its plain version at the cell
+    offs = torch.tensor([[0, 0, T]], dtype=torch.int32, device=dev)
+    got, lse = attn._fa_varlen_call(qp, kp, vp, meta[None], offs,
+                                    causal=True, scale=scale, need_lse=True)
+    want, want_lse = attn._flash_attention_varlen_plain(
+        qp, kp, vp, meta[None], offs, causal=True, scale=scale)
+    e_var = close("flash_attention_varlen", got, want, live)
+    want_var = want
+    e_lse = (lse[:, :live] - want_lse[:, :live]).abs().max().item()
+    assert e_lse <= LSE_TOL, e_lse
+    metas = meta.view(n, s_loc, 128)
+    cfg = tag.SpAgAttnConfig(force_kernel=True)
+    e_ag = {}
+    for causal in (True, False):
+        for varlen in (False, True):
+            m = metas if varlen else None
+            qn, kn, vn = draw(n, 1, s_loc)
+            got = tag.sp_ag_attention_shard(qn, kn, vn, num_ranks=n,
+                                            causal=causal, config=cfg,
+                                            qmeta=m)
+            want = tag._sp_ag_attention_plain(
+                qn[:, 0], kn[:, 0], vn[:, 0], m, causal=causal,
+                scale=scale)[:, None]
+            torch.cuda.synchronize()
+            shmem.check_faults()
+            e_ag[(causal, varlen)] = close(
+                "sp_ag_attention", got.reshape(1, T, H, D),
+                want.reshape(1, T, H, D), live if varlen else T)
+    print(f"sp family kernels vs plain (n {n}, {T} rows, {H} / {Hkv} heads "
+          f"of {D}, bf16): flash_attention_varlen causal over {len(lens)} "
+          f"packed sequences ({live} rows live, {crossing} across shard "
+          f"boundaries) (max_abs_err, of the row RMS) ({e_var[0]:.3e}, "
+          f"{e_var[1]:.4f}), lse {e_lse:.3e}; sp_ag_attention (causal, "
+          f"varlen), each call on new data: {fmt(e_ag)}")
+
+    # 2. the main path, every count set to 0
+    kernels = {"flash_attention": attn.FLASH_ATTENTION,
+               "flash_attention_varlen": attn.FLASH_ATTENTION_VARLEN,
+               "sp_ag_attention": tag.SP_AG_ATTENTION,
+               "flash_decode": attn.FLASH_DECODE,
+               "ll_combine": ll_gather.LL_COMBINE}
+    layer = UlyssesAttn(4096, H, Hkv, D, num_ranks=n)
+    uparams = layer.init_params(gen, device=dev)
+    x = (torch.randn((T, 4096), generator=gen, device=dev) * 0.5).bfloat16()
+    B, S_rank = SP_DECODE
+    qd = torch.randn((B, H, D), generator=gen, device=dev).bfloat16()
+    kc, vc = (torch.randn((B, n * S_rank, Hkv, D), generator=gen,
+                          device=dev).bfloat16() for _ in range(2))
+    kv_len = torch.tensor([n * S_rank, n * S_rank * 5 // 8, S_rank + 1, 100],
+                          dtype=torch.int32, device=dev)
+    decoders = {c: SpFlashDecodeAttention(H, Hkv, D, num_ranks=n, combine=c)
+                for c in ("xla", "ll")}
+    torch.cuda.synchronize()
+    for kern in kernels.values():
+        kern.launches = 0
+    _common.reset_dispatch()
+    t_main = time.perf_counter()
+    outs = {
+        "sp_ag_attention": tag.sp_ag_attention(q, k, v, num_ranks=n),
+        "ring_attention": tsp.ring_attention(q, k, v, num_ranks=n),
+        "UlyssesAttn": layer(uparams, x),
+        "flash_attention_varlen": attn.flash_attention_varlen(
+            qp[0], kp[0], vp[0], cu),
+        "ring_attention_varlen": tsp.ring_attention_varlen(
+            qp[0], kp[0], vp[0], cu, num_ranks=n),
+        "sp_ag_attention(cu_seqlens)": tag.sp_ag_attention(
+            qp, kp, vp, num_ranks=n, cu_seqlens=cu)}
+    for c, dec in decoders.items():
+        outs[f"SpFlashDecodeAttention[{c}]"] = dec(qd, kc, vc, kv_len)
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    main_s = time.perf_counter() - t_main
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    want_launches = {"flash_attention": n + 1, "flash_attention_varlen": 1 + n,
+                     "sp_ag_attention": 2, "flash_decode": 2, "ll_combine": 1}
+    assert launches == want_launches, (launches, want_launches)
+    assert _common.dispatch_counts("sp_ag_attention") == {
+        ("sp_ag_attention", "kernel", ""): 2}, _common.dispatch_counts()
+
+    # the one-device goldens over the gathered sequence
+    gdense = attn.flash_attention(q, k, v, causal=True)
+    gvar = torch.zeros_like(qp[0])
+    for a, L in zip(starts, lens):
+        gvar[a:a + L] = attn.flash_attention(
+            qp[:, a:a + L], kp[:, a:a + L], vp[:, a:a + L], causal=True)[0]
+    gdec = attn.flash_decode(qd, kc, vc, kv_len)
+    wq, wkv = H * D // n, Hkv * D // n
+    w = uparams["w_qkv"]
+    w_q = w[:, :, :wq].reshape(4096, H * D)
+    w_k = w[:, :, wq:wq + wkv].reshape(4096, Hkv * D)
+    w_v = w[:, :, wq + wkv:].reshape(4096, Hkv * D)
+    cos, sin = attn.rope_cos_sin(torch.arange(T, device=dev), D)
+    uq = attn.apply_rope((x @ w_q).view(1, T, H, D), cos, sin)
+    uk = attn.apply_rope((x @ w_k).view(1, T, Hkv, D), cos, sin)
+    uo = attn.flash_attention(uq.contiguous(), uk.contiguous(),
+                              (x @ w_v).view(1, T, Hkv, D), causal=True)
+    gul = uo.view(T, H * D) @ uparams["w_o"].reshape(H * D, 4096)
+    errs = {}
+    for name, got in outs.items():
+        if name.startswith("SpFlash"):
+            errs[name] = close(name, got[:, None], gdec[:, None],
+                               golden=True)
+        elif name == "UlyssesAttn":
+            errs[name] = close(name, got[None, :, None], gul[None, :, None],
+                               golden=True)
+        elif "varlen" in name or "cu_seqlens" in name:
+            g = got[0] if got.dim() == 4 else got
+            errs[name] = close(name, g, gvar, live, golden=True)
+        else:
+            errs[name] = close(name, got, gdense, golden=True)
+    errs["flash_attention_varlen vs plain"] = close(
+        "flash_attention_varlen", outs["flash_attention_varlen"][None],
+        want_var, live)
+    print(f"sp family main path (n {n}: a causal prefill of {T} rows, the "
+          f"packed batch, a decode step over {B} x {n * S_rank} positions; "
+          f"{main_s:.2f} s with the host): launches {launches}; "
+          f"(max_abs_err, of the row RMS) against the one-device goldens "
+          f"{fmt(errs)}")
+
+    # 3. times at the cell against the bound, the plain version, the library
+    pairs_var = _sp_pairs(lens)
+    pairs_ag = T * (T + 1) // 2
+    nb_var = nbytes(qp, kp, vp, qp) + T * 8   # the sideband's two lanes
+    bms_var, by_var = bound(nb_var, 4 * H * D * pairs_var)
+    ms_var = time_ms([lambda: attn._fa_varlen_call(
+        qp, kp, vp, meta[None], offs, causal=True, scale=scale,
+        need_lse=False)])
+    plain_var = time_ms([lambda: attn._flash_attention_varlen_plain(
+        qp, kp, vp, meta[None], offs, causal=True, scale=scale)], reps=2,
+        rounds=2)
+    api_var = time_ms([lambda: attn.flash_attention_varlen(
+        qp[0], kp[0], vp[0], cu)])
+    # the yardstick: SDPA with the block-diagonal causal mask over the live
+    # rows
+    seq = torch.repeat_interleave(torch.arange(len(lens), device=dev),
+                                  torch.tensor(lens, device=dev))
+    pos = torch.arange(live, device=dev)
+    mask = (seq[:, None] == seq[None, :]) & (pos[None, :] <= pos[:, None])
+    qt, kt, vt = (t[:, :live].transpose(1, 2) for t in (qp, kp, vp))
+    lib_var = time_ms([lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)], reps=3, rounds=3)
+    del mask
+    qs, ks, vs = (t.view(n, 1, s_loc, *t.shape[2:]) for t in (q, k, v))
+    ms_ag = time_ms([lambda: tag.sp_ag_attention_shard(
+        qs, ks, vs, num_ranks=n, causal=True, config=cfg)])
+    ms_ag_var = time_ms([lambda: tag.sp_ag_attention_shard(
+        qs, ks, vs, num_ranks=n, causal=True, config=cfg, qmeta=metas)])
+    plain_ag = time_ms([lambda: tag._sp_ag_attention_plain(
+        qs[:, 0], ks[:, 0], vs[:, 0], None, causal=True, scale=scale)],
+        reps=2, rounds=2)
+    lib_ag = time_ms([lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)])
+    bms_ag, by_ag = bound(nbytes(q, k, v, q), 4 * H * D * pairs_ag)
+    # the pushes: rank r's K and V shards land on the n - 1 - r later ranks
+    push = n * (n - 1) // 2 * 2 * s_loc * Hkv * D * 2
+    shmem.check_faults()
+    print(f"flash_attention_varlen at the cell ({live} live rows, "
+          f"{pairs_var} visible pairs a head): kernel {ms_var:.4f} ms "
+          f"(through flash_attention_varlen, the sideband built each call, "
+          f"{api_var:.4f} ms), plain {plain_var:.4f} ms, sdpa with the "
+          f"block-diagonal causal mask {lib_var:.4f} ms, bound {bms_var:.4f} ms ({by_var}: "
+          f"{nb_var / 2**20:.2f} MiB, "
+          f"{4 * H * D * pairs_var / 1e9:.2f} GFLOP)")
+    print(f"sp_ag_attention at the cell (n {n}, causal, {T} rows): kernel "
+          f"{ms_ag:.4f} ms (varlen {ms_ag_var:.4f} ms), plain {plain_ag:.4f} "
+          f"ms, sdpa over the gathered sequence {lib_ag:.4f} ms, bound "
+          f"{bms_ag:.4f} ms ({by_ag}: {4 * H * D * pairs_ag / 1e9:.1f} GFLOP, "
+          f"{nbytes(q, k, v, q) / 2**20:.0f} MiB); the pushes' "
+          f"{push / 2**20:.0f} MiB of landing stores and reads on top "
+          f"{2 * push / PEAK_BYTES * 1e3:.4f} ms; resident CTAs "
+          f"{tag.resident_ctas(D)}; phase {time.perf_counter() - t0:.1f} s")
+    entries = [
+        {"name": "flash_attention_varlen", "route": "cuda",
+         "source": "triton_distributed_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "triton_distributed_tpu/ops/attention.py:284",
+         "launches": launches["flash_attention_varlen"],
+         "max_abs_err": err["flash_attention_varlen"], "ms": ms_var,
+         "plain_ms": plain_var, "bound_ms": bms_var, "bound_by": by_var,
+         "library_ms": lib_var},
+        {"name": "sp_ag_attention", "route": "cuda",
+         "source": "triton_distributed_tpu_torch/csrc/sp_ag_attention.cu",
+         "replaces": "triton_distributed_tpu/ops/sp_ag_attention.py:63",
+         "launches": launches["sp_ag_attention"],
+         "max_abs_err": err["sp_ag_attention"], "ms": ms_ag,
+         "plain_ms": plain_ag, "bound_ms": bms_ag, "bound_by": by_ag,
+         "library_ms": lib_ag}]
+    return entries, launches
+
+
+def check_sp_fault(dev, gen):
+    """Two planted faults in the fused kernel. First a chunk read before it
+    landed, at the cell: the plain version with source 1's chunk 1 of K and
+    V taken from another draw for the ranks that read it from their landing
+    slots (2 and 3 under the causal mask), the output a consumer that did
+    not wait would give; the row check of check_sp_family must pass the
+    kernel's output against the plain version and refuse it against this
+    one. Then a lost signal: one notification of source 1's chunk 1 taken
+    out of rank 2's pad. The wait must time out within the budget, the
+    check must raise naming rank 2, the chunk's kv rows and source rank 1,
+    and the next call must run clean."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import sp_ag_attention as tag
+    H, Hkv, D = SP_SHAPE
+    n, s = SP_RANKS, SP_SEQ // SP_RANKS
+    q, k, v, k2, v2 = (torch.randn((n, s, h, D), generator=gen,
+                                   device=dev).bfloat16()
+                       for h in (H, Hkv, Hkv, Hkv, Hkv))
+    cfg = tag.SpAgAttnConfig(force_kernel=True)
+    got = tag.sp_ag_attention_shard(q[:, None], k[:, None], v[:, None],
+                                    num_ranks=n, config=cfg)[:, 0]
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    want = tag._sp_ag_attention_plain(q, k, v, None, causal=True,
+                                      scale=D ** -0.5)
+    c = tag.chunk_rows(s)
+    kf, vf = k.clone(), v.clone()
+    kf[1, c:2 * c], vf[1, c:2 * c] = k2[1, c:2 * c], v2[1, c:2 * c]
+    bad = tag._sp_ag_attention_plain(q, kf, vf, None, causal=True,
+                                     scale=D ** -0.5)
+    bad[:2] = want[:2]
+    ok, off = sp_errs(got, want), sp_errs(got, bad)
+    print(f"sp_ag_attention planted stale chunk (source 1's kv rows "
+          f"{c}..{2 * c - 1} of another draw on ranks 2 and 3, n {n}, {s} "
+          f"rows a rank): (max_abs_err, of the row RMS) against the plain "
+          f"version {ok[0]:.3e}, {ok[1]:.4f}; against the faulted one "
+          f"{off[0]:.3e}, {off[1]:.4f} (SP_ROW_TOL {SP_ROW_TOL}, OUT_TOL "
+          f"{OUT_TOL})")
+    assert ok[0] <= OUT_TOL and ok[1] <= SP_ROW_TOL, ok
+    assert off[1] > SP_ROW_TOL, off
+    del q, k, v, k2, v2, kf, vf, got, want, bad
+
+    n, s = SP_RANKS, 512
+    q, k, v = (torch.randn((n, 1, s, h, D), generator=gen,
+                           device=dev).bfloat16() for h in (H, Hkv, Hkv))
+    tag.sp_ag_attention_shard(q, k, v, num_ranks=n, config=cfg)
+    torch.cuda.synchronize()
+    ws = tag.workspace(q.device, n, s, Hkv, D, torch.bfloat16, True)
+    nchunk = -(-s // tag.chunk_rows(s))
+    ws.pads[2, 1 + nchunk + 1] -= 1
+    t0 = time.perf_counter()
+    tag.sp_ag_attention_shard(q, k, v, num_ranks=n, config=cfg)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    assert int(ws.fault[0]) == shmem.FAULT_TIMEOUT
+    assert took < shmem.WAIT_BUDGET_S + 2.0, took
+    try:
+        shmem.check_faults()
+        raise AssertionError("sp_ag_attention: the planted fault did not "
+                             "raise")
+    except RuntimeError as e:
+        msg = str(e)
+    assert msg.startswith("sp_ag_attention[causal]: rank 2 timed out") \
+        and "(chunk 1) from source rank 1" in msg, msg
+    got = tag.sp_ag_attention_shard(q, k, v, num_ranks=n, config=cfg)
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    want = tag._sp_ag_attention_plain(q[:, 0], k[:, 0], v[:, 0], None,
+                                      causal=True, scale=D ** -0.5)
+    e = (got[:, 0].float() - want.float()).abs().max().item()
+    assert e <= OUT_TOL, e
+    print(f"sp_ag_attention planted lost signal: raised after {took:.3f} s "
+          f"(budget {shmem.WAIT_BUDGET_S} s): {msg}; the next call ran clean")
+
+
 class Phases:
     """Wall seconds of each phase of the run (a call of `ph(name, fn,
     ...)` runs fn and adds its time to `name`), printed on one line before
@@ -5676,6 +6080,10 @@ def main():
     ph("collectives", check_collectives_fault, dev, gen)
     coll_wire = ph("collectives", check_collectives_wire, dev, gen)
     ph("collectives", check_collectives_wire_fault, dev, gen)
+    shmem.release_workspaces()
+    torch.cuda.empty_cache()
+    sp_entries, sp_launches = ph("sp family", check_sp_family, dev, gen)
+    ph("sp family", check_sp_fault, dev, gen)
     shmem.release_workspaces()
     torch.cuda.empty_cache()
     for check in (check_small_model, check_small_model_paged):
@@ -5781,7 +6189,7 @@ def main():
 
     counts = (launches, tp_launches, serve_launches, mk_serve, moe_launches,
               moe_serve, mk_moe, spec_serve, spec_moe, ep_launches, tp_serve,
-              sp_serve, ep_serve)
+              sp_serve, ep_serve, sp_launches)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in counts)
         assert k["launches"] > 0, k["name"]
@@ -5829,7 +6237,8 @@ def main():
           f"path); no model path reaches them")
     # ll_combine runs on the sp-serve cell's path; ll_merge on no path
     # (counted over both multi-rank serve cells, held to 0 by run_serve)
-    ll_entries[0]["launches"] = sp_serve["ll_combine"]
+    ll_entries[0]["launches"] = sp_serve["ll_combine"] \
+        + sp_launches["ll_combine"]
     ll_entries[1]["launches"] = sp_serve["ll_merge"] + tp_serve["ll_merge"]
     assert ll_entries[0]["launches"] > 0
     print(f"ll_combine launches: {sp_serve['ll_combine']} (sp-serve, "
@@ -5845,11 +6254,12 @@ def main():
           f"tick; {AR_CHAIN} AR nodes alone {ar_entry['chain_ms']:.4f} ms; "
           f"AR launches {ar_entry['launches']} ({mk_tp['decode_launches']} "
           f"decode + {mk_tp['verify_launches']} verify)")
+    print(f"sp family launches (its main path): {sp_launches}")
     print(f"ep-serve launches over its runs: "
           f"{ {n: c for n, c in ep_serve.items() if c} }")
     kernels += [mk, mk_verify, mk_fused, gmm_entry, ar_entry] + tp_entries \
         + wire_entries + [ep_entry] + list(ll_entries) + coll_entries \
-        + coll_wire
+        + coll_wire + sp_entries
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

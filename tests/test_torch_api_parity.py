@@ -15,8 +15,13 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 # module path (under each package) -> the JAX names the port does not have
 UNPORTED = {
-    "layers": {"SpFlashDecodeAttention", "UlyssesAttn", "PPComm",
-               "gpipe_apply"},
+    "layers": {"PPComm", "gpipe_apply"},
+    "ops.attention": {"certify_paged_decode_bytes", "flash_decode_paged_xla",
+                      "paged_decode_kv_read_bytes", "paged_kv_block_map",
+                      "paged_kv_scale_map"},
+    "ops.sp_attention": {"ring_attention_2d", "ring_attention_2d_shard"},
+    "ops.sp_ag_attention": set(),
+    "ops.ulysses": set(),
     "ops.collectives": set(),
     "ops.collectives.all_gather": set(),
     "ops.collectives.reduce_scatter": set(),

@@ -38,7 +38,10 @@ all_reduce) copy bytes, or sum in f32 in their plain versions' order and
 round at the same points, so each is held to its plain version bit for
 bit; so are their quantized-wire arms and the quantized two-shot, which
 quantize with the torch codec's IEEE divisions and add the dequantized
-values in their plain versions' order.
+values in their plain versions' order. The varlen arm of the prefill kernel
+and the fused AG + attention (csrc/sp_ag_attention.cu) are held to their
+plain versions as the prefill kernel is (2e-2 / 1e-3: a blocked vs one-shot
+softmax), rows outside the packed sequences exactly 0.
 """
 
 import numpy as np
@@ -2331,3 +2334,261 @@ def test_codec_on_the_card_equals_the_cpu_codec(cuda, wd):
     qc, sc = wire.quant_blockwise(x.cpu(), wd, 128)
     assert torch.equal(s.cpu(), sc)
     assert torch.equal(wire.byte_view(q).cpu(), wire.byte_view(qc))
+
+
+# ---------------------------------------------------------------------------
+# Slice 6h: the varlen arm of csrc/flash_attention.cu and the fused AG +
+# attention of csrc/sp_ag_attention.cu against their plain versions
+# ---------------------------------------------------------------------------
+
+def _cu_of(lens, device):
+    return torch.tensor([0, *np.cumsum(lens)], dtype=torch.int32,
+                        device=device)
+
+
+# of each output row's RMS: one bf16 step of an element up to 5x its row's
+# RMS is 2^-7 x 5 = 0.039; twice that (chip_smoke.py SP_ROW_TOL)
+ROW_TOL = 8e-2
+
+
+def _row_err(got, want):
+    """The largest |got - want| over the RMS of want's last axis at that
+    element: the error against the scale of an attention row, whose RMS
+    falls as it sees more columns."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return ((g - w).abs() / rms).max().item()
+
+
+def _varlen_close(got, want, live, got_lse=None, want_lse=None):
+    """bf16 outputs within OUT_TOL and within ROW_TOL of each row's RMS on
+    the live rows (p and out rounded at other points of a blocked vs
+    one-shot softmax), rows past them exactly 0; lse within LSE_TOL where a
+    row sees a column."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    e = (got[..., :live, :, :].float() - want[..., :live, :, :].float())
+    assert e.abs().max().item() <= OUT_TOL, e.abs().max().item()
+    r = _row_err(got[..., :live, :, :], want[..., :live, :, :])
+    assert r <= ROW_TOL, r
+    assert (got[..., live:, :, :] == 0).all()
+    if got_lse is not None:
+        seen = want_lse > -1e29
+        assert ((got_lse - want_lse).abs()[seen] <= LSE_TOL).all()
+        assert (got_lse[~seen] < -1e29).all()
+
+
+@pytest.mark.parametrize("H,Hkv,D", [(8, 8, 64), (8, 2, 128), (32, 4, 128),
+                                     (32, 8, 128), (16, 2, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("lens,pad", [((5, 170, 2, 90, 64, 1), 0),
+                                      ((300, 41), 23), ((64, 64, 128), 0)])
+def test_flash_attention_varlen_kernel_matches_plain(cuda, H, Hkv, D, causal,
+                                                     lens, pad):
+    """flash_attention_varlen on ragged packed batches (sequences shorter
+    than, equal to and across the 64-row tile, a trailing pad past
+    cu_seqlens[-1]), GQA groups 1 / 4 / 8, head_dim 64 / 128: one launch a
+    call, the out of its plain version, trailing rows exactly 0."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    T = sum(lens) + pad
+    q = _rand((T, H, D), gen, cuda)
+    k, v = (_rand((T, Hkv, D), gen, cuda) for _ in range(2))
+    cu = _cu_of(lens, cuda)
+    before = attn.FLASH_ATTENTION_VARLEN.launches
+    got = attn.flash_attention_varlen(q, k, v, cu, causal=causal)
+    torch.cuda.synchronize()
+    assert attn.FLASH_ATTENTION_VARLEN.launches == before + 1
+    meta = attn.segment_sideband(cu, T)[None]
+    want, _ = attn._flash_attention_varlen_plain(
+        q[None], k[None], v[None], meta, [[0, 0, T]], causal=causal,
+        scale=D ** -0.5)
+    _varlen_close(got[None], want, sum(lens))
+
+
+@pytest.mark.parametrize("D,G", [(128, 4), (64, 1), (128, 8)])
+def test_flash_attention_varlen_offsets_table_matches_plain(cuda, D, G):
+    """The per-batch-row (q_offset, kv_offset, kv_valid) table of the
+    varlen ring: four batch rows, each a rank's 200-row shard of a packed
+    batch of 800 rows against another rank's kv shard, kv_valid cut short
+    on one; out and lse against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    n, s, Hkv = 4, 200, 2
+    H = Hkv * G
+    lens = (130, 333, 7, 250, 40)          # 760 of 800 rows live
+    meta = attn.segment_sideband(_cu_of(lens, cuda), n * s).view(n, s, 128)
+    q = _rand((n, s, H, D), gen, cuda)
+    k, v = (_rand((n, s, Hkv, D), gen, cuda) for _ in range(2))
+    offs = torch.tensor([[0, 600, 200], [200, 0, 200], [400, 200, 150],
+                         [600, 400, 200]], dtype=torch.int32, device=cuda)
+    for causal in (True, False):
+        got, lse = attn._fa_varlen_call(q, k, v, meta, offs, causal=causal,
+                                        scale=D ** -0.5, need_lse=True)
+        want, want_lse = attn._flash_attention_varlen_plain(
+            q, k, v, meta, offs, causal=causal, scale=D ** -0.5)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        assert e <= OUT_TOL and _row_err(got, want) <= ROW_TOL, e
+        seen = want_lse > -1e29
+        assert ((lse - want_lse).abs()[seen] <= LSE_TOL).all()
+        assert (lse[~seen] < -1e29).all() and (got[~seen] == 0).all()
+
+
+def test_flash_attention_varlen_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((64, 4, 96), dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros((64, 2, 96), dtype=torch.bfloat16, device=cuda)
+    cu = _cu_of((64,), cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        attn.flash_attention_varlen(q, kv, kv, cu)
+    with pytest.raises(ValueError, match="contiguous"):
+        attn.flash_attention_varlen(q[..., :64], kv[..., :64], kv[..., :64],
+                                    cu)
+    qf, kvf = q[..., :64].float().contiguous(), kv[..., :64].float()
+    with pytest.raises(TypeError, match="bfloat16"):
+        attn.flash_attention_varlen(qf, kvf.contiguous(), kvf.contiguous(),
+                                    cu)
+
+
+def _ag_case(n, s, H, Hkv, D, seed, device, lens=None):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = _rand((n, 1, s, H, D), gen, device)
+    k, v = (_rand((n, 1, s, Hkv, D), gen, device) for _ in range(2))
+    meta = None
+    if lens is not None:
+        meta = attn.segment_sideband(_cu_of(lens, device),
+                                     n * s).view(n, s, 128)
+    return q, k, v, meta
+
+
+def _ag_plain(q, k, v, meta, causal):
+    from triton_distributed_tpu_torch.ops import sp_ag_attention as tag
+    return tag._sp_ag_attention_plain(q[:, 0], k[:, 0], v[:, 0], meta,
+                                      causal=causal,
+                                      scale=q.shape[-1] ** -0.5)[:, None]
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("varlen", [False, True])
+def test_sp_ag_attention_kernel_matches_plain(cuda, n, causal, varlen):
+    """The fused kernel against its plain version at n = 2, 4, 8: two
+    calls back to back with new data (the second must not pass on the
+    first's signals), one launch a call logged "kernel"; with varlen a
+    packed batch whose sequences cross shard boundaries and whose last
+    rows are past cu_seqlens[-1] (exactly 0)."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import _common
+    from triton_distributed_tpu_torch.ops import sp_ag_attention as tag
+    s, H, Hkv, D = 256, 8, 2, 128
+    T = n * s
+    lens = (s // 2 + 3, s + 40, 7, T - 3 * s // 2 - 90) if varlen else None
+    cfg = tag.SpAgAttnConfig(force_kernel=True)
+    for seed in (41, 42):
+        q, k, v, meta = _ag_case(n, s, H, Hkv, D, seed, cuda, lens)
+        before = tag.SP_AG_ATTENTION.launches
+        _common.reset_dispatch()
+        got = tag.sp_ag_attention_shard(q, k, v, num_ranks=n, causal=causal,
+                                        config=cfg, qmeta=meta)
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        assert tag.SP_AG_ATTENTION.launches == before + 1
+        assert _common.dispatch_counts() == {
+            ("sp_ag_attention", "kernel", ""): 1}
+        want = _ag_plain(q, k, v, meta, causal)
+        live = sum(lens) if varlen else T
+        _varlen_close(got.reshape(1, T, H, D), want.reshape(1, T, H, D),
+                      live)
+
+
+@pytest.mark.parametrize("s,H,Hkv,D", [(100, 8, 2, 64), (64, 32, 8, 128),
+                                       (72, 4, 4, 128)])
+def test_sp_ag_attention_ragged_tiles_match_plain(cuda, s, H, Hkv, D):
+    """Shard lengths that are no multiple of the kernel's 64-row tile (the
+    dispatch takes them with block 4 or 8), GQA 4 and 1, both masks."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import sp_ag_attention as tag
+    n = 4
+    cfg = tag.SpAgAttnConfig(block_q=4, block_k=4, force_kernel=True)
+    for causal in (True, False):
+        q, k, v, _ = _ag_case(n, s, H, Hkv, D, 43, cuda)
+        got = tag.sp_ag_attention_shard(q, k, v, num_ranks=n, causal=causal,
+                                        config=cfg)
+        torch.cuda.synchronize()
+        shmem.check_faults()
+        want = _ag_plain(q, k, v, None, causal)
+        e = (got.float() - want.float()).abs().max().item()
+        assert e <= OUT_TOL and _row_err(got, want) <= ROW_TOL, e
+
+
+def test_sp_ag_attention_planted_lost_signal_raises_and_the_next_call_is_clean(
+        cuda):
+    """One notification of source 1's chunk 1 taken out of rank 2's pad:
+    the wait times out within the budget (50 ms), the check raises naming
+    rank 2, the chunk's rows and source rank 1, and the next call runs
+    clean."""
+    import time
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import sp_ag_attention as tag
+    n, s, H, Hkv, D = 4, 512, 8, 2, 128
+    q, k, v, _ = _ag_case(n, s, H, Hkv, D, 44, cuda)
+    cfg = tag.SpAgAttnConfig(force_kernel=True)
+    tag.sp_ag_attention_shard(q, k, v, num_ranks=n, config=cfg)
+    torch.cuda.synchronize()
+    # the workspace of the call's own device ("cuda:0", not "cuda")
+    ws = tag.workspace(q.device, n, s, Hkv, D, torch.bfloat16, True)
+    chunk = tag.chunk_rows(s)
+    nchunk = -(-s // chunk)
+    assert ws.epoch == 1 and nchunk > 1
+    ws.pads[2, 1 + 1 * nchunk + 1] -= 1
+    t0 = time.perf_counter()
+    tag.sp_ag_attention_shard(q, k, v, num_ranks=n, config=cfg,
+                              wait_budget=0.05)
+    torch.cuda.synchronize()
+    assert time.perf_counter() - t0 < 5.0
+    with pytest.raises(RuntimeError, match=(
+            rf"sp_ag_attention\[causal\]: rank 2 timed out .*kv rows "
+            rf"{chunk}\.\.{2 * chunk - 1} \(chunk 1\) from source rank 1")):
+        shmem.check_faults()
+    assert ws.epoch == 0 and int(ws.pads.abs().sum()) == 0
+    got = tag.sp_ag_attention_shard(q, k, v, num_ranks=n, config=cfg)
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    want = _ag_plain(q, k, v, None, True)
+    e = (got.float() - want.float()).abs().max()
+    assert e.item() <= OUT_TOL and _row_err(got, want) <= ROW_TOL
+
+
+def test_sp_ag_attention_refuses_a_grid_that_cannot_be_resident(cuda):
+    """One CTA more than can be resident is refused; one CTA alone walks
+    every item in the global order (barrier arrivals, pushes, consumers)
+    and finishes with the plain version's result."""
+    from triton_distributed_tpu_torch import shmem
+    from triton_distributed_tpu_torch.ops import sp_ag_attention as tag
+    n, s, H, Hkv, D = 4, 128, 4, 2, 128
+    q, k, v, _ = _ag_case(n, s, H, Hkv, D, 45, cuda)
+    most = tag.resident_ctas(D)
+    assert most >= torch.cuda.get_device_properties(0).multi_processor_count
+    ws = tag.workspace(q.device, n, s, Hkv, D, q.dtype, True)
+    qs, ks, vs = (t[:, 0].contiguous() for t in (q, k, v))
+    out = torch.empty_like(qs)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        shmem.launch_sp_ag(tag.SP_AG_ATTENTION, ws, qs, ks, vs, None, out,
+                           causal=True, scale=D ** -0.5, grid=most + 1)
+    shmem.launch_sp_ag(tag.SP_AG_ATTENTION, ws, qs, ks, vs, None, out,
+                       causal=True, scale=D ** -0.5, grid=1)
+    torch.cuda.synchronize()
+    shmem.check_faults()
+    want = _ag_plain(q, k, v, None, True)[:, 0]
+    e = (out.float() - want.float()).abs()
+    assert e.max().item() <= OUT_TOL and _row_err(out, want) <= ROW_TOL
+
+
+def test_sp_ag_attention_refuses_what_the_kernel_does_not_take(cuda):
+    from triton_distributed_tpu_torch.ops import sp_ag_attention as tag
+    cfg = tag.SpAgAttnConfig(force_kernel=True)
+    q = torch.zeros((4, 1, 64, 4, 96), dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros((4, 1, 64, 2, 96), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tag.sp_ag_attention_shard(q, kv, kv, num_ranks=4, config=cfg)
+    q = torch.zeros((16, 1, 64, 4, 64), dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros((16, 1, 64, 2, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="at most 8 ranks"):
+        tag.sp_ag_attention_shard(q, kv, kv, num_ranks=16, config=cfg)

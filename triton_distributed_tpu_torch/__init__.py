@@ -12,7 +12,9 @@ through `models.Engine`, continuous batching through
 also over n ranks in one process on one card: dense tensor-parallel
 (`DenseLLM(num_ranks=n)`) and Qwen3-MoE with tensor- or expert-parallel
 experts (`Qwen3MoE(num_ranks=n, moe_parallel="tp" | "ep")`), over
-`parallel/` and `shmem/`.
+`parallel/` and `shmem/`; the collective and sequence-parallel attention
+libraries (`ops/collectives`, `ops/sp_attention.py`,
+`ops/sp_ag_attention.py`, `ops/ulysses.py`) at n ranks too.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,12 @@
-// Prefill flash attention forward, bf16 in, f32 softmax, optional lse.
+// Prefill flash attention forward, bf16 in, f32 softmax, optional lse: the
+// dense arm (tdt_flash_attention_fwd) and the varlen arm over a packed
+// ragged batch (tdt_flash_attention_varlen_fwd, described after the first).
 //
 // Replaces: triton_distributed_tpu/ops/attention.py::_fa_kernel (:42),
 // launched by _fa_call (:143) for flash_attention (:223) and
-// flash_attention_partial (:251).
+// flash_attention_partial (:251); and _fa_varlen_kernel (:284), launched by
+// _fa_varlen_call (:399) for flash_attention_varlen (:465) and
+// flash_attention_varlen_partial (:489).
 //
 // Contract (the same as _fa_call's): q (B, Sq, H, D), k/v (B, Skv, Hkv, D),
 // GQA with kv head = h / (H / Hkv). Row r of q sits at global position
@@ -36,140 +40,45 @@
 // elements so the ldmatrix fragment loads (plain for K, transposed for
 // V; one instruction feeds two mma's) are free of bank conflicts. Tiles
 // every row of a warp sees in full skip the mask arithmetic. Not done
-// yet (later work): TMA and wgmma.
+// yet (later work): TMA and wgmma. The tile (loads, products, online
+// softmax) is csrc/tdt_flash.cuh's, shared with the varlen arm and
+// csrc/sp_ag_attention.cu.
+//
+// The varlen arm. Contract (_fa_varlen_call's, with a batch dimension so
+// the varlen ring runs its n ranks in one launch): q (B, T, H, D), k/v (B,
+// Tk, Hkv, D); qmeta (B, meta_rows, 128) int32, lanes 0 / 1 of row t the
+// global (seq_start, seq_end) of q row t (rows past the live sequences
+// (INT32_MAX, 0)); offs (B, 3) int32, batch row b's (q_offset, kv_offset,
+// kv_valid), read on the device. Row t of batch row b sits at global
+// q_offset + t, column c at kv_offset + c; it sees column c when c <
+// kv_valid, seq_start <= kv_offset + c < seq_end and, causal, kv_offset + c
+// <= q_offset + t. The f32 scores are multiplied by the scale (JAX :323-325;
+// the dense arm scales q in bf16 instead), p is masked explicitly (:345),
+// and a row that sees nothing comes out 0 with lse ~ -1e30. Its design:
+// one CTA owns one (batch row, head, 64-row q tile), reads its rows'
+// segment bounds once and walks only the kv tiles in [min start, max end)
+// of its rows, within [0, kv_valid) and the causal limit: the block culling
+// of JAX :311-316 done once a CTA rather than tested block by block. Tiles
+// a warp's 16 rows see in full skip the mask. Its bound is the dense arm's
+// per visible (row, column) pair: a packed batch of short sequences is far
+// below the ridge point, so bytes bound it.
 
-#include "tdt_common.cuh"
+#include "tdt_flash.cuh"
 
 namespace {
 
-constexpr int BQ = 64;      // q rows per CTA: 16 per warp
-constexpr int BK = 64;      // kv columns per tile
-constexpr int NWARPS = 4;
-constexpr int STAGES = 2;   // cp.async ring depth
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8x8 b16 matrices from shared memory; lane L gives the address of
-// row L % 8 of matrix L / 8. Register i holds matrix i's elements
-// (lane / 4, 2 * (lane % 4) + {0, 1}), or with .trans those of its
-// transpose.
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// 16 bytes global -> shared, asynchronously; zero-fills when !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(a), "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// One kv tile of the online softmax for this thread's two rows (global
-// positions row_glob and row_glob + 8): with MASK, scores the row must
-// not see become -1e30 and give p = 0. Turns s into p in place, folds
-// the tile into the running max and this thread's partial denominator,
-// and rescales the output accumulator.
-template <bool MASK, int NT>
-__device__ __forceinline__ void softmax_tile(
-    float (&s)[BK / 8][4], float (&o)[NT][4], float (&m_run)[2],
-    float (&l_run)[2], int kv0, int row_glob, int t4, int kv_valid,
-    int kv_offset, int causal) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_glob + r * 8;
-    auto seen = [&](int j, int e) {
-      const int col = kv0 + j * 8 + t4 * 2 + e;
-      return col < kv_valid && (!causal || kv_offset + col <= row);
-    };
-    float mx = TDT_NEG_INF;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float& x = s[j][r * 2 + e];
-        if (MASK && !seen(j, e)) x = TDT_NEG_INF;
-        mx = fmaxf(mx, x);
-      }
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_run[r], mx);
-    const float alpha = tdt_exp(m_run[r] - m_new);
-    const float m_scaled = m_new * TDT_LOG2E;
-    m_run[r] = m_new;
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float& x = s[j][r * 2 + e];
-        x = tdt_exp2(fmaf(x, TDT_LOG2E, -m_scaled));
-        if (MASK && !seen(j, e)) x = 0.f;
-        psum += x;
-      }
-    }
-    l_run[r] = l_run[r] * alpha + psum;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      o[nt][r * 2] *= alpha;
-      o[nt][r * 2 + 1] *= alpha;
-    }
-  }
-}
+using namespace tdt_flash;
 
 template <int D>
-constexpr int smem_bytes() {
-  return STAGES * 2 * BK * (D + 8) * 2;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NWARPS * 32)
+__global__ void __launch_bounds__(NTHREADS)
 fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
               int Sq, int Skv, int H, int Hkv, int q_offset, int kv_offset,
               int kv_valid, int causal, float q_scale) {
-  constexpr int LD = D + 8;        // padded shared-memory row, in elements
-  constexpr int KSTEPS = D / 16;   // k-steps of Q K^T
   constexpr int NT = D / 8;        // n-tiles of the output row block
-  constexpr int VECS = D / 8;      // 16-byte vectors per K/V row
-  constexpr int TILE = BK * LD;    // elements of one K or V tile
+  constexpr int TILE = BK * (D + 8);  // elements of one K or V tile
   extern __shared__ __align__(16) __nv_bfloat16 smem[];
   // stage s: K tile at smem + 2*s*TILE, V tile right after it
 
@@ -194,40 +103,16 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   if (causal) kv_end = min(kv_end, q_offset + q_last - kv_offset + 1);
   const int n_tiles = kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
 
-  auto load_tile = [&](int tile, int stage) {
-    __nv_bfloat16* ks = smem + 2 * stage * TILE;
-    __nv_bfloat16* vs = ks + TILE;
-    for (int i = threadIdx.x; i < BK * VECS; i += NWARPS * 32) {
-      const int r = i / VECS, c = (i % VECS) * 8;
-      const int t = tile * BK + r;
-      const bool ok = t < Skv;
-      const size_t off = static_cast<size_t>(ok ? t : 0) * kv_stride + c;
-      cp_async16(&ks[r * LD + c], kbase + off, ok);
-      cp_async16(&vs[r * LD + c], vbase + off, ok);
-    }
-    cp_async_commit();
-  };
-  if (n_tiles > 0) load_tile(0, 0);
+  if (n_tiles > 0) load_kv_tile<D>(smem, 0, kbase, vbase, kv_stride, 0, Skv);
 
-  // Q fragments (A operand, row-major 16x16 per k-step), scaled in bf16
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + (i & 1) * 8;
-      const int c = kk * 16 + (i >> 1) * 8 + t4 * 2;
-      uint32_t val = 0;
-      if (r < Sq) {
-        const float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(
-                q + (static_cast<size_t>(b) * Sq + r) * q_stride +
-                static_cast<size_t>(h) * D + c));
-        val = tdt_pack_bf16(f.x * q_scale, f.y * q_scale);
-      }
-      qa[kk][i] = val;
-    }
-  }
+  // Q fragments, scaled in bf16
+  auto qrow = [&](int r) -> const __nv_bfloat16* {
+    return r < Sq ? q + (static_cast<size_t>(b) * Sq + r) * q_stride +
+                        static_cast<size_t>(h) * D
+                  : nullptr;
+  };
+  uint32_t qa[D / 16][4];
+  load_q<D>(qa, qrow(row0), qrow(row0 + 8), t4, q_scale);
 
   float o[NT][4];
 #pragma unroll
@@ -235,12 +120,10 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   float m_run[2] = {TDT_NEG_INF, TDT_NEG_INF};
   float l_run[2] = {0.f, 0.f};   // per-thread partial sums over its columns
 
-  // ldmatrix row addresses: lane L feeds row L % 8 of matrix L / 8
-  const int lm_row = lane & 7, lm_mat = lane >> 3;
-
   for (int tile = 0; tile < n_tiles; ++tile) {
     if (tile + 1 < n_tiles) {
-      load_tile(tile + 1, (tile + 1) % STAGES);
+      load_kv_tile<D>(smem, (tile + 1) % STAGES, kbase, vbase, kv_stride,
+                      tile + 1, Skv);
       cp_async_wait<1>();      // this tile's group has landed
     } else {
       cp_async_wait<0>();
@@ -250,70 +133,118 @@ fa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* vs = ks + TILE;
     const int kv0 = tile * BK;
 
-    // S = Q K^T: 16 rows x BK columns for this warp, f32 accumulators.
-    // One ldmatrix.x4 gives the B fragments of k-steps kk and kk+1.
     float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; kk += 2) {
-        uint32_t bf[4];
-        ldsm_x4(bf, &ks[(j * 8 + lm_row) * LD + kk * 16 + lm_mat * 8]);
-        mma_16816(s[j], qa[kk], bf);
-        mma_16816(s[j], qa[kk + 1], bf + 2);
-      }
-    }
+    qk_tile<D>(s, qa, ks, lane);
 
     // online softmax; s becomes p in place. Only tiles some row of this
     // warp does not fully see pay for the mask.
+    const int row_glob = q_offset + row0;
+    auto seen = [&](int r, int c) {
+      const int col = kv0 + c;
+      return col < kv_valid &&
+             (!causal || kv_offset + col <= row_glob + r * 8);
+    };
     const bool full = kv0 + BK <= kv_valid &&
                       (!causal || kv_offset + kv0 + BK - 1 <=
                                       q_offset + q0 + warp * 16);
     if (full)
-      softmax_tile<false>(s, o, m_run, l_run, kv0, q_offset + row0, t4,
-                          kv_valid, kv_offset, causal);
+      softmax_tile<false>(s, o, m_run, l_run, t4, seen);
     else
-      softmax_tile<true>(s, o, m_run, l_run, kv0, q_offset + row0, t4,
-                         kv_valid, kv_offset, causal);
+      softmax_tile<true>(s, o, m_run, l_run, t4, seen);
 
-    // O += P V: the S accumulator layout is the A fragment layout of PV.
-    // One ldmatrix.x4.trans gives the B fragments of n-tiles nt and nt+1.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          tdt_pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          tdt_pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          tdt_pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          tdt_pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, &vs[(kk * 16 + (lm_mat & 1) * 8 + lm_row) * LD +
-                              (nt + (lm_mat >> 1)) * 8]);
-        mma_16816(o[nt], pa, bf);
-        mma_16816(o[nt + 1], pa, bf + 2);
-      }
-    }
+    pv_tile<D>(o, s, vs, lane);
     __syncthreads();   // the next iteration's loads reuse this stage
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l = fmaxf(l, 1e-30f);
+    const float l = row_denominator(l_run[r]);
     const int row = row0 + r * 8;
     if (row < Sq) {
-      __nv_bfloat16* orow = out + (static_cast<size_t>(b) * Sq + row) * q_stride +
-                            static_cast<size_t>(h) * D;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        *reinterpret_cast<__nv_bfloat162*>(orow + nt * 8 + t4 * 2) =
-            __floats2bfloat162_rn(o[nt][r * 2] / l, o[nt][r * 2 + 1] / l);
+      store_row<D>(out + (static_cast<size_t>(b) * Sq + row) * q_stride +
+                       static_cast<size_t>(h) * D,
+                   o, r, l, t4);
       if (lse != nullptr && t4 == 0)
         lse[(static_cast<size_t>(b) * Sq + row) * H + h] = m_run[r] + logf(l);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+fa_varlen_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 const int* __restrict__ qmeta, const int* __restrict__ offs,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 int T, int Tk, int H, int Hkv, int meta_rows, int causal,
+                 float scale) {
+  extern __shared__ __align__(16) __nv_bfloat16 smem[];
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = qt * BQ;
+  const int row0 = q0 + warp * 16 + g;
+  const size_t q_stride = static_cast<size_t>(H) * D;
+  const size_t kv_stride = static_cast<size_t>(Hkv) * D;
+  const int q_off = offs[3 * b], kv_off = offs[3 * b + 1];
+  const int kv_valid = offs[3 * b + 2];
+  const __nv_bfloat16* kbase =
+      k + static_cast<size_t>(b) * Tk * kv_stride + static_cast<size_t>(hk) * D;
+  const __nv_bfloat16* vbase =
+      v + static_cast<size_t>(b) * Tk * kv_stride + static_cast<size_t>(hk) * D;
+
+  const RowSegments rs = row_segments(
+      qmeta + static_cast<size_t>(b) * meta_rows * 128, row0, T);
+  // the local kv columns some row of the tile can see: [c_lo, c_hi)
+  const int q_last = min(q0 + BQ, T) - 1;
+  long long c_lo = max(0LL, static_cast<long long>(rs.lo) - kv_off);
+  long long c_hi = min(static_cast<long long>(kv_valid),
+                       static_cast<long long>(rs.hi) - kv_off);
+  if (causal)
+    c_hi = min(c_hi, static_cast<long long>(q_off) + q_last - kv_off + 1);
+  const int t0 = static_cast<int>(c_lo / BK);
+  const int t1 = c_hi > c_lo ? static_cast<int>((c_hi + BK - 1) / BK) : t0;
+
+  auto qrow = [&](int r) -> const __nv_bfloat16* {
+    return r < T ? q + (static_cast<size_t>(b) * T + r) * q_stride +
+                       static_cast<size_t>(h) * D
+                 : nullptr;
+  };
+  uint32_t qa[D / 16][4];
+  load_q<D>(qa, qrow(row0), qrow(row0 + 8), t4, 1.f);
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  float m_run[2] = {TDT_NEG_INF, TDT_NEG_INF};
+  float l_run[2] = {0.f, 0.f};
+
+  auto seen = [&](int r, int c) {
+    const int col = kv_off + c;
+    return c < kv_valid && col >= rs.seg[r].start && col < rs.seg[r].end &&
+           (!causal || col <= q_off + row0 + r * 8);
+  };
+  auto full = [&](int c0) {
+    return c0 + BK <= kv_valid && rs.wlo <= kv_off + c0 &&
+           rs.whi >= kv_off + c0 + BK &&
+           (!causal || kv_off + c0 + BK - 1 <= q_off + q0 + warp * 16);
+  };
+  walk_tiles<D, true>(qa, o, m_run, l_run, smem, kbase, vbase, kv_stride, Tk,
+                      t0, t1, scale, seen, full, [](int) { return true; });
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = row_denominator(l_run[r]);
+    const int row = row0 + r * 8;
+    if (row < T) {
+      store_row<D>(out + (static_cast<size_t>(b) * T + row) * q_stride +
+                       static_cast<size_t>(h) * D,
+                   o, r, l, t4);
+      if (lse != nullptr && t4 == 0)
+        lse[(static_cast<size_t>(b) * T + row) * H + h] = m_run[r] + logf(l);
     }
   }
 }
@@ -328,11 +259,29 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
       fa_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fa_fwd_kernel<D><<<grid, NWARPS * 32, bytes, st>>>(
+  fa_fwd_kernel<D><<<grid, NTHREADS, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), Sq, Skv, H, Hkv, q_offset, kv_offset, kv_valid,
       causal, q_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_varlen(const void* q, const void* k, const void* v,
+                  const void* qmeta, const void* offs, void* out, void* lse,
+                  int B, int T, int Tk, int H, int Hkv, int meta_rows,
+                  int causal, float scale, cudaStream_t st) {
+  constexpr int bytes = smem_bytes<D>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      fa_varlen_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((T + BQ - 1) / BQ, H, B);
+  fa_varlen_kernel<D><<<grid, NTHREADS, bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qmeta),
+      static_cast<const int*>(offs), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), T, Tk, H, Hkv, meta_rows, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -352,5 +301,25 @@ extern "C" int tdt_flash_attention_fwd(const void* q, const void* k,
   if (D == 64)
     return launch<64>(q, k, v, out, lse, B, Sq, Skv, H, Hkv, q_offset,
                       kv_offset, kv_valid, causal, q_scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The varlen arm. q (B, T, H, D), k/v (B, Tk, Hkv, D), out like q: bf16,
+// contiguous, 16-byte aligned; qmeta (B, meta_rows, 128) int32 with
+// meta_rows >= T; offs (B, 3) int32 (q_offset, kv_offset, kv_valid <= Tk);
+// lse f32 (B, T, H) or null; scale multiplies the f32 scores.
+extern "C" int tdt_flash_attention_varlen_fwd(
+    const void* q, const void* k, const void* v, const void* qmeta,
+    const void* offs, void* out, void* lse, int B, int T, int Tk, int H,
+    int Hkv, int D, int meta_rows, int causal, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 1 || T < 1 || Tk < 1 || H % Hkv || meta_rows < T)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 128)
+    return launch_varlen<128>(q, k, v, qmeta, offs, out, lse, B, T, Tk, H, Hkv,
+                              meta_rows, causal, scale, st);
+  if (D == 64)
+    return launch_varlen<64>(q, k, v, qmeta, offs, out, lse, B, T, Tk, H, Hkv,
+                             meta_rows, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

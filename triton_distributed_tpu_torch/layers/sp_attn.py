@@ -1,5 +1,20 @@
-"""Sequence-parallel attention over the sequence-sharded paged KV cache
-(counterpart of triton_distributed_tpu/layers/sp_attn.py::SPPagedAttn).
+"""Sequence-parallel attention layers (counterpart of
+triton_distributed_tpu/layers/sp_attn.py): `SPPagedAttn` over the
+sequence-sharded paged KV cache, `SpFlashDecodeAttention` over a
+sequence-sharded contiguous cache, and `UlyssesAttn`, attention re-sharded
+from sequence to heads and back around one flash-attention launch.
+
+`SpFlashDecodeAttention` takes activations only: q replicated, the caches
+global with their positions split over the ranks, as `sp_flash_decode`
+takes them. `UlyssesAttn` keeps JAX's parameter layouts ({"w_qkv":
+(hidden, n, C), "w_o": (n, C, hidden)}, replicated, kept once; JAX params
+come across through `ulysses_params_from_jax`) and runs on global
+activations: its qkv all-to-all hands each rank its heads over the whole
+sequence, every rank's RoPE'd q / k / v go through one flash-attention
+launch (the ranks as its batch), and the o all-to-all sums the head blocks
+back onto each rank's rows.
+
+The rest of this docstring is `SPPagedAttn`'s.
 
 Rank r's pool partition holds the pages of positions [r rank_tokens, (r +
 1) rank_tokens) of every slot (models/paged_kv_cache.py, `sp_ranks`).
@@ -28,12 +43,18 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import runtime
+from ..models.convert import _leaf
 from ..ops.attention import (apply_rope, combine_partials_with_lse,
-                             flash_attention_partial, merge_two_partials,
-                             paged_rows)
+                             flash_attention, flash_attention_partial,
+                             merge_two_partials, mha_reference, paged_rows,
+                             rope_cos_sin)
 from ..ops.sp_attention import (_check_combine, ring_attention_shard,
-                                sp_flash_decode_paged_shard)
-from ..parallel.mesh import RankGroup
+                                sp_flash_decode, sp_flash_decode_paged_shard)
+from ..ops.ulysses import (_check_method, arrange_o_for_ulysses,
+                           arrange_qkv_for_ulysses, ulysses_o_a2a_shard,
+                           ulysses_qkv_a2a_shard)
+from ..parallel.mesh import RankGroup, shard, unshard
 from .norm import rms_norm
 
 
@@ -211,3 +232,139 @@ class SPPagedAttn(nn.Module):
             outs.append(o[:, None])
             lses.append(l[:, None])
         return torch.cat(outs), torch.cat(lses)
+
+
+@dataclasses.dataclass
+class SpFlashDecodeAttention:
+    """Decode-time attention over a sequence-sharded KV cache (JAX :32):
+    each rank owns a contiguous range of positions; a decode step runs
+    every rank's split-KV partial in one launch and combines the (out, lse)
+    partials, "xla" (gather + merge) or "ll" (the one-shot kernel,
+    csrc/ll_combine.cu)."""
+
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    num_ranks: int
+    block_k: int = 256
+    combine: str = "xla"
+
+    def __post_init__(self):
+        self.n = RankGroup(self.num_ranks).n
+        _check_combine(self.combine)
+
+    def __call__(self, q, k_cache, v_cache, kv_len):
+        """q: (B, H, D) replicated; k / v_cache: (B, Skv, Hkv, D), positions
+        split over the ranks; kv_len: an int or (B,) global valid length.
+        Returns (B, H, D)."""
+        if tuple(q.shape[1:]) != (self.num_heads, self.head_dim):
+            raise ValueError(f"q {tuple(q.shape)} != (B, {self.num_heads}, "
+                             f"{self.head_dim})")
+        if k_cache.shape[2] != self.num_kv_heads:
+            raise ValueError(f"k_cache has {k_cache.shape[2]} kv heads, "
+                             f"layer configured for {self.num_kv_heads}")
+        return sp_flash_decode(q, k_cache, v_cache, kv_len,
+                               num_ranks=self.n, block_k=self.block_k,
+                               combine=self.combine)
+
+
+def ulysses_params_from_jax(tree, *, device=None):
+    """The JAX UlyssesAttn's params ({"w_qkv": (hidden, n, C), "w_o": (n,
+    C, hidden)} as numpy, bf16 arriving as ml_dtypes) as the port's, each
+    at its own dtype on `device` (the GPU unless given)."""
+    device = runtime.resolve_device(device)
+    return {name: _leaf(tree[name], device) for name in ("w_qkv", "w_o")}
+
+
+class UlyssesAttn(nn.Module):
+    """Ulysses SP attention block (JAX :266): fused qkv + all-to-all ->
+    RoPE -> causal flash attention over the full sequence on each rank's
+    head block -> fused all-to-all + o projection. Activations enter and
+    leave as global (S, hidden) tensors whose rows the ranks split; num_heads
+    and num_kv_heads must split over the ranks."""
+
+    def __init__(self, hidden: int, num_heads: int, num_kv_heads: int,
+                 head_dim: int, *, num_ranks: int, rope_theta: float = 1e6,
+                 method: str = "ring"):
+        super().__init__()
+        self.hidden = hidden
+        self.num_heads = num_heads
+        self.num_kv_heads = num_kv_heads
+        self.head_dim = head_dim
+        self.n = RankGroup(num_ranks).n
+        self.rope_theta = rope_theta
+        self.method = _check_method(method)
+        if num_heads % self.n or num_kv_heads % self.n:
+            raise ValueError(f"{num_heads} q / {num_kv_heads} kv heads do not "
+                             f"split into {self.n} ranks")
+
+    # -- parameters --------------------------------------------------------
+    def init_params(self, generator=None, dtype=torch.bfloat16, device=None):
+        """Random weights (normal, scaled by fan-in) in the layer's layout,
+        on `device` (the GPU unless given)."""
+        device = runtime.resolve_device(device)
+        h, d = self.hidden, self.head_dim
+
+        def draw(rows, cols, fan):
+            w = torch.randn((rows, cols), generator=generator, device=device,
+                            dtype=torch.float32)
+            return (w * fan ** -0.5).to(dtype)
+
+        return self.shard_params(draw(h, self.num_heads * d, h),
+                                 draw(h, self.num_kv_heads * d, h),
+                                 draw(h, self.num_kv_heads * d, h),
+                                 draw(self.num_heads * d, h,
+                                      self.num_heads * d))
+
+    def shard_params(self, w_q, w_k, w_v, w_o):
+        """Pre-arrange the weights into the per-peer block layouts the
+        all-to-alls consume (replicated: Ulysses shards the sequence, not
+        the weights)."""
+        return {"w_qkv": arrange_qkv_for_ulysses(w_q, w_k, w_v, self.n),
+                "w_o": arrange_o_for_ulysses(w_o, self.n)}
+
+    # -- forward -----------------------------------------------------------
+    def forward(self, params, x):
+        """x: (S, hidden), rows split over the ranks (S % n == 0). Returns
+        (S, hidden)."""
+        n, d = self.n, self.head_dim
+        hq, hkv = self.num_heads // n, self.num_kv_heads // n
+        s_full = x.shape[0]
+        qkv = ulysses_qkv_a2a_shard(shard(x, 0, n), params["w_qkv"],
+                                    num_ranks=n, method=self.method)
+        q = qkv[..., :hq * d].reshape(n, s_full, hq, d)
+        k = qkv[..., hq * d:(hq + hkv) * d].reshape(n, s_full, hkv, d)
+        v = qkv[..., (hq + hkv) * d:].reshape(n, s_full, hkv, d)
+        cos, sin = rope_cos_sin(torch.arange(s_full, device=x.device), d,
+                                self.rope_theta)
+        q = apply_rope(q, cos, sin).contiguous()
+        k = apply_rope(k, cos, sin).contiguous()
+        o = flash_attention(q, k, v.contiguous(), causal=True)
+        y = ulysses_o_a2a_shard(o.reshape(n, s_full, hq * d), params["w_o"],
+                                num_ranks=n, method=self.method)
+        return unshard(y, 0)
+
+    # -- golden ------------------------------------------------------------
+    def reference_forward(self, params, x):
+        """One-device golden: the plain qkv projection, RoPE, causal
+        attention in f32 and the o projection over the full sequence."""
+        n, d = self.n, self.head_dim
+        s_full = x.shape[0]
+        w_qkv, w_o = params["w_qkv"], params["w_o"]
+        hq, hkv = self.num_heads // n, self.num_kv_heads // n
+        qs, ks, vs = [], [], []
+        for p in range(n):
+            blk = x @ w_qkv[:, p]
+            qs.append(blk[:, :hq * d].reshape(s_full, hq, d))
+            ks.append(blk[:, hq * d:(hq + hkv) * d].reshape(s_full, hkv, d))
+            vs.append(blk[:, (hq + hkv) * d:].reshape(s_full, hkv, d))
+        q = torch.cat(qs, dim=1)[None]
+        k = torch.cat(ks, dim=1)[None]
+        v = torch.cat(vs, dim=1)[None]
+        cos, sin = rope_cos_sin(torch.arange(s_full, device=x.device), d,
+                                self.rope_theta)
+        o = mha_reference(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
+                          causal=True)[0]
+        blocks = o.reshape(s_full, n, hq * d)
+        out = sum(blocks[:, p] @ w_o[p] for p in range(n))
+        return out.to(x.dtype)

@@ -9,23 +9,28 @@ GQA with kv head h // (H // Hkv); decode q (B, H, D) against a cache
 The paged decode reads K/V pages (num_blocks, Hkv, block, D) of one
 layer's pool through a (B, max_blocks) block table.
 
+The varlen entries take a PACKED ragged batch, q (T, H, D) and k/v (T,
+Hkv, D), whose per-row global segment bounds ride the JAX package's
+(T_pad, 128) int32 sideband (`segment_sideband`, bit for bit JAX's).
+
 The kernel-bearing entries (`flash_attention[_partial]`,
-`flash_decode[_partial]`, `flash_decode_paged[_partial]`) dispatch on
-where their tensors lie: a CPU tensor goes through the plain PyTorch
-version beside the kernel (`_flash_attention_plain`,
+`flash_attention_varlen[_partial]`, `flash_decode[_partial]`,
+`flash_decode_paged[_partial]`) dispatch on where their tensors lie: a
+CPU tensor goes through the plain PyTorch version beside the kernel
+(`_flash_attention_plain`, `_flash_attention_varlen_plain`,
 `_flash_decode_plain`, `_flash_decode_paged_plain`); a CUDA tensor
 launches the hand-written kernel in csrc/ (FLASH_ATTENTION,
-FLASH_DECODE, FLASH_DECODE_PAGED[arm], each with a `launches` count) or
-raises on a dtype, shape or layout the kernel does not take. Nothing
-falls back from one to the other.
+FLASH_ATTENTION_VARLEN, FLASH_DECODE, FLASH_DECODE_PAGED[arm], each with
+a `launches` count) or raises on a dtype, shape or layout the kernel does
+not take. Nothing falls back from one to the other.
 
 Numerical contract, the same for a kernel and its plain version and the
 JAX kernels': scores accumulate in f32; masked scores are -1e30 (not
 -inf) and contribute nothing, and the denominator is clamped at 1e-30,
 so a row that sees no column gives out = 0 and lse ~ -1e30; p is
 rounded to the value dtype before the PV product. The prefill kernel
-takes q multiplied by the scale in q's dtype; the decode kernels scale
-the f32 scores. The quantized paged decode folds the per-row f32 scales
+takes q multiplied by the scale in q's dtype; the varlen and decode
+kernels scale the f32 scores. The quantized paged decode folds the per-row f32 scales
 into the scores (s = q.k_q * k_scale * scale) and the probabilities
 (acc += (p * v_scale) v_q) and keeps p in f32, as the JAX kernel does.
 """
@@ -37,6 +42,7 @@ import math
 
 import torch
 
+from ..runtime import round_up
 from . import wire
 from ._build import CudaKernel, ptr, stream_of
 
@@ -45,6 +51,10 @@ _NEG_INF = -1e30
 FLASH_ATTENTION = CudaKernel(
     "flash_attention", "tdt_flash_attention_fwd",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+    + [ctypes.c_float, ctypes.c_void_p])
+FLASH_ATTENTION_VARLEN = CudaKernel(
+    "flash_attention", "tdt_flash_attention_varlen_fwd",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_void_p])
 FLASH_DECODE = CudaKernel(
     "flash_decode", "tdt_flash_decode",
@@ -178,6 +188,193 @@ def flash_attention_partial(q, k, v, *, q_offset, kv_offset, kv_valid=None,
     normalised within the shard, and lse (B, Sq, H) f32."""
     return _fa_call(q, k, v, q_offset, kv_offset, kv_valid, causal=causal,
                     scale=scale, need_lse=True)
+
+
+# ---------------------------------------------------------------------------
+# Varlen (cu_seqlens) flash attention over packed batches
+# ---------------------------------------------------------------------------
+
+SIDEBAND_PAD_START = 2**31 - 1  # i32 max: neutral in the min-cull
+
+
+def row_segments(cu_seqlens, total: int):
+    """Per-row (start, end) global bounds from cu_seqlens (B+1,), int32
+    (total,) each. Rows past cu_seqlens[-1] get (INT32_MAX, 0): fully
+    masked by the per-element mask and neutral in the block culling's
+    min(start) / max(end) (JAX attention.py:365)."""
+    cu = torch.as_tensor(cu_seqlens).to(torch.int32)
+    rows = torch.arange(total, dtype=torch.int32, device=cu.device)
+    idx = (torch.searchsorted(cu, rows, right=True) - 1).clamp(
+        0, cu.shape[0] - 2)
+    start, end = cu[idx], cu[idx + 1]
+    valid = rows < cu[-1]
+    return (torch.where(valid, start, SIDEBAND_PAD_START).to(torch.int32),
+            torch.where(valid, end, 0).to(torch.int32))
+
+
+def segment_sideband(cu_seqlens, total: int, rows_pad: int | None = None):
+    """The (rows_pad, 128) int32 per-row sideband every varlen kernel
+    reads: lane 0 = seq_start, lane 1 = seq_end (global rows); padding
+    rows get (INT32_MAX, 0). One layout for flash_attention_varlen,
+    ring_attention_varlen and the fused sp_ag_attention (JAX :386). On
+    cu_seqlens' device (the CPU for a list)."""
+    rows_pad = total if rows_pad is None else rows_pad
+    start, end = row_segments(cu_seqlens, total)
+    meta = torch.zeros((rows_pad, 128), dtype=torch.int32,
+                       device=start.device)
+    meta[:, 0] = SIDEBAND_PAD_START
+    meta[:total, 0] = start
+    meta[:total, 1] = end
+    return meta
+
+
+def _varlen_rows(T: int, block_q: int) -> int:
+    """JAX's sideband rows for T packed q rows at block_q: round_up(T, bq)
+    with bq = min(block_q, round_up(T, 8)) (_fa_varlen_call :404-406)."""
+    return round_up(T, min(block_q, round_up(T, 8)))
+
+
+def _check_blocks(block_q, block_k):
+    """block_q / block_k are JAX's Pallas tile sizes. The port takes them
+    for the sideband's padding and the dispatch rules they set there; the
+    CUDA kernels tile by 64 whatever they are."""
+    for name, b in (("block_q", block_q), ("block_k", block_k)):
+        if isinstance(b, bool) or int(b) != b or b < 8 or b % 8:
+            raise ValueError(f"{name}={b!r}: expected a positive multiple "
+                             f"of 8")
+
+
+def _flash_attention_varlen_plain(q, k, v, qmeta, offs, *, causal, scale):
+    """Plain PyTorch version of the varlen kernel: the masked softmax of
+    each q row over all its columns at once, in chunks of q rows that keep
+    the f32 scores near 1 GiB (a row's softmax needs no other row, so
+    chunking leaves every value as it is).
+    q (B, T, H, D), k/v (B, Tk, Hkv, D), qmeta (B, >= T, 128) int32, offs
+    (B, 3) int (q_offset, kv_offset, kv_valid). Returns (out (B, T, H, D)
+    in q's dtype, lse (B, T, H) f32), contiguous."""
+    B, T, H, D = q.shape
+    _, Tk, Hkv, _ = k.shape
+    G = H // Hkv
+    dev = q.device
+    offs = torch.as_tensor(offs).to(device=dev, dtype=torch.int64)
+    q_off, kv_off, kv_valid = (offs[:, i].view(B, 1, 1) for i in range(3))
+    seg = qmeta[:, :T, :2].to(device=dev, dtype=torch.int64)
+    kf, vf = k.float(), v.float()
+    cols = torch.arange(Tk, device=dev).view(1, 1, Tk)
+    chunk_rows = max(1, 2**28 // max(1, B * H * Tk))
+    out = torch.empty_like(q)
+    lse = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+    for a in range(0, T, chunk_rows):
+        e = min(T, a + chunk_rows)
+        rows = q_off + torch.arange(a, e, device=dev).view(1, -1, 1)
+        colg = kv_off + cols
+        seen = (cols < kv_valid) & (colg >= seg[:, a:e, 0:1]) \
+            & (colg < seg[:, a:e, 1:2])
+        if causal:
+            seen = seen & (colg <= rows)
+        seen = seen[:, None, None]                   # (B, 1, 1, rows, Tk)
+        qg = q[:, a:e].reshape(B, e - a, Hkv, G, D).float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
+        s = torch.where(seen, s, _NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(seen, torch.exp(s - m), 0.0)
+        lsum = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), vf)
+        out[:, a:e] = (o / lsum.permute(0, 3, 1, 2, 4)).reshape(
+            B, e - a, H, D).to(q.dtype)
+        lse[:, a:e] = (m + torch.log(lsum))[..., 0].permute(
+            0, 3, 1, 2).reshape(B, e - a, H)
+    return out, lse
+
+
+def _fa_varlen_call(q, k, v, qmeta, offs, *, causal, scale, need_lse):
+    """q (B, T, H, D), k/v (B, Tk, Hkv, D), qmeta (B, >= T, 128) int32
+    sideband, offs (B, 3) per-batch-row (q_offset, kv_offset, kv_valid),
+    an int32 tensor (on q's device for the kernel) or nested lists."""
+    B, T, H, D = q.shape
+    Bk, Tk, Hkv, Dk = k.shape
+    if (Bk, Dk) != (B, D) or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if H % Hkv:
+        raise ValueError(f"{H} q heads not a multiple of {Hkv} kv heads")
+    if qmeta.dim() != 3 or qmeta.shape[0] != B or qmeta.shape[1] < T \
+            or qmeta.shape[2] != 128 or qmeta.dtype != torch.int32:
+        raise ValueError(f"qmeta {tuple(qmeta.shape)} {qmeta.dtype} is not "
+                         f"a ({B}, >= {T}, 128) int32 sideband")
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    offs = torch.as_tensor(offs, dtype=torch.int32, device=q.device)
+    if tuple(offs.shape) != (B, 3):
+        raise ValueError(f"offs {tuple(offs.shape)} is not ({B}, 3)")
+    if _on_cpu(q):
+        out, lse = _flash_attention_varlen_plain(
+            q, k, v, qmeta, offs, causal=causal, scale=scale)
+        return out, (lse if need_lse else None)
+    _check_cuda("flash_attention_varlen", (q, k, v))
+    _check_cuda("flash_attention_varlen", (qmeta, offs), torch.int32)
+    if D not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention_varlen: head_dim {D} not in "
+                         f"{_KERNEL_HEAD_DIMS}")
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, T, H), dtype=torch.float32, device=q.device)
+           if need_lse else None)
+    if B * T * H == 0 or Tk == 0:
+        out.zero_()
+        if lse is not None:
+            lse.fill_(_NEG_INF)
+        return out, lse
+    FLASH_ATTENTION_VARLEN.launch(
+        ptr(q), ptr(k), ptr(v), ptr(qmeta), ptr(offs), ptr(out),
+        ctypes.c_void_p(lse.data_ptr() if need_lse else 0),
+        B, T, Tk, H, Hkv, D, qmeta.shape[1], int(causal), float(scale),
+        stream_of(q))
+    return out, lse
+
+
+def flash_attention_varlen(q, k, v, cu_seqlens, *, causal: bool = True,
+                           scale: float | None = None, block_q: int = 128,
+                           block_k: int = 128):
+    """Flash attention over a PACKED variable-length batch (JAX :465).
+
+    q: (T, H, D), k/v: (T, Hkv, D): sequences packed back to back;
+    cu_seqlens: (B+1,) int row boundaries (cu[0] = 0, cu[B] <= T; rows
+    past cu[B] come out 0). Attention is block-diagonal per sequence
+    (causal within each when `causal`). block_q / block_k are JAX's tile
+    sizes, taken and checked as JAX takes them (they pad the sideband);
+    the CUDA kernel's tile is its own 64 x 64. Returns (T, H, D)."""
+    _check_blocks(block_q, block_k)
+    T = q.shape[0]
+    cu = torch.as_tensor(cu_seqlens).to(device=q.device)
+    qmeta = segment_sideband(cu, T, _varlen_rows(T, block_q))
+    out, _ = _fa_varlen_call(q[None], k[None], v[None], qmeta[None],
+                             [[0, 0, k.shape[0]]], causal=causal,
+                             scale=scale, need_lse=False)
+    return out[0]
+
+
+def flash_attention_varlen_partial(q, k, v, qmeta, *, q_offset, kv_offset,
+                                   kv_valid=None, causal: bool = True,
+                                   scale: float | None = None,
+                                   block_q: int = 128, block_k: int = 128):
+    """Varlen flash attention over ONE KV shard of a globally packed
+    sharded batch, returning (out, lse) partials for the cross-shard
+    combine (JAX :489). q: (T_loc, H, D), k/v: (Tk, Hkv, D); qmeta:
+    (round_up(T_loc, bq), 128) int32 with per-row GLOBAL (seq_start,
+    seq_end), bq = min(block_q, round_up(T_loc, 8)) as in JAX. Returns out
+    (T_loc, H, D), normalised within the shard, and lse (T_loc, H) f32."""
+    _check_blocks(block_q, block_k)
+    T, Tk = q.shape[0], k.shape[0]
+    want = (_varlen_rows(T, block_q), 128)
+    if tuple(qmeta.shape) != want:
+        raise ValueError(f"qmeta {tuple(qmeta.shape)} is not {want}")
+    kv_valid = Tk if kv_valid is None else int(kv_valid)
+    if not 0 <= kv_valid <= Tk:
+        raise ValueError(f"kv_valid {kv_valid} outside [0, {Tk}]")
+    out, lse = _fa_varlen_call(
+        q[None], k[None], v[None], qmeta.to(q.device)[None],
+        [[int(q_offset), int(kv_offset), kv_valid]], causal=causal,
+        scale=scale, need_lse=True)
+    return out[0], lse[0]
 
 
 # ---------------------------------------------------------------------------

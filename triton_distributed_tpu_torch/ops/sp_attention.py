@@ -1,7 +1,9 @@
-"""Sequence-parallel attention: ring-attention prefill and distributed
-split-KV flash decode (counterpart of
-triton_distributed_tpu/ops/sp_attention.py, its `ring_attention_shard`,
-`sp_flash_decode_shard` and `sp_flash_decode_paged_shard`).
+"""Sequence-parallel attention: ring-attention prefill (dense and over a
+packed varlen batch) and distributed split-KV flash decode (counterpart of
+triton_distributed_tpu/ops/sp_attention.py: `ring_attention[_shard]`,
+`ring_attention_varlen[_shard]`, `sp_flash_decode[_shard]` and
+`sp_flash_decode_paged_shard`; `ring_attention_2d[_shard]` waits for a
+two-axis RankGroup, ROADMAP Queue A 5.5).
 
 Everything is rank-stacked (parallel/mesh.py): the n ranks' shards carry
 a leading rank dimension and run in one process on one device, each
@@ -19,21 +21,33 @@ the combined output) is kept once.
   partial is all masked: lse -1e30, merge weight exactly 0, so those
   ranks are left out of the launch and their accumulators keep their
   bits, as the merge with that partial would.
+- **The varlen ring** keeps the same hop order over a packed batch
+  whose sequences may cross shard boundaries: one launch of the varlen
+  kernel a round runs all n ranks (a batch row each), reading each rank's
+  (q_offset, kv_offset, kv_valid) from an int32 table on the device, and
+  every rank's partial is merged, as JAX merges them (a partial that sees
+  nothing has lse ~ -1e30 and weight 0).
 - **Decode** runs every rank's split-KV partial in one launch over the n
   ranks' B queries (n * B sequences), then combines the (out, lse)
   partials: "xla" gathers them (`RankGroup.all_gather`) and merges with
   `combine_partials`; "ll" runs the one-shot kernel
   (ops/ll_gather.ll_combine_shard).
+- **The host-level functions** (`ring_attention`, `ring_attention_varlen`,
+  `sp_flash_decode`) take global tensors and `num_ranks` in place of JAX's
+  mesh and axis, shard the sequence over the ranks (parallel.shard) and
+  return the global result.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..parallel.mesh import RankGroup
-from .attention import (combine_partials, flash_attention_partial,
-                        flash_decode_paged_partial, flash_decode_partial,
-                        merge_two_partials)
+from ..parallel.mesh import RankGroup, shard, unshard
+from .attention import (SIDEBAND_PAD_START, _check_blocks, _fa_varlen_call,
+                        _varlen_rows, combine_partials,
+                        flash_attention_partial, flash_decode_paged_partial,
+                        flash_decode_partial, merge_two_partials,
+                        segment_sideband)
 from .ll_gather import ll_combine_shard
 
 COMBINES = ("xla", "ll")
@@ -83,6 +97,94 @@ def ring_attention_shard(q, k, v, *, num_ranks: int, causal: bool = True,
     return acc.to(q.dtype)
 
 
+def ring_attention(q, k, v, *, num_ranks: int, causal: bool = True,
+                   scale: float | None = None, block_q: int = 128,
+                   block_k: int = 128):
+    """Host-level ring attention (JAX :96). q: (B, S, H, D), k/v: (B, S,
+    Hkv, D), the sequence split into num_ranks contiguous shards. Returns
+    (B, S, H, D). block_q / block_k are JAX's tile sizes, checked; the
+    kernel tiles by its own."""
+    _check_blocks(block_q, block_k)
+    n = num_ranks
+    out = ring_attention_shard(
+        shard(q, 1, n), shard(k, 1, n), shard(v, 1, n), num_ranks=n,
+        causal=causal, scale=scale)
+    return unshard(out, 1)
+
+
+def pad_sideband(meta, rows: int):
+    """The ranks' sidebands meta (n, s_loc, 128) int32 padded to `rows`
+    rows each, the padding rows in the cull-neutral (INT32_MAX, 0)
+    encoding (JAX :170-:173, sp_ag_attention.py:273-:276)."""
+    n, s_loc, _ = meta.shape
+    out = torch.zeros((n, rows, 128), dtype=torch.int32, device=meta.device)
+    out[:, :, 0] = SIDEBAND_PAD_START
+    out[:, :s_loc] = meta
+    return out
+
+
+def ring_attention_varlen_shard(q, k, v, qmeta, *, num_ranks: int,
+                                causal: bool = True,
+                                scale: float | None = None,
+                                block_q: int = 128, block_k: int = 128):
+    """Varlen ring attention over the n ranks' shards of a globally packed
+    batch (JAX :117). q: (n, s_loc, H, D), k/v: (n, s_loc, Hkv, D); qmeta:
+    (n, round_up(s_loc, bq), 128) int32, each rank's rows' GLOBAL (seq_start,
+    seq_end) (`segment_sideband` layout), bq = min(block_q, round_up(s_loc,
+    8)). Round r attends rank me to the shard of rank (me - r) mod n, every
+    rank in one varlen launch, and merges the partial into a running f32
+    accumulator. Returns (n, s_loc, H, D) in q's dtype."""
+    _check_blocks(block_q, block_k)
+    n = num_ranks
+    if q.shape[0] != n or k.shape[0] != n or v.shape != k.shape:
+        raise ValueError(f"ring_attention_varlen: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
+                         f"rank-stacked over {n} ranks")
+    s_loc = q.shape[1]
+    want = (n, _varlen_rows(s_loc, block_q), 128)
+    if tuple(qmeta.shape) != want:
+        raise ValueError(f"qmeta {tuple(qmeta.shape)} is not {want}")
+    qmeta = qmeta.to(q.device).contiguous()
+    q = q.contiguous()
+    me = torch.arange(n)
+    acc = lse = None
+    for r in range(n):
+        src = (me - r) % n
+        # rank me holds the shard that started on rank me - r
+        offs = torch.stack([me * s_loc, src * s_loc,
+                            torch.full((n,), s_loc)], dim=1)
+        ks, vs = (t[src.to(t.device)].contiguous() for t in (k, v))
+        o, l = _fa_varlen_call(q, ks, vs, qmeta, offs, causal=causal,
+                               scale=scale, need_lse=True)
+        acc, lse = (o.float(), l) if acc is None else \
+            merge_two_partials(acc, lse, o, l)
+    return acc.to(q.dtype)
+
+
+def ring_attention_varlen(q, k, v, cu_seqlens, *, num_ranks: int,
+                          causal: bool = True, scale: float | None = None,
+                          block_q: int = 128, block_k: int = 128):
+    """Ring attention over a PACKED variable-length batch (JAX :147). q:
+    (T, H, D), k/v: (T, Hkv, D), rows split contiguously over num_ranks (T
+    % n == 0); cu_seqlens: (B+1,) global row boundaries. Sequences may
+    cross shard boundaries: masking is by global (seq_start, seq_end).
+    Returns (T, H, D)."""
+    _check_blocks(block_q, block_k)
+    n = num_ranks
+    T = q.shape[0]
+    if T % n:
+        raise ValueError(f"ring_attention_varlen: {T} rows do not split "
+                         f"over {n} ranks")
+    s_loc = T // n
+    meta = segment_sideband(torch.as_tensor(cu_seqlens).to(q.device), T)
+    qmeta = pad_sideband(meta.view(n, s_loc, 128),
+                         _varlen_rows(s_loc, block_q))
+    out = ring_attention_varlen_shard(
+        shard(q, 0, n), shard(k, 0, n), shard(v, 0, n), qmeta, num_ranks=n,
+        causal=causal, scale=scale, block_q=block_q, block_k=block_k)
+    return unshard(out, 0)
+
+
 def _combine(out, lse, n: int, combine: str):
     """(n, B, H, D) / (n, B, H) rank partials -> the replicated (B, H, D)."""
     if combine == "ll":
@@ -109,6 +211,36 @@ def sp_flash_decode_shard(q, k_shard, v_shard, kv_len_local, *,
         v_shard.reshape(n * B, *v_shard.shape[2:]),
         kv_len_local.reshape(n * B), scale=scale)
     return _combine(out.view(n, B, H, D), lse.view(n, B, H), n, combine)
+
+
+def sp_flash_decode(q, k, v, kv_len, *, num_ranks: int,
+                    scale: float | None = None, block_k: int = 256,
+                    combine: str = "xla"):
+    """Host-level distributed decode (JAX :347). q: (B, H, D) replicated;
+    k/v: (B, Skv, Hkv, D) caches whose positions split over num_ranks
+    contiguous ranges; kv_len: (B,) (or an int) total valid length per
+    batch row, global. Each rank's valid prefix is kv_len - r Skv_loc,
+    clipped to [0, Skv_loc]. A kv_len past the cache raises, as JAX's
+    host path does (a silent clip would drop positions). block_k is the
+    JAX kernel's tile; the CUDA kernel splits by its own. Returns (B, H,
+    D)."""
+    n = num_ranks
+    if k.shape[1] % n:
+        raise ValueError(
+            f"sp_flash_decode: cache length {k.shape[1]} does not split "
+            f"over {n} ranks")
+    skv_loc = k.shape[1] // n
+    kvl = torch.as_tensor(kv_len).to(device=q.device, dtype=torch.int32)
+    kvl = kvl.expand(q.shape[0])
+    top = int(kvl.max()) if kvl.numel() else 0
+    if top > k.shape[1]:
+        raise ValueError(
+            f"sp_flash_decode: kv_len {top} exceeds the sharded KV extent "
+            f"{k.shape[1]} ({n} ranks x {skv_loc})")
+    me = torch.arange(n, device=q.device, dtype=torch.int32)[:, None]
+    local = (kvl[None] - me * skv_loc).clamp(0, skv_loc)
+    return sp_flash_decode_shard(q, shard(k, 1, n), shard(v, 1, n), local,
+                                 num_ranks=n, scale=scale, combine=combine)
 
 
 def sp_flash_decode_paged_shard(q, k_pool, v_pool, block_table,

@@ -16,9 +16,11 @@ from .primitives import (  # noqa: F401
     launch_a2a,
     launch_coll,
     launch_ll,
+    launch_sp_ag,
     ll_workspace,
     launch_tp,
     release_workspaces,
+    sp_ag_workspace,
     wire_workspace,
     workspace,
 )

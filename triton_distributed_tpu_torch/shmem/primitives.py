@@ -74,6 +74,13 @@ COLL_BYTES = 2          # the gather's dtype code: it copies bytes
 COLL_QUANT_ARGTYPES = COLL_ARGTYPES[:2] + [ctypes.c_int] * 2 \
     + COLL_ARGTYPES[2:]
 COLL_MAX_RANKS = 8      # csrc/tdt_coll.cuh MAX_RANKS
+# the C entry point of csrc/sp_ag_attention.cu: q, k, v, qmeta, out, land,
+# pads, fault, epoch, budget_ns, n, S, H, Hkv, D, meta_rows, causal, scale,
+# grid, stream
+SP_AG_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_uint, ctypes.c_longlong]
+                  + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                          ctypes.c_void_p])
+SP_AG_MAX_RANKS = 8     # csrc/sp_ag_attention.cu MAX_RANKS
 
 
 class Workspace:
@@ -391,5 +398,53 @@ def launch_coll(kernel, ws: Workspace, arm: int, dtype_code: int, x, out,
     kernel.launch(arm, dtype_code, *wire, ptr(x), ptr(out), land,
                   ptr(ws.pad_ptrs), ptr(ws.fault), epoch, int(budget_s * 1e9),
                   ws.n, count, blk, grid, stream_of(x))
+    ws.epoch = epoch
+    ws.launched()
+
+
+# ---------------------------------------------------------------------------
+# The fused AllGather + attention (csrc/sp_ag_attention.cu)
+# ---------------------------------------------------------------------------
+
+def sp_ag_workspace(device, n: int, s_loc: int, hkv: int, d: int, dtype,
+                    causal: bool, chunk: int) -> Workspace:
+    """The fused AG + attention's workspace ("sp_ag_attention[causal]" or
+    "[full]": a causal call pushes only to later ranks, so the two keep
+    their own counters): rank r's landing region is (2, n, s_loc, hkv, d),
+    slot [0, s] the K shard of source s and [1, s] its V shard, row-major
+    so a chunk of whole rows of all heads is contiguous; its pad holds the
+    barrier counter (slot 0) and one signal per (source s, chunk c) of
+    `chunk` rows (the kernel's `tdt_sp_ag_chunk_rows(s_loc)`) at 1 + s *
+    nchunk + c."""
+    nchunk = -(-s_loc // chunk)
+
+    def describe(sig):
+        if sig == 0:
+            return "barrier_all"
+        s, c = divmod(sig - 1, nchunk)
+        return (f"kv rows {c * chunk}..{min((c + 1) * chunk, s_loc) - 1} "
+                f"(chunk {c}) from source rank {s}")
+
+    op = f"sp_ag_attention[{'causal' if causal else 'full'}]"
+    return workspace(op, device, n, (2, n, s_loc, hkv, d), dtype,
+                     1 + n * nchunk, describe)
+
+
+def launch_sp_ag(kernel, ws: Workspace, q, k, v, qmeta, out, *, causal: bool,
+                 scale: float, budget_s: float = WAIT_BUDGET_S,
+                 grid: int = 0) -> None:
+    """Launch csrc/sp_ag_attention.cu (a CudaKernel over SP_AG_ARGTYPES) on
+    the rank-stacked q (n, S, H, D), k / v (n, S, Hkv, D), the optional
+    sideband qmeta (n, >= S, 128) int32 and out (n, S, H, D) through `ws`,
+    at the workspace's next epoch (kept only when the launch went in)."""
+    ws.poll()
+    epoch = (ws.epoch + 1) & 0xFFFFFFFF
+    n, S, H, D = q.shape
+    meta = ctypes.c_void_p(None) if qmeta is None else ptr(qmeta)
+    kernel.launch(ptr(q), ptr(k), ptr(v), meta, ptr(out), ptr(ws.land_ptrs),
+                  ptr(ws.pad_ptrs), ptr(ws.fault), epoch, int(budget_s * 1e9),
+                  n, S, H, k.shape[2], D,
+                  0 if qmeta is None else qmeta.shape[1], int(causal),
+                  float(scale), grid, stream_of(q))
     ws.epoch = epoch
     ws.launched()
